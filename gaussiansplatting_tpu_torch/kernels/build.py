@@ -86,6 +86,17 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> dict[str, Path]:
+    """Build several kernels at once, one nvcc process each, all started
+    together; raises the first failure after every build has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = [pool.submit(build, n) for n in names]
+    return {n: f.result() for n, f in zip(names, futures)}
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s shared library once
     per process."""

@@ -4,7 +4,9 @@ Counterpart of the WINDOWED half of gaussiansplatting_tpu/ops/pairs.py: the
 capacity plan, the two-tier chunked expansion, ONE stable single-key tile
 sort (Gaussians arrive depth-presorted, so a stable sort by tile leaves every
 tile's run depth-sorted) and the per-aligned-block source windows the blend
-reads.  Every integer output matches the JAX package exactly.
+reads; and, for the backward, the sort-prefix reduction of aligned-order
+cotangents to per-Gaussian sums.  Every integer output matches the JAX
+package exactly.
 
 Sort: ``lax.sort`` carries payload operands; ``torch.sort`` does not, so the
 int32 tile keys are sorted once (stable) and the payload is gathered by the
@@ -220,3 +222,52 @@ def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     ).to(_I32)
     block_src = torch.clamp(torch.where(live, src0, 0), 0, e_cap).to(_I32)
     return table, block_src, block_valid, block_tile, aligned_total
+
+
+# chunk length of the two-level prefix sum in reduce_aligned_cotangents
+_SCAN_CHUNK = 1024
+
+
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of x [D, A] along A: a cumsum within chunks of
+    _SCAN_CHUNK, plus the exclusive cumsum of the chunk totals.  Both are
+    cumsums along the innermost dimension of a tensor of more than one row,
+    which torch runs on CUDA as fixed-order block scans: a 1-D float cumsum
+    there is a look-back scan whose rounding may change from run to run, and
+    a cumsum along dim 0 of [A, D] is D threads walking A serially."""
+    d, a = x.shape
+    k = max(-(-a // _SCAN_CHUNK), 1)
+    xp = torch.nn.functional.pad(x, (0, k * _SCAN_CHUNK - a))
+    local = torch.cumsum(xp.view(d, k, _SCAN_CHUNK), dim=2)
+    totals = local[:, :, -1]
+    carry = torch.cumsum(totals, dim=1) - totals
+    return (local + carry[:, :, None]).view(d, k * _SCAN_CHUNK)[:, :a]
+
+
+def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
+                              counts: torch.Tensor, n: int,
+                              grad_reduce: str = "sortprefix") -> torch.Tensor:
+    """Per-Gaussian sums of aligned-order cotangents d_rows [D, a_cap]
+    (the deterministic replacement for the reference's per-field atomics,
+    tiled_shaders.metal:698-736); the "sortprefix" form of the JAX
+    ``reduce_aligned_cotangents``.  Returns [N, D] in presorted order.
+
+    The key is gid, or n for padding lanes, sorted stably; the payload rides
+    by the permutation.  Gaussian g's pairs are then the contiguous run of
+    counts[g] entries ending at cumsum(counts)[g], and its sum is a
+    difference of the zero-led prefix sum at the run's two ends."""
+    if grad_reduce != "sortprefix":
+        raise NotImplementedError(
+            f"grad_reduce={grad_reduce!r} is not ported; only 'sortprefix' is "
+            "(a torch scatter form would be index_add_, which uses float "
+            "atomics on CUDA)"
+        )
+    d = d_rows.shape[0]
+    key = torch.where(gid_aligned >= 0, gid_aligned, n)
+    _, perm = torch.sort(key, stable=True)
+    csum = torch.cat(
+        [torch.zeros((d, 1), dtype=d_rows.dtype, device=d_rows.device),
+         _prefix_sum(d_rows[:, perm])], dim=1,
+    )                                                   # [D, a_cap + 1]
+    ends = torch.cumsum(counts, 0)                      # [N] int64 run ends
+    return (csum[:, ends] - csum[:, ends - counts]).T.contiguous()

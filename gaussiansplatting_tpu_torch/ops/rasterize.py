@@ -1,4 +1,5 @@
-"""Tiled rasterizer, forward: project, presort, pair windows, blend, compose.
+"""Differentiable tiled rasterizer: project, presort, pair windows, blend,
+compose.
 
 Counterpart of the windowed branch of gaussiansplatting_tpu/ops/rasterize.py
 (``render``, rasterize.py:254-389, and ``_compose_tiles``).  Alpha
@@ -7,9 +8,14 @@ of B pairs of one 16x16 tile blends independently (ops/blend.py) into a
 summary (C_b, S_b = sum log(1 - alpha)), and the blocks of a tile compose
 with a segmented exclusive prefix over their S_b.
 
-The blend runs as the CUDA kernel on a CUDA device and as its plain PyTorch
-version on the CPU; ``RasterConfig.blend_impl`` picks nothing here.  Only the
-forward is ported: rendering needs ``torch.no_grad()``.
+Gradients: autograd runs through projection and compose as they are; the
+depth presort is a ``_PermuteRows`` whose backward gathers by the inverse
+permutation; and pair expansion, tile sort, windows and blend are ONE
+``_BlendWindows`` whose backward is the blend backward followed by the
+sort-prefix reduction to per-Gaussian sums.  No step of the backward uses
+float atomics.  The blends run as CUDA kernels on a CUDA device and as their
+plain PyTorch versions on the CPU; ``RasterConfig.blend_impl`` and
+``grad_reduce`` pick nothing here.
 """
 
 from __future__ import annotations
@@ -43,69 +49,91 @@ def _check_ported(cfg: RasterConfig, tile_rows) -> None:
     if missing:
         raise NotImplementedError(
             f"render: {', '.join(missing)} not ported to the torch package "
-            "yet (only the f32 windowed forward of the full image is)"
+            "yet (only the f32 windowed path of the full image is)"
         )
 
 
-def _permute_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """x[order]: the depth presort's row gather.  (Its gather-by-inverse
-    backward comes with the backward pass.)"""
-    return x[order]
+def _color_with_dead_zone(raw_color: torch.Tensor) -> torch.Tensor:
+    """clamp(raw, 0, 1) whose gradient is zeroed outside (0.01, 0.99) — the
+    reference zeroes dL/dColor at those margins to stop pushing saturated
+    colours further (tiled_shaders.metal:505-507)."""
+    c = torch.clamp(raw_color, 0.0, 1.0)
+    live = (c > 0.01) & (c < 0.99)
+    return torch.where(live, c, c.detach())
 
 
-def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
-           tile_rows: tuple | None = None):
-    """Render one view.  Returns (image [H, W, 3] float32, RenderAux) on the
-    device of ``params``."""
-    _check_ported(cfg, tile_rows)
-    blend_args, block_tile, aux = blend_windows(params, camera, cfg)
-    out, _gid = blend_mod.windowed_blend_fwd(*blend_args)
+class _PermuteRows(torch.autograd.Function):
+    """x[order] for a permutation ``order``; the cotangent is a gather by the
+    inverse permutation (no scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, x, order, inv_order):
+        ctx.save_for_backward(inv_order)
+        return x[order]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_order,) = ctx.saved_tensors
+        return g[inv_order], None, None
+
+
+class _Plan(NamedTuple):
+    """The presorted frame: render data, the capacity plan and the static
+    configuration of pair_windows_fwd and the blend."""
+    data: torch.Tensor      # [N, 9] presorted (sx, sy, conic, opacity, rgb)
+    ints: tuple             # counts, ccounts, coffsets, ty_lo, tmin_x, span_x [N] int32
+    pcfg: tuple             # (n, pair_capacity, tiles_x, tiles_y, block, chunk_cap)
+    bconsts: tuple          # (tile_size, power_floor, alpha_cap, alpha_floor, tiles_x)
+    aux: RenderAux
+
+
+def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+          vs_dummy: torch.Tensor | None = None) -> _Plan:
+    """Projection, the dead-zone colour, the stable depth presort and the
+    capacity plan (rasterize.py:287-363)."""
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
     tiles_y = proj_mod.num_tiles(camera.height, ts)
-    img = _compose_tiles(
-        out[:, :3, :], out[:, 3, :], block_tile, tiles_x * tiles_y, tiles_x,
-        tiles_y, ts, camera.width, camera.height, cfg,
-    )
-    return img, aux
-
-
-def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
-    """Everything render does before the blend: projection, the stable
-    depth presort, the capacity plan and the per-block windows.
-
-    Returns (blend_args, block_tile, RenderAux) where blend_args are the
-    positional arguments of ops.blend.windowed_blend_fwd."""
-    ts = cfg.tile_size
-    tiles_x = proj_mod.num_tiles(camera.width, ts)
-    tiles_y = proj_mod.num_tiles(camera.height, ts)
-    num_tiles = tiles_x * tiles_y
-    block = cfg.pair_block
     row0 = 0
 
     proj = proj_mod.project(params, camera, cfg)
-    color = torch.clamp(proj.color, 0.0, 1.0)
+    screen_pos = proj.screen_pos
+    if vs_dummy is not None:
+        screen_pos = screen_pos + vs_dummy
+    color = _color_with_dead_zone(proj.color)
     data = torch.cat(
-        [proj.screen_pos, proj.conic, proj.opacity[:, None], color], dim=-1
+        [screen_pos, proj.conic, proj.opacity[:, None], color], dim=-1
     )  # [N, 9]
 
     # depth presort: expansion emits pairs in Gaussian order and the tile
     # sort is stable, so every tile's run comes out depth-sorted.  Culled
-    # Gaussians all have depth 0, so the sort must be stable too.
+    # Gaussians all have depth 0, so the sort must be stable too.  One fused
+    # row tensor rides the permutation (integer fields are exact in f32).
     n = proj.depth.shape[0]
     order = torch.argsort(proj.depth, stable=True)
-    data = _permute_rows(data, order)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(n, dtype=order.dtype, device=order.device)
+    f32 = torch.float32
+    cols = _PermuteRows.apply(
+        torch.cat([proj.depth[:, None], proj.tile_min.to(f32),
+                   proj.tile_max.to(f32), proj.n_tiles.to(f32)[:, None], data],
+                  dim=-1),
+        order, inv_order,
+    )
+    data = cols[:, 6:]
+    i32 = torch.int32
+    n_tiles = cols[:, 5].to(i32)
     proj_p = proj_mod.Projected(
         screen_pos=data[:, :2],
         conic=data[:, 2:5],
-        depth=proj.depth[order],
+        depth=cols[:, 0],
         opacity=data[:, 5],
         color=data[:, 6:9],
-        radius=torch.zeros_like(proj.depth),   # unused after the plan
-        tile_min=proj.tile_min[order],
-        tile_max=proj.tile_max[order],
-        n_tiles=proj.n_tiles[order],
-        valid=proj.n_tiles[order] > 0,
+        radius=torch.zeros_like(cols[:, 0]),   # unused after the plan
+        tile_min=cols[:, 1:3].to(i32),
+        tile_max=cols[:, 3:5].to(i32),
+        n_tiles=n_tiles,
+        valid=n_tiles > 0,
     )
 
     (counts, ccounts, coffsets, ty_lo, span_x, total,
@@ -114,17 +142,109 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
         cfg.chunk_slack,
     )
     pcfg = (
-        n, cfg.pair_capacity, tiles_x, tiles_y, block,
+        n, cfg.pair_capacity, tiles_x, tiles_y, cfg.pair_block,
         pairs_mod._chunk_capacity(cfg.pair_capacity, n, cfg.chunk_slack),
     )
-    table, block_src, block_valid, block_tile, _ = pairs_mod.pair_windows_fwd(
-        data, row0, counts, ccounts, coffsets, ty_lo, proj_p.tile_min[:, 0],
-        span_x, pcfg,
-    )
-    t = torch.clamp(block_tile, max=num_tiles - 1)
     bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x)
-    blend_args = (table, block_src, block_valid, t, row0, block, bconsts)
-    return blend_args, block_tile, RenderAux(num_pairs=total, overflow=overflow)
+    ints = (counts, ccounts, coffsets, ty_lo, proj_p.tile_min[:, 0], span_x)
+    return _Plan(data, ints, pcfg, bconsts,
+                 RenderAux(num_pairs=total, overflow=overflow))
+
+
+def _windows(data, ints, pcfg):
+    """pair_windows_fwd of the plan (row0 = 0): returns (table, block_src,
+    block_valid, tile clamped to num_tiles-1, block_tile)."""
+    counts, ccounts, coffsets, ty_lo, tmin_x, span_x = ints
+    table, block_src, block_valid, block_tile, _ = pairs_mod.pair_windows_fwd(
+        data, 0, counts, ccounts, coffsets, ty_lo, tmin_x, span_x, pcfg,
+    )
+    t = torch.clamp(block_tile, max=pcfg[2] * pcfg[3] - 1)
+    return table, block_src, block_valid, t, block_tile
+
+
+class _BlendWindows(torch.autograd.Function):
+    """Pair expansion + tile sort + windowed blend as one differentiable
+    unit, the counterpart of the JAX ``_blend_windows`` custom VJP
+    (rasterize.py:174-251).  Differentiable in ``data`` only.
+
+    Forward returns (out [NB, 4, P2], gid [NB, B] f32, block_tile [NB]
+    int32); backward runs the blend backward over the same windows, then
+    reduces the aligned-order column cotangents to per-Gaussian sums."""
+
+    @staticmethod
+    def forward(ctx, data, counts, ccounts, coffsets, ty_lo, tmin_x, span_x,
+                pcfg, bconsts):
+        table, block_src, block_valid, t, block_tile = _windows(
+            data.detach(), (counts, ccounts, coffsets, ty_lo, tmin_x, span_x),
+            pcfg,
+        )
+        out, gid = blend_mod.windowed_blend_fwd(
+            table, block_src, block_valid, t, 0, pcfg[4], bconsts
+        )
+        ctx.save_for_backward(table, block_src, block_valid, t, gid, counts)
+        ctx.pcfg, ctx.bconsts = pcfg, bconsts
+        ctx.mark_non_differentiable(gid, block_tile)
+        return out, gid, block_tile
+
+    @staticmethod
+    def backward(ctx, d_out, _d_gid, _d_block_tile):
+        table, block_src, block_valid, t, gid, counts = ctx.saved_tensors
+        n, block = ctx.pcfg[0], ctx.pcfg[4]
+        dcols = blend_mod.windowed_blend_bwd(
+            table, block_src, block_valid, t, 0, block, d_out.contiguous(),
+            ctx.bconsts,
+        )
+        d_rows = torch.stack([c.reshape(-1) for c in dcols])       # [9, a_cap]
+        d_data = pairs_mod.reduce_aligned_cotangents(
+            d_rows, gid.reshape(-1).to(torch.int32), counts, n
+        )
+        return (d_data,) + (None,) * 8
+
+
+def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+           vs_dummy: torch.Tensor | None = None, tile_rows: tuple | None = None):
+    """Render one view.  Returns (image [H, W, 3] float32, RenderAux) on the
+    device of ``params``; differentiable in the parameters.
+
+    vs_dummy: optional [N, 2] zeros added to the projected screen positions;
+    its gradient is the per-Gaussian view-space positional gradient the
+    density statistics accumulate (tiled_shaders.metal:717-720)."""
+    _check_ported(cfg, tile_rows)
+    plan = _plan(params, camera, cfg, vs_dummy)
+    out, _gid, block_tile = _BlendWindows.apply(
+        plan.data, *plan.ints, plan.pcfg, plan.bconsts
+    )
+    img = compose(out, block_tile, camera, cfg)
+    return img, plan.aux
+
+
+def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
+    """Everything render does before the blend: projection, the stable
+    depth presort, the capacity plan and the per-block windows.
+
+    Returns (blend_args, block_tile, RenderAux) where blend_args are the
+    positional arguments of ops.blend.windowed_blend_fwd (and, with the
+    cotangent inserted before the constants, of windowed_blend_bwd)."""
+    plan = _plan(params, camera, cfg)
+    table, block_src, block_valid, t, block_tile = _windows(
+        plan.data.detach(), plan.ints, plan.pcfg
+    )
+    blend_args = (table, block_src, block_valid, t, 0, cfg.pair_block,
+                  plan.bconsts)
+    return blend_args, block_tile, plan.aux
+
+
+def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
+            cfg: RasterConfig) -> torch.Tensor:
+    """The image [H, W, 3] from the blend's per-block summaries ``out``
+    [NB, 4, P2] and each block's tile id."""
+    ts = cfg.tile_size
+    tiles_x = proj_mod.num_tiles(camera.width, ts)
+    tiles_y = proj_mod.num_tiles(camera.height, ts)
+    return _compose_tiles(
+        out[:, :3, :], out[:, 3, :], block_tile, tiles_x * tiles_y, tiles_x,
+        tiles_y, ts, camera.width, camera.height, cfg,
+    )
 
 
 def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,

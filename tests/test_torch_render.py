@@ -88,10 +88,15 @@ def test_empty_scene_renders_background():
 
 
 def test_render_requires_no_grad():
+    """render needs no torch.no_grad(): with grad enabled it returns the
+    same image, attached to the graph through _BlendWindows."""
     _, tp = scene_params(14, n=16)
     _, tc = cameras()
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        render(tp, tc, configs()[1])
+    img, aux = render(tp, tc, configs()[1])
+    assert img.requires_grad and int(aux.num_pairs) > 0
+    with torch.no_grad():
+        img_ng, _ = render(tp, tc, configs()[1])
+    assert torch.equal(img.detach(), img_ng)
 
 
 @pytest.mark.parametrize("kw", [
