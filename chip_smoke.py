@@ -30,6 +30,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               the same state must give the same bits; a 64x48 step on the card
               against the same step on the CPU.  Both kernels' launches
               counted.
+  6. tfloor   the exact T-floor path (RasterConfig.t_floor_exact=True): both
+              T-floor kernels against their plain versions under the flip
+              rule (FLIP_* below) on edge windows and at full size with the
+              real logti and the real loss cotangent of each pass (the
+              backward launched twice, bit-identical; the first pass's
+              backward too); the float64-cumsum logti against compose's
+              float32 one; the full-size T-floor frame (0 < max|img_tf - img|
+              <= 1.5e-4) and train step (timed, replayed bit for bit); a
+              64x48 T-floor step on a dense scene on the card against the
+              CPU.  All four kernel entries must launch on this path.
 
 Prints one JSON line describing the kernels, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -92,6 +102,28 @@ STEP_LOSS_RTOL = 1e-5
 STEP_MOMENT_REL = 1e-3
 STEP_ATOL = 1e-5
 NOISE_REL = 1e-3
+# T-floor kernels vs plain: the kernel sums the in-block log T lane by lane,
+# the plain version by cumsum, so where a pixel's exclusive log T + logti
+# lands within rounding of log(1e-4) the two may stop it at different lanes
+# (a flip: S_b moves by up to 4.6, colour by up to ~1e-4).  An entry beyond
+# the bar is excused only where the plain version's termination margin at
+# that (block, pixel) is below FLIP_MARGIN (in the backward, the whole block
+# of such a pixel); the excused (block, pixel) entries may be at most
+# FLIP_MAX_SHARE of all.
+FLIP_MARGIN = 1e-4
+FLIP_MAX_SHARE = 1e-4
+# the tail the floor skips sums to at most T_stop <= 1e-4 per channel, plus
+# float32 noise
+TFLOOR_IMG_MAX = 1.5e-4
+TFLOOR_TIMED_STEPS = 5
+# seed of the dense 64x48 T-floor scene (dense_scene): its termination
+# margins on the CPU are far from any flip
+DENSE_SEED = 3
+# a view-space gradient norm below this fraction of the largest is float
+# noise: a Gaussian behind every pixel's floor gets exactly zero gradient in
+# exact arithmetic, and a residue of the global-cumsum cancellation in
+# compose's backward on one device (tests/test_torch_tfloor.py)
+VS_NOISE_REL = 1e-7
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -183,6 +215,20 @@ def edge_windows(block, seed, row0, nb=24, ts=16, tiles_x=50, tiles_y=38):
         table[1, lanes] = cx + rng.uniform(-10, 10, block)
         table[2, lanes] = cy + rng.uniform(-10, 10, block)
     return table, src, valid, tile
+
+
+def edge_logti(nb, seed, p2=256):
+    """logti [nb, p2] for edge windows: pixels that arrive at or below the
+    floor (logti <= log(1e-4)), that terminate inside the block, and a
+    quarter (logti = 0) that a block's S seldom drives below the floor."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    logti = (math.log(1e-4) + rng.uniform(-1.0, 4.0, (nb, p2))).astype(np.float32)
+    logti[:, : p2 // 4] = 0.0
+    return logti
 
 
 def _compare(label, got, want):
@@ -328,17 +374,30 @@ def _check_finite_state(label, state):
             raise AssertionError(f"{label}: {key} has non-finite values")
 
 
-def _compare_small_step(dev_state, dev_m, cpu_state, cpu_m, lrs):
-    """The 64x48 step on the card against the CPU step (see STEP_* above)."""
+def _compare_small_step(dev_state, dev_m, cpu_state, cpu_m, lrs, label="64x48 step",
+                        vs_noise_rel=None, noise_lrs=2):
+    """The 64x48 step on the card against the CPU step (see STEP_* above).
+    With ``vs_noise_rel``, grad_count may differ only for Gaussians whose
+    view-space gradient (grad_accum, one step from zero) is below that
+    fraction of the largest on both devices (see VS_NOISE_REL).  Elements
+    below the gradient noise may differ by ``noise_lrs`` learning rates."""
     import numpy as np
 
     from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
     from gaussiansplatting_tpu_torch.train.state import state_to_numpy
 
     got, ref = state_to_numpy(dev_state), state_to_numpy(cpu_state)
+    if vs_noise_rel is not None:
+        differ = got["accum/grad_count"] != ref["accum/grad_count"]
+        for acc in (got["accum/grad_accum"], ref["accum/grad_accum"]):
+            if (acc[differ] > vs_noise_rel * acc.max()).any():
+                raise AssertionError(f"{label}: grad_count differs beyond noise")
+        log(f"[tfloor] {label}: {int(differ.sum())} grad_count entries differ, "
+            f"all at noise-level view-space gradients")
+        got["accum/grad_count"] = ref["accum/grad_count"]
     loss_err = abs(float(dev_m.loss) - float(cpu_m.loss))
     if loss_err > STEP_LOSS_RTOL * abs(float(cpu_m.loss)):
-        raise AssertionError(f"64x48 step: loss {float(dev_m.loss)} vs {float(cpu_m.loss)}")
+        raise AssertionError(f"{label}: loss {float(dev_m.loss)} vs {float(cpu_m.loss)}")
     worst = {}
     lr = dict(zip(TRAINABLE, lrs))
     for f in TRAINABLE:
@@ -346,17 +405,17 @@ def _compare_small_step(dev_state, dev_m, cpu_state, cpu_m, lrs):
             a, b = got[f"opt/{mom}/{f}"], ref[f"opt/{mom}/{f}"]
             err = float(np.abs(a - b).max())
             if err > STEP_MOMENT_REL * float(np.abs(b).max()):
-                raise AssertionError(f"64x48 step: opt/{mom}/{f} max|err| {err:.3e}")
+                raise AssertionError(f"{label}: opt/{mom}/{f} max|err| {err:.3e}")
             worst[f"{mom}/{f}"] = err
         m = np.abs(ref[f"opt/m/{f}"])
         signal = m > NOISE_REL * m.max()
         diff = np.abs(got[f"params/{f}"] - ref[f"params/{f}"])
-        if diff[signal].max(initial=0.0) > STEP_ATOL or diff.max() > 2 * lr[f] + 1e-6:
-            raise AssertionError(f"64x48 step: params/{f} max|err| {diff.max():.3e}")
+        if diff[signal].max(initial=0.0) > STEP_ATOL or diff.max() > noise_lrs * lr[f] + 1e-6:
+            raise AssertionError(f"{label}: params/{f} max|err| {diff.max():.3e}")
         worst[f] = float(diff.max())
     if not np.array_equal(got["accum/grad_count"], ref["accum/grad_count"]):
-        raise AssertionError("64x48 step: accum/grad_count differs")
-    log(f"[train] 64x48 step card vs CPU: loss |err| {loss_err:.2e}; max|err| "
+        raise AssertionError(f"{label}: accum/grad_count differs")
+    log(f"[train] {label} card vs CPU: loss |err| {loss_err:.2e}; max|err| "
         + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
 
 
@@ -448,6 +507,313 @@ def phase_train(params, camera, gt, smi):
     _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
                         schedule.learning_rates(small_cfg.optim, 0, 100))
     return launches, step_ms
+
+
+def _compare_tf(label, got, want, margin):
+    """T-floor forward kernel vs plain under the flip rule (FLIP_* above).
+    Returns (max |err| outside the excused entries, excused count)."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: kernel output has non-finite values")
+    err = (got - want).abs()                                        # [NB, 4, P2]
+    bad = (err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).any(1)     # [NB, P2]
+    near = margin < FLIP_MARGIN
+    if bool((bad & ~near).any()):
+        raise AssertionError(f"{label}: T-floor kernel disagrees with the plain "
+                             f"version away from any termination boundary")
+    excused = bad & near
+    n_excused = int(excused.sum())
+    worst = float(err.masked_fill(excused[:, None, :], 0.0).max()) if err.numel() else 0.0
+    log(f"[tfloor] {label}: max|err| {worst:.3e} outside flips; excused flips "
+        f"{n_excused} of {bad.numel()} (block, pixel) entries; margin < "
+        f"{FLIP_MARGIN}: {int(near.sum())}")
+    if n_excused > FLIP_MAX_SHARE * bad.numel():
+        raise AssertionError(f"{label}: {n_excused} termination flips")
+    return worst, n_excused
+
+
+def _compare_tf_bwd(label, got, want, margin):
+    """T-floor backward kernel vs plain, per column within BWD_REL of the
+    column's largest plain magnitude; a block beyond that is excused only
+    if one of its pixels has a margin below FLIP_MARGIN, and the excused
+    blocks' near-boundary (block, pixel) entries count against
+    FLIP_MAX_SHARE.  Returns (max |err| outside excused blocks, count)."""
+    import torch
+
+    near = margin < FLIP_MARGIN                                     # [NB, P2]
+    near_block = near.any(1)
+    bad_block = torch.zeros_like(near_block)
+    errs = []
+    for k, p in zip(got, want):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{label}: kernel column has non-finite values")
+        err = (k - p).abs()
+        scale = float(p.abs().max()) if p.numel() else 0.0
+        bad_block |= (err > BWD_REL * scale).any(1)
+        errs.append(err)
+    if bool((bad_block & ~near_block).any()):
+        raise AssertionError(f"{label}: T-floor backward kernel disagrees with the "
+                             f"plain version away from any termination boundary")
+    n_excused = int(near[bad_block].sum())
+    keep = ~bad_block
+    worst = max(float(e[keep].max()) if bool(keep.any()) else 0.0 for e in errs)
+    rel = [float(e[keep].max()) / max(float(p.abs().max()), 1e-30)
+           if bool(keep.any()) else 0.0 for e, p in zip(errs, want)]
+    log(f"[tfloor bwd] {label}: max|err| {worst:.3e} outside excused blocks "
+        f"(per column err/max: {', '.join(f'{r:.1e}' for r in rel)}); excused "
+        f"blocks {int(bad_block.sum())} holding {n_excused} near-boundary "
+        f"(block, pixel) entries of {near.numel()}")
+    if n_excused > FLIP_MAX_SHARE * near.numel():
+        raise AssertionError(f"{label}: {n_excused} termination flips")
+    return worst, n_excused
+
+
+def _blend_wrappers():
+    """The four kernel entries' wrappers, each with its launch count."""
+    from gaussiansplatting_tpu_torch.ops import blend
+
+    return (blend.windowed_blend_fwd, blend.windowed_blend_fwd_tf,
+            blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf)
+
+
+def _tf_launches():
+    return {f.__name__: f.launches for f in _blend_wrappers()}
+
+
+def _reset_launches():
+    for f in _blend_wrappers():
+        f.launches = 0
+
+
+def dense_scene(seed, device=None):
+    """A dense near-opaque scene where transmittance crosses the floor
+    (tests/test_render_forward.py:93-96: spread 0.15, raw opacity + 4)."""
+    from gaussiansplatting_tpu_torch.core import gaussians
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    p = synthetic.make_scene(256, seed=seed, spread=0.15, log_scale_range=(-3.2, -1.8))
+    host = {f: getattr(p, f).detach().cpu().numpy() for f in gaussians.FIELDS}
+    host["raw_opacities"] = host["raw_opacities"] + 4.0
+    return gaussians.params_from_numpy(host, device)
+
+
+def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
+    """The full-size logti and the real loss cotangent of each pass: compose
+    at the first pass's ``out`` with the T-floor kernel as its second pass,
+    then autograd of the default photometric loss.  Returns (logti, out_tf,
+    g_first, g_tf)."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import LossConfig
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.ops.losses import photometric_loss
+    from gaussiansplatting_tpu_torch.ops.rasterize import compose
+
+    held = {}
+
+    def blend_tfloor(logti):
+        held["logti"] = logti
+        held["out_tf"] = blend.windowed_blend_fwd_tf(*args, logti, log_thr).requires_grad_(True)
+        return held["out_tf"][:, :3, :], held["out_tf"][:, 3, :]
+
+    with torch.enable_grad():
+        out1 = out.detach().requires_grad_(True)
+        img = compose(out1, block_tile, camera, cfg_tf, blend_tfloor)
+        rep = photometric_loss(img, gt, LossConfig())
+        g1, g2 = torch.autograd.grad(rep.grad_loss, [out1, held["out_tf"]])
+    if float(g1[:, :3].abs().max()) != 0.0:
+        raise AssertionError("first-pass cotangent has nonzero colour rows")
+    return held["logti"], held["out_tf"].detach(), g1, g2
+
+
+def phase_tfloor(params, camera, cfg, gt, smi):
+    import math
+
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.core import gaussians
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.ops.projection import num_tiles
+    from gaussiansplatting_tpu_torch.ops.rasterize import (
+        blend_windows, compose, incoming_log_t, render)
+    from gaussiansplatting_tpu_torch.train import schedule
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.train.trainer import train_step
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    cfg_tf = cfg.replace(t_floor_exact=True)
+    log_thr = math.log(cfg_tf.transmittance_floor)
+    res = {}
+
+    # (i) kernels #5 and #6 against their plain versions on edge windows
+    for block in (16, 128):
+        for row0 in (0, 3):
+            table, src, valid, tile = (
+                torch.from_numpy(x).to(DEVICE)
+                for x in edge_windows(block, seed=block + row0, row0=row0))
+            nb = src.shape[0]
+            logti = torch.from_numpy(edge_logti(nb, block + row0 + 2)).to(DEVICE)
+            g = torch.from_numpy(np.random.default_rng(block + row0 + 1).normal(
+                size=(nb, 4, 256)).astype(np.float32)).to(DEVICE)
+            args = (table, src, valid, tile, row0, block,
+                    (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, 50))
+            with torch.no_grad():
+                got = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
+                want, margin = blend.windowed_blend_fwd_tf_plain(
+                    *args, logti, log_thr, return_margin=True)
+            torch.cuda.synchronize()
+            _compare_tf(f"edge B={block} row0={row0}", got, want, margin)
+            bargs = args[:6] + (g, args[6], logti, log_thr)
+            got = blend.windowed_blend_bwd_tf(*bargs)
+            torch.cuda.synchronize()
+            _compare_tf_bwd(f"edge B={block} row0={row0}", got,
+                            blend.windowed_blend_bwd_tf_plain(*bargs), margin)
+
+    # (ii) at full size: the real logti and the real cotangent of each pass
+    args, block_tile, _ = blend_windows(params, camera, cfg_tf)
+    with torch.no_grad():
+        out, _ = blend.windowed_blend_fwd(*args)
+    logti, out_tf, g1, g2 = _tf_pass_cotangents(args, out, block_tile, camera,
+                                                cfg_tf, gt, log_thr)
+    with torch.no_grad():
+        want, margin = blend.windowed_blend_fwd_tf_plain(*args, logti, log_thr,
+                                                         return_margin=True)
+        res["fwd_err"], res["fwd_excused"] = _compare_tf("full size", out_tf, want, margin)
+        res["fwd_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_tf(*args, logti, log_thr),
+                                     reps=20)
+        res["fwd_plain_ms"] = cuda_time_ms(
+            lambda: blend.windowed_blend_fwd_tf_plain(*args, logti, log_thr), reps=3)
+        bargs = args[:6] + (g2, args[6], logti, log_thr)
+        got = blend.windowed_blend_bwd_tf(*bargs)
+        again = blend.windowed_blend_bwd_tf(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("T-floor backward kernel: two launches differ")
+        log("[tfloor bwd] full size: two launches bit-identical")
+        res["bwd_err"], res["bwd_excused"] = _compare_tf_bwd(
+            "full size (loss cotangent)", got, blend.windowed_blend_bwd_tf_plain(*bargs),
+            margin)
+        res["bwd_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_tf(*bargs), reps=20)
+        res["bwd_plain_ms"] = cuda_time_ms(
+            lambda: blend.windowed_blend_bwd_tf_plain(*bargs), reps=3)
+        # kernel #4: the first pass's backward, on its own cotangent (S_b only)
+        b1 = args[:6] + (g1, args[6])
+        _compare_bwd("first pass (as _bwd_kernel)", blend.windowed_blend_bwd(*b1),
+                     blend.windowed_blend_bwd_plain(*b1))
+    log(f"[tfloor] full size: fwd_tf kernel {res['fwd_ms']:.4f} ms, plain "
+        f"{res['fwd_plain_ms']:.3f} ms; bwd_tf kernel {res['bwd_ms']:.4f} ms, plain "
+        f"{res['bwd_plain_ms']:.3f} ms (CUDA events) on {smi}")
+
+    # (iii) the precision of logti: compose's float32 global cumsum against
+    # the same cumsum in float64 (a measurement; compose keeps JAX's form)
+    with torch.no_grad():
+        ts = cfg.tile_size
+        nt = num_tiles(camera.width, ts) * num_tiles(camera.height, ts)
+        logti64 = incoming_log_t(out[:, 3].double(), block_tile, nt).float()
+        out64 = blend.windowed_blend_fwd_tf(*args, logti64, log_thr)
+        moved = out64[:, 3] != out_tf[:, 3]                         # [NB, P2]
+        p = torch.arange(ts * ts, device=out.device)
+        pix = (block_tile.long()[:, None] * (ts * ts) + p)[moved]
+        img32 = compose(out, block_tile, camera, cfg_tf, lambda _: (out_tf[:, :3], out_tf[:, 3]))
+        img64 = compose(out, block_tile, camera, cfg_tf, lambda _: (out64[:, :3], out64[:, 3]))
+        live = out[:, 3] < 0
+        d_logti = float((logti - logti64).abs()[live].max())
+    res["logti_pixels"] = int(torch.unique(pix).numel())
+    res["logti_img_err"] = float((img32 - img64).abs().max())
+    log(f"[tfloor] logti float32 vs float64 cumsum: max|d logti| {d_logti:.3e}; "
+        f"{int(moved.sum())} (block, pixel) entries in {res['logti_pixels']} image "
+        f"pixels terminate at another lane; max image difference "
+        f"{res['logti_img_err']:.3e}")
+
+    # (iv) the T-floor render main path at full size
+    with torch.no_grad():
+        img, _ = render(params, camera, cfg)
+    _reset_launches()
+    with torch.no_grad():
+        img_tf, aux = render(params, camera, cfg_tf)
+    torch.cuda.synchronize()
+    render_launches = _tf_launches()
+    _check_image("T-floor canonical", img_tf)
+    diff = float((img_tf - img).abs().max())
+    num_pairs = int(aux.num_pairs)
+    log(f"[tfloor] render main path: launches {render_launches}; num_pairs "
+        f"{num_pairs}, overflow {bool(aux.overflow)}; max|img_tf - img| {diff:.3e}")
+    if bool(aux.overflow) or abs(num_pairs - SCENE_NUM_PAIRS) > PAIRS_REL_TOL * SCENE_NUM_PAIRS:
+        raise AssertionError(f"T-floor render: num_pairs {num_pairs}")
+    if not 0.0 < diff <= TFLOOR_IMG_MAX:
+        raise AssertionError(f"T-floor render: max|img_tf - img| {diff:.3e} not in "
+                             f"(0, {TFLOOR_IMG_MAX}]")
+    if min(render_launches["windowed_blend_fwd"], render_launches["windowed_blend_fwd_tf"]) < 1:
+        raise AssertionError("the T-floor render did not launch both forward kernels")
+
+    def frame():
+        with torch.no_grad():
+            render(params, camera, cfg_tf)
+
+    res["frame_ms"] = cuda_time_ms(frame, reps=10)
+    log(f"[tfloor] canonical view: {res['frame_ms']:.3f} ms/frame warm (CUDA events, "
+        f"10 frames) on {smi}")
+
+    # (v) the T-floor train step main path at full size: warm, timed, replayed
+    tcfg = Config(raster=cfg_tf)
+    state0 = state_mod.create(params)
+    _reset_launches()
+    state1, m1 = train_step(state0, camera, gt, tcfg, TRAIN_TOTAL_ITERS)
+    st, flags, losses = state1, [m1.overflow], [m1.loss]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TFLOOR_TIMED_STEPS):
+        st, m = train_step(st, camera, gt, tcfg, TRAIN_TOTAL_ITERS)
+        flags.append(m.overflow)
+        losses.append(m.loss)
+    end.record()
+    torch.cuda.synchronize()
+    train_launches = _tf_launches()
+    res["step_ms"] = start.elapsed_time(end) / TFLOOR_TIMED_STEPS
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"[tfloor] full-size T-floor step: {res['step_ms']:.3f} ms/step warm (CUDA "
+        f"events, {TFLOOR_TIMED_STEPS} steps) on {smi}; loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches {train_launches}")
+    if not np.isfinite(losses).all() or bool(torch.stack(flags).any()):
+        raise AssertionError("T-floor train step: non-finite loss or overflow")
+    _check_finite_state("T-floor train step", st)
+    if min(train_launches.values()) < 1:
+        raise AssertionError(f"the T-floor step did not launch every kernel: {train_launches}")
+    replay, _ = train_step(state0, camera, gt, tcfg, TRAIN_TOTAL_ITERS)
+    a, b = state_mod.state_to_numpy(state1), state_mod.state_to_numpy(replay)
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"replayed T-floor step differs in {differ}")
+    log(f"[tfloor] replayed full-size T-floor step: all {len(a)} state arrays bit-identical")
+
+    # (vi) a 64x48 T-floor step on the dense scene, card against CPU
+    small = dense_scene(DENSE_SEED)
+    small_cfg = tcfg.replace(raster=cfg_tf.replace(pair_capacity=8192, pair_block=16))
+    small_gt = np.random.default_rng(3).uniform(0, 1, (48, 64, 3)).astype(np.float32)
+    host = {f: getattr(small, f).detach().numpy() for f in gaussians.FIELDS}
+    cpu_state, cpu_m = train_step(
+        state_mod.create(small), synthetic.make_canonical_camera(64, 48),
+        torch.from_numpy(small_gt), small_cfg, 100)
+    dev_state, dev_m = train_step(
+        state_mod.create(gaussians.params_from_numpy(host, DEVICE)),
+        synthetic.make_canonical_camera(64, 48, device=DEVICE),
+        torch.from_numpy(small_gt).to(DEVICE), small_cfg, 100)
+    # a Gaussian behind every pixel's floor has an exactly zero gradient on
+    # one device and noise on the other (VS_NOISE_REL), so Adam moves it by
+    # lr * sign(noise) on one side only; quaternions renormalize after the
+    # move, which scales a component's move by up to 1 + |q . sign| <= 3
+    # (the bar tests/test_torch_train.py holds)
+    _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
+                        schedule.learning_rates(small_cfg.optim, 0, 100),
+                        label="64x48 T-floor step", vs_noise_rel=VS_NOISE_REL,
+                        noise_lrs=3)
+    launches = {k: render_launches[k] + train_launches[k] for k in render_launches}
+    return launches, res
 
 
 def _read_ppm(path):
@@ -569,28 +935,59 @@ def main() -> int:
         f"(CUDA events) on {smi}")
     render_launches, frame_ms = phase_render(params, camera, cfg, smi)
     (train_fwd, train_bwd), step_ms = phase_train(params, camera, gt, smi)
+    tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
 
+    src = "gaussiansplatting_tpu_torch/csrc/"
+    tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
     log(json.dumps({"kernels": [{
         "name": "windowed_blend_fwd",
         "route": "cuda",
-        "source": "gaussiansplatting_tpu_torch/csrc/blend_fwd.cu",
-        "replaces": "gaussiansplatting_tpu/ops/pallas_blend.py:601",
-        "launches": render_launches + train_fwd,
-        "launches_by_path": {"render": render_launches, "train": train_fwd},
+        "source": src + "blend_fwd.cu",
+        "replaces": f"{tpu}601, {tpu}161",
+        "launches": render_launches + train_fwd + tf_launches["windowed_blend_fwd"],
+        "launches_by_path": {"render": render_launches, "train": train_fwd,
+                             "tfloor": tf_launches["windowed_blend_fwd"]},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
     }, {
         "name": "windowed_blend_bwd",
         "route": "cuda",
-        "source": "gaussiansplatting_tpu_torch/csrc/blend_bwd.cu",
-        "replaces": "gaussiansplatting_tpu/ops/pallas_blend.py:671",
-        "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd},
+        "source": src + "blend_bwd.cu",
+        "replaces": f"{tpu}671, {tpu}188",
+        "launches": train_bwd + tf_launches["windowed_blend_bwd"],
+        "launches_by_path": {"train": train_bwd,
+                             "tfloor": tf_launches["windowed_blend_bwd"]},
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
-    }], "render_ms_per_frame": frame_ms, "train_step_ms": step_ms}))
+    }, {
+        "name": "windowed_blend_fwd_tf",
+        "route": "cuda",
+        "source": src + "blend_fwd.cu",
+        "replaces": f"{tpu}249",
+        "launches": tf_launches["windowed_blend_fwd_tf"],
+        "launches_by_path": {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
+        "max_abs_err": tf["fwd_err"],
+        "excused_flips": tf["fwd_excused"],
+        "ms": tf["fwd_ms"],
+        "plain_ms": tf["fwd_plain_ms"],
+    }, {
+        "name": "windowed_blend_bwd_tf",
+        "route": "cuda",
+        "source": src + "blend_bwd.cu",
+        "replaces": f"{tpu}281",
+        "launches": tf_launches["windowed_blend_bwd_tf"],
+        "launches_by_path": {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
+        "max_abs_err": tf["bwd_err"],
+        "excused_flips": tf["bwd_excused"],
+        "ms": tf["bwd_ms"],
+        "plain_ms": tf["bwd_plain_ms"],
+    }], "render_ms_per_frame": frame_ms, "train_step_ms": step_ms,
+        "tfloor_render_ms_per_frame": tf["frame_ms"],
+        "tfloor_train_step_ms": tf["step_ms"],
+        "tfloor_logti_f64_pixels": tf["logti_pixels"],
+        "tfloor_logti_f64_max_img_err": tf["logti_img_err"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

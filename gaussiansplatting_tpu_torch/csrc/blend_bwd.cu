@@ -1,8 +1,13 @@
 // Windowed block blend, backward, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel _bwd_kernel_win
-// (gaussiansplatting_tpu/ops/pallas_blend.py:671), reached through
-// windowed_blend_bwd.  Python wrapper and plain PyTorch version:
+// Replaces the Pallas TPU kernels in gaussiansplatting_tpu/ops/pallas_blend.py:
+//   gs_blend_bwd_win     _bwd_kernel_win (:671, windowed_blend_bwd), and
+//                        _bwd_kernel (:188, the VJP of block_blend_cols) on
+//                        the t_floor_exact path's first pass, whose
+//                        cotangent reaches S_b alone (colour rows zero);
+//   gs_blend_bwd_win_tf  _bwd_kernel_tf (:281, the VJP of
+//                        block_blend_cols_tf), the exact T-floor pass.
+// Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
 // Design: one CUDA block per pair block b, one thread per tile pixel, the
@@ -34,6 +39,16 @@
 // Dead blocks and lanes past block_valid write zeros (outputs come from
 // torch.empty).
 //
+// The T-floor pass (kTFloor) holds the termination mask constant, as
+// _bwd_kernel_tf does: pass 1 stops at the pixel's first kept lane where
+// S + logti <= log_thr (the same test as blend_fwd.cu's T-floor pass), so
+// its S is the masked total and kend, that lane, ends the pixel's
+// survivors; pass 2 walks back from the last surviving lane, so g_S and
+// every other term reach surviving lanes only, and logti gets no
+// cotangent.  Lanes at or past the block's largest kend are zero for every
+// pixel: the warps skip them, and a block whose pixels all arrive at or
+// below the floor writes zeros and stages nothing.
+//
 // What bounds it on the H100: the same ~4e8 pair-pixel evaluations as the
 // forward, twice, plus per kept lane an exp, a log1p and a division, and the
 // 45-shuffle warp reduction per (warp, lane) that any pixel kept: special-
@@ -54,19 +69,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kTFloor>
 __global__ void blend_bwd_win_kernel(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
-    const int* __restrict__ block_tile, const float* __restrict__ g, int nb,
-    int block, int ts, int tiles_x, int row0, float power_floor,
-    float alpha_cap, float alpha_floor, float* __restrict__ dcols) {
+    const int* __restrict__ block_tile, const float* __restrict__ g,
+    const float* __restrict__ logti, int nb, int block, int ts, int tiles_x,
+    int row0, float power_floor, float alpha_cap, float alpha_floor,
+    float log_thr, float* __restrict__ dcols) {
   extern __shared__ float smem[];
+  __shared__ int warp_kend[32];
   const int b = blockIdx.x;
   const int p2 = ts * ts;
   const int nwarps = blockDim.x >> 5;
   const size_t plane = (size_t)nb * block;  // one output column, [nb, block]
   float* out_b = dcols + (size_t)b * block;
-  const int nv = min(block_valid[b], block);
+  int nv = min(block_valid[b], block);
+  // one thread per pixel (blockDim.x = p2 rounded up to whole warps)
+  const int p = threadIdx.x;
+  const bool pix = p < p2;
+  const float lt = (kTFloor && pix) ? logti[(size_t)b * p2 + p] : 0.f;
+  if (kTFloor && !__syncthreads_or(pix && lt > log_thr)) nv = 0;
 
   if (nv <= 0) {
     for (int i = threadIdx.x; i < kCols * block; i += blockDim.x)
@@ -109,8 +132,6 @@ __global__ void blend_bwd_win_kernel(
 
   // Threads past the tile's pixels (none when ts*ts is a multiple of 32)
   // keep nothing but still take part in the warp shuffles.
-  const int p = threadIdx.x;
-  const bool pix = p < p2;
   const float px = __fsub_rn((float)(p % ts) + 0.5f, half);
   const float py = __fsub_rn((float)(p / ts) + 0.5f, half);
   float g0 = 0.f, g1 = 0.f, g2 = 0.f, gs = 0.f;
@@ -122,8 +143,10 @@ __global__ void blend_bwd_win_kernel(
     gs = g_b[3 * p2 + p];
   }
 
-  // pass 1: front to back, the pixel's total log-transmittance
+  // pass 1: front to back, the pixel's total log-transmittance; with the
+  // T-floor, up to the pixel's first terminated lane kend
   float S = 0.f;
+  int kend = pix ? nv : 0;
   for (int k = 0; pix && k < nv; ++k) {
     const float op = s_op[k];
     if (op == 0.f) continue;
@@ -136,20 +159,35 @@ __global__ void blend_bwd_win_kernel(
     if (!(power <= 0.f && power >= power_floor)) continue;
     const float a_raw = __fmul_rn(op, expf(power));
     if (!(a_raw >= alpha_floor)) continue;
+    if (kTFloor && !(__fadd_rn(S, lt) > log_thr)) {  // terminated
+      kend = k;
+      break;
+    }
     S += log1pf(-fminf(a_raw, alpha_cap));
   }
 
-  // pass 2: back to front, the chain rule and the per-lane pixel sums
   const int warp = threadIdx.x >> 5;
   const int wlane = threadIdx.x & 31;
+  // the block's largest kend, by a fixed warp max then a read of every
+  // warp's (no atomics); without the T-floor it is nv
+  int kmax = nv;
+  if (kTFloor) {
+    const int wmax = __reduce_max_sync(kFullMask, kend);
+    if (wlane == 0) warp_kend[warp] = wmax;
+    __syncthreads();
+    kmax = 0;
+    for (int w = 0; w < nwarps; ++w) kmax = max(kmax, warp_kend[w]);
+  }
+
+  // pass 2: back to front, the chain rule and the per-lane pixel sums
   float suffix = 0.f;  // sum_{j > k} e_j w_j
-  for (int k = nv - 1; k >= 0; --k) {
+  for (int k = kmax - 1; k >= 0; --k) {
     float v[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) v[c] = 0.f;
     const float op = s_op[k];
     bool kept = false;
-    if (pix && op != 0.f) {
+    if (pix && k < kend && op != 0.f) {
       const float dx = __fsub_rn(px, s_mx[k]);
       const float dy = __fsub_rn(py, s_my[k]);
       const float qa = __fmul_rn(__fmul_rn(s_ca[k], dx), dx);
@@ -197,7 +235,7 @@ __global__ void blend_bwd_win_kernel(
     float o[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) o[c] = 0.f;
-    if (k < nv) {
+    if (k < kmax) {
       float s[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -223,6 +261,27 @@ __global__ void blend_bwd_win_kernel(
 
 }  // namespace
 
+template <bool kTFloor>
+static int launch(const float* table, long long ep, const int* block_src,
+                  const int* block_valid, const int* block_tile,
+                  const float* g, const float* logti, int nb, int block,
+                  int ts, int tiles_x, int row0, float power_floor,
+                  float alpha_cap, float alpha_floor, float log_thr,
+                  float* dcols, void* stream) {
+  const int threads = (ts * ts + 31) / 32 * 32;
+  const size_t smem = (size_t)(1 + threads / 32) * kCols * block * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_bwd_win_kernel<kTFloor>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  blend_bwd_win_kernel<kTFloor><<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, g, logti, nb, block, ts,
+      tiles_x, row0, power_floor, alpha_cap, alpha_floor, log_thr, dcols);
+  return (int)cudaGetLastError();
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
 // table [>=10, ep] f32 row-major; block_src/valid/tile [nb] i32;
 // g [nb, 4, ts*ts] f32 (rows 0-2 dC, row 3 dS); dcols [9, nb, block] f32.
@@ -236,16 +295,23 @@ extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 float power_floor, float alpha_cap,
                                 float alpha_floor, float* dcols,
                                 void* stream) {
-  const int threads = (ts * ts + 31) / 32 * 32;
-  const size_t smem = (size_t)(1 + threads / 32) * kCols * block * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_win_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  blend_bwd_win_kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, g, nb, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, dcols);
-  return (int)cudaGetLastError();
+  return launch<false>(table, ep, block_src, block_valid, block_tile, g,
+                       nullptr, nb, block, ts, tiles_x, row0, power_floor,
+                       alpha_cap, alpha_floor, 0.f, dcols, stream);
+}
+
+// The T-floor pass: as gs_blend_bwd_win plus logti [nb, ts*ts] f32 and
+// log_thr = log(transmittance_floor).
+extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
+                                   const int* block_src,
+                                   const int* block_valid,
+                                   const int* block_tile, const float* g,
+                                   const float* logti, int nb, int block,
+                                   int ts, int tiles_x, int row0,
+                                   float power_floor, float alpha_cap,
+                                   float alpha_floor, float log_thr,
+                                   float* dcols, void* stream) {
+  return launch<true>(table, ep, block_src, block_valid, block_tile, g, logti,
+                      nb, block, ts, tiles_x, row0, power_floor, alpha_cap,
+                      alpha_floor, log_thr, dcols, stream);
 }

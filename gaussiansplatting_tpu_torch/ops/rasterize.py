@@ -1,8 +1,9 @@
 """Differentiable tiled rasterizer: project, presort, pair windows, blend,
 compose.
 
-Counterpart of the windowed branch of gaussiansplatting_tpu/ops/rasterize.py
-(``render``, rasterize.py:254-389, and ``_compose_tiles``).  Alpha
+Counterpart of gaussiansplatting_tpu/ops/rasterize.py: ``render`` (its
+windowed branch, rasterize.py:254-389, and with ``t_floor_exact`` its
+aligned branch, rasterize.py:391-501) and ``_compose_tiles``.  Alpha
 compositing is associative in (colour, transmittance) space, so each block
 of B pairs of one 16x16 tile blends independently (ops/blend.py) into a
 summary (C_b, S_b = sum log(1 - alpha)), and the blocks of a tile compose
@@ -10,16 +11,31 @@ with a segmented exclusive prefix over their S_b.
 
 Gradients: autograd runs through projection and compose as they are; the
 depth presort is a ``_PermuteRows`` whose backward gathers by the inverse
-permutation; and pair expansion, tile sort, windows and blend are ONE
-``_BlendWindows`` whose backward is the blend backward followed by the
-sort-prefix reduction to per-Gaussian sums.  No step of the backward uses
-float atomics.  The blends run as CUDA kernels on a CUDA device and as their
-plain PyTorch versions on the CPU; ``RasterConfig.blend_impl`` and
-``grad_reduce`` pick nothing here.
+permutation; pair expansion, tile sort and windows run once per frame,
+outside autograd; each blend pass over the windows is an autograd Function
+(``_BlendWindows``, ``_BlendWindowsTF``) whose backward is the blend
+backward followed by the sort-prefix reduction to per-Gaussian sums.  No
+step of the backward uses float atomics.  The blends run as CUDA kernels on
+a CUDA device and as their plain PyTorch versions on the CPU;
+``RasterConfig.blend_impl`` and ``grad_reduce`` pick nothing here.
+
+Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
+replaces:
+  default path      windowed_blend_fwd    _fwd_kernel_win (:601)
+                    windowed_blend_bwd    _bwd_kernel_win (:671)
+  t_floor_exact     windowed_blend_fwd    _fwd_kernel (:161), the unmasked
+                                          first pass: JAX's aligned block b
+                                          is window b here, so the
+                                          destination sort is not ported
+                    windowed_blend_fwd_tf _fwd_kernel_tf (:249)
+                    windowed_blend_bwd_tf _bwd_kernel_tf (:281)
+                    windowed_blend_bwd    _bwd_kernel (:188), through the
+                                          first pass's S_b (t_in)
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -39,7 +55,6 @@ class RenderAux(NamedTuple):
 
 def _check_ported(cfg: RasterConfig, tile_rows) -> None:
     unported = {
-        "t_floor_exact=True": cfg.t_floor_exact,
         "payload_dtype='bf16'": cfg.payload_dtype != "f32",
         "pack_positions=True": cfg.pack_positions,
         "overflow_drop='impact'": cfg.overflow_drop != "index",
@@ -151,54 +166,98 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
                  RenderAux(num_pairs=total, overflow=overflow))
 
 
-def _windows(data, ints, pcfg):
-    """pair_windows_fwd of the plan (row0 = 0): returns (table, block_src,
-    block_valid, tile clamped to num_tiles-1, block_tile)."""
+class _Windows(NamedTuple):
+    """pair_windows_fwd of the plan: the blend's input windows."""
+    table: torch.Tensor        # [16, EP] tile-sorted pair rows
+    block_src: torch.Tensor    # [NB] int32 window starts
+    block_valid: torch.Tensor  # [NB] int32 live lanes
+    tile: torch.Tensor         # [NB] int32 tile, clamped to num_tiles-1
+    block_tile: torch.Tensor   # [NB] int32 tile, num_tiles on padding blocks
+
+
+def _windows(data, ints, pcfg) -> _Windows:
+    """pair_windows_fwd of the plan (row0 = 0)."""
     counts, ccounts, coffsets, ty_lo, tmin_x, span_x = ints
     table, block_src, block_valid, block_tile, _ = pairs_mod.pair_windows_fwd(
         data, 0, counts, ccounts, coffsets, ty_lo, tmin_x, span_x, pcfg,
     )
     t = torch.clamp(block_tile, max=pcfg[2] * pcfg[3] - 1)
-    return table, block_src, block_valid, t, block_tile
+    return _Windows(table, block_src, block_valid, t, block_tile)
+
+
+def _reduce_to_data(dcols, gid, counts, n):
+    """The nine aligned-order column cotangents [NB, B] -> per-Gaussian
+    [N, 9] sums (the sort-prefix reduction)."""
+    d_rows = torch.stack([c.reshape(-1) for c in dcols])           # [9, a_cap]
+    return pairs_mod.reduce_aligned_cotangents(
+        d_rows, gid.reshape(-1).to(torch.int32), counts, n
+    )
 
 
 class _BlendWindows(torch.autograd.Function):
-    """Pair expansion + tile sort + windowed blend as one differentiable
-    unit, the counterpart of the JAX ``_blend_windows`` custom VJP
-    (rasterize.py:174-251).  Differentiable in ``data`` only.
+    """The windowed blend as one differentiable unit over the frame's
+    windows, the counterpart of the JAX ``_blend_windows`` custom VJP
+    (rasterize.py:174-251) and, on the t_floor_exact path, of the first,
+    unmasked ``block_blend_cols`` pass (rasterize.py:434-439).  The windows
+    are built from ``data.detach()``; differentiable in ``data`` only.
 
-    Forward returns (out [NB, 4, P2], gid [NB, B] f32, block_tile [NB]
-    int32); backward runs the blend backward over the same windows, then
-    reduces the aligned-order column cotangents to per-Gaussian sums."""
+    Forward returns (out [NB, 4, P2], gid [NB, B] f32); backward runs the
+    blend backward over the same windows, then reduces the aligned-order
+    column cotangents to per-Gaussian sums."""
 
     @staticmethod
-    def forward(ctx, data, counts, ccounts, coffsets, ty_lo, tmin_x, span_x,
-                pcfg, bconsts):
-        table, block_src, block_valid, t, block_tile = _windows(
-            data.detach(), (counts, ccounts, coffsets, ty_lo, tmin_x, span_x),
-            pcfg,
-        )
+    def forward(ctx, data, win, counts, pcfg, bconsts):
         out, gid = blend_mod.windowed_blend_fwd(
-            table, block_src, block_valid, t, 0, pcfg[4], bconsts
+            win.table, win.block_src, win.block_valid, win.tile, 0, pcfg[4],
+            bconsts,
         )
-        ctx.save_for_backward(table, block_src, block_valid, t, gid, counts)
-        ctx.pcfg, ctx.bconsts = pcfg, bconsts
-        ctx.mark_non_differentiable(gid, block_tile)
-        return out, gid, block_tile
+        ctx.win, ctx.pcfg, ctx.bconsts = win, pcfg, bconsts
+        ctx.save_for_backward(gid, counts)
+        ctx.mark_non_differentiable(gid)
+        return out, gid
 
     @staticmethod
-    def backward(ctx, d_out, _d_gid, _d_block_tile):
-        table, block_src, block_valid, t, gid, counts = ctx.saved_tensors
-        n, block = ctx.pcfg[0], ctx.pcfg[4]
+    def backward(ctx, d_out, _d_gid):
+        gid, counts = ctx.saved_tensors
+        win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd(
-            table, block_src, block_valid, t, 0, block, d_out.contiguous(),
-            ctx.bconsts,
+            win.table, win.block_src, win.block_valid, win.tile, 0, block,
+            d_out.contiguous(), ctx.bconsts,
         )
-        d_rows = torch.stack([c.reshape(-1) for c in dcols])       # [9, a_cap]
-        d_data = pairs_mod.reduce_aligned_cotangents(
-            d_rows, gid.reshape(-1).to(torch.int32), counts, n
+        return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 4
+
+
+class _BlendWindowsTF(torch.autograd.Function):
+    """The t_floor_exact second pass, the counterpart of
+    ``block_blend_cols_tf`` and its VJP (rasterize.py:441-448): the blend
+    over the SAME windows as _BlendWindows, with each pixel's lanes past
+    the T-floor zeroed, given each block's incoming log T ``logti`` (from
+    the first pass, detached).  Differentiable in ``data`` only: the
+    termination mask is constant and ``logti`` gets no cotangent.
+
+    Forward returns out [NB, 4, P2] (C_b and S_b over the survivors);
+    backward runs the T-floor blend backward, then the same per-Gaussian
+    reduction by the first pass's ``gid``."""
+
+    @staticmethod
+    def forward(ctx, data, win, gid, counts, logti, pcfg, bconsts, log_thr):
+        out = blend_mod.windowed_blend_fwd_tf(
+            win.table, win.block_src, win.block_valid, win.tile, 0, pcfg[4],
+            bconsts, logti, log_thr,
         )
-        return (d_data,) + (None,) * 8
+        ctx.win, ctx.pcfg, ctx.bconsts, ctx.log_thr = win, pcfg, bconsts, log_thr
+        ctx.save_for_backward(gid, counts, logti)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        gid, counts, logti = ctx.saved_tensors
+        win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
+        dcols = blend_mod.windowed_blend_bwd_tf(
+            win.table, win.block_src, win.block_valid, win.tile, 0, block,
+            d_out.contiguous(), ctx.bconsts, logti, ctx.log_thr,
+        )
+        return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 7
 
 
 def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
@@ -208,13 +267,29 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
 
     vs_dummy: optional [N, 2] zeros added to the projected screen positions;
     its gradient is the per-Gaussian view-space positional gradient the
-    density statistics accumulate (tiled_shaders.metal:717-720)."""
+    density statistics accumulate (tiled_shaders.metal:717-720).
+
+    With ``cfg.t_floor_exact`` the frame takes two blend passes over one
+    set of windows (the expansion and sort run once): compose turns the
+    first pass's S_b into each block's incoming log T, and the second pass
+    zeroes every pair behind a pixel's T-floor.  The image takes C_b and
+    S_b from the second pass and the blocks' incoming T from the first."""
     _check_ported(cfg, tile_rows)
     plan = _plan(params, camera, cfg, vs_dummy)
-    out, _gid, block_tile = _BlendWindows.apply(
-        plan.data, *plan.ints, plan.pcfg, plan.bconsts
-    )
-    img = compose(out, block_tile, camera, cfg)
+    win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
+    counts = plan.ints[0]
+    out, gid = _BlendWindows.apply(plan.data, win, counts, plan.pcfg,
+                                   plan.bconsts)
+    blend_tfloor = None
+    if cfg.t_floor_exact:
+        log_thr = math.log(cfg.transmittance_floor)
+
+        def blend_tfloor(logti):
+            out_tf = _BlendWindowsTF.apply(plan.data, win, gid, counts, logti,
+                                           plan.pcfg, plan.bconsts, log_thr)
+            return out_tf[:, :3, :], out_tf[:, 3, :]
+
+    img = compose(out, win.block_tile, camera, cfg, blend_tfloor)
     return img, plan.aux
 
 
@@ -224,31 +299,58 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
 
     Returns (blend_args, block_tile, RenderAux) where blend_args are the
     positional arguments of ops.blend.windowed_blend_fwd (and, with the
-    cotangent inserted before the constants, of windowed_blend_bwd)."""
+    cotangent inserted before the constants, of windowed_blend_bwd; the
+    T-floor variants take (logti, log_thr) after them)."""
     plan = _plan(params, camera, cfg)
-    table, block_src, block_valid, t, block_tile = _windows(
-        plan.data.detach(), plan.ints, plan.pcfg
-    )
-    blend_args = (table, block_src, block_valid, t, 0, cfg.pair_block,
-                  plan.bconsts)
-    return blend_args, block_tile, plan.aux
+    win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
+    blend_args = (win.table, win.block_src, win.block_valid, win.tile, 0,
+                  cfg.pair_block, plan.bconsts)
+    return blend_args, win.block_tile, plan.aux
 
 
 def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
-            cfg: RasterConfig) -> torch.Tensor:
+            cfg: RasterConfig, blend_tfloor=None) -> torch.Tensor:
     """The image [H, W, 3] from the blend's per-block summaries ``out``
-    [NB, 4, P2] and each block's tile id."""
+    [NB, 4, P2] and each block's tile id.
+
+    blend_tfloor: with ``cfg.t_floor_exact``, a function of each block's
+    incoming log T ``logti`` [NB, P2] (detached) that returns the T-floor
+    pass's (C_b [NB, 3, P2], S_b [NB, P2]); the image takes those, with the
+    incoming T from ``out``."""
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
     tiles_y = proj_mod.num_tiles(camera.height, ts)
+    if cfg.t_floor_exact and blend_tfloor is None:
+        raise ValueError("compose: t_floor_exact needs blend_tfloor")
     return _compose_tiles(
         out[:, :3, :], out[:, 3, :], block_tile, tiles_x * tiles_y, tiles_x,
         tiles_y, ts, camera.width, camera.height, cfg,
+        blend_tfloor if cfg.t_floor_exact else None,
     )
 
 
+def _tile_bounds(seg, num_tiles):
+    """[T + 2] start of each tile's run of blocks in ``seg`` (sorted)."""
+    q = torch.arange(num_tiles + 2, dtype=seg.dtype, device=seg.device)
+    return torch.searchsorted(seg, q, right=False)
+
+
+def incoming_log_t(s_b: torch.Tensor, seg: torch.Tensor, num_tiles: int):
+    """Each block's incoming log-transmittance [NB, P2] from the blocks'
+    S_b [NB, P2] and tile ids ``seg`` [NB], as compose builds it: a global
+    cumsum over all blocks minus its value at the tile's first block (the
+    JAX package's form, rasterize.py:509-518).  Runs in the dtype of
+    ``s_b``."""
+    num_blocks = seg.shape[0]
+    cum_excl = torch.cumsum(s_b, dim=0) - s_b                       # [NB, P2]
+    bounds = _tile_bounds(seg, num_tiles)
+    first_block = torch.clamp(bounds[:-1], 0, max(num_blocks - 1, 0))
+    base = cum_excl[first_block[torch.clamp(seg, max=num_tiles).long()]]
+    return cum_excl - base
+
+
 def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
-                   height, cfg: RasterConfig):
+                   height, cfg: RasterConfig, blend_tfloor=None):
     """Segmented exclusive-prefix composition of per-block summaries into
     the image (the associative (C, T) combine across a tile's blocks).
 
@@ -256,17 +358,19 @@ def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
     are contiguous; padding blocks carry num_tiles at the end).  As in the
     JAX package, a block's incoming log T is a global cumsum minus the value
     at its tile's first block; segment sums are sequential per segment
-    (torch.segment_reduce), so the result is deterministic."""
+    (torch.segment_reduce), so the result is deterministic.
+
+    With ``blend_tfloor`` (rasterize.py:520-530) the incoming log T, detached,
+    drives the T-floor pass; its C_b and S_b make the image, and t_in from
+    the first pass stays differentiable."""
     num_blocks = seg.shape[0]
     p2 = ts * ts
-    cum_excl = torch.cumsum(s_b, dim=0) - s_b                       # [NB, P2]
-    # first block of each tile's run (blocks are sorted by tile)
-    q = torch.arange(num_tiles + 2, dtype=seg.dtype, device=seg.device)
-    bounds = torch.searchsorted(seg, q, right=False)                 # [T+2]
-    first_block = torch.clamp(bounds[:-1], 0, max(num_blocks - 1, 0))
-    base = cum_excl[first_block[torch.clamp(seg, max=num_tiles).long()]]
-    t_in = torch.exp(cum_excl - base)
+    log_t_in = incoming_log_t(s_b, seg, num_tiles)
+    t_in = torch.exp(log_t_in)
+    if blend_tfloor is not None:
+        c_b, s_b = blend_tfloor(log_t_in.detach())
 
+    bounds = _tile_bounds(seg, num_tiles)
     contrib = (t_in[:, None, :] * c_b).reshape(num_blocks, 3 * p2)
     tile_color = torch.segment_reduce(contrib, "sum", offsets=bounds, axis=0)
     tile_log_t = torch.segment_reduce(s_b, "sum", offsets=bounds, axis=0)

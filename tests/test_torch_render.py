@@ -100,11 +100,10 @@ def test_render_requires_no_grad():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(t_floor_exact=True),
     dict(payload_dtype="bf16"),
     dict(payload_dtype="bf16", pack_positions=True),
     dict(overflow_drop="impact"),
-], ids=["t_floor_exact", "bf16", "pack_positions", "impact"])
+], ids=["bf16", "pack_positions", "impact"])
 def test_unported_modes_raise(kw):
     _, tp = scene_params(15, n=16)
     _, tc = cameras()

@@ -76,6 +76,33 @@ def test_render_grads_match_jax(seed):
     assert (got["sh"][:, 1:, :] == 0).all()
 
 
+def test_render_grads_match_jax_sh_degree_1():
+    """sh_degree=1: the view-dependent band-1 colour, with every SH
+    coefficient nonzero; all groups, the four SH coefficients of each
+    Gaussian included, reach JAX's gradients by autograd through sh_eval."""
+    jp, _ = scene_params(23, n=48)
+    sh = np.array(jp.sh)
+    sh[:, 1:, :] = np.random.default_rng(23).uniform(-0.5, 0.5, (48, 3, 3))
+    jp = jp.replace(sh=jnp.asarray(sh))
+    tp = to_torch_params(jp)
+    jc, tc = cameras()
+    jcfg, tcfg = configs(sh_degree=1)
+    w = _weights(23)
+    vs = np.zeros((48, 2), np.float32)
+    want = _jax_grads(jp, jc, jcfg, w, vs)
+    got = _port_grads(tp, tc, tcfg, w, vs)
+    for k in FIELDS + ("vs",):
+        a, b = got[k], want[k]
+        assert np.isfinite(a).all() and np.abs(b).max() > 0, k
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        assert rel < REL_NORM, f"{k}: relative norm {rel}"
+        assert np.abs(a - b).max() < REL_ELEM * np.abs(b).max(), k
+    band1 = got["sh"][:, 1:, :]
+    assert (band1 != 0).any()
+    np.testing.assert_allclose(band1, want["sh"][:, 1:, :],
+                               atol=REL_ELEM * np.abs(want["sh"]).max())
+
+
 def test_render_grad_matches_finite_differences(rng):
     """Directional central differences along random sh and raw-opacity
     directions, the JAX package's own check and bars
