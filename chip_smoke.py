@@ -40,6 +40,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               <= 1.5e-4) and train step (timed, replayed bit for bit); a
               64x48 T-floor step on a dense scene on the card against the
               CPU.  All four kernel entries must launch on this path.
+  7. trainloop the COLMAP trainer (tools.train) end to end: the 100k scene
+              written as a COLMAP scene with the port's writers (its points
+              with their SH DC colours, 8 orbit views at 800x608, ground
+              truth rendered on the card as PPM); 36 iterations through the
+              CLI (6 views, 2 held out, 6 epochs) with the default Config
+              but for a shortened density schedule (TRAINLOOP_* below):
+              every step finite and without overflow, densify at 16, 24, 32
+              and the opacity reset at 24 with `alive` a prefix after each,
+              PSNR rising between events (by view), both kernels launched
+              once per step, the eval line, a PLY of the final alive
+              count; a CLI resume from 36 to 42; a bit-exact resume across
+              a density event at full capacity (524,288 slots) and a
+              replayed densify_step; the density event on the card against
+              the CPU (integers exact); the step's time at two pair
+              capacities and its device-time breakdown (torch.profiler) at
+              iterations 0 and 36; the density event, opacity reset,
+              checkpoint and CLI iteration times.
 
 Prints one JSON line describing the kernels, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -47,6 +64,7 @@ Prints one JSON line describing the kernels, then as its last line
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
@@ -124,6 +142,30 @@ DENSE_SEED = 3
 # exact arithmetic, and a residue of the global-cumsum cancellation in
 # compose's backward on one device (tests/test_torch_tfloor.py)
 VS_NOISE_REL = 1e-7
+# phase 7: the COLMAP trainer on the 100k scene's points.  The default
+# Config with one cut, the density schedule shortened so that densify fires
+# at 16, 24, 32 and the opacity reset at 24 within 36 iterations (6
+# training views, 2 held out, 6 epochs); every threshold keeps its value
+TRAINLOOP_VIEWS = 8
+TRAINLOOP_EPOCHS = 6
+TRAINLOOP_DENSIFY_FROM = 8
+TRAINLOOP_DENSIFY_EVERY = 8
+TRAINLOOP_RESET_EVERY = 24
+TRAINLOOP_DENSIFY_AT = [16, 24, 32]
+TRAINLOOP_RESET_AT = [24]
+TRAINLOOP_CKPT_EVERY = 16
+# the smallest power of two above the run's peak (3,439,743 pairs after the
+# densify at 32 on the H100); the step's compose and sorts scale with it
+TRAINLOOP_PAIR_CAPACITY = 1 << 22
+# the step's device-time breakdown (_step_breakdown): steps profiled, kernels
+# printed
+STEP_PROFILE_STEPS = 3
+STEP_PROFILE_TOP = 12
+# density on the card vs the CPU (density_case): floats are moved, or
+# computed by the same few rounded operations on both devices
+DENSITY_ATOL = 1e-6
+DENSITY_SEED = 7
+DENSITY_EXTENT = 4.0
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -162,6 +204,8 @@ def phase_device():
     log(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}")
     log(smi)
+    pil = importlib.util.find_spec("PIL") is not None
+    log(f"[device] PIL {'installed' if pil else 'not installed'}")
     return name, smi
 
 
@@ -910,6 +954,472 @@ def phase_render(params, camera, cfg, smi):
     return launches, frame_ms
 
 
+def orbit_poses(means, n_views, width, height):
+    """COLMAP poses (quat_wxyz, t, name) and the shared focal of
+    ``n_views`` orbit views that frame the point cloud, as tools.render's
+    orbit frames a PLY (radius 2.5x the 90th-percentile spread, 60-degree
+    vertical FoV, 15 degrees elevation)."""
+    import math
+
+    import numpy as np
+
+    from gaussiansplatting_tpu_torch.core import camera as camera_mod
+
+    center = means.mean(axis=0)
+    spread = float(np.percentile(np.linalg.norm(means - center, axis=1), 90))
+    radius = max(spread * 2.5, 1e-3)
+    focal = height / (2.0 * math.tan(math.radians(60.0) / 2.0))
+    poses = []
+    for i in range(n_views):
+        cam = camera_mod.orbit_camera(center, radius, azimuth=2.0 * math.pi * i / n_views,
+                                      elevation=math.radians(15.0), fx=focal, fy=focal,
+                                      width=width, height=height)
+        view = cam.view.numpy()
+        poses.append((camera_mod.rotmat_to_quat_wxyz(view[:3, :3]),
+                      view[:3, 3].astype(np.float32), f"view_{i:03d}.ppm"))
+    return poses, focal
+
+
+def write_colmap_scene(root, params, n_views, width, height, raster):
+    """A COLMAP scene of ``params`` under ``root``: points3D.bin holds every
+    Gaussian's centre with its SH DC colour, images.bin ``n_views`` orbit
+    poses, cameras.bin their shared pinhole camera, images/ the port's
+    render of ``params`` from each pose as PPM.  Returns the peak pair count
+    of those renders."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.core import camera as camera_mod
+    from gaussiansplatting_tpu_torch.core.transforms import SH_C0
+    from gaussiansplatting_tpu_torch.io import images
+    from gaussiansplatting_tpu_torch.ops.rasterize import render
+    from gaussiansplatting_tpu_torch.utils import scenegen
+
+    sparse, image_dir = os.path.join(root, "sparse"), os.path.join(root, "images")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(image_dir, exist_ok=True)
+    alive = params.alive.cpu().numpy()
+    means = params.means.detach().cpu().numpy()[alive]
+    colors = np.clip(SH_C0 * params.sh.detach().cpu().numpy()[alive, 0] + 0.5, 0.0, 1.0)
+    poses, focal = orbit_poses(means, n_views, width, height)
+    scenegen.write_points_bin(os.path.join(sparse, "points3D.bin"), means, colors)
+    scenegen.write_images_bin(os.path.join(sparse, "images.bin"), poses)
+    scenegen.write_cameras_bin(os.path.join(sparse, "cameras.bin"), focal, focal,
+                               width / 2.0, height / 2.0, width, height)
+    peak = 0
+    for q, t, name in poses:
+        cam = camera_mod.make_camera(q, t, focal, focal, width / 2.0, height / 2.0,
+                                     width, height, device=params.means.device)
+        with torch.no_grad():
+            img, aux = render(params, cam, raster)
+        if bool(aux.overflow):
+            raise AssertionError(f"ground truth {name} overflowed pair_capacity")
+        peak = max(peak, int(aux.num_pairs))
+        images.save_ppm(os.path.join(image_dir, name), img.cpu().numpy())
+    return sparse, image_dir, peak
+
+
+def _check_prefix(label, params):
+    alive = params.alive
+    n = int(alive.sum())
+    if not bool(alive[:n].all()) or bool(alive[n:].any()):
+        raise AssertionError(f"{label}: alive is not a prefix")
+    return n
+
+
+def density_case(device, seed=DENSITY_SEED):
+    """The 64-Gaussian scene of phases 5 and 6 (seed 5, spread 0.6) in 80
+    slots with accumulators set so that one event prunes (three opacities at
+    -6), clones, splits (DENSITY_EXTENT puts the split threshold inside the
+    scale range) and hits the capacity clamp (more requests than the 16
+    free slots).  Returns a TrainState whose generator is seeded ``seed``."""
+    import numpy as np
+
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    small = synthetic.make_scene(64, seed=5, spread=0.6, capacity=80)
+    host = state_mod.state_to_numpy(state_mod.create(small))
+    host["params/raw_opacities"][[3, 17, 40]] = -6.0
+    rng = np.random.default_rng(seed)
+    host["accum/grad_accum"][:64] = rng.uniform(0.0, 8e-4, 64).astype(np.float32)
+    host["accum/grad_count"][:64] = rng.integers(1, 4, 64).astype(np.int32)
+    host["opt/m/means"] = rng.normal(0, 1e-3, host["opt/m/means"].shape).astype(np.float32)
+    host["opt/t"] = np.asarray(1000, np.int32)
+    return state_mod.state_from_numpy(host, device, seed=seed)
+
+
+def _compare_density(dev_state, dev_stats, cpu_state, cpu_stats, dev_plan, cpu_plan):
+    """Density event on the card vs on the CPU: every integer output exact
+    (stats, the decisions, every row's destinations, alive), floats within
+    DENSITY_ATOL.  Returns the max float error."""
+    import numpy as np
+
+    from gaussiansplatting_tpu_torch.train.state import state_to_numpy
+
+    for f in ("pruned", "cloned", "split", "count"):
+        if int(getattr(dev_stats, f)) != int(getattr(cpu_stats, f)):
+            raise AssertionError(f"density on the card: {f} differs from the CPU")
+    for f in ("prune", "clone", "split", "primary_dst", "secondary_dst"):
+        if not np.array_equal(getattr(dev_plan, f).cpu().numpy(), getattr(cpu_plan, f).numpy()):
+            raise AssertionError(f"density on the card: {f} differs from the CPU")
+    got, ref = state_to_numpy(dev_state), state_to_numpy(cpu_state)
+    worst = 0.0
+    for k in ref:
+        if ref[k].dtype.kind == "f":
+            err = float(np.abs(got[k] - ref[k]).max())
+            worst = max(worst, err)
+            if err > DENSITY_ATOL:
+                raise AssertionError(f"density on the card: {k} max|err| {err:.3e}")
+        elif not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"density on the card: {k} differs from the CPU")
+    if not np.array_equal(dev_state.generator.get_state().numpy(),
+                          cpu_state.generator.get_state().numpy()):
+        raise AssertionError("density on the card: generator state differs from the CPU")
+    return worst
+
+
+def _cli(argv, out_path):
+    """tools.train.main(argv) with its console lines sent to ``out_path``."""
+    import contextlib
+
+    from gaussiansplatting_tpu_torch.tools import train as train_cli
+
+    with open(out_path, "a") as out, contextlib.redirect_stdout(out):
+        rc = train_cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"tools.train exited {rc}")
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _ply_vertex_count(path):
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"element vertex"):
+                return int(line.split()[2])
+            if line.strip() == b"end_header":
+                break
+    raise AssertionError(f"{path}: no vertex count")
+
+
+def _psnr_rises(psnr, n_views, events):
+    """Per stretch of iterations between density events (``events``: the
+    iterations after which one ran), the views visited at least twice in it
+    (iteration it visits view (it - 1) % n_views): [(first iteration, last
+    iteration, mean PSNR at their first visits, at their last visits)].
+    ``psnr[it - 1]`` is iteration it's."""
+    cuts = [0] + sorted(set(events)) + [len(psnr)]
+    out = []
+    for lo, hi in zip(cuts, cuts[1:]):               # iterations lo + 1 .. hi
+        pairs = [(it, it + n_views * ((hi - it) // n_views))
+                 for it in range(lo + 1, min(lo + n_views, hi) + 1)]
+        pairs = [(a, b) for a, b in pairs if b > a]
+        if pairs:
+            out.append((lo + 1, hi, float(sum(psnr[a - 1] for a, _ in pairs) / len(pairs)),
+                        float(sum(psnr[b - 1] for _, b in pairs) / len(pairs))))
+    return out
+
+
+def _step_breakdown(st0, st36, cam, gt, cfg, smi):
+    """Where the COLMAP trainer's step goes on the card: one train step from
+    the state at iteration 0 (the SfM start) and at 36 (after the last
+    densify), timed with CUDA events at pair capacities PAIR_CAPACITY (2^21)
+    and TRAINLOOP_PAIR_CAPACITY, and a kernels-only torch.profiler breakdown of
+    STEP_PROFILE_STEPS steps at TRAINLOOP_PAIR_CAPACITY (device ms per step,
+    the STEP_PROFILE_TOP largest kernels).  Returns {label: device ms per
+    step} from the profile."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.train import trainer
+
+    device_ms = {}
+    for label, st in (("iteration 0", st0), ("iteration 36", st36)):
+        alive = int(st.params.alive.sum())
+        for pc in sorted({PAIR_CAPACITY, TRAINLOOP_PAIR_CAPACITY}):
+            c = cfg.replace(raster=cfg.raster.replace(pair_capacity=pc))
+            _, m = trainer.train_step(st, cam, gt, c, 36)
+            ms = cuda_time_ms(lambda: trainer.train_step(st, cam, gt, c, 36), reps=3)
+            log(f"[trainloop step] {label}: {alive} alive of {st.params.capacity} slots, "
+                f"pair_capacity {pc}: {ms:.3f} ms/step (CUDA events, 3 steps), pairs "
+                f"{int(m.num_pairs)}, overflow {bool(m.overflow)} on {smi}")
+        c = cfg.replace(raster=cfg.raster.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
+        trainer.train_step(st, cam, gt, c, 36)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_PROFILE_STEPS):
+                trainer.train_step(st, cam, gt, c, 36)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        per_step = 1e3 * STEP_PROFILE_STEPS             # profiler us -> ms per step
+        device_ms[label] = sum(e.self_device_time_total for e in ka) / per_step
+        log(f"[trainloop step] {label} profile at pair_capacity {TRAINLOOP_PAIR_CAPACITY}: "
+            f"device time {device_ms[label]:.3f} ms/step (torch.profiler, "
+            f"{STEP_PROFILE_STEPS} steps) on {smi}")
+        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:STEP_PROFILE_TOP]:
+            log(f"[trainloop step]   {e.self_device_time_total / per_step:8.3f} ms "
+                f"x{e.count // STEP_PROFILE_STEPS:4d}  {e.key[:90]}")
+    return device_ms
+
+
+def phase_trainloop(params, smi):
+    """The COLMAP trainer (tools.train) end to end: write the scene, train
+    through the CLI, resume through the CLI, a bit-exact resume across a
+    density event at full capacity, density on the card against the CPU,
+    and the times of the density event, the opacity reset, checkpoints and
+    the CLI's iterations."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.density import control
+    from gaussiansplatting_tpu_torch.io.dataset import load_colmap_scene
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.train import checkpoint, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+
+    root = os.path.join(SCRATCH, "trainloop")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {}
+
+    # (i) the scene: SfM points, orbit poses, ground truth rendered on the card
+    cfg = Config(density=Config().density.replace(
+        densify_from_iter=TRAINLOOP_DENSIFY_FROM, densify_interval=TRAINLOOP_DENSIFY_EVERY,
+        opacity_reset_interval=TRAINLOOP_RESET_EVERY))
+    t0 = time.time()
+    sparse, image_dir, gt_peak = write_colmap_scene(
+        root, params, TRAINLOOP_VIEWS, WIDTH, HEIGHT,
+        cfg.raster.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    log(f"[trainloop] COLMAP scene: {int(params.alive.sum())} points, {TRAINLOOP_VIEWS} "
+        f"orbit views {WIDTH}x{HEIGHT}, ground truth peak {gt_peak} pairs "
+        f"({time.time() - t0:.2f} s)")
+
+    # (ii) train through the CLI, with the density events and the step
+    # timeline observed from outside
+    ck = os.path.join(root, "ck")
+    metrics_path = os.path.join(root, "metrics.jsonl")
+    argv = ["--colmap", sparse, "--images", image_dir, "--config", cfg_path,
+            "--output", os.path.join(root, "out.ply"), "--device", DEVICE,
+            "--pair-capacity", str(TRAINLOOP_PAIR_CAPACITY), "--eval-split", "4",
+            "--checkpoint-dir", ck, "--checkpoint-interval", str(TRAINLOOP_CKPT_EVERY),
+            "--metrics", metrics_path]
+    n_train = TRAINLOOP_VIEWS - len(range(0, TRAINLOOP_VIEWS, 4))
+    iters = TRAINLOOP_EPOCHS * n_train
+    events, stamps, spans = [], [], []        # spans: (start, seconds, what)
+    originals = (trainer.train_step, trainer.densify_step, trainer.opacity_reset_step,
+                 checkpoint.save)
+
+    def train_step(*a, **k):
+        out = originals[0](*a, **k)
+        if len(stamps) in (0, iters - 1):          # after the first and the last step
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    def timed(what, fn, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans.append((t, time.perf_counter() - t, what))
+        return out
+
+    def densify_step(*a, **k):
+        st, stats = timed("density", originals[1], *a, **k)
+        n = _check_prefix("densify", st.params)
+        if n != int(stats.count):
+            raise AssertionError(f"densify: {n} alive, stats say {int(stats.count)}")
+        events.append(("densify", st.opt.t, tuple(int(x) for x in stats)))
+        return st, stats
+
+    def opacity_reset_step(*a, **k):
+        st = timed("density", originals[2], *a, **k)
+        _check_prefix("opacity reset", st.params)
+        events.append(("reset", st.opt.t, None))
+        return st
+
+    _reset_launches()
+    trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = (
+        train_step, densify_step, opacity_reset_step)
+    checkpoint.save = lambda *a, **k: timed("checkpoint", originals[3], *a, **k)
+    try:
+        _cli(argv + ["--epochs", str(TRAINLOOP_EPOCHS)], os.path.join(root, "console.txt"))
+    finally:
+        (trainer.train_step, trainer.densify_step, trainer.opacity_reset_step,
+         checkpoint.save) = originals
+    torch.cuda.synchronize()
+    launches = _tf_launches()
+    lines = _read_jsonl(metrics_path)
+    steps = [x for x in lines if x["event"] == "step"]
+    psnr = np.array([x["psnr"] for x in steps])
+    res["peak_pairs"] = max(x["pairs"] for x in steps)
+    wall = stamps[-1] - stamps[0]
+    res["iters_per_s"] = (iters - 1) / wall
+    # the same window split on the host clock: density events and
+    # checkpoints (each synchronized), the steps with their metric reads
+    inside = {w: sum(s for t, s, x in spans if x == w and stamps[0] < t < stamps[-1])
+              for w in ("density", "checkpoint")}
+    res["loop_step_ms"] = 1e3 * (wall - sum(inside.values())) / (iters - 1)
+    res["loop_density_s"], res["loop_checkpoint_s"] = inside["density"], inside["checkpoint"]
+    epoch_psnr = psnr.reshape(TRAINLOOP_EPOCHS, n_train).mean(axis=1)      # logged only
+    dens = [e for e in events if e[0] == "densify"]
+    log(f"[trainloop] tools.train: {len(steps)} steps, density events {events}; mean PSNR "
+        f"per epoch {np.round(epoch_psnr, 3).tolist()}; peak pairs {res['peak_pairs']} of "
+        f"{TRAINLOOP_PAIR_CAPACITY}; launches {launches}")
+    log(f"[trainloop] tools.train: {res['iters_per_s']:.3f} iterations/s over iterations "
+        f"2-{iters} ({wall:.3f} s, host clock, synchronized): steps {res['loop_step_ms']:.2f} "
+        f"ms each, density events {inside['density']:.3f} s, checkpoints "
+        f"{inside['checkpoint']:.3f} s, on {smi}")
+    if [x["iter"] for x in steps] != list(range(1, iters + 1)):
+        raise AssertionError(f"expected step lines 1..{iters}")
+    for x in steps:
+        if not all(np.isfinite(x[f]) for f in ("loss", "l1", "dssim", "psnr", "mean_scale")):
+            raise AssertionError(f"step {x['iter']}: non-finite metrics")
+    if any(x["overflow"] for x in steps):
+        raise AssertionError("a training step overflowed pair_capacity")
+    if [e[1] for e in dens] != TRAINLOOP_DENSIFY_AT or \
+            [e[1] for e in events if e[0] == "reset"] != TRAINLOOP_RESET_AT:
+        raise AssertionError(f"density events {events}")
+    if not any(s[1] + s[2] > 0 for _, _, s in dens):
+        raise AssertionError("no density event cloned or split")
+    logged = [x["msg"] for x in lines if x["event"] == "info" and "densify" in x["msg"]]
+    if logged != [f"iter {it}: densify pruned={s[0]} cloned={s[1]} split={s[2]} total={s[3]}"
+                  for _, it, s in dens]:
+        raise AssertionError(f"densify log lines {logged}")
+    # PSNR rises wherever no density event intervenes: within each stretch
+    # of iterations between events, each view's PSNR at its last visit
+    # against its first, averaged over the views seen twice in it (without
+    # --shuffle iteration it trains view (it - 1) % n_train).  Across an
+    # event it need not: the reset at 24 caps every opacity at 0.01, which
+    # the 12 iterations after it cannot undo (the reference resets at 3,000
+    # of 30,000 iterations)
+    rises = _psnr_rises(psnr, n_train, TRAINLOOP_DENSIFY_AT + TRAINLOOP_RESET_AT)
+    log(f"[trainloop] mean PSNR of the views seen twice between events, first visit -> "
+        f"last: " + "; ".join(f"iterations {a}-{b}: {x:.3f} -> {y:.3f} dB"
+                              for a, b, x, y in rises))
+    if len(rises) < 2 or not all(y > x for _, _, x, y in rises):
+        raise AssertionError(f"PSNR does not rise between events: {rises}")
+    n_eval = TRAINLOOP_VIEWS - n_train
+    if launches["windowed_blend_fwd"] != iters + n_eval or \
+            launches["windowed_blend_bwd"] != iters:
+        raise AssertionError(f"expected {iters + n_eval} forward and {iters} backward "
+                             f"launches, got {launches}")
+    ev = [x for x in lines if x["event"] == "eval"]
+    ex = [x for x in lines if x["event"] == "export_ply"]
+    state36, saved_cfg = checkpoint.load(os.path.join(ck, "latest.npz"), DEVICE)
+    n_final = _check_prefix("final state", state36.params)
+    if not ev or not np.isfinite(ev[0]["psnr"]) or not ex or state36.opt.t != iters:
+        raise AssertionError("missing eval / export_ply line or final checkpoint")
+    if ex[0]["alive"] != n_final or _ply_vertex_count(os.path.join(root, "out.ply")) != n_final:
+        raise AssertionError("exported PLY does not hold the final alive count")
+    log(f"[trainloop] eval {ev[0]['psnr']} dB on {ev[0]['views']} held-out views; PLY "
+        f"{n_final} vertices = alive")
+    res["launches"] = launches
+
+    # (iii) resume through the CLI
+    before = len(lines)
+    _cli(argv + ["--resume", "--epochs", "1"], os.path.join(root, "console.txt"))
+    lines = _read_jsonl(metrics_path)[before:]
+    resumed = [x for x in lines if x["event"] == "resume"]
+    trained = [x for x in lines if x["event"] == "trained"]
+    more = [x["iter"] for x in lines if x["event"] == "step"]
+    if not resumed or resumed[0]["iteration"] != iters or trained[-1]["iteration"] != iters + n_train \
+            or more != list(range(iters + 1, iters + n_train + 1)):
+        raise AssertionError(f"CLI resume: {resumed}, {trained}, steps {more}")
+    log(f"[trainloop] CLI resume: from iteration {resumed[0]['iteration']} to "
+        f"{trained[-1]['iteration']}")
+
+    # (iv) bit-exact resume across a density event at full capacity
+    scene = load_colmap_scene(sparse, image_dir, saved_cfg, device=DEVICE)
+    views = [(c, torch.from_numpy(g).to(DEVICE)) for i, (c, g)
+             in enumerate(zip(scene.cameras, scene.gt_images)) if i % 4]
+
+    def across_event(st):
+        for cam, gt in views[:2]:
+            st, _ = trainer.train_step(st, cam, gt, saved_cfg, iters)
+        st, stats = trainer.densify_step(st, scene.extent, views[1][0].fx, saved_cfg)
+        st, _ = trainer.train_step(st, views[2][0], views[2][1], saved_cfg, iters)
+        return st, stats
+
+    path = os.path.join(root, "resume.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, state36, saved_cfg)
+    res["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, _ = checkpoint.load(path, DEVICE)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    a, sa = across_event(state36)
+    b, sb = across_event(loaded)
+    da, db = state_mod.state_to_numpy(a), state_mod.state_to_numpy(b)
+    differ = [k for k in da if not np.array_equal(da[k], db[k])]
+    if differ or tuple(map(int, sa)) != tuple(map(int, sb)) or \
+            not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        raise AssertionError(f"resume across a density event differs in {differ}")
+    one, s1 = trainer.densify_step(a, scene.extent, views[0][0].fx, saved_cfg)
+    two, s2 = trainer.densify_step(a, scene.extent, views[0][0].fx, saved_cfg)
+    d1, d2 = state_mod.state_to_numpy(one), state_mod.state_to_numpy(two)
+    if any(not np.array_equal(d1[k], d2[k]) for k in d1) or \
+            not torch.equal(one.generator.get_state(), two.generator.get_state()):
+        raise AssertionError("densify_step replayed from one state differs")
+    log(f"[trainloop] resume across a density event at {state36.params.capacity} slots "
+        f"(event {tuple(map(int, sa))}): all {len(da)} state arrays and the generator "
+        f"bit-identical; densify_step replayed bit-identical")
+
+    # (v) density on the card against the CPU
+    cpu_state, dev_state = density_case("cpu"), density_case(DEVICE)
+    cam_fx = torch.tensor(64 * 1.2, dtype=torch.float32)
+    plans = [control.decide(st.params, st.accum, st.opt.t, DENSITY_EXTENT, fx,
+                            2.0 * DENSITY_EXTENT, cfg.density)
+             for st, fx in ((dev_state, cam_fx.to(DEVICE)), (cpu_state, cam_fx))]
+    dev_out, dev_stats = trainer.densify_step(dev_state, DENSITY_EXTENT, cam_fx.to(DEVICE), cfg)
+    cpu_out, cpu_stats = trainer.densify_step(cpu_state, DENSITY_EXTENT, cam_fx, cfg)
+    stats = tuple(map(int, cpu_stats))
+    grown = state_mod.grow(cpu_state, 160)
+    unclamped = control.decide(grown.params, grown.accum, cpu_state.opt.t, DENSITY_EXTENT,
+                               cam_fx, 2.0 * DENSITY_EXTENT, cfg.density)
+    if min(stats[:3]) <= 0 or stats[3] != 80 or int(unclamped.stats.count) <= 80:
+        raise AssertionError(f"density case does not prune, clone, split and clamp: {stats}")
+    res["density_err"] = _compare_density(dev_out, dev_stats, cpu_out, cpu_stats, *plans)
+    log(f"[trainloop] density 64 Gaussians in 80 slots (pruned, cloned, split, total) "
+        f"{stats}, {int(unclamped.stats.count)} before the clamp: card = CPU in every "
+        f"integer output, floats max|err| {res['density_err']:.3e}")
+
+    # (vi) times at full capacity: the step's breakdown, the density
+    # event, the opacity reset
+    st0 = state_mod.create(scene.params, seed=saved_cfg.train.seed)
+    res["step_device_ms"] = _step_breakdown(st0, state36, views[0][0], views[0][1],
+                                            saved_cfg, smi)
+    st = state36
+    fx = views[0][0].fx
+    res["densify_ms"] = cuda_time_ms(lambda: trainer.densify_step(st, scene.extent, fx, saved_cfg),
+                                     reps=5)
+    # its two halves: the draw on the CPU generator with the copy to the
+    # card, and the event on the card
+    res["draw_ms"] = cuda_time_ms(lambda: control.draw_split_offsets(
+        state_mod.clone_generator(st.generator), st.params.capacity, DEVICE), reps=5)
+    r = control.draw_split_offsets(state_mod.clone_generator(st.generator),
+                                   st.params.capacity, DEVICE)
+    res["apply_ms"] = cuda_time_ms(lambda: control.apply(
+        st.params, st.opt, st.accum, st.opt.t, r, scene.extent, fx, 2.0 * scene.extent,
+        saved_cfg.density), reps=5)
+    res["reset_ms"] = cuda_time_ms(lambda: trainer.opacity_reset_step(st, saved_cfg), reps=5)
+    log(f"[trainloop] at {st.params.capacity} slots: densify_step {res['densify_ms']:.3f} ms "
+        f"(draw and copy {res['draw_ms']:.3f} ms, apply {res['apply_ms']:.3f} ms), "
+        f"opacity_reset_step {res['reset_ms']:.3f} ms (CUDA events, 5 each); checkpoint "
+        f"save {res['save_s']:.3f} s, load {res['load_s']:.3f} s ({os.path.getsize(path)} "
+        f"bytes) on {smi}")
+    shutil.rmtree(root)
+    return res
+
+
 def main() -> int:
     name, smi = phase_device()
 
@@ -936,6 +1446,7 @@ def main() -> int:
     render_launches, frame_ms = phase_render(params, camera, cfg, smi)
     (train_fwd, train_bwd), step_ms = phase_train(params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
+    tl = phase_trainloop(params, smi)
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
@@ -944,9 +1455,11 @@ def main() -> int:
         "route": "cuda",
         "source": src + "blend_fwd.cu",
         "replaces": f"{tpu}601, {tpu}161",
-        "launches": render_launches + train_fwd + tf_launches["windowed_blend_fwd"],
+        "launches": (render_launches + train_fwd + tf_launches["windowed_blend_fwd"]
+                     + tl["launches"]["windowed_blend_fwd"]),
         "launches_by_path": {"render": render_launches, "train": train_fwd,
-                             "tfloor": tf_launches["windowed_blend_fwd"]},
+                             "tfloor": tf_launches["windowed_blend_fwd"],
+                             "trainloop": tl["launches"]["windowed_blend_fwd"]},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -955,9 +1468,11 @@ def main() -> int:
         "route": "cuda",
         "source": src + "blend_bwd.cu",
         "replaces": f"{tpu}671, {tpu}188",
-        "launches": train_bwd + tf_launches["windowed_blend_bwd"],
+        "launches": (train_bwd + tf_launches["windowed_blend_bwd"]
+                     + tl["launches"]["windowed_blend_bwd"]),
         "launches_by_path": {"train": train_bwd,
-                             "tfloor": tf_launches["windowed_blend_bwd"]},
+                             "tfloor": tf_launches["windowed_blend_bwd"],
+                             "trainloop": tl["launches"]["windowed_blend_bwd"]},
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -987,7 +1502,20 @@ def main() -> int:
         "tfloor_render_ms_per_frame": tf["frame_ms"],
         "tfloor_train_step_ms": tf["step_ms"],
         "tfloor_logti_f64_pixels": tf["logti_pixels"],
-        "tfloor_logti_f64_max_img_err": tf["logti_img_err"]}))
+        "tfloor_logti_f64_max_img_err": tf["logti_img_err"],
+        "trainloop_iters_per_s": tl["iters_per_s"],
+        "trainloop_step_ms": tl["loop_step_ms"],
+        "trainloop_density_s": tl["loop_density_s"],
+        "trainloop_checkpoint_s": tl["loop_checkpoint_s"],
+        "trainloop_peak_pairs": tl["peak_pairs"],
+        "trainloop_step_device_ms": tl["step_device_ms"],
+        "densify_step_ms": tl["densify_ms"],
+        "densify_draw_ms": tl["draw_ms"],
+        "density_apply_ms": tl["apply_ms"],
+        "opacity_reset_step_ms": tl["reset_ms"],
+        "checkpoint_save_s": tl["save_s"],
+        "checkpoint_load_s": tl["load_s"],
+        "density_card_vs_cpu_max_abs_err": tl["density_err"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

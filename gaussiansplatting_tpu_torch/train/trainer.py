@@ -1,17 +1,22 @@
-"""Training step: render, loss, gradient, Adam and the density statistics
-of one view.
+"""Training: the step (render, loss, gradient, Adam and the density
+statistics of one view), the density and opacity-reset events, and the loop
+that runs them on the reference schedule.
 
-Counterpart of ``_train_step_impl`` / ``train_step`` / ``train_steps`` in
-gaussiansplatting_tpu/train/trainer.py (reference: trainStep,
-mtl_engine.mm:856-1025).  PyTorch runs eagerly, so a step is a Python
-function; the gradients come from ``torch.autograd.grad`` over the five
-trainable parameter groups and a zero ``vs_dummy`` whose gradient is the
-view-space positional gradient.  ``train_step_batched`` and ``train_loop``
-(densify / prune / opacity reset schedule) are not ported yet.
+Counterpart of gaussiansplatting_tpu/train/trainer.py (reference: trainStep,
+mtl_engine.mm:856-1025, and the epoch loop, mtl_engine.mm:1047-1221).
+PyTorch runs eagerly, so a step is a Python function; the gradients come
+from ``torch.autograd.grad`` over the five trainable parameter groups and a
+zero ``vs_dummy`` whose gradient is the view-space positional gradient.
+Every function is functional: it returns a new state and leaves its input
+as it was, so a step or an event can be replayed from the same state.
+``train_step_batched`` (``batch_views > 1``) and the tile-sharded step
+(``mesh_devices > 1``, ``parallel/``) are not ported yet (ROADMAP.md §A).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import random
 from typing import NamedTuple
 
 import torch
@@ -23,6 +28,7 @@ from gaussiansplatting_tpu_torch.density import control as density
 from gaussiansplatting_tpu_torch.ops.losses import photometric_loss, psnr
 from gaussiansplatting_tpu_torch.ops.rasterize import render
 from gaussiansplatting_tpu_torch.train import optimizer, schedule
+from gaussiansplatting_tpu_torch.train import state as state_mod
 from gaussiansplatting_tpu_torch.train.state import TrainState
 
 
@@ -120,3 +126,255 @@ def _mean_world_scale(params) -> torch.Tensor:
     n = torch.clamp(alive.sum(), min=1.0)
     max_scale = torch.exp(torch.clamp(params.log_scales, -8.0, 8.0)).amax(-1)
     return (max_scale * alive).sum() / n
+
+
+def densify_step(
+    state: TrainState,
+    scene_extent: float,
+    focal: torch.Tensor,
+    cfg: Config,
+) -> tuple[TrainState, density.DensityStats]:
+    """One density-control event (mtl_engine.mm:1105-1168).  Draws the
+    split offsets on a clone of the state's generator and returns the
+    advanced clone in the new state."""
+    generator = state_mod.clone_generator(state.generator)
+    r = density.draw_split_offsets(generator, state.params.capacity,
+                                   state.params.means.device)
+    avg_depth = 2.0 * scene_extent  # conservative (mtl_engine.mm:1128)
+    params, opt, accum, stats = density.apply(
+        state.params, state.opt, state.accum, state.opt.t, r,
+        scene_extent, focal, avg_depth, cfg.density,
+    )
+    return TrainState(params=params, opt=opt, accum=accum, generator=generator), stats
+
+
+@torch.no_grad()
+def opacity_reset_step(state: TrainState, cfg: Config) -> TrainState:
+    """Clamp raw opacities to min(op, reset_value), zero opacity+scale
+    momentum, reset density accumulators (mtl_engine.mm:1170-1193)."""
+    p = state.params
+    raw = p.raw_opacities.detach()
+    new_op = torch.where(p.alive, torch.clamp(raw, max=cfg.density.opacity_reset_value), raw)
+    params = type(p)(
+        means=p.means.detach(), log_scales=p.log_scales.detach(),
+        quats=p.quats.detach(), raw_opacities=new_op, sh=p.sh.detach(),
+        alive=p.alive,
+    )
+    return dataclasses.replace(
+        state,
+        params=params,
+        opt=optimizer.reset_opacity_and_scale_momentum(state.opt),
+        accum=density.init_accum(p.capacity, device=raw.device),
+    )
+
+
+def should_densify(iteration: int, cfg: Config) -> bool:
+    """iteration > from AND < until AND % interval == 0 (mtl_engine.mm:1112-1115)."""
+    d = cfg.density
+    return (
+        iteration > d.densify_from_iter
+        and iteration < d.densify_until_iter
+        and iteration % d.densify_interval == 0
+    )
+
+
+def should_reset_opacity(iteration: int, cfg: Config) -> bool:
+    """% 3000 == 0, > 0, < densify_until (mtl_engine.mm:1173-1176)."""
+    d = cfg.density
+    return (
+        iteration > 0
+        and iteration % d.opacity_reset_interval == 0
+        and iteration < d.densify_until_iter
+    )
+
+
+def _steps_until_event(iteration, cfg, adaptive_pairs, adapt_interval,
+                       ckpt_interval, snap_interval):
+    """Largest k such that no schedule event fires strictly inside
+    (iteration, iteration + k) — an event exactly at the chunk end is fine
+    (the loop handles it after the chunk's steps return)."""
+    d = cfg.density
+
+    def next_mult(interval):
+        return interval * (iteration // interval + 1) - iteration
+
+    gaps = []
+    j = iteration + next_mult(d.densify_interval)
+    while j <= d.densify_from_iter:
+        j += d.densify_interval
+    if j < d.densify_until_iter:
+        gaps.append(j - iteration)
+    j = iteration + next_mult(d.opacity_reset_interval)
+    if j < d.densify_until_iter:
+        gaps.append(j - iteration)
+    if adaptive_pairs:
+        gaps.append(next_mult(adapt_interval))
+    if ckpt_interval:
+        gaps.append(next_mult(ckpt_interval))
+    if snap_interval:
+        gaps.append(next_mult(snap_interval))
+    return min(gaps) if gaps else 1 << 30
+
+
+def _metrics_at(ms: StepMetrics, i: int) -> StepMetrics:
+    return StepMetrics(*(x[i] for x in ms))
+
+
+def train_loop(
+    state: TrainState,
+    cameras: list[Camera],
+    gt_images: list[torch.Tensor],
+    cfg: Config,
+    scene_extent: float,
+    num_epochs: int | None = None,
+    log_fn=None,
+    metrics_fn=None,
+    checkpoint_fn=None,
+    checkpoint_interval: int = 0,
+    mesh_devices: int = 1,
+    snapshot_fn=None,
+    shuffle_seed: int | None = None,
+    batch_views: int = 1,
+    adaptive_pairs: bool = False,
+    adapt_interval: int = 50,
+    min_pair_capacity: int = 1 << 16,
+    adaptive_capacity: bool = False,
+    max_capacity: int | None = None,
+    scan_steps: int = 1,
+) -> TrainState:
+    """Epochs x views, densify/reset on schedule (mtl_engine.mm:1047-1221),
+    as the JAX ``train_loop``: the same iteration counting (events fire
+    after the step that reaches their iteration), callbacks and log lines.
+
+    metrics_fn(iteration, StepMetrics) fires every step; checkpoint_fn
+    (iteration, state) every ``checkpoint_interval`` iters; snapshot_fn
+    (iteration, state, camera, gt) every cfg.train.snapshot_interval iters;
+    ``shuffle_seed`` shuffles the view order per epoch with
+    ``random.Random`` (the JAX package's order for the same seed).
+
+    ``scan_steps`` > 1 runs chunks of that many steps through
+    ``train_steps`` (a loop here, the same semantics as the JAX scan)
+    wherever no event falls inside the chunk.  ``adaptive_pairs``
+    rebuckets the pair capacity every ``adapt_interval`` iters to the next
+    power of two above 1.5x the recent peak (within [min_pair_capacity,
+    cfg.raster.pair_capacity]), doubling on overflow.  ``adaptive_capacity``
+    grows the Gaussian arrays (``state.grow``) to the next power of two when
+    a densify event fills 85% of them, up to ``max_capacity`` (default: the
+    density hard cap).
+
+    ``mesh_devices`` > 1 (tile sharding, JAX ``parallel/``) and
+    ``batch_views`` > 1 (``train_step_batched``) are not ported yet.
+    """
+    if mesh_devices > 1:
+        raise NotImplementedError(
+            "train_loop: mesh_devices > 1 (parallel/, tile-strip sharding) is "
+            "not ported to the torch package yet (ROADMAP.md §A, still to port)")
+    if batch_views > 1:
+        raise NotImplementedError(
+            "train_loop: batch_views > 1 (train_step_batched) is not ported to "
+            "the torch package yet (ROADMAP.md §A, still to port)")
+    epochs = num_epochs if num_epochs is not None else cfg.train.epochs
+    total_iters = epochs * len(cameras)
+    iteration = int(state.opt.t)
+
+    max_pair_capacity = cfg.raster.pair_capacity
+    if adaptive_pairs:
+        cap = min(max_pair_capacity, max(min_pair_capacity, 1))
+        cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=cap))
+    recent_peak = 0
+
+    order_rng = random.Random(shuffle_seed) if shuffle_seed is not None else None
+
+    if scan_steps > 1:
+        sizes = {(c.width, c.height) for c in cameras}
+        if len(sizes) > 1:
+            raise ValueError(f"scan_steps requires one resolution, got {sizes}")
+
+    for epoch in range(epochs):
+        order = list(range(len(cameras)))
+        if order_rng is not None:
+            order_rng.shuffle(order)
+        views = [(cameras[v], gt_images[v]) for v in order]
+        idx = 0
+        while idx < len(views):
+            k = 1
+            if scan_steps > 1 and idx + scan_steps <= len(views):
+                gap = _steps_until_event(
+                    iteration, cfg, adaptive_pairs, adapt_interval,
+                    checkpoint_interval if checkpoint_fn else 0,
+                    cfg.train.snapshot_interval if snapshot_fn else 0,
+                )
+                if gap >= scan_steps:
+                    k = scan_steps
+            if k > 1:
+                chunk = views[idx:idx + k]
+                state, ms = train_steps(state, [c for c, _ in chunk],
+                                        [g for _, g in chunk], cfg, total_iters)
+                for i in range(k):
+                    iteration += 1
+                    if metrics_fn:
+                        metrics_fn(iteration, _metrics_at(ms, i))
+                metrics = _metrics_at(ms, k - 1)
+            else:
+                cam, gt = views[idx]
+                state, metrics = train_step(state, cam, gt, cfg, total_iters)
+                iteration += 1
+                if metrics_fn:
+                    metrics_fn(iteration, metrics)
+            cam0, gt0 = views[idx + k - 1]
+            idx += k
+
+            if adaptive_pairs and iteration % adapt_interval == 0:
+                pairs_now = int(metrics.num_pairs)
+                recent_peak = max(recent_peak, pairs_now)
+                cur = cfg.raster.pair_capacity
+                if bool(metrics.overflow):
+                    want = min(cur * 2, max_pair_capacity)
+                else:
+                    want = 1 << max(int(recent_peak * 1.5) - 1, 1).bit_length()
+                    want = min(max(want, min_pair_capacity), max_pair_capacity)
+                if want != cur:
+                    cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=want))
+                    recent_peak = pairs_now
+                    if log_fn:
+                        log_fn(
+                            f"iter {iteration}: pair capacity {cur} -> {want} "
+                            f"(live pairs {pairs_now})"
+                        )
+            if checkpoint_fn and checkpoint_interval and iteration % checkpoint_interval == 0:
+                checkpoint_fn(iteration, state)
+            if (
+                snapshot_fn
+                and cfg.train.snapshot_interval
+                and iteration % cfg.train.snapshot_interval == 0
+            ):
+                snapshot_fn(iteration, state, cam0, gt0)
+
+            if should_densify(iteration, cfg):
+                state, stats = densify_step(state, scene_extent, cam0.fx, cfg)
+                if log_fn:
+                    log_fn(
+                        f"iter {iteration}: densify pruned={int(stats.pruned)} "
+                        f"cloned={int(stats.cloned)} split={int(stats.split)} "
+                        f"total={int(stats.count)}"
+                    )
+                if adaptive_capacity:
+                    cap = state.params.capacity
+                    limit = int(max_capacity or cfg.density.max_gaussians)
+                    if int(stats.count) >= int(0.85 * cap) and cap < limit:
+                        new_cap = min(cap * 2, limit)
+                        state = state_mod.grow(state, new_cap)
+                        if log_fn:
+                            log_fn(f"iter {iteration}: capacity {cap} -> {new_cap}")
+            if should_reset_opacity(iteration, cfg):
+                state = opacity_reset_step(state, cfg)
+                if log_fn:
+                    log_fn(f"iter {iteration}: opacity reset")
+
+            if log_fn and (idx - k) % cfg.train.log_interval == 0:
+                log_fn(
+                    f"epoch {epoch} [{idx}/{len(cameras)}] "
+                    f"loss={float(metrics.loss):.4f} psnr={float(metrics.psnr):.2f} "
+                    f"n={int(metrics.num_gaussians)} pairs={int(metrics.num_pairs)}"
+                )
+    return state
