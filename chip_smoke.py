@@ -9,33 +9,48 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device   require CUDA; print the card's name and power limit; pin fp32
               matmuls (no TF32), as the JAX package pins full precision.
-  2. build    compile both windowed-blend CUDA kernels (forward, backward)
-              from csrc/ with nvcc, one process each, in parallel.
-  3. kernel   each kernel against its plain PyTorch version on the card:
-              small edge-case windows (dead, partial, full and unaligned
-              blocks, B = 16 and 128) and the full-size windows of the
-              100k-Gaussian scene's canonical 800x608 view (the backward with
-              the real cotangent of the full-size loss, launched twice for
-              bit-identical output); all timed with CUDA events.
+  2. build    compile both windowed-blend CUDA sources (forward, backward)
+              from csrc/ with nvcc, one process each, in parallel; print
+              ptxas's registers and spills of every instance.
+  3. kernel   the Hopper designs of the forward and backward kernels
+              (gs_blend_fwd_win, gs_blend_bwd_win) against their plain
+              PyTorch versions on the card: small edge-case windows (dead,
+              partial, full and unaligned blocks, B = 16 and 128, row0 0 and
+              3) at every pixels-per-thread and cull setting, and the
+              full-size windows of the 100k-Gaussian scene's canonical
+              800x608 view (the backward given the forward's S_b and the
+              real cotangent of the full-size loss, launched twice for
+              bit-identical output; every forward setting's S_b equal to
+              the first design's bit for bit).  The A/B: each Hopper kernel
+              and its first design (gs_blend_*_win_v1, one thread per pixel,
+              which nothing else calls) timed in turns (first, Hopper,
+              Hopper, first) with CUDA events, each setting timed, the
+              plain versions timed; the work the inputs need (power tests,
+              kept pairs) and from it each kernel's bound; the share of
+              (warp, lane) pairs that entered the first design's backward
+              shuffle tree.
   4. render   the render main path: the synthetic scene written to a PLY,
               rendered through tools.render (4 orbit views at 800x608), then
               the canonical view through ops.rasterize.render: no overflow,
               the scene's pair count, finite non-constant images, kernel
-              launches counted; a small render on the card against the CPU
-              render.
+              launches counted; the frame timed and its device time
+              profiled; a small render on the card against the CPU render.
   5. train    the training main path: tools.bench_train at its default size
               (PSNR must rise, no overflow); the full-size step (100k
               Gaussians, 800x608, random ground truth, default Config): warm,
-              then timed, finite and without overflow; one step replayed from
-              the same state must give the same bits; a 64x48 step on the card
-              against the same step on the CPU.  Both kernels' launches
-              counted.
+              then timed and its device time profiled, finite and without
+              overflow; one step replayed from the same state must give the
+              same bits (its launches are the launches per step); a 64x48
+              step on the card against the same step on the CPU.  Both
+              kernels' launches counted.
   6. tfloor   the exact T-floor path (RasterConfig.t_floor_exact=True): both
               T-floor kernels against their plain versions under the flip
               rule (FLIP_* below) on edge windows and at full size with the
               real logti and the real loss cotangent of each pass (the
               backward launched twice, bit-identical; the first pass's
-              backward too); the float64-cumsum logti against compose's
+              backward too, given that pass's S_b); the work the inputs
+              need and each T-floor kernel's bound; the float64-cumsum
+              logti against compose's
               float32 one; the full-size T-floor frame (0 < max|img_tf - img|
               <= 1.5e-4) and train step (timed, replayed bit for bit); a
               64x48 T-floor step on a dense scene on the card against the
@@ -58,7 +73,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               iterations 0 and 36; the density event, opacity reset,
               checkpoint and CLI iteration times.
 
-Prints one JSON line describing the kernels, then as its last line
+Every main path (phases 4-7) runs with the launch counts set to 0 before
+it and read after it: each kernel of the path must have launched, and the
+first design's entries never.
+
+Prints one JSON line describing the kernels (per kernel: launches on the
+main paths and per step, max_abs_err against the plain version, ms, ms_v1
+(the first design's time in the same turns; for the T-floor entries, which
+keep the first design, their own), plain_ms, bound_ms with bound_by (the
+larger of this run's bytes over the HBM rate and its operations over the
+f32 rate), library_ms (null: no single PyTorch call computes the windowed
+blend)) and the paths' times, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -93,6 +118,24 @@ PAIRS_REL_TOL = 1e-3
 # S_b reaches |S_b| ~ 1e2 where float32 spacing is ~8e-6, hence the
 # relative term
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 1e-5
+# phase 3: launches per CUDA-event time; the Hopper design's settings
+# (pixels per thread, per-warp cull) that it checks and times beside the
+# one the wrappers launch (ops.blend.FWD/BWD_PIXELS_PER_THREAD, WARP_CULL)
+KERNEL_REPS = 20
+DESIGN_SETTINGS = ((2, False), (2, True), (4, False), (4, True))
+# the bound of a kernel (bound_ms): an H100 SXM's HBM rate and f32 rate
+# outside the tensor cores (NVIDIA's data sheet, at 700 W), and the
+# operations the blend needs: per (pixel, lane) power test 2 subtractions,
+# 6 multiplications, 2 additions and the 2 window compares (11, counting
+# the compares as one); per kept pair in the forward op * exp, the cap,
+# w = alpha T, 3 colour multiply-adds, T *= 1 - alpha, S += log1p (14); in
+# the backward the same plus the suffix, dl / (1 - alpha), dpow and the
+# nine moment sums (35)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+FWD_OPS_PER_TEST = 11
+FWD_OPS_PER_KEPT = 14
+BWD_OPS_PER_KEPT = 35
 # backward kernel vs plain, per cotangent column, relative to the column's
 # largest magnitude: both take every mask from the same rounded power, but
 # the kernel sums the suffix sum_{j>i} e_j w_j and the log-transmittance
@@ -157,8 +200,9 @@ TRAINLOOP_CKPT_EVERY = 16
 # the smallest power of two above the run's peak (3,439,743 pairs after the
 # densify at 32 on the H100); the step's compose and sorts scale with it
 TRAINLOOP_PAIR_CAPACITY = 1 << 22
-# the step's device-time breakdown (_step_breakdown): steps profiled, kernels
-# printed
+# the device-time profiles (_device_profile) of the frame, the full-size
+# step and the COLMAP trainer's step (_step_breakdown): calls profiled,
+# kernels printed
 STEP_PROFILE_STEPS = 3
 STEP_PROFILE_TOP = 12
 # density on the card vs the CPU (density_case): floats are moved, or
@@ -200,13 +244,18 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0])
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"count {torch.cuda.device_count()}")
     log(smi)
     pil = importlib.util.find_spec("PIL") is not None
-    log(f"[device] PIL {'installed' if pil else 'not installed'}")
-    return name, smi
+    log(f"[device] PIL {'installed' if pil else 'not installed'}; max SM clock "
+        f"{clock_mhz:.0f} MHz")
+    return name, smi, clock_mhz
 
 
 KERNELS = ("blend_fwd", "blend_bwd")
@@ -275,8 +324,9 @@ def edge_logti(nb, seed, p2=256):
     return logti
 
 
-def _compare(label, got, want):
-    """Kernel (out, gid) vs plain (out, gid); returns max |out| error."""
+def _compare(label, got, want, quiet=False):
+    """Kernel (out, gid) vs plain (out, gid); returns max |out| error.  With
+    ``quiet`` it logs only a failure."""
     import torch
 
     out_k, gid_k = got
@@ -289,15 +339,97 @@ def _compare(label, got, want):
     bad = err > KERNEL_ATOL + KERNEL_RTOL * out_p.abs()
     max_err = float(err.max()) if err.numel() else 0.0
     rows = [float(err[:, r].max()) for r in range(4)] if err.numel() else []
-    log(f"[kernel] {label}: max|err| {max_err:.3e} (rows C,C,C,S: "
-        f"{', '.join(f'{r:.2e}' for r in rows)}); beyond tolerance: "
-        f"{int(bad.sum())} of {err.numel()}")
+    if not quiet or bool(bad.any()):
+        log(f"[kernel] {label}: max|err| {max_err:.3e} (rows C,C,C,S: "
+            f"{', '.join(f'{r:.2e}' for r in rows)}); beyond tolerance: "
+            f"{int(bad.sum())} of {err.numel()}")
     if bool(bad.any()):
         raise AssertionError(f"{label}: kernel disagrees with the plain version")
     return max_err
 
 
-def phase_kernel(params, camera, cfg):
+def _turns(first, second, reps=KERNEL_REPS):
+    """CUDA-event times of two launchers in turns (first, second, second,
+    first), so a drift of the card's clock falls on both: returns (mean of
+    first's two, mean of second's two, the four times)."""
+    t = [cuda_time_ms(f, reps) for f in (first, second, second, first)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
+    """What the blend's inputs need, counted from the plain replay on the
+    card (ops.blend._replay) in chunks of blocks: live lanes (for the
+    T-floor pass, of blocks with a pixel above the floor); (pixel, lane)
+    power tests on lanes with opacity (for the T-floor pass only on pixels
+    that arrive above the floor); kept (for the T-floor pass, surviving)
+    pairs; and, without logti at ts = 16, the (warp, lane) pairs that enter
+    the first design's backward shuffle tree (a warp = 32 consecutive
+    pixels, lanes below block_valid) and the (warp, batch of 4 lanes)
+    exchanges of the Hopper backward at BWD_PIXELS_PER_THREAD (a warp = 16
+    x 2 ppt pixels), and how often a group of 32 pixels runs the kept path
+    under two pixel layouts."""
+    import torch.nn.functional as F
+
+    from gaussiansplatting_tpu_torch.ops import blend
+
+    table, src, valid, tile, row0, block, consts = args
+    nb, p2 = src.shape[0], int(consts[0]) ** 2
+    ppt = blend.BWD_PIXELS_PER_THREAD
+    w = dict.fromkeys(("live", "tests", "kept", "tree_v1", "lanes_v1",
+                       "exchanges", "batches", "strips", "subblocks"), 0)
+    for k0 in range(0, nb, chunk):
+        k1 = min(k0 + chunk, nb)
+        r = blend._replay(table, src, valid, tile, row0, block, consts, k0, k1,
+                          logti, log_thr)
+        kept = r.alpha > 0                                          # [K, P2, B]
+        nv = r.live.sum(1)                                          # [K]
+        lanes_op = (r.op > 0).sum(1)
+        if logti is not None:                 # closed blocks stage nothing
+            nv = nv * (logti[k0:k1] > log_thr).any(1)
+        w["live"] += int(nv.sum())
+        w["kept"] += int(kept.sum())
+        if logti is None:
+            w["tests"] += int(lanes_op.sum()) * p2
+        else:
+            w["tests"] += int(((logti[k0:k1] > log_thr).sum(1) * lanes_op).sum())
+        if logti is None and p2 == 256:
+            k, b = kept.shape[0], kept.shape[2]
+            w["tree_v1"] += int(kept.reshape(k, 8, 32, b).any(2).sum())
+            w["lanes_v1"] += 8 * int(nv.sum())
+            warps = 256 // (32 * ppt)                # a warp: 32 * ppt pixels
+            parts = F.pad(kept.reshape(k, warps, -1, b).any(2), (0, -b % 4))
+            w["exchanges"] += int(parts.reshape(k, warps, -1, 4).any(3).sum())
+            w["batches"] += warps * int(((nv + 3) // 4).sum())
+            # kept-path executions, (32 pixels, lane) pairs with a kept
+            # pixel: the forward's 4-row column strips (a thread's pixels j
+            # of a warp: rows j and 4 + j) against compact 8 x 4 sub-blocks
+            g = kept.reshape(k, 16, 16, b)
+            w["strips"] += int(g.reshape(k, 2, 2, 4, 16, b).any(4).any(2).sum())
+            w["subblocks"] += int(g.reshape(k, 4, 4, 2, 8, b).any(4).any(2).sum())
+    return w
+
+
+def _bound(nbytes, ops):
+    """(bound ms, what sets it): the larger of the bytes over the H100's HBM
+    rate and the operations over its f32 rate (NVIDIA's data sheet)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _edge_args(block, row0, cfg):
+    import torch
+
+    table, src, valid, tile = (torch.from_numpy(x).to(DEVICE)
+                               for x in edge_windows(block, seed=block + row0, row0=row0))
+    return (table, src, valid, tile, row0, block,
+            (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, 50))
+
+
+def phase_kernel(params, camera, cfg, smi):
+    """The forward: the Hopper design against the plain version on edge
+    windows (every pixels-per-thread and cull setting) and at full size,
+    the A/B against the first design in turns, each setting timed, and
+    the work its inputs need.  Returns the kernels-line numbers."""
     import torch
 
     from gaussiansplatting_tpu_torch.ops import blend
@@ -305,34 +437,62 @@ def phase_kernel(params, camera, cfg):
 
     for block in (16, 128):
         for row0 in (0, 3):
-            table, src, valid, tile = (
-                torch.from_numpy(x).to(DEVICE)
-                for x in edge_windows(block, seed=block + row0, row0=row0))
-            args = (table, src, valid, tile, row0, block,
-                    (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, 50))
-            got = blend.windowed_blend_fwd(*args)
-            torch.cuda.synchronize()
-            _compare(f"edge B={block} row0={row0}", got,
-                     blend.windowed_blend_fwd_plain(*args))
+            args = _edge_args(block, row0, cfg)
+            want = blend.windowed_blend_fwd_plain(*args)
+            _compare(f"edge B={block} row0={row0}", blend.windowed_blend_fwd(*args), want)
+            for ppt, cull in DESIGN_SETTINGS:
+                got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
+                _compare(f"edge B={block} row0={row0} ppt={ppt} cull={cull}", got, want,
+                         quiet=True)
 
-    args, _, aux = blend_windows(params, camera, cfg)
-    total = int(aux.num_pairs)
+    args, block_tile, aux = blend_windows(params, camera, cfg)
     nb = args[1].shape[0]
     live = int((args[2] > 0).sum())
     log(f"[kernel] full size: {nb} blocks ({live} live, {nb - live} dead), "
-        f"B={args[5]}, {total} pairs")
-    got = blend.windowed_blend_fwd(*args)
-    torch.cuda.synchronize()
-    max_err = _compare("full size", got, blend.windowed_blend_fwd_plain(*args))
-    ms = cuda_time_ms(lambda: blend.windowed_blend_fwd(*args), reps=20)
-    plain_ms = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
-    return max_err, ms, plain_ms
+        f"B={args[5]}, {int(aux.num_pairs)} pairs")
+    want = blend.windowed_blend_fwd_plain(*args)
+    res = {"max_abs_err": _compare("full size", blend.windowed_blend_fwd(*args), want)}
+    # both designs sum the same rounded log1pf terms in lane order, so S_b
+    # agrees bit for bit, which a culled kept pair would break
+    first = blend.windowed_blend_fwd_v1(*args)
+    _compare("full size, first design", first, want)
+    for ppt, cull in DESIGN_SETTINGS:
+        got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
+        if not torch.equal(got[0][:, 3], first[0][:, 3]):
+            raise AssertionError(f"S_b of the Hopper forward (ppt={ppt}, cull={cull}) "
+                                 f"differs from the first design's")
+    log("[kernel] full size: S_b of every Hopper setting = the first design's, bit for bit")
+    res["ms_v1"], res["ms"], turns = _turns(lambda: blend.windowed_blend_fwd_v1(*args),
+                                            lambda: blend.windowed_blend_fwd(*args))
+    log(f"[kernel] A/B in turns (first, Hopper, Hopper, first): "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
+        f"each) on {smi}")
+    for ppt, cull in DESIGN_SETTINGS:
+        got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
+        err = _compare(f"full size ppt={ppt} cull={cull}", got, want, quiet=True)
+        ms = cuda_time_ms(lambda: blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull),
+                          KERNEL_REPS)
+        log(f"[kernel] Hopper forward, {ppt} pixels per thread, cull {cull}: {ms:.4f} ms, "
+            f"max|err| {err:.3e}")
+    res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
+    w = _blend_work(args)
+    p2, block = 256, args[5]
+    nbytes = 40 * w["live"] + 12 * nb + 4 * nb * (4 * p2 + block)
+    ops = FWD_OPS_PER_TEST * w["tests"] + FWD_OPS_PER_KEPT * w["kept"]
+    res["bound_ms"], res["bound_by"] = _bound(nbytes, ops)
+    log(f"[kernel] forward work: {w['live']} live lanes, {w['tests']} power tests, "
+        f"{w['kept']} kept pairs ({w['kept'] / w['tests']:.4f} of the tests); {nbytes} "
+        f"bytes, {ops} operations: bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    log(f"[kernel] kept-path executions per (32 pixels, lane): 4-row column strips "
+        f"{w['strips'] / (8 * w['live']):.4f}, 8x4 sub-blocks {w['subblocks'] / (8 * w['live']):.4f}")
+    return res, args, block_tile, w
 
 
-def _compare_bwd(label, got, want):
+def _compare_bwd(label, got, want, quiet=False):
     """Backward kernel vs plain: nine [NB, B] columns; each column's max
     error must be within BWD_REL of its largest plain magnitude.  Returns
-    the max abs error over all columns."""
+    the max abs error over all columns; with ``quiet`` it logs only a
+    failure."""
     import torch
 
     names = ("mx", "my", "a", "b", "c", "op", "r", "g", "b")
@@ -347,8 +507,9 @@ def _compare_bwd(label, got, want):
         if err > BWD_REL * scale:
             raise AssertionError(
                 f"{label}: d{name} max|err| {err:.3e} beyond {BWD_REL} x {scale:.3e}")
-    log(f"[kernel bwd] {label}: max|err| {worst:.3e}; per column err/max "
-        f"(mx my a b c op r g b): {', '.join(f'{r:.1e}' for r in rel)}")
+    if not quiet:
+        log(f"[kernel bwd] {label}: max|err| {worst:.3e}; per column err/max "
+            f"(mx my a b c op r g b): {', '.join(f'{r:.1e}' for r in rel)}")
     return worst
 
 
@@ -369,43 +530,80 @@ def _loss_cotangent(out, block_tile, camera, cfg, gt):
     return g
 
 
-def phase_kernel_bwd(params, camera, cfg, gt):
+def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
+    """The backward: the Hopper design, given the forward's S_b, against the
+    plain version on edge windows (every setting) and at full size with the
+    real loss cotangent, launched twice for the same bits; the A/B against
+    the first design in turns, each setting timed; the share of (warp,
+    lane) pairs that entered the first design's shuffle tree.  Returns the
+    kernels-line numbers."""
     import numpy as np
     import torch
 
     from gaussiansplatting_tpu_torch.ops import blend
-    from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows
 
     for block in (16, 128):
         for row0 in (0, 3):
-            table, src, valid, tile = (
-                torch.from_numpy(x).to(DEVICE)
-                for x in edge_windows(block, seed=block + row0, row0=row0))
-            nb = src.shape[0]
+            e = _edge_args(block, row0, cfg)
             g = torch.from_numpy(np.random.default_rng(block + row0 + 1).normal(
-                size=(nb, 4, 256)).astype(np.float32)).to(DEVICE)
-            consts = (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, 50)
-            got = blend.windowed_blend_bwd(table, src, valid, tile, row0, block, g, consts)
-            torch.cuda.synchronize()
-            _compare_bwd(f"edge B={block} row0={row0}", got,
-                         blend.windowed_blend_bwd_plain(table, src, valid, tile,
-                                                        row0, block, g, consts))
+                size=(e[1].shape[0], 4, 256)).astype(np.float32)).to(DEVICE)
+            s_b = blend.windowed_blend_fwd(*e)[0][:, 3].contiguous()
+            bargs = e[:6] + (g, s_b, e[6])
+            want = blend.windowed_blend_bwd_plain(*bargs)
+            _compare_bwd(f"edge B={block} row0={row0}", blend.windowed_blend_bwd(*bargs), want)
+            for ppt, cull in DESIGN_SETTINGS:
+                got = blend._launch_bwd_cuda(*e[:6], g, e[6], s_b=s_b, ppt=ppt, cull=cull)
+                _compare_bwd(f"edge B={block} row0={row0} ppt={ppt} cull={cull}", got,
+                             want, quiet=True)
+            _compare_bwd(f"edge B={block} row0={row0}, first design",
+                         blend.windowed_blend_bwd_v1(*e[:6], g, e[6]), want, quiet=True)
 
-    args, block_tile, _ = blend_windows(params, camera, cfg)
     out, _ = blend.windowed_blend_fwd(*args)
     g = _loss_cotangent(out, block_tile, camera, cfg, gt)
-    bargs = args[:6] + (g, args[6])
+    s_b = out[:, 3].contiguous()
+    bargs = args[:6] + (g, s_b, args[6])
     got = blend.windowed_blend_bwd(*bargs)
     again = blend.windowed_blend_bwd(*bargs)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("backward kernel: two launches on the same inputs differ")
     log("[kernel bwd] full size: two launches bit-identical")
-    max_err = _compare_bwd("full size (loss cotangent)", got,
-                           blend.windowed_blend_bwd_plain(*bargs))
-    ms = cuda_time_ms(lambda: blend.windowed_blend_bwd(*bargs), reps=20)
-    plain_ms = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
-    return max_err, ms, plain_ms
+    want = blend.windowed_blend_bwd_plain(*bargs)
+    res = {"max_abs_err": _compare_bwd("full size (loss cotangent)", got, want)}
+    v1_args = args[:6] + (g, args[6])
+    _compare_bwd("full size, first design", blend.windowed_blend_bwd_v1(*v1_args), want)
+    res["ms_v1"], res["ms"], turns = _turns(lambda: blend.windowed_blend_bwd_v1(*v1_args),
+                                            lambda: blend.windowed_blend_bwd(*bargs))
+    log(f"[kernel bwd] A/B in turns (first, Hopper, Hopper, first): "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
+        f"each) on {smi}")
+    for ppt, cull in DESIGN_SETTINGS:
+        got = blend._launch_bwd_cuda(*args[:6], g, args[6], s_b=s_b, ppt=ppt, cull=cull)
+        err = _compare_bwd(f"full size ppt={ppt} cull={cull}", got, want, quiet=True)
+        ms = cuda_time_ms(lambda: blend._launch_bwd_cuda(
+            *args[:6], g, args[6], s_b=s_b, ppt=ppt, cull=cull), KERNEL_REPS)
+        log(f"[kernel bwd] Hopper backward, {ppt} pixels per thread, cull {cull}: "
+            f"{ms:.4f} ms, max|err| {err:.3e}")
+    res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
+    nb, p2, block = args[1].shape[0], 256, args[5]
+    nbytes = 40 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block)
+    ops = FWD_OPS_PER_TEST * w["tests"] + BWD_OPS_PER_KEPT * w["kept"]
+    res["bound_ms"], res["bound_by"] = _bound(nbytes, ops)
+    log(f"[kernel bwd] backward work: {nbytes} bytes, {ops} operations: bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    # the first design's shuffle tree: 45 shuffles per (warp, lane) that a
+    # pixel of the warp kept, at one warp shuffle per clock per SM
+    tree_ms = 45 * w["tree_v1"] / (132 * clock_mhz * 1e3)
+    exch_ms = 54 * w["exchanges"] / (132 * clock_mhz * 1e3)
+    log(f"[kernel bwd] first design: {w['tree_v1']} of {w['lanes_v1']} (warp, lane) pairs "
+        f"({w['tree_v1'] / w['lanes_v1']:.4f}) enter the shuffle tree: "
+        f"{45 * w['tree_v1']} warp shuffles, {tree_ms:.3f} ms at 132 SMs x {clock_mhz} MHz; "
+        f"Hopper design ({blend.BWD_PIXELS_PER_THREAD} pixels per thread): "
+        f"{w['exchanges']} of {w['batches']} (warp, "
+        f"batch of 4 lanes) exchanges ({w['exchanges'] / w['batches']:.4f}), "
+        f"{54 * w['exchanges']} warp shuffles, {exch_ms:.3f} ms")
+    res["tree_share_v1"] = w["tree_v1"] / w["lanes_v1"]
+    return res
 
 
 def _check_finite_state(label, state):
@@ -479,8 +677,7 @@ def phase_train(params, camera, gt, smi):
     from gaussiansplatting_tpu_torch.train.trainer import train_step
     from gaussiansplatting_tpu_torch.utils import synthetic
 
-    blend.windowed_blend_fwd.launches = 0
-    blend.windowed_blend_bwd.launches = 0
+    _reset_launches()
 
     # (i) the training tool through its entry point
     buf = io.StringIO()
@@ -511,6 +708,7 @@ def phase_train(params, camera, gt, smi):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
     launches = (blend.windowed_blend_fwd.launches, blend.windowed_blend_bwd.launches)
+    _check_no_v1("the training path", _tf_launches())
     losses = torch.stack(losses).cpu().numpy()
     log(f"[train] full size {N_GAUSSIANS} Gaussians {WIDTH}x{HEIGHT}: "
         f"{step_ms:.3f} ms/step warm (CUDA events, {TRAIN_TIMED_STEPS} steps) "
@@ -523,18 +721,27 @@ def phase_train(params, camera, gt, smi):
     if st.opt.t != TRAIN_TIMED_STEPS + 1:
         raise AssertionError(f"full-size train step: t is {st.opt.t}")
     _check_finite_state("full-size train step", st)
+    step_device_ms, _ = _device_profile(
+        "[train] full-size step", lambda: train_step(st, camera, gt, cfg, TRAIN_TOTAL_ITERS),
+        STEP_PROFILE_STEPS, smi)
     log(f"[train] main path: {launches[0]} windowed_blend_fwd and {launches[1]} "
         f"windowed_blend_bwd kernel launches")
     if min(launches) <= 0:
         raise AssertionError("the training path did not launch both kernels")
 
-    # (iii) one step replayed from the same state gives the same bits
+    # (iii) one step replayed from the same state gives the same bits; its
+    # launches are the kernels' launches per step
+    _reset_launches()
     replay, _ = train_step(state0, camera, gt, cfg, TRAIN_TOTAL_ITERS)
+    torch.cuda.synchronize()
+    per_step = _tf_launches()
+    _check_no_v1("the training step", per_step)
     a, b = state_mod.state_to_numpy(state1), state_mod.state_to_numpy(replay)
     differ = [k for k in a if not np.array_equal(a[k], b[k])]
     if differ:
         raise AssertionError(f"replayed step differs in {differ}")
-    log(f"[train] replayed full-size step: all {len(a)} state arrays bit-identical")
+    log(f"[train] replayed full-size step: all {len(a)} state arrays bit-identical; "
+        f"launches {per_step}")
 
     # (iv) a 64x48 step on the card against the same step on the CPU
     small = synthetic.make_scene(64, seed=5, spread=0.6)
@@ -550,7 +757,7 @@ def phase_train(params, camera, gt, smi):
         torch.from_numpy(small_gt).to(DEVICE), small_cfg, 100)
     _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
                         schedule.learning_rates(small_cfg.optim, 0, 100))
-    return launches, step_ms
+    return launches, step_ms, step_device_ms, per_step
 
 
 def _compare_tf(label, got, want, margin):
@@ -614,11 +821,25 @@ def _compare_tf_bwd(label, got, want, margin):
 
 
 def _blend_wrappers():
-    """The four kernel entries' wrappers, each with its launch count."""
+    """The kernel entries' wrappers, each with its launch count: the four
+    of the main paths and the first design's two, which phase 3 alone
+    calls."""
     from gaussiansplatting_tpu_torch.ops import blend
 
     return (blend.windowed_blend_fwd, blend.windowed_blend_fwd_tf,
-            blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf)
+            blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf,
+            blend.windowed_blend_fwd_v1, blend.windowed_blend_bwd_v1)
+
+
+MAIN_ENTRIES = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
+                "windowed_blend_bwd_tf")
+
+
+def _check_no_v1(label, launches):
+    """A main path must never launch the first design's entries."""
+    v1 = {k: v for k, v in launches.items() if k.endswith("_v1") and v}
+    if v1:
+        raise AssertionError(f"{label} launched the first design: {v1}")
 
 
 def _tf_launches():
@@ -744,9 +965,19 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         res["bwd_plain_ms"] = cuda_time_ms(
             lambda: blend.windowed_blend_bwd_tf_plain(*bargs), reps=3)
         # kernel #4: the first pass's backward, on its own cotangent (S_b only)
-        b1 = args[:6] + (g1, args[6])
+        b1 = args[:6] + (g1, out[:, 3].contiguous(), args[6])
         _compare_bwd("first pass (as _bwd_kernel)", blend.windowed_blend_bwd(*b1),
                      blend.windowed_blend_bwd_plain(*b1))
+    w = _blend_work(args, logti, log_thr)
+    nb, p2, block = args[1].shape[0], 256, args[5]
+    res["fwd_bound"] = _bound(36 * w["live"] + 12 * nb + 4 * nb * 5 * p2,
+                              FWD_OPS_PER_TEST * w["tests"] + FWD_OPS_PER_KEPT * w["kept"])
+    res["bwd_bound"] = _bound(36 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
+                              FWD_OPS_PER_TEST * w["tests"] + BWD_OPS_PER_KEPT * w["kept"])
+    log(f"[tfloor] T-floor work: {w['live']} live lanes in open blocks, {w['tests']} power "
+        f"tests on open pixels, {w['kept']} surviving kept pairs: bound fwd_tf "
+        f"{res['fwd_bound'][0]:.4f} ms, bwd_tf {res['bwd_bound'][0]:.4f} ms "
+        f"({res['fwd_bound'][1]}, {res['bwd_bound'][1]})")
     log(f"[tfloor] full size: fwd_tf kernel {res['fwd_ms']:.4f} ms, plain "
         f"{res['fwd_plain_ms']:.3f} ms; bwd_tf kernel {res['bwd_ms']:.4f} ms, plain "
         f"{res['bwd_plain_ms']:.3f} ms (CUDA events) on {smi}")
@@ -780,6 +1011,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         img_tf, aux = render(params, camera, cfg_tf)
     torch.cuda.synchronize()
     render_launches = _tf_launches()
+    _check_no_v1("the T-floor render", render_launches)
     _check_image("T-floor canonical", img_tf)
     diff = float((img_tf - img).abs().max())
     num_pairs = int(aux.num_pairs)
@@ -818,6 +1050,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     end.record()
     torch.cuda.synchronize()
     train_launches = _tf_launches()
+    _check_no_v1("the T-floor step", train_launches)
     res["step_ms"] = start.elapsed_time(end) / TFLOOR_TIMED_STEPS
     losses = torch.stack(losses).cpu().numpy()
     log(f"[tfloor] full-size T-floor step: {res['step_ms']:.3f} ms/step warm (CUDA "
@@ -826,14 +1059,18 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     if not np.isfinite(losses).all() or bool(torch.stack(flags).any()):
         raise AssertionError("T-floor train step: non-finite loss or overflow")
     _check_finite_state("T-floor train step", st)
-    if min(train_launches.values()) < 1:
+    if min(train_launches[k] for k in MAIN_ENTRIES) < 1:
         raise AssertionError(f"the T-floor step did not launch every kernel: {train_launches}")
+    _reset_launches()
     replay, _ = train_step(state0, camera, gt, tcfg, TRAIN_TOTAL_ITERS)
+    torch.cuda.synchronize()
+    res["per_step"] = _tf_launches()
     a, b = state_mod.state_to_numpy(state1), state_mod.state_to_numpy(replay)
     differ = [k for k in a if not np.array_equal(a[k], b[k])]
     if differ:
         raise AssertionError(f"replayed T-floor step differs in {differ}")
-    log(f"[tfloor] replayed full-size T-floor step: all {len(a)} state arrays bit-identical")
+    log(f"[tfloor] replayed full-size T-floor step: all {len(a)} state arrays "
+        f"bit-identical; launches {res['per_step']}")
 
     # (vi) a 64x48 T-floor step on the dense scene, card against CPU
     small = dense_scene(DENSE_SEED)
@@ -898,7 +1135,7 @@ def phase_render(params, camera, cfg, smi):
     ply.export_gaussian_ply(ply_path, ply.cloud_from_params(params))
     out_dir = os.path.join(SCRATCH, "orbit")
 
-    blend.windowed_blend_fwd.launches = 0
+    _reset_launches()
     rc = render_cli.main([
         "--ply", ply_path, "--output", out_dir, "--orbit", "4",
         "--width", str(WIDTH), "--height", str(HEIGHT), "--format", "ppm",
@@ -910,6 +1147,7 @@ def phase_render(params, camera, cfg, smi):
         img, aux = render(params, camera, cfg)
     torch.cuda.synchronize()
     launches = blend.windowed_blend_fwd.launches
+    _check_no_v1("the render path", _tf_launches())
     log(f"[render] main path: 4 orbit views + canonical view, "
         f"{launches} windowed_blend_fwd kernel launches")
     if launches < 5:
@@ -934,6 +1172,8 @@ def phase_render(params, camera, cfg, smi):
     frame_ms = cuda_time_ms(frame, reps=10)
     log(f"[render] canonical view: {frame_ms:.3f} ms/frame warm (CUDA events, "
         f"10 frames) on {smi}")
+    frame_device_ms, _ = _device_profile("[render] canonical view", frame,
+                                         STEP_PROFILE_STEPS, smi)
 
     # the whole path on the card against the CPU path (plain blend) at a
     # small size
@@ -951,7 +1191,7 @@ def phase_render(params, camera, cfg, smi):
     if int(got_aux.num_pairs) != int(ref_aux.num_pairs) or err > RENDER_ATOL:
         raise AssertionError("small render on the card disagrees with the CPU render")
     shutil.rmtree(SCRATCH)
-    return launches, frame_ms
+    return launches, frame_ms, frame_device_ms
 
 
 def orbit_poses(means, n_views, width, height):
@@ -1124,6 +1364,29 @@ def _psnr_rises(psnr, n_views, events):
     return out
 
 
+def _device_profile(label, fn, reps, smi):
+    """Kernels-only torch.profiler of ``reps`` calls of ``fn`` (warmed once):
+    logs the device ms per call and the STEP_PROFILE_TOP largest kernels;
+    returns (device ms per call, {kernel name: ms per call})."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    per = 1e3 * reps                                # profiler us -> ms per call
+    kernels = {e.key: e.self_device_time_total / per for e in ka}
+    total = sum(kernels.values())
+    log(f"{label}: device time {total:.3f} ms per call (torch.profiler, {reps} calls) on {smi}")
+    for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:STEP_PROFILE_TOP]:
+        log(f"{label}   {e.self_device_time_total / per:8.3f} ms x{e.count // reps:4d}  "
+            f"{e.key[:90]}")
+    return total, kernels
+
+
 def _step_breakdown(st0, st36, cam, gt, cfg, smi):
     """Where the COLMAP trainer's step goes on the card: one train step from
     the state at iteration 0 (the SfM start) and at 36 (after the last
@@ -1132,8 +1395,6 @@ def _step_breakdown(st0, st36, cam, gt, cfg, smi):
     STEP_PROFILE_STEPS steps at TRAINLOOP_PAIR_CAPACITY (device ms per step,
     the STEP_PROFILE_TOP largest kernels).  Returns {label: device ms per
     step} from the profile."""
-    import torch
-
     from gaussiansplatting_tpu_torch.train import trainer
 
     device_ms = {}
@@ -1147,21 +1408,9 @@ def _step_breakdown(st0, st36, cam, gt, cfg, smi):
                 f"pair_capacity {pc}: {ms:.3f} ms/step (CUDA events, 3 steps), pairs "
                 f"{int(m.num_pairs)}, overflow {bool(m.overflow)} on {smi}")
         c = cfg.replace(raster=cfg.raster.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
-        trainer.train_step(st, cam, gt, c, 36)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEP_PROFILE_STEPS):
-                trainer.train_step(st, cam, gt, c, 36)
-            torch.cuda.synchronize()
-        ka = prof.key_averages()
-        per_step = 1e3 * STEP_PROFILE_STEPS             # profiler us -> ms per step
-        device_ms[label] = sum(e.self_device_time_total for e in ka) / per_step
-        log(f"[trainloop step] {label} profile at pair_capacity {TRAINLOOP_PAIR_CAPACITY}: "
-            f"device time {device_ms[label]:.3f} ms/step (torch.profiler, "
-            f"{STEP_PROFILE_STEPS} steps) on {smi}")
-        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:STEP_PROFILE_TOP]:
-            log(f"[trainloop step]   {e.self_device_time_total / per_step:8.3f} ms "
-                f"x{e.count // STEP_PROFILE_STEPS:4d}  {e.key[:90]}")
+        device_ms[label], _ = _device_profile(
+            f"[trainloop step] {label} profile at pair_capacity {TRAINLOOP_PAIR_CAPACITY}",
+            lambda: trainer.train_step(st, cam, gt, c, 36), STEP_PROFILE_STEPS, smi)
     return device_ms
 
 
@@ -1256,6 +1505,7 @@ def phase_trainloop(params, smi):
          checkpoint.save) = originals
     torch.cuda.synchronize()
     launches = _tf_launches()
+    _check_no_v1("the COLMAP trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
     psnr = np.array([x["psnr"] for x in steps])
@@ -1421,7 +1671,7 @@ def phase_trainloop(params, smi):
 
 
 def main() -> int:
-    name, smi = phase_device()
+    name, smi, clock_mhz = phase_device()
 
     import numpy as np
     import torch
@@ -1436,71 +1686,61 @@ def main() -> int:
     gt = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(DEVICE)   # bench.py:358-360
     with torch.no_grad():
-        max_err, ms, plain_ms = phase_kernel(params, camera, cfg)
-    log(f"[kernel] full size: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
-        f"(CUDA events) on {smi}")
-    with torch.no_grad():
-        bwd_err, bwd_ms, bwd_plain_ms = phase_kernel_bwd(params, camera, cfg, gt)
-    log(f"[kernel bwd] full size: kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms "
-        f"(CUDA events) on {smi}")
-    render_launches, frame_ms = phase_render(params, camera, cfg, smi)
-    (train_fwd, train_bwd), step_ms = phase_train(params, camera, gt, smi)
+        fwd, args, block_tile, work = phase_kernel(params, camera, cfg, smi)
+        log(f"[kernel] full size: Hopper kernel {fwd['ms']:.4f} ms, first design "
+            f"{fwd['ms_v1']:.4f} ms, plain {fwd['plain_ms']:.3f} ms, bound "
+            f"{fwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
+        bwd = phase_kernel_bwd(args, block_tile, camera, cfg, gt, work, smi, clock_mhz)
+        log(f"[kernel bwd] full size: Hopper kernel {bwd['ms']:.4f} ms, first design "
+            f"{bwd['ms_v1']:.4f} ms, plain {bwd['plain_ms']:.3f} ms, bound "
+            f"{bwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
+    del args, block_tile
+    render_launches, frame_ms, frame_device_ms = phase_render(params, camera, cfg, smi)
+    (train_fwd, train_bwd), step_ms, step_device_ms, per_step = phase_train(
+        params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
-    log(json.dumps({"kernels": [{
-        "name": "windowed_blend_fwd",
-        "route": "cuda",
-        "source": src + "blend_fwd.cu",
-        "replaces": f"{tpu}601, {tpu}161",
-        "launches": (render_launches + train_fwd + tf_launches["windowed_blend_fwd"]
-                     + tl["launches"]["windowed_blend_fwd"]),
-        "launches_by_path": {"render": render_launches, "train": train_fwd,
-                             "tfloor": tf_launches["windowed_blend_fwd"],
-                             "trainloop": tl["launches"]["windowed_blend_fwd"]},
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "windowed_blend_bwd",
-        "route": "cuda",
-        "source": src + "blend_bwd.cu",
-        "replaces": f"{tpu}671, {tpu}188",
-        "launches": (train_bwd + tf_launches["windowed_blend_bwd"]
-                     + tl["launches"]["windowed_blend_bwd"]),
-        "launches_by_path": {"train": train_bwd,
-                             "tfloor": tf_launches["windowed_blend_bwd"],
-                             "trainloop": tl["launches"]["windowed_blend_bwd"]},
-        "max_abs_err": bwd_err,
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-    }, {
-        "name": "windowed_blend_fwd_tf",
-        "route": "cuda",
-        "source": src + "blend_fwd.cu",
-        "replaces": f"{tpu}249",
-        "launches": tf_launches["windowed_blend_fwd_tf"],
-        "launches_by_path": {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
-        "max_abs_err": tf["fwd_err"],
-        "excused_flips": tf["fwd_excused"],
-        "ms": tf["fwd_ms"],
-        "plain_ms": tf["fwd_plain_ms"],
-    }, {
-        "name": "windowed_blend_bwd_tf",
-        "route": "cuda",
-        "source": src + "blend_bwd.cu",
-        "replaces": f"{tpu}281",
-        "launches": tf_launches["windowed_blend_bwd_tf"],
-        "launches_by_path": {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
-        "max_abs_err": tf["bwd_err"],
-        "excused_flips": tf["bwd_excused"],
-        "ms": tf["bwd_ms"],
-        "plain_ms": tf["bwd_plain_ms"],
-    }], "render_ms_per_frame": frame_ms, "train_step_ms": step_ms,
+
+    def entry(name, source, replaces, design, by_path, per, res):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "design": design,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launches_per_step": per, **res, "library_ms": None}
+
+    log(json.dumps({"kernels": [
+        entry("windowed_blend_fwd", "blend_fwd.cu", f"{tpu}601, {tpu}161", "hopper",
+              {"render": render_launches, "train": train_fwd,
+               "tfloor": tf_launches["windowed_blend_fwd"],
+               "trainloop": tl["launches"]["windowed_blend_fwd"]},
+              per_step["windowed_blend_fwd"],
+              {k: fwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
+                                   "bound_by")}),
+        entry("windowed_blend_bwd", "blend_bwd.cu", f"{tpu}671, {tpu}188", "hopper",
+              {"train": train_bwd, "tfloor": tf_launches["windowed_blend_bwd"],
+               "trainloop": tl["launches"]["windowed_blend_bwd"]},
+              per_step["windowed_blend_bwd"],
+              {k: bwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
+                                   "bound_by", "tree_share_v1")}),
+        entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "first",
+              {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
+              tf["per_step"]["windowed_blend_fwd_tf"],
+              {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
+               "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms"], "plain_ms": tf["fwd_plain_ms"],
+               "bound_ms": tf["fwd_bound"][0], "bound_by": tf["fwd_bound"][1]}),
+        entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "first",
+              {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
+              tf["per_step"]["windowed_blend_bwd_tf"],
+              {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
+               "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms"], "plain_ms": tf["bwd_plain_ms"],
+               "bound_ms": tf["bwd_bound"][0], "bound_by": tf["bwd_bound"][1]}),
+    ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
+        "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],
         "tfloor_train_step_ms": tf["step_ms"],
+        "tfloor_launches_per_step": tf["per_step"],
         "tfloor_logti_f64_pixels": tf["logti_pixels"],
         "tfloor_logti_f64_max_img_err": tf["logti_img_err"],
         "trainloop_iters_per_s": tl["iters_per_s"],

@@ -7,37 +7,65 @@
 //                        cotangent reaches S_b alone (colour rows zero);
 //   gs_blend_bwd_win_tf  _bwd_kernel_tf (:281, the VJP of
 //                        block_blend_cols_tf), the exact T-floor pass.
+// gs_blend_bwd_win_v1 is the first design of gs_blend_bwd_win (below), kept
+// for chip_smoke.py's A/B; nothing on the training path calls it.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
-// Design: one CUDA block per pair block b, one thread per tile pixel, the
-// window's nine columns staged in shared memory exactly as blend_fwd.cu does.
-// Each thread replays its pixel twice:
-//   pass 1, front to back: the forward blend, to the pixel's total
-//     log-transmittance S (nothing else is kept);
-//   pass 2, back to front: S steps back over each kept lane
-//     (S -= log1p(-alpha), so T = exp(S) is the transmittance in front of
-//     it), and the suffix sum_{j>k} e_j w_j is carried forward, so per lane
-//       e = sum_ch g_ch c_ch,  dl = suffix + g_S,
-//       dalpha = e T - dl / (1 - alpha),  dpow = dalpha * a_raw
-//     (the alpha cap passes the gradient through, as in the TPU kernel).
-// Nothing per lane is stored per pixel: pass 2 recomputes the power and the
-// masks with the same explicitly rounded operations as pass 1 and as
-// blend_fwd.cu, so every mask agrees bit for bit with the forward and with
-// the plain version.
-//
-// Per lane the nine outputs are sums over the tile's pixels of
+// The chain rule, per pixel, walking its kept lanes back to front: S steps
+// back over each kept lane (S -= log1p(-alpha), so T = exp(S) is the
+// transmittance in front of it) and the suffix sum_{j>k} e_j w_j is carried
+// forward, so per lane
+//   e = sum_ch g_ch c_ch,  dl = suffix + g_S,
+//   dalpha = e T - dl / (1 - alpha),  dpow = dalpha * a_raw
+// (the alpha cap passes the gradient through, as in the TPU kernel).  Per
+// lane the nine outputs are sums over the tile's pixels of
 //   (dpow dx, dpow dy, dpow dx^2, dpow dx dy, dpow dy^2, dpow, g_r w, g_g w,
 //    g_b w),
 // finished per lane as d mx = a s_x + b s_y, d my = b s_x + c s_y,
 // d a = -s_xx / 2, d b = -s_xy, d c = -s_yy / 2, d op = s_p / op and the
 // three colour sums (the VPU form of the TPU kernel, pallas_blend.py:762-799).
-// The cross-pixel sum is atomic-free and in a fixed order: a shuffle tree in
-// each warp, one partial per (warp, column, lane) in shared memory, then a
-// sum over the warps in warp order.  A second launch on the same inputs gives
-// the same bits.  Lanes that no pixel of a warp keeps skip the shuffles.
-// Dead blocks and lanes past block_valid write zeros (outputs come from
-// torch.empty).
+// The power and the masks use the same explicitly rounded operations as
+// blend_fwd.cu and the plain version, so every mask agrees with them bit for
+// bit.  Every cross-pixel sum is atomic-free and in a fixed order, so a
+// second launch on the same inputs gives the same bits.  Dead blocks and
+// lanes past block_valid write zeros (outputs come from torch.empty).
+//
+// What bounds it on the H100: the ~4.3e8 (pixel, lane) power tests of the
+// forward (~11 flops each) and, per kept pair, an exp, a reciprocal and ~35
+// flops (the first design: an exp, a log1p, an exp and a division), plus
+// the cross-pixel sums; instruction issue, not HBM (the table, g, s_b and
+// the nine outputs, ~245 MB, 0.07 ms at 3.35 TB/s).
+//
+// gs_blend_bwd_win, the Hopper design: one CUDA block per pair block, P
+// pixels per thread (a column strip, blend_common.cuh) and the lanes staged
+// as the forward stages them.  It starts each pixel from the forward's own
+// S_b (s_b, row 3 of its out), which is the same rounded sequential log1pf
+// sum the first design's replay pass recomputed, so there is one walk, back
+// to front, and it carries T back by division, T_before = T_after /
+// (1 - alpha), with the IEEE reciprocal that dl / (1 - alpha) needs too: no
+// log1pf and no expf per kept pair (about 1 ulp per kept lane where the
+// log walk loses ulp(|S|)).  Only a pixel with S_b < -60, where expf(S_b)
+// nears the denormals, walks back in log space until S rises above -60,
+// then switches.  Lanes go in batches of four: a thread sums its P pixels' nine
+// terms per lane in registers, then the warp sums the batch's 4 x 9 values
+// with two halving exchanges (each thread keeps half of the lanes and adds
+// its partner's half: 18 + 9 shuffles) and a butterfly over the last 8
+// threads (27 shuffles), 13.5 shuffles per (warp, lane) against the first
+// design's 45 per (warp of 32 pixels, lane); one thread per lane then holds
+// the warp's sums, and the warps' partials are summed in warp order from
+// shared memory.  A batch that no pixel of the warp keeps skips the
+// exchange, and with `cull` a warp skips a lane whose padded ellipse box
+// misses its rectangle (as the forward does).  Shared memory: 48 * B bytes
+// of lanes + warps * 9 * B floats of partials (15 KB at B = 128, P = 4).
+//
+// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf, the first design: one thread
+// per pixel, the window's nine columns in shared memory.  Each thread
+// replays its pixel twice: pass 1, front to back, to the pixel's total
+// log-transmittance S; pass 2, back to front, the chain rule above.  The
+// per-lane sums are a shuffle tree in each warp (45 shuffles per lane that
+// any pixel of the warp kept), one partial per (warp, column, lane) in
+// shared memory, then a sum over the warps in warp order.
 //
 // The T-floor pass (kTFloor) holds the termination mask constant, as
 // _bwd_kernel_tf does: pass 1 stops at the pixel's first kept lane where
@@ -48,25 +76,73 @@
 // cotangent.  Lanes at or past the block's largest kend are zero for every
 // pixel: the warps skip them, and a block whose pixels all arrive at or
 // below the floor writes zeros and stages nothing.
-//
-// What bounds it on the H100: the same ~4e8 pair-pixel evaluations as the
-// forward, twice, plus per kept lane an exp, a log1p and a division, and the
-// 45-shuffle warp reduction per (warp, lane) that any pixel kept: special-
-// function and shuffle throughput, not HBM (the table and g are read once).
-// Shared memory is 9*B floats of columns + 8*9*B floats of partials
-// (41.5 KB at B = 128).
 
 #include <cuda_runtime.h>
+
+#include "blend_common.cuh"
 
 namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kBatch = 4;  // lanes per warp exchange of the Hopper design
+// Below this log-transmittance expf(S) loses precision (it reaches the
+// denormals at S < -87), so a pixel of the Hopper design whose S_b lies
+// below it walks back in log space until S rises above it
+constexpr float kLogWalk = -60.f;
+using blend::kFullMask;
 
 __device__ __forceinline__ float warp_sum(float v) {
   // fixed tree: lane 0 ends with ((v0 + v16) + (v8 + v24)) + ... every time
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
   return v;
+}
+
+// Sums v[i][c] (lane i of a batch of four, column c) over the warp's 32
+// threads in a fixed order.  Two halving exchanges: across xor 16 a thread
+// keeps lanes {2 h4, 2 h4 + 1} (h4 = bit 4 of its warp lane) and adds its
+// partner's values of them; across xor 8 it keeps lane 2 h4 + h3.  Then a
+// butterfly over xor 4, 2, 1 sums the 8 threads holding that lane.  Returns
+// in s the nine sums of lane (threadIdx.x & 31) >> 3 of the batch, with the
+// same bits in each of the 8 threads (every add pairs the same two values).
+__device__ __forceinline__ void warp_sum_batch(const float (&v)[kBatch][kCols],
+                                               float (&s)[kCols]) {
+  const int wl = threadIdx.x & 31;
+  const bool h4 = wl & 16, h3 = wl & 8;
+  float u[2][kCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const float send = h4 ? v[i][c] : v[2 + i][c];
+      const float keep = h4 ? v[2 + i][c] : v[i][c];
+      u[i][c] = keep + __shfl_xor_sync(kFullMask, send, 16);
+    }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const float send = h3 ? u[0][c] : u[1][c];
+    const float keep = h3 ? u[1][c] : u[0][c];
+    s[c] = keep + __shfl_xor_sync(kFullMask, send, 8);
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) s[c] += __shfl_xor_sync(kFullMask, s[c], off);
+}
+
+// The per-lane finish of the nine pixel sums s (see the header) for the
+// lane's conic (ca, cb, cc) and opacity op.
+__device__ __forceinline__ void finish_lane(const float (&s)[kCols], float ca,
+                                            float cb, float cc, float op,
+                                            float (&o)[kCols]) {
+  o[0] = ca * s[0] + cb * s[1];
+  o[1] = cb * s[0] + cc * s[1];
+  o[2] = -0.5f * s[2];
+  o[3] = -s[3];
+  o[4] = -0.5f * s[4];
+  o[5] = op > 0.f ? s[5] / op : 0.f;
+  o[6] = s[6];
+  o[7] = s[7];
+  o[8] = s[8];
 }
 
 template <bool kTFloor>
@@ -152,10 +228,7 @@ __global__ void blend_bwd_win_kernel(
     if (op == 0.f) continue;
     const float dx = __fsub_rn(px, s_mx[k]);
     const float dy = __fsub_rn(py, s_my[k]);
-    const float qa = __fmul_rn(__fmul_rn(s_ca[k], dx), dx);
-    const float qc = __fmul_rn(__fmul_rn(s_cc[k], dy), dy);
-    const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)),
-                                  __fmul_rn(s_cb[k], __fmul_rn(dx, dy)));
+    const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
     if (!(power <= 0.f && power >= power_floor)) continue;
     const float a_raw = __fmul_rn(op, expf(power));
     if (!(a_raw >= alpha_floor)) continue;
@@ -190,10 +263,7 @@ __global__ void blend_bwd_win_kernel(
     if (pix && k < kend && op != 0.f) {
       const float dx = __fsub_rn(px, s_mx[k]);
       const float dy = __fsub_rn(py, s_my[k]);
-      const float qa = __fmul_rn(__fmul_rn(s_ca[k], dx), dx);
-      const float qc = __fmul_rn(__fmul_rn(s_cc[k], dy), dy);
-      const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)),
-                                    __fmul_rn(s_cb[k], __fmul_rn(dx, dy)));
+      const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
       if (power <= 0.f && power >= power_floor) {
         const float a_raw = __fmul_rn(op, expf(power));
         if (a_raw >= alpha_floor) {
@@ -243,31 +313,161 @@ __global__ void blend_bwd_win_kernel(
         for (int w = 0; w < nwarps; ++w) acc += part[(w * kCols + c) * block + k];
         s[c] = acc;
       }
-      const float ca = s_ca[k], cb = s_cb[k], cc = s_cc[k], op = s_op[k];
-      o[0] = ca * s[0] + cb * s[1];
-      o[1] = cb * s[0] + cc * s[1];
-      o[2] = -0.5f * s[2];
-      o[3] = -s[3];
-      o[4] = -0.5f * s[4];
-      o[5] = op > 0.f ? s[5] / op : 0.f;
-      o[6] = s[6];
-      o[7] = s[7];
-      o[8] = s[8];
+      finish_lane(s, s_ca[k], s_cb[k], s_cc[k], s_op[k], o);
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) out_b[(size_t)c * plane + k] = o[c];
   }
 }
 
-}  // namespace
+template <int P>
+__global__ void __launch_bounds__(512) blend_bwd_win_hopper(
+    const float* __restrict__ table, long long ep,
+    const int* __restrict__ block_src, const int* __restrict__ block_valid,
+    const int* __restrict__ block_tile, const float* __restrict__ g,
+    const float* __restrict__ s_b, int nb, int block, int ts, int tiles_x,
+    int row0, float power_floor, float alpha_cap, float alpha_floor, int cull,
+    float* __restrict__ dcols) {
+  extern __shared__ float4 lane_smem[];
+  blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);        // [block]
+  float* part = reinterpret_cast<float*>(lanes + block);      // [warps][kCols][block]
+  const int b = blockIdx.x;
+  const int p2 = ts * ts;
+  const int nwarps = blockDim.x >> 5;
+  const size_t plane = (size_t)nb * block;  // one output column, [nb, block]
+  float* out_b = dcols + (size_t)b * block;
+  const int nv = min(block_valid[b], block);
+  if (nv <= 0) {
+    for (int i = threadIdx.x; i < kCols * block; i += blockDim.x)
+      out_b[(size_t)(i / block) * plane + i % block] = 0.f;
+    return;
+  }
+
+  const float half = 0.5f * (float)ts;
+  const int tile = block_tile[b];
+  blend::stage_lanes(lanes, table, ep, block_src[b], nv,
+                  (float)(tile % tiles_x) * (float)ts + half,
+                  (float)(tile / tiles_x + row0) * (float)ts + half,
+                  power_floor, alpha_floor);
+
+  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
+  const float4 rect = blend::warp_rect<P>(st, ts, half);
+  // per pixel: the cotangent, the suffix sum_{j > k} e_j w_j and the
+  // transmittance behind the current lane, Tn = exp(S_b) at the start
+  // (while S < kLogWalk, S walks back instead and Tn is unused)
+  float g0[P], g1[P], g2[P], gS[P], S[P], Tn[P], suffix[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    g0[j] = g1[j] = g2[j] = gS[j] = S[j] = Tn[j] = suffix[j] = 0.f;
+    if (st.on(j, ts)) {
+      const int p = (st.y0 + j) * ts + st.x;
+      const float* g_b = g + (size_t)b * 4 * p2 + p;
+      g0[j] = g_b[0];
+      g1[j] = g_b[p2];
+      g2[j] = g_b[2 * p2];
+      gS[j] = g_b[3 * p2];
+      S[j] = s_b[(size_t)b * p2 + p];
+      Tn[j] = S[j] < kLogWalk ? 0.f : expf(S[j]);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int wlane = threadIdx.x & 31;
+  for (int kb = (nv - 1) / kBatch; kb >= 0; --kb) {
+    float v[kBatch][kCols];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) v[i][c] = 0.f;
+    bool kept = false;
+#pragma unroll
+    for (int i = kBatch - 1; i >= 0; --i) {
+      const int k = kb * kBatch + i;
+      if (k >= nv) continue;
+      const float4 q0 = lanes[k].q0;
+      if (cull && blend::culled(rect, q0)) continue;
+      const float4 q1 = lanes[k].q1;
+      if (q1.w == 0.f) continue;
+      const float4 q2 = lanes[k].q2;
+      const float dx = __fsub_rn(st.px, q0.x);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float dy = __fsub_rn(st.py[j], q0.y);
+        const float power = blend::power_of(dx, dy, q1.x, q1.y, q1.z);
+        if (!(st.on(j, ts) && power <= 0.f && power >= power_floor)) continue;
+        const float a_raw = __fmul_rn(q1.w, expf(power));
+        if (!(a_raw >= alpha_floor)) continue;
+        kept = true;
+        const float alpha = fminf(a_raw, alpha_cap);
+        const float inv = __frcp_rn(1.f - alpha);
+        float T;  // the transmittance in front of the lane
+        if (S[j] < kLogWalk) {
+          S[j] -= log1pf(-alpha);
+          T = expf(S[j]);
+        } else {
+          T = Tn[j] * inv;
+        }
+        Tn[j] = T;
+        const float w = alpha * T;
+        const float e = g0[j] * q2.x + g1[j] * q2.y + g2[j] * q2.z;
+        const float dl = suffix[j] + gS[j];
+        const float dpow = (e * T - dl * inv) * a_raw;
+        const float pdx = dpow * dx;
+        const float pdy = dpow * dy;
+        v[i][0] += pdx;
+        v[i][1] += pdy;
+        v[i][2] += pdx * dx;
+        v[i][3] += pdx * dy;
+        v[i][4] += pdy * dy;
+        v[i][5] += dpow;
+        v[i][6] += g0[j] * w;
+        v[i][7] += g1[j] * w;
+        v[i][8] += g2[j] * w;
+        suffix[j] += e * w;
+      }
+    }
+    float s[kCols];
+    if (__any_sync(kFullMask, kept)) {
+      warp_sum_batch(v, s);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s[c] = 0.f;
+    }
+    const int k = kb * kBatch + (wlane >> 3);
+    if ((wlane & 7) == 0 && k < nv) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) part[(warp * kCols + c) * block + k] = s[c];
+    }
+  }
+  __syncthreads();
+
+  for (int k = threadIdx.x; k < block; k += blockDim.x) {
+    float o[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[c] = 0.f;
+    if (k < nv) {
+      float s[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        float acc = 0.f;
+        for (int w = 0; w < nwarps; ++w) acc += part[(w * kCols + c) * block + k];
+        s[c] = acc;
+      }
+      const float4 q1 = lanes[k].q1;
+      finish_lane(s, q1.x, q1.y, q1.z, q1.w, o);
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) out_b[(size_t)c * plane + k] = o[c];
+  }
+}
 
 template <bool kTFloor>
-static int launch(const float* table, long long ep, const int* block_src,
-                  const int* block_valid, const int* block_tile,
-                  const float* g, const float* logti, int nb, int block,
-                  int ts, int tiles_x, int row0, float power_floor,
-                  float alpha_cap, float alpha_floor, float log_thr,
-                  float* dcols, void* stream) {
+int launch_v1(const float* table, long long ep, const int* block_src,
+              const int* block_valid, const int* block_tile, const float* g,
+              const float* logti, int nb, int block, int ts, int tiles_x,
+              int row0, float power_floor, float alpha_cap, float alpha_floor,
+              float log_thr, float* dcols, void* stream) {
   const int threads = (ts * ts + 31) / 32 * 32;
   const size_t smem = (size_t)(1 + threads / 32) * kCols * block * sizeof(float);
   if (smem > 48 * 1024) {
@@ -282,25 +482,74 @@ static int launch(const float* table, long long ep, const int* block_src,
   return (int)cudaGetLastError();
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+template <int P>
+int launch_hopper(const float* table, long long ep, const int* block_src,
+                  const int* block_valid, const int* block_tile, const float* g,
+                  const float* s_b, int nb, int block, int ts, int tiles_x,
+                  int row0, int cull, float power_floor, float alpha_cap,
+                  float alpha_floor, float* dcols, void* stream) {
+  const int threads = (ts * ((ts + P - 1) / P) + 31) / 32 * 32;
+  const size_t smem = (size_t)block * sizeof(blend::Lane) +
+                      (size_t)(threads / 32) * kCols * block * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_bwd_win_hopper<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  blend_bwd_win_hopper<P><<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, g, s_b, nb, block, ts,
+      tiles_x, row0, power_floor, alpha_cap, alpha_floor, cull, dcols);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a `ppt` other than 2 or 4.
 // table [>=10, ep] f32 row-major; block_src/valid/tile [nb] i32;
-// g [nb, 4, ts*ts] f32 (rows 0-2 dC, row 3 dS); dcols [9, nb, block] f32.
-// One thread per pixel rounded up to whole warps (ts*ts <= 1024) and
-// (1 + warps) * 9 * block floats of shared memory, which the wrapper keeps
-// within the 227 KB a Hopper block can have.
+// g [nb, 4, ts*ts] f32 (rows 0-2 dC, row 3 dS); s_b [nb, ts*ts] f32, the
+// forward's S_b (row 3 of its out); dcols [9, nb, block] f32.  ppt pixels
+// per thread (ts * ceil(ts / ppt) threads rounded up to whole warps, at most
+// 512), `cull` nonzero for the per-warp cull, 48 * block bytes + warps * 9 *
+// block floats of shared memory, which the wrapper keeps within the 227 KB
+// a Hopper block can have.
 extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 const int* block_src, const int* block_valid,
-                                const int* block_tile, const float* g, int nb,
-                                int block, int ts, int tiles_x, int row0,
+                                const int* block_tile, const float* g,
+                                const float* s_b, int nb, int block, int ts,
+                                int tiles_x, int row0, int ppt, int cull,
                                 float power_floor, float alpha_cap,
                                 float alpha_floor, float* dcols,
                                 void* stream) {
-  return launch<false>(table, ep, block_src, block_valid, block_tile, g,
-                       nullptr, nb, block, ts, tiles_x, row0, power_floor,
-                       alpha_cap, alpha_floor, 0.f, dcols, stream);
+  if (ppt == 2)
+    return launch_hopper<2>(table, ep, block_src, block_valid, block_tile, g,
+                            s_b, nb, block, ts, tiles_x, row0, cull,
+                            power_floor, alpha_cap, alpha_floor, dcols, stream);
+  if (ppt == 4)
+    return launch_hopper<4>(table, ep, block_src, block_valid, block_tile, g,
+                            s_b, nb, block, ts, tiles_x, row0, cull,
+                            power_floor, alpha_cap, alpha_floor, dcols, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The T-floor pass: as gs_blend_bwd_win plus logti [nb, ts*ts] f32 and
+// The first design, as gs_blend_bwd_win without s_b, ppt and cull: one
+// thread per pixel rounded up to whole warps (ts*ts <= 1024) and
+// (1 + warps) * 9 * block floats of shared memory.
+extern "C" int gs_blend_bwd_win_v1(const float* table, long long ep,
+                                   const int* block_src,
+                                   const int* block_valid,
+                                   const int* block_tile, const float* g,
+                                   int nb, int block, int ts, int tiles_x,
+                                   int row0, float power_floor,
+                                   float alpha_cap, float alpha_floor,
+                                   float* dcols, void* stream) {
+  return launch_v1<false>(table, ep, block_src, block_valid, block_tile, g,
+                          nullptr, nb, block, ts, tiles_x, row0, power_floor,
+                          alpha_cap, alpha_floor, 0.f, dcols, stream);
+}
+
+// The T-floor pass: as gs_blend_bwd_win_v1 plus logti [nb, ts*ts] f32 and
 // log_thr = log(transmittance_floor).
 extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
                                    const int* block_src,
@@ -311,7 +560,7 @@ extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
                                    float power_floor, float alpha_cap,
                                    float alpha_floor, float log_thr,
                                    float* dcols, void* stream) {
-  return launch<true>(table, ep, block_src, block_valid, block_tile, g, logti,
-                      nb, block, ts, tiles_x, row0, power_floor, alpha_cap,
-                      alpha_floor, log_thr, dcols, stream);
+  return launch_v1<true>(table, ep, block_src, block_valid, block_tile, g,
+                         logti, nb, block, ts, tiles_x, row0, power_floor,
+                         alpha_cap, alpha_floor, log_thr, dcols, stream);
 }

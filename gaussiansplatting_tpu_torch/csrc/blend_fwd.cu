@@ -7,22 +7,48 @@
 //                        is window b here;
 //   gs_blend_fwd_win_tf  _fwd_kernel_tf (:249, block_blend_cols_tf), the
 //                        exact T-floor second pass.
+// gs_blend_fwd_win_v1 is the first design of gs_blend_fwd_win (below), kept
+// for chip_smoke.py's A/B; nothing on the render or training path calls it.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
-// Design: one CUDA block per pair block b, one thread per tile pixel
-// (p = y*ts + x, offset (x + 0.5 - ts/2, y + 0.5 - ts/2) from the tile
-// centre).  The block stages the live lanes of its window
-// [block_src[b], block_src[b] + block_valid[b]) of the tile-sorted table into
-// shared memory (coalesced along each table row), then every thread walks the
-// lanes front to back carrying its running log-transmittance S:
+// Every instance evaluates the power with explicitly rounded operations
+// (__fmul_rn etc., never contracted into FMAs) in the same order as the
+// plain version, so the power window and alpha-floor masks agree with it
+// bit for bit on the card; only the prefix and colour sums are taken in
+// another order.  Each output element has exactly one writer: no atomics,
+// deterministic.  Dead blocks (block_valid == 0) still write zeros and gid
+// -1, because the outputs come from torch.empty and compose reads every
+// block.
+//
+// What bounds it on the H100: ~4.3e8 (pixel, lane) power tests per 800x608
+// frame of the 100k-Gaussian scene (~11 flops each) and, per kept pair, an
+// exp for alpha, a log1p for S and ~14 flops: instruction issue, not HBM
+// (~150 MB in and out, 0.045 ms at 3.35 TB/s).
+//
+// gs_blend_fwd_win, the Hopper design: one CUDA block per pair block b and
+// P pixels per thread (a column strip, blend_common.cuh), so 256 / P
+// threads at ts = 16.  The live lanes are staged once as 48-byte records
+// (three float4: mean and cull extents, conic and opacity, colour), so a
+// thread reads each lane with three broadcast shared loads and uses it for
+// its P pixels, where the first design made nine scalar loads per pixel.
+// The transmittance is carried by multiplication (w = alpha T;
+// T *= 1 - alpha) instead of an expf(S) per kept pair; S is still the
+// sequential log1pf sum, bit for bit what the first design writes to row 3,
+// which the backward walks back from and the T-floor pass compares.  With
+// `cull`, a warp skips a lane whose padded ellipse box (blend_common.cuh,
+// cull_extent) misses the warp's 16 x 2P pixel rectangle: a test per warp
+// and lane in place of P power evaluations per thread, which never drops a
+// pixel the power test would keep.
+//
+// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf, the first design: one thread
+// per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2, y + 0.5 - ts/2)
+// from the tile centre), the window's nine columns in shared memory, every
+// thread walking the lanes front to back carrying its log-transmittance S:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  a_raw = op exp(power),
 //   kept iff power in [power_floor, 0] and a_raw >= alpha_floor,
 //   alpha = min(a_raw, alpha_cap),  w = alpha exp(S),  C += w rgb,
 //   S += log1p(-alpha).
-// Each output element has exactly one writer: no atomics, deterministic.
-// Dead blocks (block_valid == 0) still write zeros and gid -1, because the
-// outputs come from torch.empty and the compose step reads every block.
 //
 // The T-floor pass (kTFloor) takes each pixel's incoming global log T,
 // logti[b, p], from the unmasked first pass and stops the pixel's loop at
@@ -30,25 +56,13 @@
 // loop exit (tiled_shaders.metal:334).  S only decreases, so every later
 // lane would be masked too and the break is exact; it is also the work the
 // exit saves.  A block whose pixels all arrive at or below the floor writes
-// C = 0, S = 0 and stages nothing.  Both passes are instances of one
-// template, so their alpha and S come from the same rounded device code and
-// the second pass's in-block S is consistent with the first pass's, from
-// which logti was summed.  The T-floor pass writes no gid.
-//
-// The power is evaluated with explicitly rounded operations (__fmul_rn etc.,
-// never contracted into FMAs) in the same order as the plain version, so the
-// power window and alpha-floor masks agree with it bit for bit on the card;
-// only the prefix and colour sums are taken in another order.
-//
-// What bounds it on the H100: about 256 pixels x 1.7M pairs per 800x608
-// frame of the 100k-Gaussian scene, i.e. ~4e8 pair-pixel evaluations, each
-// one exp for alpha and, where the pair is kept, a log1p and an exp for the
-// transmittance: special-function-unit throughput, not HBM (the table is
-// read once, ~40 B per pair).  Lanes outside the power window skip the
-// special functions entirely.  Tensor cores (wgmma) for the quadratic form
-// and TMA staging of the windows are later tuning work.
+// C = 0, S = 0 and stages nothing.  Its S comes from the same rounded
+// sequential log1pf sum as both designs' first pass, from which logti was
+// summed.  The T-floor pass writes no gid.
 
 #include <cuda_runtime.h>
+
+#include "blend_common.cuh"
 
 namespace {
 
@@ -132,10 +146,7 @@ __global__ void blend_fwd_win_kernel(
       if (op == 0.f) continue;  // a_raw = 0 is below any alpha floor > 0
       const float dx = __fsub_rn(px, s_mx[k]);
       const float dy = __fsub_rn(py, s_my[k]);
-      const float qa = __fmul_rn(__fmul_rn(s_ca[k], dx), dx);
-      const float qc = __fmul_rn(__fmul_rn(s_cc[k], dy), dy);
-      const float power = __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qa, qc)),
-                                    __fmul_rn(s_cb[k], __fmul_rn(dx, dy)));
+      const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
       if (!(power <= 0.f && power >= power_floor)) continue;
       const float a_raw = __fmul_rn(op, expf(power));
       if (!(a_raw >= alpha_floor)) continue;
@@ -154,19 +165,126 @@ __global__ void blend_fwd_win_kernel(
   }
 }
 
+template <int P>
+__global__ void __launch_bounds__(512) blend_fwd_win_hopper(
+    const float* __restrict__ table, long long ep,
+    const int* __restrict__ block_src, const int* __restrict__ block_valid,
+    const int* __restrict__ block_tile, int block, int ts, int tiles_x,
+    int row0, float power_floor, float alpha_cap, float alpha_floor, int cull,
+    float* __restrict__ out, float* __restrict__ gid_out) {
+  extern __shared__ float4 lane_smem[];
+  blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);  // [block]
+  const int b = blockIdx.x;
+  const int p2 = ts * ts;
+  float* out_b = out + (size_t)b * 4 * p2;
+  float* gid_b = gid_out + (size_t)b * block;
+  const int nv = min(block_valid[b], block);
+  for (int t = threadIdx.x; t < block; t += blockDim.x)
+    gid_b[t] = t < nv ? table[(long long)block_src[b] + t] : -1.f;
+  if (nv <= 0) {
+    for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
+    return;
+  }
+
+  const float half = 0.5f * (float)ts;
+  const int tile = block_tile[b];
+  blend::stage_lanes(lanes, table, ep, block_src[b], nv,
+                  (float)(tile % tiles_x) * (float)ts + half,
+                  (float)(tile / tiles_x + row0) * (float)ts + half,
+                  power_floor, alpha_floor);
+  __syncthreads();
+
+  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
+  const float4 rect = blend::warp_rect<P>(st, ts, half);
+  float T[P], S[P], c0[P], c1[P], c2[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) T[j] = 1.f, S[j] = c0[j] = c1[j] = c2[j] = 0.f;
+
+  for (int k = 0; k < nv; ++k) {
+    const float4 q0 = lanes[k].q0;
+    if (cull && blend::culled(rect, q0)) continue;
+    const float4 q1 = lanes[k].q1;
+    if (q1.w == 0.f) continue;  // a_raw = 0 is below any alpha floor > 0
+    const float4 q2 = lanes[k].q2;
+    const float dx = __fsub_rn(st.px, q0.x);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float dy = __fsub_rn(st.py[j], q0.y);
+      const float power = blend::power_of(dx, dy, q1.x, q1.y, q1.z);
+      if (!(st.on(j, ts) && power <= 0.f && power >= power_floor)) continue;
+      const float a_raw = __fmul_rn(q1.w, expf(power));
+      if (!(a_raw >= alpha_floor)) continue;
+      const float alpha = fminf(a_raw, alpha_cap);
+      const float w = alpha * T[j];
+      c0[j] += w * q2.x;
+      c1[j] += w * q2.y;
+      c2[j] += w * q2.z;
+      T[j] *= 1.f - alpha;
+      S[j] += log1pf(-alpha);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (!st.on(j, ts)) continue;
+    const int p = (st.y0 + j) * ts + st.x;
+    out_b[p] = c0[j];
+    out_b[p2 + p] = c1[j];
+    out_b[2 * p2 + p] = c2[j];
+    out_b[3 * p2 + p] = S[j];
+  }
+}
+
+template <int P>
+int launch_hopper(const float* table, long long ep, const int* block_src,
+                  const int* block_valid, const int* block_tile, int nb,
+                  int block, int ts, int tiles_x, int row0, int cull,
+                  float power_floor, float alpha_cap, float alpha_floor,
+                  float* out, float* gid, void* stream) {
+  const int threads = (ts * ((ts + P - 1) / P) + 31) / 32 * 32;
+  const size_t smem = (size_t)block * sizeof(blend::Lane);
+  blend_fwd_win_hopper<P><<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, block, ts, tiles_x, row0,
+      power_floor, alpha_cap, alpha_floor, cull, out, gid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a `ppt` other than 2 or 4.
 // table [>=10, ep] f32 row-major; block_src/valid/tile [nb] i32;
-// out [nb, 4, ts*ts] f32; gid [nb, block] f32.  Needs ts*ts <= 1024 threads
-// and 9*block floats of shared memory (block <= 1024 keeps it under 48 KB).
+// out [nb, 4, ts*ts] f32; gid [nb, block] f32.  ppt pixels per thread
+// (ts * ceil(ts / ppt) threads, rounded up to whole warps, at most 512),
+// `cull` nonzero for the per-warp cull, 48 * block bytes of shared memory
+// (block <= 1024 keeps it within 48 KB).
 extern "C" int gs_blend_fwd_win(const float* table, long long ep,
                                 const int* block_src, const int* block_valid,
                                 const int* block_tile, int nb, int block,
-                                int ts, int tiles_x, int row0,
-                                float power_floor, float alpha_cap,
+                                int ts, int tiles_x, int row0, int ppt,
+                                int cull, float power_floor, float alpha_cap,
                                 float alpha_floor, float* out, float* gid,
                                 void* stream) {
+  if (ppt == 2)
+    return launch_hopper<2>(table, ep, block_src, block_valid, block_tile, nb,
+                            block, ts, tiles_x, row0, cull, power_floor,
+                            alpha_cap, alpha_floor, out, gid, stream);
+  if (ppt == 4)
+    return launch_hopper<4>(table, ep, block_src, block_valid, block_tile, nb,
+                            block, ts, tiles_x, row0, cull, power_floor,
+                            alpha_cap, alpha_floor, out, gid, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The first design, as gs_blend_fwd_win without ppt and cull.  Needs
+// ts*ts <= 1024 threads and 9*block floats of shared memory.
+extern "C" int gs_blend_fwd_win_v1(const float* table, long long ep,
+                                   const int* block_src,
+                                   const int* block_valid,
+                                   const int* block_tile, int nb, int block,
+                                   int ts, int tiles_x, int row0,
+                                   float power_floor, float alpha_cap,
+                                   float alpha_floor, float* out, float* gid,
+                                   void* stream) {
   const size_t smem = (size_t)kCols * block * sizeof(float);
   blend_fwd_win_kernel<false><<<nb, ts * ts, smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, nullptr, block, ts,
@@ -174,7 +292,7 @@ extern "C" int gs_blend_fwd_win(const float* table, long long ep,
   return (int)cudaGetLastError();
 }
 
-// The T-floor pass: as gs_blend_fwd_win plus logti [nb, ts*ts] f32 and
+// The T-floor pass: as gs_blend_fwd_win_v1 plus logti [nb, ts*ts] f32 and
 // log_thr = log(transmittance_floor); writes out only.
 extern "C" int gs_blend_fwd_win_tf(const float* table, long long ep,
                                    const int* block_src,

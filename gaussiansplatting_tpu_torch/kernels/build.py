@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point,
-compiled by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
-``ctypes``.  The build runs at first use, into ``build/kernels/`` at the
-repository root, with a hash of the source and the flags in the file name, so
-an edited source rebuilds and an unchanged one is loaded as is.
+Each kernel is one ``csrc/<name>.cu`` file (which may include the
+``csrc/*.cuh`` headers) with plain C entry points, compiled by ``nvcc`` for
+``sm_90a`` into a shared library and loaded with ``ctypes``.  The build
+runs at first use, into ``build/kernels/`` at the repository root, with a
+hash of the source, the headers and the flags in the file name, so an edited
+source rebuilds and an unchanged one is loaded as is.
 
 Nothing here runs at import time: the CPU-only test machine imports every
 module and has no ``nvcc``.
@@ -53,9 +54,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lands, keyed by its content."""
+    """Where the build of ``csrc/<name>.cu`` lands, keyed by its content and
+    that of the headers beside it (``csrc/*.cuh``)."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -32,11 +32,24 @@ tile_size**2 pixels:
            forward returns out only (C and S over survivors); the backward
            holds the mask constant, and logti gets no cotangent.
 
+  s_b      the plain backward also takes s_b [NB, P2] f32, the forward's
+           S_b (``out[:, 3]``): the kernel walks each pixel's transmittance
+           back from it instead of replaying the forward.
+
 On a CUDA tensor each wrapper launches its kernel (csrc/blend_fwd.cu,
 csrc/blend_bwd.cu); on a CPU tensor it runs the plain version.  Nothing falls
 back from one to the other.  The wrappers are raw kernel entries: gradients
 reach the backward through ops/rasterize._BlendWindows, so the forward
 refuses inputs that require grad.
+
+The forward and backward without the T-floor have two kernel designs each:
+the Hopper design (``gs_blend_fwd_win`` / ``gs_blend_bwd_win``: several
+pixels per thread, staged lane records, a per-warp cull, the backward
+walking back from s_b with a batched warp exchange), which the wrappers
+launch, and the first design (``gs_blend_fwd_win_v1`` /
+``gs_blend_bwd_win_v1``: one thread per pixel), which only
+``windowed_blend_fwd_v1`` / ``windowed_blend_bwd_v1`` launch, for
+chip_smoke.py's A/B.  The T-floor entries keep the first design.
 """
 
 from __future__ import annotations
@@ -46,10 +59,16 @@ from typing import NamedTuple
 
 import torch
 
-_P2_MAX_THREADS = 1024   # one CUDA thread per tile pixel
-_B_MAX = 1024            # staged window lanes (9 f32 each in shared memory)
+_P2_MAX_THREADS = 1024   # the first design: one CUDA thread per tile pixel
+_B_MAX = 1024            # staged window lanes
 _SMEM_MAX = 232_448      # bytes of shared memory a Hopper block can have
-_BWD_STATIC_SMEM = 128   # blend_bwd.cu's static per-warp kend array
+_V1_BWD_STATIC_SMEM = 128  # blend_bwd.cu's static per-warp kend array
+_LANE_BYTES = 48         # blend_common.cuh's staged lane record
+# The Hopper design's pixels per thread (2 or 4) and its per-warp cull, as
+# the wrappers launch it; chip_smoke.py phase 3 times every setting
+FWD_PIXELS_PER_THREAD = 4
+BWD_PIXELS_PER_THREAD = 2
+WARP_CULL = True
 
 
 def _check_no_grad(*tensors):
@@ -103,20 +122,52 @@ windowed_blend_fwd_tf.launches = 0
 
 
 def windowed_blend_bwd(table, block_src, block_valid, block_tile, row0, block,
-                       g, cfg_consts):
+                       g, s_b, cfg_consts):
     """Backward windowed blend: the nine [NB, B] column cotangents (mx, my,
     a, b, c, op, r, g, b) of the forward's ``out`` given its cotangent ``g``
-    [NB, 4, P2].
+    [NB, 4, P2] and its S_b ``s_b`` = ``out[:, 3]`` [NB, P2].
 
     ``windowed_blend_bwd.launches`` counts CUDA kernel launches."""
     if _device_type("windowed_blend_bwd", table) == "cuda":
         return _launch_bwd_cuda(table, block_src, block_valid, block_tile,
-                                row0, block, g, cfg_consts)
+                                row0, block, g, cfg_consts, s_b=s_b)
     return windowed_blend_bwd_plain(table, block_src, block_valid, block_tile,
-                                    row0, block, g, cfg_consts)
+                                    row0, block, g, s_b, cfg_consts)
 
 
 windowed_blend_bwd.launches = 0
+
+
+def windowed_blend_fwd_v1(table, block_src, block_valid, block_tile, row0,
+                          block, cfg_consts):
+    """windowed_blend_fwd through the first kernel design
+    (``gs_blend_fwd_win_v1``), CUDA tensors only: chip_smoke.py's A/B
+    against the Hopper design.  ``.launches`` counts its launches."""
+    _check_no_grad(table)
+    if _device_type("windowed_blend_fwd_v1", table) != "cuda":
+        raise RuntimeError("windowed_blend_fwd_v1 launches a CUDA kernel; the "
+                           "CPU runs windowed_blend_fwd_plain")
+    return _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0,
+                            block, cfg_consts, v1=True)
+
+
+windowed_blend_fwd_v1.launches = 0
+
+
+def windowed_blend_bwd_v1(table, block_src, block_valid, block_tile, row0,
+                          block, g, cfg_consts):
+    """windowed_blend_bwd through the first kernel design
+    (``gs_blend_bwd_win_v1``, which replays the forward instead of taking
+    s_b), CUDA tensors only: chip_smoke.py's A/B against the Hopper design.
+    ``.launches`` counts its launches."""
+    if _device_type("windowed_blend_bwd_v1", table) != "cuda":
+        raise RuntimeError("windowed_blend_bwd_v1 launches a CUDA kernel; the "
+                           "CPU runs windowed_blend_bwd_plain")
+    return _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0,
+                            block, g, cfg_consts, v1=True)
+
+
+windowed_blend_bwd_v1.launches = 0
 
 
 def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
@@ -161,11 +212,40 @@ def _checked_launch_args(table, block_src, block_valid, block_tile, block,
                                            float(alpha_floor))
 
 
-def _checked_logti(logti, nb, p2, dev):
-    if logti.dtype != torch.float32 or logti.shape != (nb, p2) or logti.device != dev:
-        raise ValueError(f"logti must be [{nb}, {p2}] float32 on {dev}, got "
-                         f"{tuple(logti.shape)} {logti.dtype} on {logti.device}")
-    return logti.contiguous()
+def _checked_plane(name, x, nb, p2, dev):
+    """A [NB, P2] float32 input (logti, s_b) on ``dev``, contiguous."""
+    if x.dtype != torch.float32 or x.shape != (nb, p2) or x.device != dev:
+        raise ValueError(f"{name} must be [{nb}, {p2}] float32 on {dev}, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    return x.contiguous()
+
+
+def launch_geometry(ts, block, backward, ppt=None, v1=False):
+    """(threads, shared-memory bytes) of one CUDA block of the blend at tile
+    size ``ts`` and ``block`` lanes, as csrc/blend_fwd.cu and blend_bwd.cu
+    launch it.  The Hopper design: ts * ceil(ts / ppt) threads (``ppt``
+    pixels each, default FWD/BWD_PIXELS_PER_THREAD) rounded up to whole
+    warps, 48 bytes per staged lane and, in the backward, 9 floats per
+    (warp, lane) of partial sums.  The first design (``v1``): one thread per
+    pixel, 9 floats per lane, and in the backward 9 per (warp, lane) plus
+    the static kend array.  Raises where the block would need more shared
+    memory than a Hopper block can have (232,448 bytes)."""
+    ts, block = int(ts), int(block)
+    if v1:
+        threads = -(-ts * ts // 32) * 32
+        smem = (9 * block * 4 if not backward else
+                (1 + threads // 32) * 9 * block * 4 + _V1_BWD_STATIC_SMEM)
+    else:
+        if ppt is None:
+            ppt = BWD_PIXELS_PER_THREAD if backward else FWD_PIXELS_PER_THREAD
+        if ppt not in (2, 4):
+            raise ValueError(f"pixels per thread must be 2 or 4, got {ppt}")
+        threads = -(-ts * -(-ts // ppt) // 32) * 32
+        smem = block * _LANE_BYTES + (threads // 32 * 9 * block * 4 if backward else 0)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"pair_block {block} at tile_size {ts} needs {smem} "
+                         f"bytes of shared memory (at most {_SMEM_MAX})")
+    return threads, smem
 
 
 def _c_fn(lib, name, pointers_before, ints, floats, pointers_after):
@@ -182,9 +262,12 @@ def _c_fn(lib, name, pointers_before, ints, floats, pointers_after):
 
 
 def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
-                     cfg_consts, logti=None, log_thr=None):
-    """gs_blend_fwd_win, or gs_blend_fwd_win_tf when ``logti`` is given
-    (then gid is None: the T-floor pass takes it from the first pass)."""
+                     cfg_consts, logti=None, log_thr=None, v1=False,
+                     ppt=None, cull=None):
+    """gs_blend_fwd_win (``ppt`` pixels per thread, the per-warp ``cull``;
+    defaults FWD_PIXELS_PER_THREAD and WARP_CULL), gs_blend_fwd_win_v1 with
+    ``v1``, or gs_blend_fwd_win_tf when ``logti`` is given (then gid is
+    None: the T-floor pass takes it from the first pass)."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -192,11 +275,14 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
                              cfg_consts))
     nb = block_src.shape[0]
     dev = table.device
-    out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
     tf = logti is not None
+    ppt = FWD_PIXELS_PER_THREAD if ppt is None else ppt
+    cull = WARP_CULL if cull is None else cull
+    launch_geometry(ts, block, False, ppt, v1 or tf)
+    out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
     gid = None if tf else torch.empty((nb, block), dtype=torch.float32, device=dev)
     if tf:
-        logti = _checked_logti(logti, nb, ts * ts, dev)
+        logti = _checked_plane("logti", logti, nb, ts * ts, dev)
     if nb == 0:
         return out, gid
     lib = build.load_library("blend_fwd")
@@ -206,26 +292,32 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
     ints = (nb, block, ts, tiles_x, int(row0))
     with torch.cuda.device(dev):
         if tf:
-            name = "gs_blend_fwd_win_tf"
+            name, counter = "gs_blend_fwd_win_tf", windowed_blend_fwd_tf
             err = _c_fn(lib, name, 4, 5, 4, 1)(
                 *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
                 out.data_ptr(), stream)
-        else:
-            name = "gs_blend_fwd_win"
+        elif v1:
+            name, counter = "gs_blend_fwd_win_v1", windowed_blend_fwd_v1
             err = _c_fn(lib, name, 3, 5, 3, 2)(
                 *windows, *ints, *floats, out.data_ptr(), gid.data_ptr(), stream)
+        else:
+            name, counter = "gs_blend_fwd_win", windowed_blend_fwd
+            err = _c_fn(lib, name, 3, 7, 3, 2)(
+                *windows, *ints, int(ppt), int(bool(cull)), *floats,
+                out.data_ptr(), gid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    if tf:
-        windowed_blend_fwd_tf.launches += 1
-    else:
-        windowed_blend_fwd.launches += 1
+    counter.launches += 1
     return out, gid
 
 
 def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
-                     g, cfg_consts, logti=None, log_thr=None):
-    """gs_blend_bwd_win, or gs_blend_bwd_win_tf when ``logti`` is given."""
+                     g, cfg_consts, logti=None, log_thr=None, s_b=None,
+                     v1=False, ppt=None, cull=None):
+    """gs_blend_bwd_win given the forward's ``s_b`` (``ppt`` pixels per
+    thread, the per-warp ``cull``; defaults BWD_PIXELS_PER_THREAD and
+    WARP_CULL), gs_blend_bwd_win_v1 with ``v1``, or gs_blend_bwd_win_tf when
+    ``logti`` is given."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -237,15 +329,16 @@ def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
     if g.dtype != torch.float32 or g.shape != (nb, 4, p2) or g.device != dev:
         raise ValueError(f"g must be [{nb}, 4, {p2}] float32 on {dev}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    warps = -(-p2 // 32)
-    smem = (1 + warps) * 9 * block * 4 + _BWD_STATIC_SMEM
-    if smem > _SMEM_MAX:
-        raise ValueError(f"pair_block {block} at tile_size {ts} needs {smem} "
-                         f"bytes of shared memory (at most {_SMEM_MAX})")
-    g = g.contiguous()
     tf = logti is not None
+    hopper = not (tf or v1)
+    ppt = BWD_PIXELS_PER_THREAD if ppt is None else ppt
+    cull = WARP_CULL if cull is None else cull
+    launch_geometry(ts, block, True, ppt, not hopper)
+    g = g.contiguous()
     if tf:
-        logti = _checked_logti(logti, nb, p2, dev)
+        logti = _checked_plane("logti", logti, nb, p2, dev)
+    if hopper:
+        s_b = _checked_plane("s_b", s_b, nb, p2, dev)
     dcols = torch.empty((9, nb, block), dtype=torch.float32, device=dev)
     if nb > 0:
         lib = build.load_library("blend_bwd")
@@ -255,20 +348,22 @@ def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             if tf:
-                name = "gs_blend_bwd_win_tf"
+                name, counter = "gs_blend_bwd_win_tf", windowed_blend_bwd_tf
                 err = _c_fn(lib, name, 5, 5, 4, 1)(
                     *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
                     dcols.data_ptr(), stream)
-            else:
-                name = "gs_blend_bwd_win"
+            elif v1:
+                name, counter = "gs_blend_bwd_win_v1", windowed_blend_bwd_v1
                 err = _c_fn(lib, name, 4, 5, 3, 1)(
                     *windows, *ints, *floats, dcols.data_ptr(), stream)
+            else:
+                name, counter = "gs_blend_bwd_win", windowed_blend_bwd
+                err = _c_fn(lib, name, 5, 7, 3, 1)(
+                    *windows, s_b.data_ptr(), *ints, int(ppt), int(bool(cull)),
+                    *floats, dcols.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        if tf:
-            windowed_blend_bwd_tf.launches += 1
-        else:
-            windowed_blend_bwd.launches += 1
+        counter.launches += 1
     return tuple(dcols.unbind(0))
 
 
@@ -448,7 +543,7 @@ def _bwd_plain(table, block_src, block_valid, block_tile, row0, block, g,
 
 
 def windowed_blend_bwd_plain(table, block_src, block_valid, block_tile, row0,
-                             block, g, cfg_consts, chunk_blocks: int = 256):
+                             block, g, s_b, cfg_consts, chunk_blocks: int = 256):
     """Plain PyTorch version of the backward kernel (the CPU path and the
     kernel's oracle), the chain rule written out per chunk of blocks:
 
@@ -457,7 +552,14 @@ def windowed_blend_bwd_plain(table, block_src, block_valid, block_tile, row0,
 
     then the moment sums of dpow against (dx, dy) over the pixels, d op =
     sum dpow / op and d colour = sum g_ch w.  The alpha cap passes the
-    gradient through, as in the TPU kernel."""
+    gradient through, as in the TPU kernel.
+
+    ``s_b`` [NB, P2] is the forward's S_b, which the kernel walks each
+    pixel's transmittance back from; the plain version checks its shape and
+    takes T from its own replay's prefix sums, so it stays an independent
+    oracle of the kernel's use of s_b."""
+    _checked_plane("s_b", s_b, block_src.shape[0], int(cfg_consts[0]) ** 2,
+                   table.device)
     dcols, _ = _bwd_plain(table, block_src, block_valid, block_tile, row0,
                           block, g, cfg_consts, None, 0.0, chunk_blocks)
     return dcols

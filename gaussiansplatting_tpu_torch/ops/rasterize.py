@@ -201,9 +201,10 @@ class _BlendWindows(torch.autograd.Function):
     unmasked ``block_blend_cols`` pass (rasterize.py:434-439).  The windows
     are built from ``data.detach()``; differentiable in ``data`` only.
 
-    Forward returns (out [NB, 4, P2], gid [NB, B] f32); backward runs the
-    blend backward over the same windows, then reduces the aligned-order
-    column cotangents to per-Gaussian sums."""
+    Forward returns (out [NB, 4, P2], gid [NB, B] f32) and keeps this
+    pass's own S_b (``out[:, 3]``); backward runs the blend backward over the
+    same windows from that S_b, then reduces the aligned-order column
+    cotangents to per-Gaussian sums."""
 
     @staticmethod
     def forward(ctx, data, win, counts, pcfg, bconsts):
@@ -212,17 +213,17 @@ class _BlendWindows(torch.autograd.Function):
             bconsts,
         )
         ctx.win, ctx.pcfg, ctx.bconsts = win, pcfg, bconsts
-        ctx.save_for_backward(gid, counts)
+        ctx.save_for_backward(gid, counts, out[:, 3].contiguous())
         ctx.mark_non_differentiable(gid)
         return out, gid
 
     @staticmethod
     def backward(ctx, d_out, _d_gid):
-        gid, counts = ctx.saved_tensors
+        gid, counts, s_b = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd(
             win.table, win.block_src, win.block_valid, win.tile, 0, block,
-            d_out.contiguous(), ctx.bconsts,
+            d_out.contiguous(), s_b, ctx.bconsts,
         )
         return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 4
 
@@ -299,8 +300,9 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
 
     Returns (blend_args, block_tile, RenderAux) where blend_args are the
     positional arguments of ops.blend.windowed_blend_fwd (and, with the
-    cotangent inserted before the constants, of windowed_blend_bwd; the
-    T-floor variants take (logti, log_thr) after them)."""
+    cotangent and the forward's S_b inserted before the constants, of
+    windowed_blend_bwd; the T-floor variants take the cotangent alone there
+    and (logti, log_thr) after the constants)."""
     plan = _plan(params, camera, cfg)
     win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
     blend_args = (win.table, win.block_src, win.block_valid, win.tile, 0,

@@ -130,6 +130,28 @@ def test_kernel_matches_plain_cuda(block):
     np.testing.assert_allclose(out_k, t2n(out_p), atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 128])
+def test_kernel_matches_first_design_cuda(block):
+    """The Hopper forward at every pixels-per-thread and cull setting
+    against the first design on the card: gid exact, S_b bit for bit (both
+    sum the same rounded log1pf terms in lane order), colour within 1e-4 +
+    1e-5 relative (the first design takes T from expf(S), the Hopper one by
+    multiplication)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    table, src, valid, tile = _random_windows(60 + block, block)
+    dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile)]
+    with torch.no_grad():
+        out_1, gid_1 = tblend.windowed_blend_fwd_v1(*dev, 0, block, CONSTS)
+        for ppt in (2, 4):
+            for cull in (False, True):
+                out, gid = tblend._launch_fwd_cuda(*dev, 0, block, CONSTS,
+                                                   ppt=ppt, cull=cull)
+                assert torch.equal(gid, gid_1) and torch.equal(out[:, 3], out_1[:, 3])
+                np.testing.assert_allclose(t2n(out), t2n(out_1), atol=1e-4, rtol=1e-5)
+
+
 def _fake_nvcc(tmp_path):
     """An executable that records its call and writes its -o target."""
     nvcc = tmp_path / "cuda" / "bin" / "nvcc"
@@ -190,3 +212,17 @@ def test_build_reports_compiler_failure(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="bad kernel"):
         build.build("blend_fwd")
     assert list((tmp_path / "kernels").iterdir()) == []
+
+
+def test_build_key_follows_the_headers(tmp_path, monkeypatch):
+    """A kernel's build is keyed by its source and by csrc/*.cuh, so an
+    edited shared header rebuilds every kernel that may include it."""
+    from gaussiansplatting_tpu_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.library_path("k") != first

@@ -4,6 +4,9 @@ against the JAX package's Pallas backward (pallas_blend.windowed_blend_bwd,
 interpret mode on the CPU) and pairs.reduce_aligned_cotangents, and the CUDA
 kernel against its plain version where a GPU is present.
 
+The backward takes the forward's S_b (out[:, 3]); here it comes from the
+plain forward on the same windows.
+
 As in tests/test_torch_blend.py the JAX kernel runs with GS_BLEND_POWER=vpu,
 its direct evaluation of the quadratic form and the sublane-reduction
 backward, which is the form the port's kernel and plain version use."""
@@ -48,10 +51,18 @@ def _windows_and_g(seed, block, row0):
     return table, src, valid, tile, g
 
 
+def _plain_s_b(args, row0, block):
+    """The plain forward's S_b (out[:, 3]) of the windows ``args``."""
+    with torch.no_grad():
+        out, _ = tblend.windowed_blend_fwd_plain(*args, row0, block, CONSTS)
+    return out[:, 3].contiguous()
+
+
 def _port_bwd(table, src, valid, tile, row0, block, g, device="cpu"):
     args = [torch.from_numpy(x).to(device) for x in (table, src, valid, tile)]
+    s_b = _plain_s_b(args, row0, block)
     out = tblend.windowed_blend_bwd(*args, row0, block,
-                                    torch.from_numpy(g).to(device), CONSTS)
+                                    torch.from_numpy(g).to(device), s_b, CONSTS)
     return [t2n(c) for c in out]
 
 
@@ -84,10 +95,11 @@ def test_bwd_plain_matches_jax_kernel(block, row0):
 
 def test_bwd_plain_chunking_is_invisible():
     table, src, valid, tile, g = (torch.from_numpy(x) for x in _windows_and_g(70, 16, 0))
-    ref = tblend.windowed_blend_bwd_plain(table, src, valid, tile, 0, 16, g, CONSTS)
+    s_b = _plain_s_b((table, src, valid, tile), 0, 16)
+    ref = tblend.windowed_blend_bwd_plain(table, src, valid, tile, 0, 16, g, s_b, CONSTS)
     for chunk in (1, 3):
         got = tblend.windowed_blend_bwd_plain(table, src, valid, tile, 0, 16, g,
-                                              CONSTS, chunk_blocks=chunk)
+                                              s_b, CONSTS, chunk_blocks=chunk)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -140,6 +152,110 @@ def test_reduce_scatter_is_not_ported():
                                          torch.zeros(2, dtype=torch.int32), 2, "scatter")
 
 
+@pytest.mark.parametrize("shape", [(NB, TS * TS + 1), (NB - 1, TS * TS),
+                                   (NB, 4, TS * TS), (NB * TS * TS,)])
+def test_bwd_refuses_wrong_shaped_s_b(shape):
+    table, src, valid, tile, g = (torch.from_numpy(x) for x in _windows_and_g(72, 16, 0))
+    with pytest.raises(ValueError, match="s_b must be"):
+        tblend.windowed_blend_bwd(table, src, valid, tile, 0, 16, g,
+                                  torch.zeros(shape), CONSTS)
+
+
+def test_bwd_refuses_float64_s_b():
+    table, src, valid, tile, g = (torch.from_numpy(x) for x in _windows_and_g(73, 16, 0))
+    s_b = _plain_s_b((table, src, valid, tile), 0, 16).double()
+    with pytest.raises(ValueError, match="s_b must be"):
+        tblend.windowed_blend_bwd_plain(table, src, valid, tile, 0, 16, g, s_b, CONSTS)
+
+
+def test_blend_windows_backward_hands_the_kernel_the_forward_s_b(monkeypatch):
+    """_BlendWindows.backward passes windowed_blend_bwd exactly the S_b
+    (out[:, 3]) its own forward produced, on the default and on the
+    t_floor_exact path (whose first pass is this Function too)."""
+    from gaussiansplatting_tpu_torch.ops import rasterize
+
+    _, tp = scene_params(33, n=48)
+    _, tc = cameras()
+    _, tcfg = configs()
+    fwd, bwd = tblend.windowed_blend_fwd, tblend.windowed_blend_bwd
+    for cfg in (tcfg, tcfg.replace(t_floor_exact=True)):
+        seen = {}
+
+        def fwd_stub(*a, **k):
+            seen["out"], gid = fwd(*a, **k)
+            return seen["out"], gid
+
+        def bwd_stub(*a, **k):
+            seen["s_b"] = a[7]
+            return bwd(*a, **k)
+
+        monkeypatch.setattr(tblend, "windowed_blend_fwd", fwd_stub)
+        monkeypatch.setattr(tblend, "windowed_blend_bwd", bwd_stub)
+        img, _ = rasterize.render(tp, tc, cfg)
+        img.sum().backward()
+        monkeypatch.undo()
+        assert seen["s_b"].shape == seen["out"][:, 3].shape
+        assert torch.equal(seen["s_b"], seen["out"][:, 3])
+        assert (seen["s_b"] < 0).any()
+
+
+@pytest.mark.parametrize("block,smem", [(16, 1_920), (128, 15_360), (1024, 122_880)])
+def test_bwd_launch_geometry(block, smem):
+    """The Hopper backward at ts = 16: 4 pixels per thread, so 64 threads (2
+    warps); 48 bytes per staged lane plus 9 floats per (warp, lane) of
+    partials.  The forward stages the lanes alone; the first design keeps
+    one thread per pixel."""
+    assert tblend.launch_geometry(16, block, True, ppt=4) == (64, smem)
+    assert tblend.launch_geometry(16, block, True, ppt=2) == (128, block * (48 + 4 * 36))
+    assert tblend.launch_geometry(16, block, False, ppt=4) == (64, block * 48)
+    if block < 1024:
+        assert tblend.launch_geometry(16, block, True, v1=True) == (
+            256, 9 * 9 * block * 4 + 128)
+
+
+@pytest.mark.parametrize("ts,block,ppt,v1", [(32, 1024, 4, False), (32, 512, 2, False),
+                                             (16, 1024, None, True)])
+def test_bwd_launch_geometry_refuses_past_hopper_smem(ts, block, ppt, v1):
+    """Past the 232,448 bytes a Hopper block can have, the wrapper refuses
+    (32 x 32 tiles: 8 warps of 4-pixel strips need 344,064 bytes at
+    B = 1024)."""
+    with pytest.raises(ValueError, match="at most 232448"):
+        tblend.launch_geometry(ts, block, True, ppt=ppt, v1=v1)
+    assert tblend.launch_geometry(32, 256, True, ppt=4) == (256, 256 * 48 + 8 * 9 * 256 * 4)
+
+
+def test_first_design_wrappers_refuse_cpu_tensors():
+    table, src, valid, tile, g = (torch.from_numpy(x) for x in _windows_and_g(74, 16, 0))
+    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_bwd_plain"):
+        tblend.windowed_blend_bwd_v1(table, src, valid, tile, 0, 16, g, CONSTS)
+    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_fwd_plain"):
+        tblend.windowed_blend_fwd_v1(table, src, valid, tile, 0, 16, CONSTS)
+    assert tblend.windowed_blend_bwd_v1.launches == 0
+    assert tblend.windowed_blend_fwd_v1.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 128])
+def test_bwd_kernel_matches_first_design_cuda(block):
+    """The Hopper backward against the first design on the card, per column
+    within chip_smoke.BWD_REL of the column's largest magnitude, at every
+    pixels-per-thread and cull setting."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from chip_smoke import BWD_REL
+
+    table, src, valid, tile, g = _windows_and_g(90 + block, block, 0)
+    dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile)]
+    g_dev = torch.from_numpy(g).cuda()
+    want = [t2n(c) for c in tblend.windowed_blend_bwd_v1(*dev, 0, block, g_dev, CONSTS)]
+    s_b = _plain_s_b(dev, 0, block)
+    for ppt in (2, 4):
+        for cull in (False, True):
+            got = [t2n(c) for c in tblend._launch_bwd_cuda(
+                *dev, 0, block, g_dev, CONSTS, s_b=s_b, ppt=ppt, cull=cull)]
+            _assert_columns_close(got, want, rel=BWD_REL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", [16, 128])
 def test_bwd_kernel_matches_plain_cuda(block):
@@ -157,7 +273,7 @@ def test_bwd_kernel_matches_plain_cuda(block):
     assert tblend.windowed_blend_bwd.launches == before + 2
     dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile)]
     want = [t2n(c) for c in tblend.windowed_blend_bwd_plain(
-        *dev, 0, block, torch.from_numpy(g).cuda(), CONSTS)]
+        *dev, 0, block, torch.from_numpy(g).cuda(), _plain_s_b(dev, 0, block), CONSTS)]
     _assert_columns_close(got, want, rel=BWD_REL)
     for a, b in zip(got, again):
         np.testing.assert_array_equal(a, b)

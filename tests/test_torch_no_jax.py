@@ -60,3 +60,48 @@ def test_port_imports_and_renders_without_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     ok, n_modules, n_pairs = res.stdout.split()[-3:]
     assert ok == "OK" and int(n_modules) >= 15 and int(n_pairs) > 0
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in ``path``,
+    including those inside functions."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine, which has no JAX: none of
+    its imports, at top level or inside a phase, names JAX, flax or the
+    JAX package."""
+    roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+    assert "gaussiansplatting_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "gaussiansplatting_tpu"}, roots
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without CUDA (this CPU build of torch) and with JAX blocked,
+    chip_smoke.py exits non-zero at its device phase and prints no result
+    line."""
+    if torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("this machine has CUDA: chip_smoke.py would run its phases")
+    runner = SCRIPT.split("import torch\n")[0] + textwrap.dedent("""
+        import runpy
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", runner], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stdout + res.stderr
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout

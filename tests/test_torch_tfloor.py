@@ -172,7 +172,7 @@ def test_tf_plain_without_termination_is_the_plain_blend():
         out_tf3 = tblend.windowed_blend_fwd_tf_plain(*args, CONSTS, zero, -1e4,
                                                      chunk_blocks=3)
     assert torch.equal(out, out_tf) and torch.equal(out, out_tf3)
-    d = tblend.windowed_blend_bwd_plain(*args, g, CONSTS)
+    d = tblend.windowed_blend_bwd_plain(*args, g, out[:, 3], CONSTS)
     d_tf = tblend.windowed_blend_bwd_tf(*args, g, CONSTS, zero, -1e4)
     assert all(torch.equal(a, b) for a, b in zip(d, d_tf))
     assert tblend.windowed_blend_fwd_tf.launches == 0     # the CPU runs plain
