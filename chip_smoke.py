@@ -16,19 +16,18 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               (gs_blend_fwd_win, gs_blend_bwd_win) against their plain
               PyTorch versions on the card: small edge-case windows (dead,
               partial, full and unaligned blocks, B = 16 and 128, row0 0 and
-              3) at every pixels-per-thread and cull setting, and the
-              full-size windows of the 100k-Gaussian scene's canonical
-              800x608 view (the backward given the forward's S_b and the
-              real cotangent of the full-size loss, launched twice for
-              bit-identical output; every forward setting's S_b equal to
-              the first design's bit for bit).  The A/B: each Hopper kernel
-              and its first design (gs_blend_*_win_v1, one thread per pixel,
+              3) and the full-size windows of the 100k-Gaussian scene's
+              canonical 800x608 view (the backward given the forward's S_b
+              and the real cotangent of the full-size loss, launched twice
+              for bit-identical output; the forward's S_b equal to the
+              first design's bit for bit).  The A/B: each Hopper kernel and
+              its first design (gs_blend_*_win_v1, one thread per pixel,
               which nothing else calls) timed in turns (first, Hopper,
-              Hopper, first) with CUDA events, each setting timed, the
-              plain versions timed; the work the inputs need (power tests,
-              kept pairs) and from it each kernel's bound; the share of
-              (warp, lane) pairs that entered the first design's backward
-              shuffle tree.
+              Hopper, first) with CUDA events, the plain versions timed;
+              the work the inputs need (_blend_work: power tests on the
+              (warp, lane) pairs the box cull keeps, kept pairs) and from it
+              each kernel's bound; the share of (warp, lane) pairs that
+              entered the first design's backward shuffle tree.
   4. render   the render main path: the synthetic scene written to a PLY,
               rendered through tools.render (4 orbit views at 800x608), then
               the canonical view through ops.rasterize.render: no overflow,
@@ -79,11 +78,12 @@ first design's entries never.
 
 Prints one JSON line describing the kernels (per kernel: launches on the
 main paths and per step, max_abs_err against the plain version, ms, ms_v1
-(the first design's time in the same turns; for the T-floor entries, which
-keep the first design, their own), plain_ms, bound_ms with bound_by (the
-larger of this run's bytes over the HBM rate and its operations over the
-f32 rate), library_ms (null: no single PyTorch call computes the windowed
-blend)) and the paths' times, then as its last line
+(the first design's time in the same turns; null for the T-floor entries,
+which have one design), plain_ms, bound_ms with bound_by (the larger of
+this run's bytes over the HBM rate and its instructions over the f32
+instruction rate), the work behind it (power_tests, kept_pairs,
+culled_share), library_ms (null: no single PyTorch call computes the
+windowed blend)) and the paths' times, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -118,24 +118,26 @@ PAIRS_REL_TOL = 1e-3
 # S_b reaches |S_b| ~ 1e2 where float32 spacing is ~8e-6, hence the
 # relative term
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 1e-5
-# phase 3: launches per CUDA-event time; the Hopper design's settings
-# (pixels per thread, per-warp cull) that it checks and times beside the
-# one the wrappers launch (ops.blend.FWD/BWD_PIXELS_PER_THREAD, WARP_CULL)
+# phase 3: launches per CUDA-event time
 KERNEL_REPS = 20
-DESIGN_SETTINGS = ((2, False), (2, True), (4, False), (4, True))
-# the bound of a kernel (bound_ms): an H100 SXM's HBM rate and f32 rate
-# outside the tensor cores (NVIDIA's data sheet, at 700 W), and the
-# operations the blend needs: per (pixel, lane) power test 2 subtractions,
-# 6 multiplications, 2 additions and the 2 window compares (11, counting
-# the compares as one); per kept pair in the forward op * exp, the cap,
-# w = alpha T, 3 colour multiply-adds, T *= 1 - alpha, S += log1p (14); in
-# the backward the same plus the suffix, dl / (1 - alpha), dpow and the
-# nine moment sums (35)
+# the bound of a kernel (bound_ms): an H100 SXM's HBM rate and its f32
+# instruction rate outside the tensor cores (NVIDIA's data sheet, at 700 W:
+# its 67 TFLOP/s counts an FMA as two operations, so 33.5e12 instructions
+# per second, 128 per SM per clock), and the instructions the blend needs,
+# each separately rounded multiply, add, compare or FMA counted once: per
+# (pixel, lane) power test 7 multiplies, 1 add, 1 subtraction and the 2
+# window compares (11; dx and dy are shared along a column and a row); per
+# kept pair in the forward op * exp, the floor compare, the cap,
+# w = alpha T, 3 colour FMAs, T *= 1 - alpha and S += log1p (12); in the
+# backward op * exp, the floor compare, the cap, 1 - alpha and its
+# reciprocal, T, w, e (3), dl, dpow (3), dpow dx and dpow dy, the nine sums
+# and the suffix (27).  exp, log1p and the reciprocal count as one each,
+# though each takes several, so the bound stays a lower bound
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-FWD_OPS_PER_TEST = 11
-FWD_OPS_PER_KEPT = 14
-BWD_OPS_PER_KEPT = 35
+F32_INSTR_PER_S = 67e12 / 2
+OPS_PER_TEST = 11
+FWD_OPS_PER_KEPT = 12
+BWD_OPS_PER_KEPT = 27
 # backward kernel vs plain, per cotangent column, relative to the column's
 # largest magnitude: both take every mask from the same rounded power, but
 # the kernel sums the suffix sum_{j>i} e_j w_j and the log-transmittance
@@ -356,64 +358,127 @@ def _turns(first, second, reps=KERNEL_REPS):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
+def _cull_extent(ca, cb, cc, op, power_floor, alpha_floor):
+    """Half-extents (ex, ey) of each lane's padded ellipse box, as
+    blend_common.cuh's cull_extent computes them: -inf where no pixel can
+    keep the lane, +inf where the conic is too near singular to cull."""
+    import torch
+
+    inf = torch.full_like(op, float("inf"))
+    thr = torch.fmax(torch.log(alpha_floor / op), torch.full_like(op, power_floor))
+    thr = thr - (1e-3 + 1e-4 * thr.abs())
+    det = ca * cc - cb * cb
+    regular = (ca > 0) & (cc > 0) & (det > 0.1 * ca * cc)
+    r = -2.0 * thr
+    never = (op == 0) | (thr >= 0)
+    ex = torch.where(regular, torch.sqrt(r * cc / det) * 1.001 + 0.01, inf)
+    ey = torch.where(regular, torch.sqrt(r * ca / det) * 1.001 + 0.01, inf)
+    return torch.where(never, -inf, ex), torch.where(never, -inf, ey)
+
+
 def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
-    """What the blend's inputs need, counted from the plain replay on the
-    card (ops.blend._replay) in chunks of blocks: live lanes (for the
-    T-floor pass, of blocks with a pixel above the floor); (pixel, lane)
-    power tests on lanes with opacity (for the T-floor pass only on pixels
-    that arrive above the floor); kept (for the T-floor pass, surviving)
-    pairs; and, without logti at ts = 16, the (warp, lane) pairs that enter
-    the first design's backward shuffle tree (a warp = 32 consecutive
-    pixels, lanes below block_valid) and the (warp, batch of 4 lanes)
-    exchanges of the Hopper backward at BWD_PIXELS_PER_THREAD (a warp = 16
-    x 2 ppt pixels), and how often a group of 32 pixels runs the kept path
-    under two pixel layouts."""
+    """What the blend's inputs need at ts = 16, counted from the plain
+    replay on the card (ops.blend._replay) in chunks of blocks: live lanes
+    (for the T-floor pass, of blocks with a pixel above the floor); kept
+    (for the T-floor pass, surviving) pairs; and, for each kernel layout
+    (``fwd`` and ``bwd``, the Hopper designs' column strips of P pixels per
+    thread, P from ops.blend.launch_geometry; ``tf``, the first design's one
+    pixel per thread, for the T-floor pass; a warp covers 16 x 2P pixels),
+    the (warp, lane) pairs on lanes with opacity (``pairs_*``), those whose
+    padded box misses the warp's rectangle (``culled_*``), and the power
+    tests on the rest, 32 P per pair (``tests_*``; for the T-floor pass only
+    on pixels that arrive above the floor).  Without logti, also the (warp,
+    lane) pairs that enter the first design's backward shuffle tree (a warp
+    = 32 consecutive pixels, lanes below block_valid) and the (warp, batch
+    of 4 lanes) exchanges of the Hopper backward.  Raises if a kept pair
+    lies in a culled (warp, lane) pair."""
+    import torch
     import torch.nn.functional as F
 
     from gaussiansplatting_tpu_torch.ops import blend
 
     table, src, valid, tile, row0, block, consts = args
-    nb, p2 = src.shape[0], int(consts[0]) ** 2
-    ppt = blend.BWD_PIXELS_PER_THREAD
-    w = dict.fromkeys(("live", "tests", "kept", "tree_v1", "lanes_v1",
-                       "exchanges", "batches", "strips", "subblocks"), 0)
+    ts, power_floor, _, alpha_floor, tiles_x = consts
+    nb, p2 = src.shape[0], int(ts) ** 2
+    if p2 != 256:
+        raise ValueError(f"_blend_work counts 16 x 16 tiles, got tile_size {ts}")
+    if logti is None:
+        layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd")[0]
+                   for d in ("fwd", "bwd")}
+    else:
+        layouts = {"tf": 1}
+    w = dict.fromkeys(("live", "kept", "tree_v1", "lanes_v1", "exchanges", "batches")
+                      + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
+                              for d in layouts), 0)
+    w["pixels"] = layouts
     for k0 in range(0, nb, chunk):
         k1 = min(k0 + chunk, nb)
         r = blend._replay(table, src, valid, tile, row0, block, consts, k0, k1,
                           logti, log_thr)
         kept = r.alpha > 0                                          # [K, P2, B]
+        k, b = kept.shape[0], kept.shape[2]
         nv = r.live.sum(1)                                          # [K]
-        lanes_op = (r.op > 0).sum(1)
-        if logti is not None:                 # closed blocks stage nothing
-            nv = nv * (logti[k0:k1] > log_thr).any(1)
+        if logti is None:
+            open_px = torch.ones((k, p2), dtype=torch.bool, device=kept.device)
+        else:
+            open_px = logti[k0:k1] > log_thr
+            nv = nv * open_px.any(1)          # closed blocks stage nothing
         w["live"] += int(nv.sum())
         w["kept"] += int(kept.sum())
+        t = tile[k0:k1]
+        mx = r.cols[1] - ((t % tiles_x).float() * 16 + 8)[:, None]    # [K, B]
+        my = r.cols[2] - ((t // tiles_x + row0).float() * 16 + 8)[:, None]
+        ex, ey = _cull_extent(r.cols[3], r.cols[4], r.cols[5], r.op, power_floor,
+                              alpha_floor)
+        has_op = (r.op > 0)[:, None, :]                              # [K, 1, B]
+        for name, pixels in layouts.items():
+            rows = 2 * pixels                  # a warp: 16 columns x rows
+            warps = 16 // rows
+            cy = (torch.arange(warps, device=kept.device) * rows
+                  + (rows - 1) / 2.0 + 0.5 - 8.0)[None, :, None]   # [1, W, 1]
+            meets = (((0.0 - mx).abs() <= 7.5 + ex)[:, None, :]
+                     & ((cy - my[:, None, :]).abs() <= (rows - 1) / 2.0 + ey[:, None, :]))
+            if bool((kept.reshape(k, warps, -1, b).any(2) & ~meets).any()):
+                raise AssertionError(f"_blend_work ({name}): a kept pair lies outside "
+                                     f"its lane's padded box")
+            tested = has_op & meets                                 # [K, W, B]
+            w[f"pairs_{name}"] += int(has_op.sum()) * warps
+            w[f"culled_{name}"] += int((has_op & ~meets).sum())
+            per_warp = open_px.reshape(k, warps, -1).sum(2)         # [K, W]
+            w[f"tests_{name}"] += int((tested * per_warp[:, :, None]).sum())
         if logti is None:
-            w["tests"] += int(lanes_op.sum()) * p2
-        else:
-            w["tests"] += int(((logti[k0:k1] > log_thr).sum(1) * lanes_op).sum())
-        if logti is None and p2 == 256:
-            k, b = kept.shape[0], kept.shape[2]
             w["tree_v1"] += int(kept.reshape(k, 8, 32, b).any(2).sum())
             w["lanes_v1"] += 8 * int(nv.sum())
-            warps = 256 // (32 * ppt)                # a warp: 32 * ppt pixels
+            warps = p2 // (32 * layouts["bwd"])
             parts = F.pad(kept.reshape(k, warps, -1, b).any(2), (0, -b % 4))
             w["exchanges"] += int(parts.reshape(k, warps, -1, 4).any(3).sum())
             w["batches"] += warps * int(((nv + 3) // 4).sum())
-            # kept-path executions, (32 pixels, lane) pairs with a kept
-            # pixel: the forward's 4-row column strips (a thread's pixels j
-            # of a warp: rows j and 4 + j) against compact 8 x 4 sub-blocks
-            g = kept.reshape(k, 16, 16, b)
-            w["strips"] += int(g.reshape(k, 2, 2, 4, 16, b).any(4).any(2).sum())
-            w["subblocks"] += int(g.reshape(k, 4, 4, 2, 8, b).any(4).any(2).sum())
     return w
 
 
 def _bound(nbytes, ops):
     """(bound ms, what sets it): the larger of the bytes over the H100's HBM
-    rate and the operations over its f32 rate (NVIDIA's data sheet)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    rate and the instructions over its f32 instruction rate (NVIDIA's data
+    sheet)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _work_bound(w, layout, nbytes, ops_per_kept):
+    """A kernel's bound from _blend_work's counts for its layout: the
+    kernels-line fields (bound_ms, bound_by, power_tests, kept_pairs,
+    culled_share) and a log line of the work."""
+    tests, kept = w[f"tests_{layout}"], w["kept"]
+    ops = OPS_PER_TEST * tests + ops_per_kept * kept
+    bound_ms, bound_by = _bound(nbytes, ops)
+    res = {"bound_ms": bound_ms, "bound_by": bound_by, "power_tests": tests,
+           "kept_pairs": kept, "culled_share": w[f"culled_{layout}"] / w[f"pairs_{layout}"]}
+    line = (f"{w['live']} live lanes; the box cull skips {w[f'culled_{layout}']} of "
+            f"{w[f'pairs_{layout}']} (warp, lane) pairs ({res['culled_share']:.4f}); "
+            f"{tests} power tests, {kept} kept pairs ({kept / max(tests, 1):.4f} of the "
+            f"tests); {nbytes} bytes, {ops} instructions: bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return res, line
 
 
 def _edge_args(block, row0, cfg):
@@ -427,9 +492,9 @@ def _edge_args(block, row0, cfg):
 
 def phase_kernel(params, camera, cfg, smi):
     """The forward: the Hopper design against the plain version on edge
-    windows (every pixels-per-thread and cull setting) and at full size,
-    the A/B against the first design in turns, each setting timed, and
-    the work its inputs need.  Returns the kernels-line numbers."""
+    windows and at full size, its S_b against the first design's, the A/B
+    against the first design in turns, and the work its inputs need.
+    Returns the kernels-line numbers."""
     import torch
 
     from gaussiansplatting_tpu_torch.ops import blend
@@ -440,10 +505,6 @@ def phase_kernel(params, camera, cfg, smi):
             args = _edge_args(block, row0, cfg)
             want = blend.windowed_blend_fwd_plain(*args)
             _compare(f"edge B={block} row0={row0}", blend.windowed_blend_fwd(*args), want)
-            for ppt, cull in DESIGN_SETTINGS:
-                got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
-                _compare(f"edge B={block} row0={row0} ppt={ppt} cull={cull}", got, want,
-                         quiet=True)
 
     args, block_tile, aux = blend_windows(params, camera, cfg)
     nb = args[1].shape[0]
@@ -451,40 +512,27 @@ def phase_kernel(params, camera, cfg, smi):
     log(f"[kernel] full size: {nb} blocks ({live} live, {nb - live} dead), "
         f"B={args[5]}, {int(aux.num_pairs)} pairs")
     want = blend.windowed_blend_fwd_plain(*args)
-    res = {"max_abs_err": _compare("full size", blend.windowed_blend_fwd(*args), want)}
+    got = blend.windowed_blend_fwd(*args)
+    res = {"max_abs_err": _compare("full size", got, want)}
     # both designs sum the same rounded log1pf terms in lane order, so S_b
     # agrees bit for bit, which a culled kept pair would break
     first = blend.windowed_blend_fwd_v1(*args)
     _compare("full size, first design", first, want)
-    for ppt, cull in DESIGN_SETTINGS:
-        got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
-        if not torch.equal(got[0][:, 3], first[0][:, 3]):
-            raise AssertionError(f"S_b of the Hopper forward (ppt={ppt}, cull={cull}) "
-                                 f"differs from the first design's")
-    log("[kernel] full size: S_b of every Hopper setting = the first design's, bit for bit")
+    if not torch.equal(got[0][:, 3], first[0][:, 3]):
+        raise AssertionError("S_b of the Hopper forward differs from the first design's")
+    log("[kernel] full size: S_b of the Hopper design = the first design's, bit for bit")
     res["ms_v1"], res["ms"], turns = _turns(lambda: blend.windowed_blend_fwd_v1(*args),
                                             lambda: blend.windowed_blend_fwd(*args))
     log(f"[kernel] A/B in turns (first, Hopper, Hopper, first): "
         f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
         f"each) on {smi}")
-    for ppt, cull in DESIGN_SETTINGS:
-        got = blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull)
-        err = _compare(f"full size ppt={ppt} cull={cull}", got, want, quiet=True)
-        ms = cuda_time_ms(lambda: blend._launch_fwd_cuda(*args, ppt=ppt, cull=cull),
-                          KERNEL_REPS)
-        log(f"[kernel] Hopper forward, {ppt} pixels per thread, cull {cull}: {ms:.4f} ms, "
-            f"max|err| {err:.3e}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
     w = _blend_work(args)
     p2, block = 256, args[5]
-    nbytes = 40 * w["live"] + 12 * nb + 4 * nb * (4 * p2 + block)
-    ops = FWD_OPS_PER_TEST * w["tests"] + FWD_OPS_PER_KEPT * w["kept"]
-    res["bound_ms"], res["bound_by"] = _bound(nbytes, ops)
-    log(f"[kernel] forward work: {w['live']} live lanes, {w['tests']} power tests, "
-        f"{w['kept']} kept pairs ({w['kept'] / w['tests']:.4f} of the tests); {nbytes} "
-        f"bytes, {ops} operations: bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
-    log(f"[kernel] kept-path executions per (32 pixels, lane): 4-row column strips "
-        f"{w['strips'] / (8 * w['live']):.4f}, 8x4 sub-blocks {w['subblocks'] / (8 * w['live']):.4f}")
+    bound, line = _work_bound(w, "fwd", 40 * w["live"] + 12 * nb + 4 * nb * (4 * p2 + block),
+                              FWD_OPS_PER_KEPT)
+    res.update(bound)
+    log(f"[kernel] forward work ({w['pixels']['fwd']} pixels per thread): {line}")
     return res, args, block_tile, w
 
 
@@ -532,11 +580,10 @@ def _loss_cotangent(out, block_tile, camera, cfg, gt):
 
 def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     """The backward: the Hopper design, given the forward's S_b, against the
-    plain version on edge windows (every setting) and at full size with the
-    real loss cotangent, launched twice for the same bits; the A/B against
-    the first design in turns, each setting timed; the share of (warp,
-    lane) pairs that entered the first design's shuffle tree.  Returns the
-    kernels-line numbers."""
+    plain version on edge windows and at full size with the real loss
+    cotangent, launched twice for the same bits; the A/B against the first
+    design in turns; the share of (warp, lane) pairs that entered the first
+    design's shuffle tree.  Returns the kernels-line numbers."""
     import numpy as np
     import torch
 
@@ -551,10 +598,6 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
             bargs = e[:6] + (g, s_b, e[6])
             want = blend.windowed_blend_bwd_plain(*bargs)
             _compare_bwd(f"edge B={block} row0={row0}", blend.windowed_blend_bwd(*bargs), want)
-            for ppt, cull in DESIGN_SETTINGS:
-                got = blend._launch_bwd_cuda(*e[:6], g, e[6], s_b=s_b, ppt=ppt, cull=cull)
-                _compare_bwd(f"edge B={block} row0={row0} ppt={ppt} cull={cull}", got,
-                             want, quiet=True)
             _compare_bwd(f"edge B={block} row0={row0}, first design",
                          blend.windowed_blend_bwd_v1(*e[:6], g, e[6]), want, quiet=True)
 
@@ -577,20 +620,12 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     log(f"[kernel bwd] A/B in turns (first, Hopper, Hopper, first): "
         f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
         f"each) on {smi}")
-    for ppt, cull in DESIGN_SETTINGS:
-        got = blend._launch_bwd_cuda(*args[:6], g, args[6], s_b=s_b, ppt=ppt, cull=cull)
-        err = _compare_bwd(f"full size ppt={ppt} cull={cull}", got, want, quiet=True)
-        ms = cuda_time_ms(lambda: blend._launch_bwd_cuda(
-            *args[:6], g, args[6], s_b=s_b, ppt=ppt, cull=cull), KERNEL_REPS)
-        log(f"[kernel bwd] Hopper backward, {ppt} pixels per thread, cull {cull}: "
-            f"{ms:.4f} ms, max|err| {err:.3e}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
     nb, p2, block = args[1].shape[0], 256, args[5]
-    nbytes = 40 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block)
-    ops = FWD_OPS_PER_TEST * w["tests"] + BWD_OPS_PER_KEPT * w["kept"]
-    res["bound_ms"], res["bound_by"] = _bound(nbytes, ops)
-    log(f"[kernel bwd] backward work: {nbytes} bytes, {ops} operations: bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    bound, line = _work_bound(w, "bwd", 40 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
+                              BWD_OPS_PER_KEPT)
+    res.update(bound)
+    log(f"[kernel bwd] backward work ({w['pixels']['bwd']} pixels per thread): {line}")
     # the first design's shuffle tree: 45 shuffles per (warp, lane) that a
     # pixel of the warp kept, at one warp shuffle per clock per SM
     tree_ms = 45 * w["tree_v1"] / (132 * clock_mhz * 1e3)
@@ -598,7 +633,7 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     log(f"[kernel bwd] first design: {w['tree_v1']} of {w['lanes_v1']} (warp, lane) pairs "
         f"({w['tree_v1'] / w['lanes_v1']:.4f}) enter the shuffle tree: "
         f"{45 * w['tree_v1']} warp shuffles, {tree_ms:.3f} ms at 132 SMs x {clock_mhz} MHz; "
-        f"Hopper design ({blend.BWD_PIXELS_PER_THREAD} pixels per thread): "
+        f"Hopper design ({w['pixels']['bwd']} pixels per thread): "
         f"{w['exchanges']} of {w['batches']} (warp, "
         f"batch of 4 lanes) exchanges ({w['exchanges'] / w['batches']:.4f}), "
         f"{54 * w['exchanges']} warp shuffles, {exch_ms:.3f} ms")
@@ -970,14 +1005,13 @@ def phase_tfloor(params, camera, cfg, gt, smi):
                      blend.windowed_blend_bwd_plain(*b1))
     w = _blend_work(args, logti, log_thr)
     nb, p2, block = args[1].shape[0], 256, args[5]
-    res["fwd_bound"] = _bound(36 * w["live"] + 12 * nb + 4 * nb * 5 * p2,
-                              FWD_OPS_PER_TEST * w["tests"] + FWD_OPS_PER_KEPT * w["kept"])
-    res["bwd_bound"] = _bound(36 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
-                              FWD_OPS_PER_TEST * w["tests"] + BWD_OPS_PER_KEPT * w["kept"])
-    log(f"[tfloor] T-floor work: {w['live']} live lanes in open blocks, {w['tests']} power "
-        f"tests on open pixels, {w['kept']} surviving kept pairs: bound fwd_tf "
-        f"{res['fwd_bound'][0]:.4f} ms, bwd_tf {res['bwd_bound'][0]:.4f} ms "
-        f"({res['fwd_bound'][1]}, {res['bwd_bound'][1]})")
+    res["fwd_bound"], line = _work_bound(w, "tf", 36 * w["live"] + 12 * nb + 4 * nb * 5 * p2,
+                                         FWD_OPS_PER_KEPT)
+    log(f"[tfloor] forward work (in open blocks, power tests on open pixels, surviving "
+        f"kept pairs): {line}")
+    res["bwd_bound"], line = _work_bound(
+        w, "tf", 36 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block), BWD_OPS_PER_KEPT)
+    log(f"[tfloor bwd] backward work: {line}")
     log(f"[tfloor] full size: fwd_tf kernel {res['fwd_ms']:.4f} ms, plain "
         f"{res['fwd_plain_ms']:.3f} ms; bwd_tf kernel {res['bwd_ms']:.4f} ms, plain "
         f"{res['bwd_plain_ms']:.3f} ms (CUDA events) on {smi}")
@@ -1717,25 +1751,27 @@ def main() -> int:
                "trainloop": tl["launches"]["windowed_blend_fwd"]},
               per_step["windowed_blend_fwd"],
               {k: fwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
-                                   "bound_by")}),
+                                   "bound_by", "power_tests", "kept_pairs",
+                                   "culled_share")}),
         entry("windowed_blend_bwd", "blend_bwd.cu", f"{tpu}671, {tpu}188", "hopper",
               {"train": train_bwd, "tfloor": tf_launches["windowed_blend_bwd"],
                "trainloop": tl["launches"]["windowed_blend_bwd"]},
               per_step["windowed_blend_bwd"],
               {k: bwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
-                                   "bound_by", "tree_share_v1")}),
+                                   "bound_by", "power_tests", "kept_pairs", "culled_share",
+                                   "tree_share_v1")}),
         entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "first",
               {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
               tf["per_step"]["windowed_blend_fwd_tf"],
               {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
-               "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms"], "plain_ms": tf["fwd_plain_ms"],
-               "bound_ms": tf["fwd_bound"][0], "bound_by": tf["fwd_bound"][1]}),
+               "ms": tf["fwd_ms"], "ms_v1": None, "plain_ms": tf["fwd_plain_ms"],
+               **tf["fwd_bound"]}),
         entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "first",
               {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
               tf["per_step"]["windowed_blend_bwd_tf"],
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
-               "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms"], "plain_ms": tf["bwd_plain_ms"],
-               "bound_ms": tf["bwd_bound"][0], "bound_by": tf["bwd_bound"][1]}),
+               "ms": tf["bwd_ms"], "ms_v1": None, "plain_ms": tf["bwd_plain_ms"],
+               **tf["bwd_bound"]}),
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],

@@ -37,27 +37,28 @@
 // the cross-pixel sums; instruction issue, not HBM (the table, g, s_b and
 // the nine outputs, ~245 MB, 0.07 ms at 3.35 TB/s).
 //
-// gs_blend_bwd_win, the Hopper design: one CUDA block per pair block, P
-// pixels per thread (a column strip, blend_common.cuh) and the lanes staged
-// as the forward stages them.  It starts each pixel from the forward's own
-// S_b (s_b, row 3 of its out), which is the same rounded sequential log1pf
-// sum the first design's replay pass recomputed, so there is one walk, back
-// to front, and it carries T back by division, T_before = T_after /
+// gs_blend_bwd_win, the Hopper design: one CUDA block per pair block,
+// kPixels = 2 pixels per thread (a column strip, blend_common.cuh: 128
+// threads at ts = 16) and the lanes staged as the forward stages them.  It
+// starts each pixel from the forward's own S_b (s_b, row 3 of its out),
+// which is the same rounded sequential log1pf sum the first design's replay
+// pass recomputed, so there is one walk, back to front, and it carries T
+// back by division, T_before = T_after /
 // (1 - alpha), with the IEEE reciprocal that dl / (1 - alpha) needs too: no
 // log1pf and no expf per kept pair (about 1 ulp per kept lane where the
 // log walk loses ulp(|S|)).  Only a pixel with S_b < -60, where expf(S_b)
 // nears the denormals, walks back in log space until S rises above -60,
-// then switches.  Lanes go in batches of four: a thread sums its P pixels' nine
-// terms per lane in registers, then the warp sums the batch's 4 x 9 values
+// then switches.  Lanes go in batches of four: a thread sums its 2 pixels'
+// nine terms per lane in registers, then the warp sums the batch's 4 x 9 values
 // with two halving exchanges (each thread keeps half of the lanes and adds
 // its partner's half: 18 + 9 shuffles) and a butterfly over the last 8
 // threads (27 shuffles), 13.5 shuffles per (warp, lane) against the first
 // design's 45 per (warp of 32 pixels, lane); one thread per lane then holds
 // the warp's sums, and the warps' partials are summed in warp order from
 // shared memory.  A batch that no pixel of the warp keeps skips the
-// exchange, and with `cull` a warp skips a lane whose padded ellipse box
-// misses its rectangle (as the forward does).  Shared memory: 48 * B bytes
-// of lanes + warps * 9 * B floats of partials (15 KB at B = 128, P = 4).
+// exchange, and a warp skips a lane whose padded ellipse box misses its
+// 16 x 4 pixel rectangle (as the forward does).  Shared memory: 48 * B
+// bytes of lanes + warps * 9 * B floats of partials (24 KB at B = 128).
 //
 // gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf, the first design: one thread
 // per pixel, the window's nine columns in shared memory.  Each thread
@@ -85,6 +86,7 @@ namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
 constexpr int kBatch = 4;  // lanes per warp exchange of the Hopper design
+constexpr int kPixels = 2;  // pixels per thread of the Hopper design
 // Below this log-transmittance expf(S) loses precision (it reaches the
 // denormals at S < -87), so a pixel of the Hopper design whose S_b lies
 // below it walks back in log space until S rises above it
@@ -320,14 +322,14 @@ __global__ void blend_bwd_win_kernel(
   }
 }
 
-template <int P>
 __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
     const int* __restrict__ block_tile, const float* __restrict__ g,
     const float* __restrict__ s_b, int nb, int block, int ts, int tiles_x,
-    int row0, float power_floor, float alpha_cap, float alpha_floor, int cull,
+    int row0, float power_floor, float alpha_cap, float alpha_floor,
     float* __restrict__ dcols) {
+  constexpr int P = kPixels;
   extern __shared__ float4 lane_smem[];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);        // [block]
   float* part = reinterpret_cast<float*>(lanes + block);      // [warps][kCols][block]
@@ -386,7 +388,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       const int k = kb * kBatch + i;
       if (k >= nv) continue;
       const float4 q0 = lanes[k].q0;
-      if (cull && blend::culled(rect, q0)) continue;
+      if (blend::culled(rect, q0)) continue;
       const float4 q1 = lanes[k].q1;
       if (q1.w == 0.f) continue;
       const float4 q2 = lanes[k].q2;
@@ -482,58 +484,38 @@ int launch_v1(const float* table, long long ep, const int* block_src,
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_hopper(const float* table, long long ep, const int* block_src,
-                  const int* block_valid, const int* block_tile, const float* g,
-                  const float* s_b, int nb, int block, int ts, int tiles_x,
-                  int row0, int cull, float power_floor, float alpha_cap,
-                  float alpha_floor, float* dcols, void* stream) {
-  const int threads = (ts * ((ts + P - 1) / P) + 31) / 32 * 32;
-  const size_t smem = (size_t)block * sizeof(blend::Lane) +
-                      (size_t)(threads / 32) * kCols * block * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_win_hopper<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  blend_bwd_win_hopper<P><<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, g, s_b, nb, block, ts,
-      tiles_x, row0, power_floor, alpha_cap, alpha_floor, cull, dcols);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a `ppt` other than 2 or 4.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
 // table [>=10, ep] f32 row-major; block_src/valid/tile [nb] i32;
 // g [nb, 4, ts*ts] f32 (rows 0-2 dC, row 3 dS); s_b [nb, ts*ts] f32, the
-// forward's S_b (row 3 of its out); dcols [9, nb, block] f32.  ppt pixels
-// per thread (ts * ceil(ts / ppt) threads rounded up to whole warps, at most
-// 512), `cull` nonzero for the per-warp cull, 48 * block bytes + warps * 9 *
-// block floats of shared memory, which the wrapper keeps within the 227 KB
-// a Hopper block can have.
+// forward's S_b (row 3 of its out); dcols [9, nb, block] f32.
+// ts * ceil(ts / 2) threads rounded up to whole warps (at most 512: ts <=
+// 32), 48 * block bytes + warps * 9 * block floats of shared memory, which
+// the wrapper keeps within the 227 KB a Hopper block can have.
 extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 const int* block_src, const int* block_valid,
                                 const int* block_tile, const float* g,
                                 const float* s_b, int nb, int block, int ts,
-                                int tiles_x, int row0, int ppt, int cull,
-                                float power_floor, float alpha_cap,
-                                float alpha_floor, float* dcols,
-                                void* stream) {
-  if (ppt == 2)
-    return launch_hopper<2>(table, ep, block_src, block_valid, block_tile, g,
-                            s_b, nb, block, ts, tiles_x, row0, cull,
-                            power_floor, alpha_cap, alpha_floor, dcols, stream);
-  if (ppt == 4)
-    return launch_hopper<4>(table, ep, block_src, block_valid, block_tile, g,
-                            s_b, nb, block, ts, tiles_x, row0, cull,
-                            power_floor, alpha_cap, alpha_floor, dcols, stream);
-  return (int)cudaErrorInvalidValue;
+                                int tiles_x, int row0, float power_floor,
+                                float alpha_cap, float alpha_floor,
+                                float* dcols, void* stream) {
+  const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
+  const size_t smem = (size_t)block * sizeof(blend::Lane) +
+                      (size_t)(threads / 32) * kCols * block * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_bwd_win_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  blend_bwd_win_hopper<<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, g, s_b, nb, block, ts,
+      tiles_x, row0, power_floor, alpha_cap, alpha_floor, dcols);
+  return (int)cudaGetLastError();
 }
 
-// The first design, as gs_blend_bwd_win without s_b, ppt and cull: one
+// The first design, as gs_blend_bwd_win without s_b: one
 // thread per pixel rounded up to whole warps (ts*ts <= 1024) and
 // (1 + warps) * 9 * block floats of shared memory.
 extern "C" int gs_blend_bwd_win_v1(const float* table, long long ep,

@@ -27,19 +27,19 @@
 // (~150 MB in and out, 0.045 ms at 3.35 TB/s).
 //
 // gs_blend_fwd_win, the Hopper design: one CUDA block per pair block b and
-// P pixels per thread (a column strip, blend_common.cuh), so 256 / P
+// kPixels = 4 pixels per thread (a column strip, blend_common.cuh), so 64
 // threads at ts = 16.  The live lanes are staged once as 48-byte records
 // (three float4: mean and cull extents, conic and opacity, colour), so a
 // thread reads each lane with three broadcast shared loads and uses it for
-// its P pixels, where the first design made nine scalar loads per pixel.
+// its 4 pixels, where the first design made nine scalar loads per pixel.
 // The transmittance is carried by multiplication (w = alpha T;
 // T *= 1 - alpha) instead of an expf(S) per kept pair; S is still the
 // sequential log1pf sum, bit for bit what the first design writes to row 3,
-// which the backward walks back from and the T-floor pass compares.  With
-// `cull`, a warp skips a lane whose padded ellipse box (blend_common.cuh,
-// cull_extent) misses the warp's 16 x 2P pixel rectangle: a test per warp
-// and lane in place of P power evaluations per thread, which never drops a
-// pixel the power test would keep.
+// which the backward walks back from and the T-floor pass compares.  A warp
+// skips a lane whose padded ellipse box (blend_common.cuh, cull_extent)
+// misses the warp's 16 x 8 pixel rectangle: a test per warp and lane in
+// place of 4 power evaluations per thread, which never drops a pixel the
+// power test would keep.
 //
 // gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf, the first design: one thread
 // per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2, y + 0.5 - ts/2)
@@ -67,6 +67,7 @@
 namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
+constexpr int kPixels = 4;  // pixels per thread of the Hopper design
 
 template <bool kTFloor>
 __global__ void blend_fwd_win_kernel(
@@ -165,13 +166,15 @@ __global__ void blend_fwd_win_kernel(
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(512) blend_fwd_win_hopper(
+// No __launch_bounds__: with (256) ptxas fits it in 48 registers and spills
+// 12 bytes; without, it takes 56 and spills nothing.
+__global__ void blend_fwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
     const int* __restrict__ block_tile, int block, int ts, int tiles_x,
-    int row0, float power_floor, float alpha_cap, float alpha_floor, int cull,
+    int row0, float power_floor, float alpha_cap, float alpha_floor,
     float* __restrict__ out, float* __restrict__ gid_out) {
+  constexpr int P = kPixels;
   extern __shared__ float4 lane_smem[];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);  // [block]
   const int b = blockIdx.x;
@@ -202,7 +205,7 @@ __global__ void __launch_bounds__(512) blend_fwd_win_hopper(
 
   for (int k = 0; k < nv; ++k) {
     const float4 q0 = lanes[k].q0;
-    if (cull && blend::culled(rect, q0)) continue;
+    if (blend::culled(rect, q0)) continue;
     const float4 q1 = lanes[k].q1;
     if (q1.w == 0.f) continue;  // a_raw = 0 is below any alpha floor > 0
     const float4 q2 = lanes[k].q2;
@@ -234,48 +237,29 @@ __global__ void __launch_bounds__(512) blend_fwd_win_hopper(
   }
 }
 
-template <int P>
-int launch_hopper(const float* table, long long ep, const int* block_src,
-                  const int* block_valid, const int* block_tile, int nb,
-                  int block, int ts, int tiles_x, int row0, int cull,
-                  float power_floor, float alpha_cap, float alpha_floor,
-                  float* out, float* gid, void* stream) {
-  const int threads = (ts * ((ts + P - 1) / P) + 31) / 32 * 32;
-  const size_t smem = (size_t)block * sizeof(blend::Lane);
-  blend_fwd_win_hopper<P><<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, block, ts, tiles_x, row0,
-      power_floor, alpha_cap, alpha_floor, cull, out, gid);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a `ppt` other than 2 or 4.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
 // table [>=10, ep] f32 row-major; block_src/valid/tile [nb] i32;
-// out [nb, 4, ts*ts] f32; gid [nb, block] f32.  ppt pixels per thread
-// (ts * ceil(ts / ppt) threads, rounded up to whole warps, at most 512),
-// `cull` nonzero for the per-warp cull, 48 * block bytes of shared memory
-// (block <= 1024 keeps it within 48 KB).
+// out [nb, 4, ts*ts] f32; gid [nb, block] f32.  ts * ceil(ts / 4) threads,
+// rounded up to whole warps (at most 256: ts <= 32), and 48 * block bytes
+// of shared memory (block <= 1024 keeps it within 48 KB).
 extern "C" int gs_blend_fwd_win(const float* table, long long ep,
                                 const int* block_src, const int* block_valid,
                                 const int* block_tile, int nb, int block,
-                                int ts, int tiles_x, int row0, int ppt,
-                                int cull, float power_floor, float alpha_cap,
+                                int ts, int tiles_x, int row0,
+                                float power_floor, float alpha_cap,
                                 float alpha_floor, float* out, float* gid,
                                 void* stream) {
-  if (ppt == 2)
-    return launch_hopper<2>(table, ep, block_src, block_valid, block_tile, nb,
-                            block, ts, tiles_x, row0, cull, power_floor,
-                            alpha_cap, alpha_floor, out, gid, stream);
-  if (ppt == 4)
-    return launch_hopper<4>(table, ep, block_src, block_valid, block_tile, nb,
-                            block, ts, tiles_x, row0, cull, power_floor,
-                            alpha_cap, alpha_floor, out, gid, stream);
-  return (int)cudaErrorInvalidValue;
+  const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
+  const size_t smem = (size_t)block * sizeof(blend::Lane);
+  blend_fwd_win_hopper<<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, block, ts, tiles_x, row0,
+      power_floor, alpha_cap, alpha_floor, out, gid);
+  return (int)cudaGetLastError();
 }
 
-// The first design, as gs_blend_fwd_win without ppt and cull.  Needs
+// The first design, with the same arguments as gs_blend_fwd_win.  Needs
 // ts*ts <= 1024 threads and 9*block floats of shared memory.
 extern "C" int gs_blend_fwd_win_v1(const float* table, long long ep,
                                    const int* block_src,

@@ -64,11 +64,8 @@ _B_MAX = 1024            # staged window lanes
 _SMEM_MAX = 232_448      # bytes of shared memory a Hopper block can have
 _V1_BWD_STATIC_SMEM = 128  # blend_bwd.cu's static per-warp kend array
 _LANE_BYTES = 48         # blend_common.cuh's staged lane record
-# The Hopper design's pixels per thread (2 or 4) and its per-warp cull, as
-# the wrappers launch it; chip_smoke.py phase 3 times every setting
-FWD_PIXELS_PER_THREAD = 4
-BWD_PIXELS_PER_THREAD = 2
-WARP_CULL = True
+# pixels per thread of the Hopper designs (kPixels in blend_fwd.cu, blend_bwd.cu)
+_FWD_PIXELS, _BWD_PIXELS = 4, 2
 
 
 def _check_no_grad(*tensors):
@@ -220,27 +217,24 @@ def _checked_plane(name, x, nb, p2, dev):
     return x.contiguous()
 
 
-def launch_geometry(ts, block, backward, ppt=None, v1=False):
+def launch_geometry(ts, block, backward, v1=False):
     """(threads, shared-memory bytes) of one CUDA block of the blend at tile
     size ``ts`` and ``block`` lanes, as csrc/blend_fwd.cu and blend_bwd.cu
-    launch it.  The Hopper design: ts * ceil(ts / ppt) threads (``ppt``
-    pixels each, default FWD/BWD_PIXELS_PER_THREAD) rounded up to whole
-    warps, 48 bytes per staged lane and, in the backward, 9 floats per
-    (warp, lane) of partial sums.  The first design (``v1``): one thread per
-    pixel, 9 floats per lane, and in the backward 9 per (warp, lane) plus
-    the static kend array.  Raises where the block would need more shared
-    memory than a Hopper block can have (232,448 bytes)."""
+    launch it.  The Hopper design: ts * ceil(ts / P) threads (P = 4 pixels
+    each in the forward, 2 in the backward) rounded up to whole warps, 48
+    bytes per staged lane and, in the backward, 9 floats per (warp, lane) of
+    partial sums.  The first design (``v1``): one thread per pixel, 9 floats
+    per lane, and in the backward 9 per (warp, lane) plus the static kend
+    array.  Raises where the block would need more shared memory than a
+    Hopper block can have (232,448 bytes)."""
     ts, block = int(ts), int(block)
     if v1:
         threads = -(-ts * ts // 32) * 32
         smem = (9 * block * 4 if not backward else
                 (1 + threads // 32) * 9 * block * 4 + _V1_BWD_STATIC_SMEM)
     else:
-        if ppt is None:
-            ppt = BWD_PIXELS_PER_THREAD if backward else FWD_PIXELS_PER_THREAD
-        if ppt not in (2, 4):
-            raise ValueError(f"pixels per thread must be 2 or 4, got {ppt}")
-        threads = -(-ts * -(-ts // ppt) // 32) * 32
+        pixels = _BWD_PIXELS if backward else _FWD_PIXELS
+        threads = -(-ts * -(-ts // pixels) // 32) * 32
         smem = block * _LANE_BYTES + (threads // 32 * 9 * block * 4 if backward else 0)
     if smem > _SMEM_MAX:
         raise ValueError(f"pair_block {block} at tile_size {ts} needs {smem} "
@@ -262,12 +256,10 @@ def _c_fn(lib, name, pointers_before, ints, floats, pointers_after):
 
 
 def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
-                     cfg_consts, logti=None, log_thr=None, v1=False,
-                     ppt=None, cull=None):
-    """gs_blend_fwd_win (``ppt`` pixels per thread, the per-warp ``cull``;
-    defaults FWD_PIXELS_PER_THREAD and WARP_CULL), gs_blend_fwd_win_v1 with
-    ``v1``, or gs_blend_fwd_win_tf when ``logti`` is given (then gid is
-    None: the T-floor pass takes it from the first pass)."""
+                     cfg_consts, logti=None, log_thr=None, v1=False):
+    """gs_blend_fwd_win, gs_blend_fwd_win_v1 with ``v1``, or
+    gs_blend_fwd_win_tf when ``logti`` is given (then gid is None: the
+    T-floor pass takes it from the first pass)."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -276,9 +268,7 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
     nb = block_src.shape[0]
     dev = table.device
     tf = logti is not None
-    ppt = FWD_PIXELS_PER_THREAD if ppt is None else ppt
-    cull = WARP_CULL if cull is None else cull
-    launch_geometry(ts, block, False, ppt, v1 or tf)
+    launch_geometry(ts, block, False, v1 or tf)
     out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
     gid = None if tf else torch.empty((nb, block), dtype=torch.float32, device=dev)
     if tf:
@@ -302,9 +292,8 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
                 *windows, *ints, *floats, out.data_ptr(), gid.data_ptr(), stream)
         else:
             name, counter = "gs_blend_fwd_win", windowed_blend_fwd
-            err = _c_fn(lib, name, 3, 7, 3, 2)(
-                *windows, *ints, int(ppt), int(bool(cull)), *floats,
-                out.data_ptr(), gid.data_ptr(), stream)
+            err = _c_fn(lib, name, 3, 5, 3, 2)(
+                *windows, *ints, *floats, out.data_ptr(), gid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1
@@ -313,11 +302,9 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
 
 def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
                      g, cfg_consts, logti=None, log_thr=None, s_b=None,
-                     v1=False, ppt=None, cull=None):
-    """gs_blend_bwd_win given the forward's ``s_b`` (``ppt`` pixels per
-    thread, the per-warp ``cull``; defaults BWD_PIXELS_PER_THREAD and
-    WARP_CULL), gs_blend_bwd_win_v1 with ``v1``, or gs_blend_bwd_win_tf when
-    ``logti`` is given."""
+                     v1=False):
+    """gs_blend_bwd_win given the forward's ``s_b``, gs_blend_bwd_win_v1
+    with ``v1``, or gs_blend_bwd_win_tf when ``logti`` is given."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -331,9 +318,7 @@ def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     tf = logti is not None
     hopper = not (tf or v1)
-    ppt = BWD_PIXELS_PER_THREAD if ppt is None else ppt
-    cull = WARP_CULL if cull is None else cull
-    launch_geometry(ts, block, True, ppt, not hopper)
+    launch_geometry(ts, block, True, not hopper)
     g = g.contiguous()
     if tf:
         logti = _checked_plane("logti", logti, nb, p2, dev)
@@ -358,9 +343,9 @@ def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
                     *windows, *ints, *floats, dcols.data_ptr(), stream)
             else:
                 name, counter = "gs_blend_bwd_win", windowed_blend_bwd
-                err = _c_fn(lib, name, 5, 7, 3, 1)(
-                    *windows, s_b.data_ptr(), *ints, int(ppt), int(bool(cull)),
-                    *floats, dcols.data_ptr(), stream)
+                err = _c_fn(lib, name, 5, 5, 3, 1)(
+                    *windows, s_b.data_ptr(), *ints, *floats, dcols.data_ptr(),
+                    stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         counter.launches += 1

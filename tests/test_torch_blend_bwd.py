@@ -199,29 +199,28 @@ def test_blend_windows_backward_hands_the_kernel_the_forward_s_b(monkeypatch):
         assert (seen["s_b"] < 0).any()
 
 
-@pytest.mark.parametrize("block,smem", [(16, 1_920), (128, 15_360), (1024, 122_880)])
+@pytest.mark.parametrize("block,smem", [(16, 3_072), (128, 24_576), (1024, 196_608)])
 def test_bwd_launch_geometry(block, smem):
-    """The Hopper backward at ts = 16: 4 pixels per thread, so 64 threads (2
-    warps); 48 bytes per staged lane plus 9 floats per (warp, lane) of
-    partials.  The forward stages the lanes alone; the first design keeps
-    one thread per pixel."""
-    assert tblend.launch_geometry(16, block, True, ppt=4) == (64, smem)
-    assert tblend.launch_geometry(16, block, True, ppt=2) == (128, block * (48 + 4 * 36))
-    assert tblend.launch_geometry(16, block, False, ppt=4) == (64, block * 48)
+    """The Hopper backward at ts = 16: 2 pixels per thread, so 128 threads
+    (4 warps); 48 bytes per staged lane plus 9 floats per (warp, lane) of
+    partials.  The forward, 4 pixels per thread, stages the lanes alone;
+    the first design keeps one thread per pixel."""
+    assert tblend.launch_geometry(16, block, True) == (128, smem)
+    assert tblend.launch_geometry(16, block, False) == (64, block * 48)
     if block < 1024:
         assert tblend.launch_geometry(16, block, True, v1=True) == (
             256, 9 * 9 * block * 4 + 128)
 
 
-@pytest.mark.parametrize("ts,block,ppt,v1", [(32, 1024, 4, False), (32, 512, 2, False),
-                                             (16, 1024, None, True)])
-def test_bwd_launch_geometry_refuses_past_hopper_smem(ts, block, ppt, v1):
+@pytest.mark.parametrize("ts,block,v1", [(32, 1024, False), (32, 512, False),
+                                         (16, 1024, True)])
+def test_bwd_launch_geometry_refuses_past_hopper_smem(ts, block, v1):
     """Past the 232,448 bytes a Hopper block can have, the wrapper refuses
-    (32 x 32 tiles: 8 warps of 4-pixel strips need 344,064 bytes at
-    B = 1024)."""
+    (32 x 32 tiles: 16 warps of 2-pixel strips need 319,488 bytes at
+    B = 512)."""
     with pytest.raises(ValueError, match="at most 232448"):
-        tblend.launch_geometry(ts, block, True, ppt=ppt, v1=v1)
-    assert tblend.launch_geometry(32, 256, True, ppt=4) == (256, 256 * 48 + 8 * 9 * 256 * 4)
+        tblend.launch_geometry(ts, block, True, v1=v1)
+    assert tblend.launch_geometry(32, 256, True) == (512, 256 * 48 + 16 * 9 * 256 * 4)
 
 
 def test_first_design_wrappers_refuse_cpu_tensors():
@@ -238,8 +237,7 @@ def test_first_design_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("block", [16, 128])
 def test_bwd_kernel_matches_first_design_cuda(block):
     """The Hopper backward against the first design on the card, per column
-    within chip_smoke.BWD_REL of the column's largest magnitude, at every
-    pixels-per-thread and cull setting."""
+    within chip_smoke.BWD_REL of the column's largest magnitude."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from chip_smoke import BWD_REL
@@ -249,11 +247,8 @@ def test_bwd_kernel_matches_first_design_cuda(block):
     g_dev = torch.from_numpy(g).cuda()
     want = [t2n(c) for c in tblend.windowed_blend_bwd_v1(*dev, 0, block, g_dev, CONSTS)]
     s_b = _plain_s_b(dev, 0, block)
-    for ppt in (2, 4):
-        for cull in (False, True):
-            got = [t2n(c) for c in tblend._launch_bwd_cuda(
-                *dev, 0, block, g_dev, CONSTS, s_b=s_b, ppt=ppt, cull=cull)]
-            _assert_columns_close(got, want, rel=BWD_REL)
+    got = [t2n(c) for c in tblend.windowed_blend_bwd(*dev, 0, block, g_dev, s_b, CONSTS)]
+    _assert_columns_close(got, want, rel=BWD_REL)
 
 
 @pytest.mark.cuda
