@@ -41,19 +41,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               overflow; one step replayed from the same state must give the
               same bits (its launches are the launches per step); a 64x48
               step on the card against the same step on the CPU.  Both
-              kernels' launches counted.
-  6. tfloor   the exact T-floor path (RasterConfig.t_floor_exact=True): both
-              T-floor kernels against their plain versions under the flip
-              rule (FLIP_* below) on edge windows and at full size with the
-              real logti and the real loss cotangent of each pass (the
-              backward launched twice, bit-identical; the first pass's
-              backward too, given that pass's S_b); the work the inputs
-              need and each T-floor kernel's bound; the float64-cumsum
-              logti against compose's
-              float32 one; the full-size T-floor frame (0 < max|img_tf - img|
-              <= 1.5e-4) and train step (timed, replayed bit for bit); a
-              64x48 T-floor step on a dense scene on the card against the
-              CPU.  All four kernel entries must launch on this path.
+              kernels' launches counted.  Then the per-Gaussian reduction
+              (ops.pairs.reduce_aligned_cotangents) at full size on the real
+              loss cotangent against a float64 sum (REDUCE_REL_NORM per
+              column), the float32 prefix's error beside it, and the float64
+              scan's time at this frame's lanes and at 2^22 pairs'.
+  6. tfloor   the exact T-floor path (RasterConfig.t_floor_exact=True): the
+              Hopper T-floor kernels (gs_blend_fwd_win_tf, gs_blend_bwd_win_tf)
+              against their plain versions under the flip rule (FLIP_* below)
+              on edge windows and at full size with the real logti and the
+              real loss cotangent of each pass (the backward given the
+              forward's masked S_b and stop lanes, launched twice,
+              bit-identical; the first pass's backward too, given that
+              pass's S_b); the forward's S_b and stop lanes equal to the
+              first design's (gs_blend_*_win_tf_v1) bit for bit, and the A/B
+              of both designs in turns; the work the inputs need and each
+              T-floor kernel's bound; compose's incoming log T
+              (ops.rasterize.incoming_log_t) within one float32 ulp of a
+              float64 per-tile prefix at full size, no (block, pixel)
+              stopping at another lane beyond the flip rule, and its
+              forward and backward timed; the full-size T-floor frame
+              (0 < max|img_tf - img| <= 1.5e-4) and train step (timed,
+              replayed bit for bit); a 64x48 T-floor step on a dense scene
+              on the card against the CPU, grad_count exact.  All four
+              kernel entries must launch on this path.
   7. trainloop the COLMAP trainer (tools.train) end to end: the 100k scene
               written as a COLMAP scene with the port's writers (its points
               with their SH DC colours, 8 orbit views at 800x608, ground
@@ -78,8 +89,8 @@ first design's entries never.
 
 Prints one JSON line describing the kernels (per kernel: launches on the
 main paths and per step, max_abs_err against the plain version, ms, ms_v1
-(the first design's time in the same turns; null for the T-floor entries,
-which have one design), plain_ms, bound_ms with bound_by (the larger of
+(the first design's time in the same turns), plain_ms, bound_ms with
+bound_by (the larger of
 this run's bytes over the HBM rate and its instructions over the f32
 instruction rate), the work behind it (power_tests, kept_pairs,
 culled_share), library_ms (null: no single PyTorch call computes the
@@ -182,11 +193,9 @@ TFLOOR_TIMED_STEPS = 5
 # seed of the dense 64x48 T-floor scene (dense_scene): its termination
 # margins on the CPU are far from any flip
 DENSE_SEED = 3
-# a view-space gradient norm below this fraction of the largest is float
-# noise: a Gaussian behind every pixel's floor gets exactly zero gradient in
-# exact arithmetic, and a residue of the global-cumsum cancellation in
-# compose's backward on one device (tests/test_torch_tfloor.py)
-VS_NOISE_REL = 1e-7
+# per-Gaussian sums (phase 5): the relative norm of each column's error
+# against a float64 sum
+REDUCE_REL_NORM = 1e-6
 # phase 7: the COLMAP trainer on the 100k scene's points.  The default
 # Config with one cut, the density schedule shortened so that densify fires
 # at 16, 24, 32 and the opacity reset at 24 within 36 iterations (6
@@ -378,20 +387,24 @@ def _cull_extent(ca, cb, cc, op, power_floor, alpha_floor):
 
 def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
     """What the blend's inputs need at ts = 16, counted from the plain
-    replay on the card (ops.blend._replay) in chunks of blocks: live lanes
-    (for the T-floor pass, of blocks with a pixel above the floor); kept
-    (for the T-floor pass, surviving) pairs; and, for each kernel layout
-    (``fwd`` and ``bwd``, the Hopper designs' column strips of P pixels per
-    thread, P from ops.blend.launch_geometry; ``tf``, the first design's one
-    pixel per thread, for the T-floor pass; a warp covers 16 x 2P pixels),
-    the (warp, lane) pairs on lanes with opacity (``pairs_*``), those whose
-    padded box misses the warp's rectangle (``culled_*``), and the power
-    tests on the rest, 32 P per pair (``tests_*``; for the T-floor pass only
-    on pixels that arrive above the floor).  Without logti, also the (warp,
-    lane) pairs that enter the first design's backward shuffle tree (a warp
-    = 32 consecutive pixels, lanes below block_valid) and the (warp, batch
-    of 4 lanes) exchanges of the Hopper backward.  Raises if a kept pair
-    lies in a culled (warp, lane) pair."""
+    replay on the card (ops.blend._replay) in chunks of blocks, for the
+    Hopper designs' layouts (``fwd`` and ``bwd``: column strips of P pixels
+    per thread, P from ops.blend.launch_geometry, of the T-floor instances
+    with logti; a warp covers 16 x 2P pixels): the lanes each reads (``live_fwd``, ``live_bwd``); the kept
+    pairs (with logti, those that survive the T-floor); per layout the
+    (warp, lane) pairs on lanes with opacity (``pairs_*``), those whose
+    padded box misses the warp's rectangle (``culled_*``), and on the rest
+    the power tests the pixels need (``tests_*``).  Without logti a pixel
+    tests every live lane.  With logti (the T-floor pass) the forward reads
+    the lanes of blocks with a pixel above the floor and a pixel tests the
+    lanes up to its first kept lane that fails (all, if none does; none if
+    it arrives at or below the floor); the backward reads the lanes before
+    the block's largest stop lane and a pixel tests the lanes before its
+    own.  Without logti, also the (warp, lane) pairs that enter the first
+    design's backward shuffle tree (a warp = 32 consecutive pixels, lanes
+    below block_valid) and the (warp, batch of 4 lanes) exchanges of the
+    Hopper backward.  Raises if a kept pair lies in a culled (warp, lane)
+    pair."""
     import torch
     import torch.nn.functional as F
 
@@ -402,29 +415,35 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
     nb, p2 = src.shape[0], int(ts) ** 2
     if p2 != 256:
         raise ValueError(f"_blend_work counts 16 x 16 tiles, got tile_size {ts}")
-    if logti is None:
-        layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd")[0]
-                   for d in ("fwd", "bwd")}
-    else:
-        layouts = {"tf": 1}
-    w = dict.fromkeys(("live", "kept", "tree_v1", "lanes_v1", "exchanges", "batches")
-                      + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
-                              for d in layouts), 0)
+    layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd", tfloor=logti is not None)[0]
+               for d in ("fwd", "bwd")}
+    w = dict.fromkeys(("live_fwd", "live_bwd", "kept", "tree_v1", "lanes_v1", "exchanges",
+                       "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
+                                          for d in layouts), 0)
     w["pixels"] = layouts
     for k0 in range(0, nb, chunk):
         k1 = min(k0 + chunk, nb)
-        r = blend._replay(table, src, valid, tile, row0, block, consts, k0, k1,
-                          logti, log_thr)
+        r = blend._replay(table, src, valid, tile, row0, block, consts, k0, k1)
         kept = r.alpha > 0                                          # [K, P2, B]
         k, b = kept.shape[0], kept.shape[2]
+        lane = torch.arange(b, device=kept.device)
         nv = r.live.sum(1)                                          # [K]
         if logti is None:
-            open_px = torch.ones((k, p2), dtype=torch.bool, device=kept.device)
+            surv = kept
+            need = {d: nv[:, None].expand(k, p2) for d in layouts}   # [K, P2]
+            w["live_fwd"] += int(nv.sum())
+            w["live_bwd"] += int(nv.sum())
         else:
+            arrive = torch.cumsum(r.log1m, -1) - r.log1m + logti[k0:k1, :, None]
+            surv = kept & (arrive > log_thr)
+            fail = torch.where(kept & ~surv, lane, b).amin(-1)       # [K, P2]
             open_px = logti[k0:k1] > log_thr
-            nv = nv * open_px.any(1)          # closed blocks stage nothing
-        w["live"] += int(nv.sum())
-        w["kept"] += int(kept.sum())
+            stop = torch.where(surv, lane + 1, 0).amax(-1)
+            need = {"fwd": torch.where(open_px, torch.minimum(fail + 1, nv[:, None]), 0),
+                    "bwd": stop}
+            w["live_fwd"] += int((nv * open_px.any(1)).sum())
+            w["live_bwd"] += int(stop.amax(1).sum())
+        w["kept"] += int(surv.sum())
         t = tile[k0:k1]
         mx = r.cols[1] - ((t % tiles_x).float() * 16 + 8)[:, None]    # [K, B]
         my = r.cols[2] - ((t // tiles_x + row0).float() * 16 + 8)[:, None]
@@ -444,8 +463,8 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
             tested = has_op & meets                                 # [K, W, B]
             w[f"pairs_{name}"] += int(has_op.sum()) * warps
             w[f"culled_{name}"] += int((has_op & ~meets).sum())
-            per_warp = open_px.reshape(k, warps, -1).sum(2)         # [K, W]
-            w[f"tests_{name}"] += int((tested * per_warp[:, :, None]).sum())
+            testers = (lane < need[name][:, :, None]).reshape(k, warps, -1, b).sum(2)
+            w[f"tests_{name}"] += int((tested * testers).sum())
         if logti is None:
             w["tree_v1"] += int(kept.reshape(k, 8, 32, b).any(2).sum())
             w["lanes_v1"] += 8 * int(nv.sum())
@@ -473,7 +492,7 @@ def _work_bound(w, layout, nbytes, ops_per_kept):
     bound_ms, bound_by = _bound(nbytes, ops)
     res = {"bound_ms": bound_ms, "bound_by": bound_by, "power_tests": tests,
            "kept_pairs": kept, "culled_share": w[f"culled_{layout}"] / w[f"pairs_{layout}"]}
-    line = (f"{w['live']} live lanes; the box cull skips {w[f'culled_{layout}']} of "
+    line = (f"{w[f'live_{layout}']} lanes read; the box cull skips {w[f'culled_{layout}']} of "
             f"{w[f'pairs_{layout}']} (warp, lane) pairs ({res['culled_share']:.4f}); "
             f"{tests} power tests, {kept} kept pairs ({kept / max(tests, 1):.4f} of the "
             f"tests); {nbytes} bytes, {ops} instructions: bound {bound_ms:.4f} ms "
@@ -529,7 +548,7 @@ def phase_kernel(params, camera, cfg, smi):
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
     w = _blend_work(args)
     p2, block = 256, args[5]
-    bound, line = _work_bound(w, "fwd", 40 * w["live"] + 12 * nb + 4 * nb * (4 * p2 + block),
+    bound, line = _work_bound(w, "fwd", 40 * w["live_fwd"] + 12 * nb + 4 * nb * (4 * p2 + block),
                               FWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel] forward work ({w['pixels']['fwd']} pixels per thread): {line}")
@@ -622,7 +641,7 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
         f"each) on {smi}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
     nb, p2, block = args[1].shape[0], 256, args[5]
-    bound, line = _work_bound(w, "bwd", 40 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
+    bound, line = _work_bound(w, "bwd", 40 * w["live_bwd"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
                               BWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel bwd] backward work ({w['pixels']['bwd']} pixels per thread): {line}")
@@ -652,26 +671,16 @@ def _check_finite_state(label, state):
 
 
 def _compare_small_step(dev_state, dev_m, cpu_state, cpu_m, lrs, label="64x48 step",
-                        vs_noise_rel=None, noise_lrs=2):
-    """The 64x48 step on the card against the CPU step (see STEP_* above).
-    With ``vs_noise_rel``, grad_count may differ only for Gaussians whose
-    view-space gradient (grad_accum, one step from zero) is below that
-    fraction of the largest on both devices (see VS_NOISE_REL).  Elements
-    below the gradient noise may differ by ``noise_lrs`` learning rates."""
+                        noise_lrs=2):
+    """The 64x48 step on the card against the CPU step (see STEP_* above);
+    grad_count exactly.  Elements below the gradient noise may differ by
+    ``noise_lrs`` learning rates."""
     import numpy as np
 
     from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
     from gaussiansplatting_tpu_torch.train.state import state_to_numpy
 
     got, ref = state_to_numpy(dev_state), state_to_numpy(cpu_state)
-    if vs_noise_rel is not None:
-        differ = got["accum/grad_count"] != ref["accum/grad_count"]
-        for acc in (got["accum/grad_accum"], ref["accum/grad_accum"]):
-            if (acc[differ] > vs_noise_rel * acc.max()).any():
-                raise AssertionError(f"{label}: grad_count differs beyond noise")
-        log(f"[tfloor] {label}: {int(differ.sum())} grad_count entries differ, "
-            f"all at noise-level view-space gradients")
-        got["accum/grad_count"] = ref["accum/grad_count"]
     loss_err = abs(float(dev_m.loss) - float(cpu_m.loss))
     if loss_err > STEP_LOSS_RTOL * abs(float(cpu_m.loss)):
         raise AssertionError(f"{label}: loss {float(dev_m.loss)} vs {float(cpu_m.loss)}")
@@ -792,7 +801,72 @@ def phase_train(params, camera, gt, smi):
         torch.from_numpy(small_gt).to(DEVICE), small_cfg, 100)
     _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
                         schedule.learning_rates(small_cfg.optim, 0, 100))
-    return launches, step_ms, step_device_ms, per_step
+
+    # (v) the per-Gaussian reduction at full size against float64
+    red = _check_reduction(params, camera, cfg.raster, gt, smi)
+    return launches, step_ms, step_device_ms, per_step, red
+
+
+def _check_reduction(params, camera, raster, gt, smi):
+    """ops.pairs.reduce_aligned_cotangents at full size on the real loss
+    cotangent (the blend backward's nine columns of the canonical view's
+    windows) against a float64 per-Gaussian sum on the CPU: each column's
+    error within REDUCE_REL_NORM of its norm.  Beside it the same
+    difference of a float32 prefix (the JAX package's form), and the times
+    of the reduction, of that float32 form and of the float64 prefix sum
+    alone, at this frame's lanes and at the lanes of 2^22 pairs.  Returns
+    those numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaussiansplatting_tpu_torch.ops import blend, pairs
+    from gaussiansplatting_tpu_torch.ops.rasterize import _plan, _windows
+
+    with torch.no_grad():
+        plan = _plan(params, camera, raster)
+        win = _windows(plan.data, plan.ints, plan.pcfg)
+        args = (win.table, win.block_src, win.block_valid, win.tile, 0, raster.pair_block,
+                plan.bconsts)
+        out, gid = blend.windowed_blend_fwd(*args)
+    g = _loss_cotangent(out, win.block_tile, camera, raster, gt)
+    with torch.no_grad():
+        dcols = blend.windowed_blend_bwd(*args[:6], g, out[:, 3].contiguous(), args[6])
+        d_rows = torch.stack([c.reshape(-1) for c in dcols])            # [9, a_cap]
+        gid = gid.reshape(-1).to(torch.int32)
+        counts, n = plan.ints[0], plan.pcfg[0]
+        got = pairs.reduce_aligned_cotangents(d_rows, gid, counts, n)
+        live = gid >= 0
+        ref = torch.zeros((n, 9), dtype=torch.float64).index_add_(
+            0, gid[live].long().cpu(), d_rows[:, live].T.double().cpu())
+        _, perm = torch.sort(torch.where(live, gid, n), stable=True)
+        ends = torch.cumsum(counts, 0)
+
+        def f32_form():
+            csum = F.pad(pairs._prefix_sum(d_rows[:, perm]), (1, 0))
+            return (csum[:, ends] - csum[:, ends - counts]).T
+
+        def rel_norm(x):
+            return float(((x.cpu().double() - ref).norm(dim=0) / ref.norm(dim=0)).max())
+
+        res = {"rel_norm": rel_norm(got), "rel_norm_f32": rel_norm(f32_form())}
+        res["ms"] = cuda_time_ms(lambda: pairs.reduce_aligned_cotangents(d_rows, gid, counts, n),
+                                 reps=10)
+        res["ms_f32"] = cuda_time_ms(f32_form, reps=10)
+        x64 = d_rows[:, perm].double()
+        res["prefix64_ms"] = cuda_time_ms(lambda: pairs._prefix_sum(x64), reps=10)
+        lanes = pairs.aligned_capacity(1 << 22, plan.pcfg[2] * plan.pcfg[3], raster.pair_block)
+        x64 = torch.rand((9, lanes), dtype=torch.float64, device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(0))
+        res["prefix64_ms_2e22"] = cuda_time_ms(lambda: pairs._prefix_sum(x64), reps=10)
+    log(f"[train] per-Gaussian reduction at full size ({d_rows.shape[1]} lanes, {n} "
+        f"Gaussians, loss cotangent): each column within {res['rel_norm']:.3e} of a float64 "
+        f"sum in relative norm (the float32 prefix: {res['rel_norm_f32']:.3e}); "
+        f"{res['ms']:.4f} ms (float32 prefix {res['ms_f32']:.4f} ms), its float64 prefix sum "
+        f"{res['prefix64_ms']:.4f} ms, at {lanes} lanes (2^22 pairs) "
+        f"{res['prefix64_ms_2e22']:.4f} ms (CUDA events, 10 calls) on {smi}")
+    if not res["rel_norm"] <= REDUCE_REL_NORM:
+        raise AssertionError(f"reduce_aligned_cotangents: {res['rel_norm']:.3e} off float64")
+    return res
 
 
 def _compare_tf(label, got, want, margin):
@@ -817,6 +891,33 @@ def _compare_tf(label, got, want, margin):
     if n_excused > FLIP_MAX_SHARE * bad.numel():
         raise AssertionError(f"{label}: {n_excused} termination flips")
     return worst, n_excused
+
+
+def _same_as_first_design(label, got, first):
+    """The Hopper T-floor forward's (out, stop) against the first design's:
+    S_b and the stop lanes bit for bit (both sum the same rounded log1pf
+    terms in lane order and stop on the same test)."""
+    import torch
+
+    if not (torch.equal(got[0][:, 3], first[0][:, 3]) and torch.equal(got[1], first[1])):
+        raise AssertionError(f"{label}: the Hopper T-floor forward's S_b or stop lanes "
+                             f"differ from the first design's")
+    log(f"[tfloor] {label}: S_b and stop lanes of the Hopper design = the first "
+        f"design's, bit for bit")
+
+
+def per_tile_log_t64(s_b, seg):
+    """Each block's exclusive prefix of S_b [NB, P2] over its own tile's run
+    of blocks (``seg`` [NB], sorted tile ids), tile by tile in float64
+    (NumPy): the reference of ops.rasterize.incoming_log_t."""
+    import numpy as np
+
+    x = s_b.astype(np.float64)
+    out = np.zeros_like(x)
+    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
+    for a, b in zip(starts, np.r_[starts[1:], seg.size]):
+        out[a + 1:b] = np.cumsum(x[a:b - 1], axis=0)
+    return out
 
 
 def _compare_tf_bwd(label, got, want, margin):
@@ -857,13 +958,14 @@ def _compare_tf_bwd(label, got, want, margin):
 
 def _blend_wrappers():
     """The kernel entries' wrappers, each with its launch count: the four
-    of the main paths and the first design's two, which phase 3 alone
-    calls."""
+    of the main paths and the first design's four, which only the A/Bs of
+    phases 3 and 6 call."""
     from gaussiansplatting_tpu_torch.ops import blend
 
     return (blend.windowed_blend_fwd, blend.windowed_blend_fwd_tf,
             blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf,
-            blend.windowed_blend_fwd_v1, blend.windowed_blend_bwd_v1)
+            blend.windowed_blend_fwd_v1, blend.windowed_blend_bwd_v1,
+            blend.windowed_blend_fwd_tf_v1, blend.windowed_blend_bwd_tf_v1)
 
 
 MAIN_ENTRIES = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
@@ -902,7 +1004,7 @@ def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
     """The full-size logti and the real loss cotangent of each pass: compose
     at the first pass's ``out`` with the T-floor kernel as its second pass,
     then autograd of the default photometric loss.  Returns (logti, out_tf,
-    g_first, g_tf)."""
+    stop, g_first, g_tf)."""
     import torch
 
     from gaussiansplatting_tpu_torch.config import LossConfig
@@ -914,7 +1016,8 @@ def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
 
     def blend_tfloor(logti):
         held["logti"] = logti
-        held["out_tf"] = blend.windowed_blend_fwd_tf(*args, logti, log_thr).requires_grad_(True)
+        out_tf, held["stop"] = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
+        held["out_tf"] = out_tf.requires_grad_(True)
         return held["out_tf"][:, :3, :], held["out_tf"][:, 3, :]
 
     with torch.enable_grad():
@@ -924,7 +1027,7 @@ def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
         g1, g2 = torch.autograd.grad(rep.grad_loss, [out1, held["out_tf"]])
     if float(g1[:, :3].abs().max()) != 0.0:
         raise AssertionError("first-pass cotangent has nonzero colour rows")
-    return held["logti"], held["out_tf"].detach(), g1, g2
+    return held["logti"], held["out_tf"].detach(), held["stop"], g1, g2
 
 
 def phase_tfloor(params, camera, cfg, gt, smi):
@@ -938,7 +1041,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     from gaussiansplatting_tpu_torch.ops import blend
     from gaussiansplatting_tpu_torch.ops.projection import num_tiles
     from gaussiansplatting_tpu_torch.ops.rasterize import (
-        blend_windows, compose, incoming_log_t, render)
+        blend_windows, incoming_log_t, render)
     from gaussiansplatting_tpu_torch.train import schedule
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train.trainer import train_step
@@ -948,7 +1051,8 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     log_thr = math.log(cfg_tf.transmittance_floor)
     res = {}
 
-    # (i) kernels #5 and #6 against their plain versions on edge windows
+    # (i) kernels #5 and #6 against their plain versions on edge windows,
+    # the Hopper forward's S_b and stop lanes against the first design's
     for block in (16, 128):
         for row0 in (0, 3):
             table, src, valid, tile = (
@@ -960,43 +1064,61 @@ def phase_tfloor(params, camera, cfg, gt, smi):
                 size=(nb, 4, 256)).astype(np.float32)).to(DEVICE)
             args = (table, src, valid, tile, row0, block,
                     (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, 50))
+            label = f"edge B={block} row0={row0}"
             with torch.no_grad():
-                got = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
-                want, margin = blend.windowed_blend_fwd_tf_plain(
+                got, stop = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
+                want, _, margin = blend.windowed_blend_fwd_tf_plain(
                     *args, logti, log_thr, return_margin=True)
+                _same_as_first_design(label, (got, stop),
+                                      blend.windowed_blend_fwd_tf_v1(*args, logti, log_thr))
             torch.cuda.synchronize()
-            _compare_tf(f"edge B={block} row0={row0}", got, want, margin)
-            bargs = args[:6] + (g, args[6], logti, log_thr)
-            got = blend.windowed_blend_bwd_tf(*bargs)
-            torch.cuda.synchronize()
-            _compare_tf_bwd(f"edge B={block} row0={row0}", got,
-                            blend.windowed_blend_bwd_tf_plain(*bargs), margin)
+            _compare_tf(label, got, want, margin)
+            bargs = args[:6] + (g, got[:, 3].contiguous(), stop, args[6], logti, log_thr)
+            d_want = blend.windowed_blend_bwd_tf_plain(*bargs)
+            _compare_tf_bwd(label, blend.windowed_blend_bwd_tf(*bargs), d_want, margin)
+            _compare_tf_bwd(f"{label}, first design", blend.windowed_blend_bwd_tf_v1(
+                *args[:6], g, args[6], logti, log_thr), d_want, margin)
 
     # (ii) at full size: the real logti and the real cotangent of each pass
     args, block_tile, _ = blend_windows(params, camera, cfg_tf)
     with torch.no_grad():
         out, _ = blend.windowed_blend_fwd(*args)
-    logti, out_tf, g1, g2 = _tf_pass_cotangents(args, out, block_tile, camera,
-                                                cfg_tf, gt, log_thr)
+    logti, out_tf, stop, g1, g2 = _tf_pass_cotangents(args, out, block_tile, camera,
+                                                      cfg_tf, gt, log_thr)
+    fargs = args + (logti, log_thr)
     with torch.no_grad():
-        want, margin = blend.windowed_blend_fwd_tf_plain(*args, logti, log_thr,
-                                                         return_margin=True)
+        want, _, margin = blend.windowed_blend_fwd_tf_plain(*fargs, return_margin=True)
         res["fwd_err"], res["fwd_excused"] = _compare_tf("full size", out_tf, want, margin)
-        res["fwd_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_tf(*args, logti, log_thr),
-                                     reps=20)
+        first = blend.windowed_blend_fwd_tf_v1(*fargs)
+        _compare_tf("full size, first design", first[0], want, margin)
+        _same_as_first_design("full size", (out_tf, stop), first)
+        res["fwd_ms_v1"], res["fwd_ms"], turns = _turns(
+            lambda: blend.windowed_blend_fwd_tf_v1(*fargs),
+            lambda: blend.windowed_blend_fwd_tf(*fargs))
+        log(f"[tfloor] forward A/B in turns (first, Hopper, Hopper, first): "
+            f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} "
+            f"launches each) on {smi}")
         res["fwd_plain_ms"] = cuda_time_ms(
-            lambda: blend.windowed_blend_fwd_tf_plain(*args, logti, log_thr), reps=3)
-        bargs = args[:6] + (g2, args[6], logti, log_thr)
+            lambda: blend.windowed_blend_fwd_tf_plain(*fargs), reps=3)
+        bargs = args[:6] + (g2, out_tf[:, 3].contiguous(), stop, args[6], logti, log_thr)
         got = blend.windowed_blend_bwd_tf(*bargs)
         again = blend.windowed_blend_bwd_tf(*bargs)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("T-floor backward kernel: two launches differ")
         log("[tfloor bwd] full size: two launches bit-identical")
+        d_want = blend.windowed_blend_bwd_tf_plain(*bargs)
         res["bwd_err"], res["bwd_excused"] = _compare_tf_bwd(
-            "full size (loss cotangent)", got, blend.windowed_blend_bwd_tf_plain(*bargs),
-            margin)
-        res["bwd_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_tf(*bargs), reps=20)
+            "full size (loss cotangent)", got, d_want, margin)
+        v1_args = args[:6] + (g2, args[6], logti, log_thr)
+        _compare_tf_bwd("full size, first design", blend.windowed_blend_bwd_tf_v1(*v1_args),
+                        d_want, margin)
+        res["bwd_ms_v1"], res["bwd_ms"], turns = _turns(
+            lambda: blend.windowed_blend_bwd_tf_v1(*v1_args),
+            lambda: blend.windowed_blend_bwd_tf(*bargs))
+        log(f"[tfloor bwd] A/B in turns (first, Hopper, Hopper, first): "
+            f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} "
+            f"launches each) on {smi}")
         res["bwd_plain_ms"] = cuda_time_ms(
             lambda: blend.windowed_blend_bwd_tf_plain(*bargs), reps=3)
         # kernel #4: the first pass's backward, on its own cotangent (S_b only)
@@ -1005,37 +1127,50 @@ def phase_tfloor(params, camera, cfg, gt, smi):
                      blend.windowed_blend_bwd_plain(*b1))
     w = _blend_work(args, logti, log_thr)
     nb, p2, block = args[1].shape[0], 256, args[5]
-    res["fwd_bound"], line = _work_bound(w, "tf", 36 * w["live"] + 12 * nb + 4 * nb * 5 * p2,
-                                         FWD_OPS_PER_KEPT)
-    log(f"[tfloor] forward work (in open blocks, power tests on open pixels, surviving "
-        f"kept pairs): {line}")
+    # bytes: 36 per lane read (no gid), the block's three ints; forward logti
+    # in, out and stop out; backward g, s_b and stop in, nine columns out
+    res["fwd_bound"], line = _work_bound(
+        w, "fwd", 36 * w["live_fwd"] + 12 * nb + 4 * nb * 6 * p2, FWD_OPS_PER_KEPT)
+    log(f"[tfloor] forward work ({w['pixels']['fwd']} pixels per thread; power tests up "
+        f"to each pixel's first failing kept lane, surviving kept pairs): {line}")
     res["bwd_bound"], line = _work_bound(
-        w, "tf", 36 * w["live"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block), BWD_OPS_PER_KEPT)
-    log(f"[tfloor bwd] backward work: {line}")
-    log(f"[tfloor] full size: fwd_tf kernel {res['fwd_ms']:.4f} ms, plain "
-        f"{res['fwd_plain_ms']:.3f} ms; bwd_tf kernel {res['bwd_ms']:.4f} ms, plain "
-        f"{res['bwd_plain_ms']:.3f} ms (CUDA events) on {smi}")
+        w, "bwd", 36 * w["live_bwd"] + 12 * nb + 4 * nb * (6 * p2 + 9 * block),
+        BWD_OPS_PER_KEPT)
+    log(f"[tfloor bwd] backward work ({w['pixels']['bwd']} pixels per thread; power "
+        f"tests before each pixel's stop lane): {line}")
+    log(f"[tfloor] full size: fwd_tf Hopper {res['fwd_ms']:.4f} ms, first design "
+        f"{res['fwd_ms_v1']:.4f} ms, plain {res['fwd_plain_ms']:.3f} ms, bound "
+        f"{res['fwd_bound']['bound_ms']:.4f} ms; bwd_tf Hopper {res['bwd_ms']:.4f} ms, "
+        f"first design {res['bwd_ms_v1']:.4f} ms, plain {res['bwd_plain_ms']:.3f} ms, "
+        f"bound {res['bwd_bound']['bound_ms']:.4f} ms (CUDA events) on {smi}")
 
-    # (iii) the precision of logti: compose's float32 global cumsum against
-    # the same cumsum in float64 (a measurement; compose keeps JAX's form)
+    # (iii) compose's incoming log T against a float64 per-tile prefix: within
+    # one float32 ulp of max(|ref|, 1), and no pixel stopping at another lane
+    # beyond the flip rule; its forward and backward timed
     with torch.no_grad():
         ts = cfg.tile_size
         nt = num_tiles(camera.width, ts) * num_tiles(camera.height, ts)
-        logti64 = incoming_log_t(out[:, 3].double(), block_tile, nt).float()
-        out64 = blend.windowed_blend_fwd_tf(*args, logti64, log_thr)
-        moved = out64[:, 3] != out_tf[:, 3]                         # [NB, P2]
-        p = torch.arange(ts * ts, device=out.device)
-        pix = (block_tile.long()[:, None] * (ts * ts) + p)[moved]
-        img32 = compose(out, block_tile, camera, cfg_tf, lambda _: (out_tf[:, :3], out_tf[:, 3]))
-        img64 = compose(out, block_tile, camera, cfg_tf, lambda _: (out64[:, :3], out64[:, 3]))
-        live = out[:, 3] < 0
-        d_logti = float((logti - logti64).abs()[live].max())
-    res["logti_pixels"] = int(torch.unique(pix).numel())
-    res["logti_img_err"] = float((img32 - img64).abs().max())
-    log(f"[tfloor] logti float32 vs float64 cumsum: max|d logti| {d_logti:.3e}; "
-        f"{int(moved.sum())} (block, pixel) entries in {res['logti_pixels']} image "
-        f"pixels terminate at another lane; max image difference "
-        f"{res['logti_img_err']:.3e}")
+        ref = per_tile_log_t64(out[:, 3].cpu().numpy(), block_tile.cpu().numpy())
+        unit = np.spacing(np.maximum(np.abs(ref), 1.0).astype(np.float32)).astype(np.float64)
+        ulps = float((np.abs(logti.cpu().numpy().astype(np.float64) - ref) / unit).max())
+        ref32 = torch.from_numpy(ref.astype(np.float32)).to(DEVICE)
+        moved = blend.windowed_blend_fwd_tf(*args, ref32, log_thr)[1] != stop
+        res["logti_ulps"], res["logti_moved"] = ulps, int(moved.sum())
+        flips = int((moved & (margin < FLIP_MARGIN)).sum())
+    log(f"[tfloor] logti vs a float64 per-tile prefix: max {ulps:.3f} float32 ulps of "
+        f"max(|ref|, 1); {res['logti_moved']} (block, pixel) entries stop at another lane "
+        f"with the float64 prefix rounded once, {flips} of them at a margin < {FLIP_MARGIN}")
+    if ulps > 1.0:
+        raise AssertionError(f"incoming_log_t is {ulps} ulps off float64")
+    if res["logti_moved"] != flips or flips > FLIP_MAX_SHARE * moved.numel():
+        raise AssertionError("logti's rounding moves a pixel's stop beyond the flip rule")
+    s_b = out[:, 3].contiguous().requires_grad_(True)
+    g_lt = g2[:, 3].contiguous()                # any [NB, P2] cotangent times it
+    res["logti_ms"] = cuda_time_ms(lambda: incoming_log_t(s_b.detach(), block_tile, nt), reps=20)
+    res["logti_fwd_bwd_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+        incoming_log_t(s_b, block_tile, nt), s_b, g_lt), reps=20)
+    log(f"[tfloor] incoming_log_t at {tuple(s_b.shape)}: forward {res['logti_ms']:.4f} ms, "
+        f"forward + backward {res['logti_fwd_bwd_ms']:.4f} ms (CUDA events, 20 calls) on {smi}")
 
     # (iv) the T-floor render main path at full size
     with torch.no_grad():
@@ -1118,15 +1253,15 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         state_mod.create(gaussians.params_from_numpy(host, DEVICE)),
         synthetic.make_canonical_camera(64, 48, device=DEVICE),
         torch.from_numpy(small_gt).to(DEVICE), small_cfg, 100)
-    # a Gaussian behind every pixel's floor has an exactly zero gradient on
-    # one device and noise on the other (VS_NOISE_REL), so Adam moves it by
-    # lr * sign(noise) on one side only; quaternions renormalize after the
-    # move, which scales a component's move by up to 1 + |q . sign| <= 3
-    # (the bar tests/test_torch_train.py holds)
+    # a Gaussian behind every pixel's floor gets exactly zero gradient on
+    # both devices (compose sums each tile's blocks on their own), so
+    # grad_count must match exactly; Adam moves an element whose gradient
+    # is rounding noise by lr * sign(noise), and quaternions renormalize
+    # after the move, which scales a component's move by up to
+    # 1 + |q . sign| <= 3 (the bar tests/test_torch_train.py holds)
     _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
                         schedule.learning_rates(small_cfg.optim, 0, 100),
-                        label="64x48 T-floor step", vs_noise_rel=VS_NOISE_REL,
-                        noise_lrs=3)
+                        label="64x48 T-floor step", noise_lrs=3)
     launches = {k: render_launches[k] + train_launches[k] for k in render_launches}
     return launches, res
 
@@ -1730,7 +1865,7 @@ def main() -> int:
             f"{bwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
     del args, block_tile
     render_launches, frame_ms, frame_device_ms = phase_render(params, camera, cfg, smi)
-    (train_fwd, train_bwd), step_ms, step_device_ms, per_step = phase_train(
+    (train_fwd, train_bwd), step_ms, step_device_ms, per_step, red = phase_train(
         params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
@@ -1760,25 +1895,32 @@ def main() -> int:
               {k: bwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
                                    "bound_by", "power_tests", "kept_pairs", "culled_share",
                                    "tree_share_v1")}),
-        entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "first",
+        entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "hopper",
               {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
               tf["per_step"]["windowed_blend_fwd_tf"],
               {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
-               "ms": tf["fwd_ms"], "ms_v1": None, "plain_ms": tf["fwd_plain_ms"],
+               "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms_v1"], "plain_ms": tf["fwd_plain_ms"],
                **tf["fwd_bound"]}),
-        entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "first",
+        entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "hopper",
               {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
               tf["per_step"]["windowed_blend_bwd_tf"],
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
-               "ms": tf["bwd_ms"], "ms_v1": None, "plain_ms": tf["bwd_plain_ms"],
+               "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms_v1"], "plain_ms": tf["bwd_plain_ms"],
                **tf["bwd_bound"]}),
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],
         "tfloor_train_step_ms": tf["step_ms"],
         "tfloor_launches_per_step": tf["per_step"],
-        "tfloor_logti_f64_pixels": tf["logti_pixels"],
-        "tfloor_logti_f64_max_img_err": tf["logti_img_err"],
+        "logti_max_ulps_vs_f64": tf["logti_ulps"],
+        "logti_moved_stops_vs_f64": tf["logti_moved"],
+        "incoming_log_t_ms": tf["logti_ms"],
+        "incoming_log_t_fwd_bwd_ms": tf["logti_fwd_bwd_ms"],
+        "reduce_max_col_rel_norm_vs_f64": red["rel_norm"],
+        "reduce_f32_max_col_rel_norm_vs_f64": red["rel_norm_f32"],
+        "reduce_ms": red["ms"], "reduce_f32_ms": red["ms_f32"],
+        "reduce_prefix64_ms": red["prefix64_ms"],
+        "reduce_prefix64_ms_2e22": red["prefix64_ms_2e22"],
         "trainloop_iters_per_s": tl["iters_per_s"],
         "trainloop_step_ms": tl["loop_step_ms"],
         "trainloop_density_s": tl["loop_density_s"],

@@ -7,8 +7,9 @@
 //                        cotangent reaches S_b alone (colour rows zero);
 //   gs_blend_bwd_win_tf  _bwd_kernel_tf (:281, the VJP of
 //                        block_blend_cols_tf), the exact T-floor pass.
-// gs_blend_bwd_win_v1 is the first design of gs_blend_bwd_win (below), kept
-// for chip_smoke.py's A/B; nothing on the training path calls it.
+// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1 are the first design of
+// those two (below), kept for chip_smoke.py's A/B; nothing on the training
+// path calls them.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
@@ -35,48 +36,54 @@
 // forward (~11 flops each) and, per kept pair, an exp, a reciprocal and ~35
 // flops (the first design: an exp, a log1p, an exp and a division), plus
 // the cross-pixel sums; instruction issue, not HBM (the table, g, s_b and
-// the nine outputs, ~245 MB, 0.07 ms at 3.35 TB/s).
+// the nine outputs, ~245 MB, 0.07 ms at 3.35 TB/s).  The T-floor pass keeps
+// far fewer pairs for about as many bytes, so HBM bounds it.
 //
-// gs_blend_bwd_win, the Hopper design: one CUDA block per pair block,
-// kPixels = 2 pixels per thread (a column strip, blend_common.cuh: 128
-// threads at ts = 16) and the lanes staged as the forward stages them.  It
-// starts each pixel from the forward's own S_b (s_b, row 3 of its out),
-// which is the same rounded sequential log1pf sum the first design's replay
-// pass recomputed, so there is one walk, back to front, and it carries T
-// back by division, T_before = T_after /
-// (1 - alpha), with the IEEE reciprocal that dl / (1 - alpha) needs too: no
-// log1pf and no expf per kept pair (about 1 ulp per kept lane where the
-// log walk loses ulp(|S|)).  Only a pixel with S_b < -60, where expf(S_b)
-// nears the denormals, walks back in log space until S rises above -60,
-// then switches.  Lanes go in batches of four: a thread sums its 2 pixels'
-// nine terms per lane in registers, then the warp sums the batch's 4 x 9 values
-// with two halving exchanges (each thread keeps half of the lanes and adds
-// its partner's half: 18 + 9 shuffles) and a butterfly over the last 8
-// threads (27 shuffles), 13.5 shuffles per (warp, lane) against the first
-// design's 45 per (warp of 32 pixels, lane); one thread per lane then holds
-// the warp's sums, and the warps' partials are summed in warp order from
-// shared memory.  A batch that no pixel of the warp keeps skips the
-// exchange, and a warp skips a lane whose padded ellipse box misses its
-// 16 x 4 pixel rectangle (as the forward does).  Shared memory: 48 * B
-// bytes of lanes + warps * 9 * B floats of partials (24 KB at B = 128).
-//
-// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf, the first design: one thread
-// per pixel, the window's nine columns in shared memory.  Each thread
-// replays its pixel twice: pass 1, front to back, to the pixel's total
-// log-transmittance S; pass 2, back to front, the chain rule above.  The
-// per-lane sums are a shuffle tree in each warp (45 shuffles per lane that
-// any pixel of the warp kept), one partial per (warp, column, lane) in
-// shared memory, then a sum over the warps in warp order.
+// gs_blend_bwd_win and gs_blend_bwd_win_tf, the Hopper design
+// (blend_bwd_win_hopper): one CUDA block per pair block, kPixels = 2 pixels
+// per thread (a column strip, blend_common.cuh: 128 threads at ts = 16) and
+// the lanes staged as the forward stages them.  It starts each pixel from
+// the forward's own S_b (s_b, row 3 of its out), which is the same rounded
+// sequential log1pf sum the first design's replay pass recomputed, so there
+// is one walk, back to front, and it carries T back by division, T_before
+// = T_after / (1 - alpha), with the IEEE reciprocal that dl / (1 - alpha)
+// needs too: no log1pf and no expf per kept pair (about 1 ulp per kept
+// lane where the log walk loses ulp(|S|)).  Only a pixel with S_b < -60,
+// where expf(S_b) nears the denormals, walks back in log space until S
+// rises above -60, then switches.  Lanes go in batches of four: a thread
+// sums its 2 pixels' nine terms per lane in registers, then the warp sums
+// the batch's 4 x 9 values with two halving exchanges (each thread keeps
+// half of the lanes and adds its partner's half: 18 + 9 shuffles) and a
+// butterfly over the last 8 threads (27 shuffles), 13.5 shuffles per
+// (warp, lane) against the first design's 45 per (warp of 32 pixels,
+// lane); one thread per lane then holds the warp's sums, and the warps'
+// partials are summed in warp order from shared memory.  A batch that no
+// pixel of the warp keeps skips the exchange, and a warp skips a lane whose
+// padded ellipse box misses its 16 x 4 pixel rectangle (as the forward
+// does).  Shared memory: 48 * B bytes of lanes + warps * 9 * B floats of
+// partials (24 KB at B = 128).
 //
 // The T-floor pass (kTFloor) holds the termination mask constant, as
-// _bwd_kernel_tf does: pass 1 stops at the pixel's first kept lane where
-// S + logti <= log_thr (the same test as blend_fwd.cu's T-floor pass), so
-// its S is the masked total and kend, that lane, ends the pixel's
-// survivors; pass 2 walks back from the last surviving lane, so g_S and
-// every other term reach surviving lanes only, and logti gets no
-// cotangent.  Lanes at or past the block's largest kend are zero for every
-// pixel: the warps skip them, and a block whose pixels all arrive at or
-// below the floor writes zeros and stages nothing.
+// _bwd_kernel_tf does, without replaying it: it takes the T-floor forward's
+// masked S_b and each pixel's stop lane (one past its last surviving lane;
+// the survivors are a prefix of the pixel's kept lanes), walks back from the
+// lane before it, so g_S and every other term reach surviving lanes only,
+// and logti gets no cotangent.  A warp skips the batches at or past its
+// largest stop lane, lanes at or past the block's largest are zero for
+// every pixel, and a block in which nothing survives writes zeros and
+// stages nothing.
+//
+// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1, the first design: one
+// thread per pixel, the window's nine columns in shared memory.  Each
+// thread replays its pixel twice: pass 1, front to back, to the pixel's
+// total log-transmittance S (in the T-floor instance, up to its first kept
+// lane where S + logti <= log_thr, the forward's test, so S is the masked
+// total and that lane, kend, ends the survivors); pass 2, back to front,
+// the chain rule above.  The per-lane sums are a shuffle tree in each warp
+// (45 shuffles per lane that any pixel of the warp kept), one partial per
+// (warp, column, lane) in shared memory, then a sum over the warps in warp
+// order; the T-floor instance skips lanes at or past the block's largest
+// kend.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +93,8 @@ namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
 constexpr int kBatch = 4;  // lanes per warp exchange of the Hopper design
-constexpr int kPixels = 2;  // pixels per thread of the Hopper design
+constexpr int kPixels = 2;    // pixels per thread of the Hopper design
+constexpr int kPixelsTF = 2;  // ... of its T-floor instance
 // Below this log-transmittance expf(S) loses precision (it reaches the
 // denormals at S < -87), so a pixel of the Hopper design whose S_b lies
 // below it walks back in log space until S rises above it
@@ -322,37 +330,62 @@ __global__ void blend_bwd_win_kernel(
   }
 }
 
+template <bool kTFloor>
 __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
     const int* __restrict__ block_tile, const float* __restrict__ g,
-    const float* __restrict__ s_b, int nb, int block, int ts, int tiles_x,
-    int row0, float power_floor, float alpha_cap, float alpha_floor,
-    float* __restrict__ dcols) {
-  constexpr int P = kPixels;
+    const float* __restrict__ s_b, const int* __restrict__ stop, int nb,
+    int block, int ts, int tiles_x, int row0, float power_floor,
+    float alpha_cap, float alpha_floor, float* __restrict__ dcols) {
+  constexpr int P = kTFloor ? kPixelsTF : kPixels;
   extern __shared__ float4 lane_smem[];
+  __shared__ int warp_stop[32];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);        // [block]
   float* part = reinterpret_cast<float*>(lanes + block);      // [warps][kCols][block]
   const int b = blockIdx.x;
   const int p2 = ts * ts;
   const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int wlane = threadIdx.x & 31;
   const size_t plane = (size_t)nb * block;  // one output column, [nb, block]
   float* out_b = dcols + (size_t)b * block;
-  const int nv = min(block_valid[b], block);
+  int nv = min(block_valid[b], block);
+  const float half = 0.5f * (float)ts;
+  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
+  // T-floor: each pixel's stop lane (one past its last surviving lane), the
+  // warp's largest, and the block's largest, past which every lane's
+  // cotangents are zero (read from every warp's, no atomics)
+  int pstop[P];
+  int wstop = nv;
+#pragma unroll
+  for (int j = 0; j < P; ++j) pstop[j] = nv;
+  if (kTFloor) {
+    int tstop = 0;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      pstop[j] = st.on(j, ts) ? stop[(size_t)b * p2 + (st.y0 + j) * ts + st.x] : 0;
+      tstop = max(tstop, pstop[j]);
+    }
+    wstop = __reduce_max_sync(kFullMask, tstop);
+    if (wlane == 0) warp_stop[warp] = wstop;
+    __syncthreads();
+    int kmax = 0;
+    for (int w = 0; w < nwarps; ++w) kmax = max(kmax, warp_stop[w]);
+    nv = min(nv, kmax);  // uniform across the block
+  }
   if (nv <= 0) {
     for (int i = threadIdx.x; i < kCols * block; i += blockDim.x)
       out_b[(size_t)(i / block) * plane + i % block] = 0.f;
     return;
   }
 
-  const float half = 0.5f * (float)ts;
   const int tile = block_tile[b];
   blend::stage_lanes(lanes, table, ep, block_src[b], nv,
                   (float)(tile % tiles_x) * (float)ts + half,
                   (float)(tile / tiles_x + row0) * (float)ts + half,
                   power_floor, alpha_floor);
 
-  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
   const float4 rect = blend::warp_rect<P>(st, ts, half);
   // per pixel: the cotangent, the suffix sum_{j > k} e_j w_j and the
   // transmittance behind the current lane, Tn = exp(S_b) at the start
@@ -374,8 +407,6 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int wlane = threadIdx.x & 31;
   for (int kb = (nv - 1) / kBatch; kb >= 0; --kb) {
     float v[kBatch][kCols];
 #pragma unroll
@@ -383,10 +414,13 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
 #pragma unroll
       for (int c = 0; c < kCols; ++c) v[i][c] = 0.f;
     bool kept = false;
+    // T-floor: a batch at or past every stop lane of the warp is all zero
+    // (uniform across the warp; it still writes its zero partials)
+    const bool live_batch = !kTFloor || kb * kBatch < wstop;
 #pragma unroll
     for (int i = kBatch - 1; i >= 0; --i) {
       const int k = kb * kBatch + i;
-      if (k >= nv) continue;
+      if (!live_batch || k >= nv) continue;
       const float4 q0 = lanes[k].q0;
       if (blend::culled(rect, q0)) continue;
       const float4 q1 = lanes[k].q1;
@@ -395,6 +429,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       const float dx = __fsub_rn(st.px, q0.x);
 #pragma unroll
       for (int j = 0; j < P; ++j) {
+        if (kTFloor && k >= pstop[j]) continue;  // past the pixel's survivors
         const float dy = __fsub_rn(st.py[j], q0.y);
         const float power = blend::power_of(dx, dy, q1.x, q1.y, q1.z);
         if (!(st.on(j, ts) && power <= 0.f && power >= power_floor)) continue;
@@ -484,6 +519,28 @@ int launch_v1(const float* table, long long ep, const int* block_src,
   return (int)cudaGetLastError();
 }
 
+int launch_hopper(bool tfloor, const float* table, long long ep,
+                  const int* block_src, const int* block_valid,
+                  const int* block_tile, const float* g, const float* s_b,
+                  const int* stop, int nb, int block, int ts, int tiles_x,
+                  int row0, float power_floor, float alpha_cap,
+                  float alpha_floor, float* dcols, void* stream) {
+  const auto kernel = tfloor ? blend_bwd_win_hopper<true> : blend_bwd_win_hopper<false>;
+  const int p = tfloor ? kPixelsTF : kPixels;
+  const int threads = (ts * ((ts + p - 1) / p) + 31) / 32 * 32;
+  const size_t smem = (size_t)block * sizeof(blend::Lane) +
+                      (size_t)(threads / 32) * kCols * block * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, g, s_b, stop, nb, block,
+      ts, tiles_x, row0, power_floor, alpha_cap, alpha_floor, dcols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -500,19 +557,26 @@ extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 int tiles_x, int row0, float power_floor,
                                 float alpha_cap, float alpha_floor,
                                 float* dcols, void* stream) {
-  const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
-  const size_t smem = (size_t)block * sizeof(blend::Lane) +
-                      (size_t)(threads / 32) * kCols * block * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_win_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  blend_bwd_win_hopper<<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, g, s_b, nb, block, ts,
-      tiles_x, row0, power_floor, alpha_cap, alpha_floor, dcols);
-  return (int)cudaGetLastError();
+  return launch_hopper(false, table, ep, block_src, block_valid, block_tile, g,
+                       s_b, nullptr, nb, block, ts, tiles_x, row0, power_floor,
+                       alpha_cap, alpha_floor, dcols, stream);
+}
+
+// The T-floor pass: as gs_blend_bwd_win, where s_b is the T-floor forward's
+// masked S_b and stop [nb, ts*ts] i32 its stop lanes (one past each pixel's
+// last surviving lane).
+extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
+                                   const int* block_src,
+                                   const int* block_valid,
+                                   const int* block_tile, const float* g,
+                                   const float* s_b, const int* stop, int nb,
+                                   int block, int ts, int tiles_x, int row0,
+                                   float power_floor, float alpha_cap,
+                                   float alpha_floor, float* dcols,
+                                   void* stream) {
+  return launch_hopper(true, table, ep, block_src, block_valid, block_tile, g,
+                       s_b, stop, nb, block, ts, tiles_x, row0, power_floor,
+                       alpha_cap, alpha_floor, dcols, stream);
 }
 
 // The first design, as gs_blend_bwd_win without s_b: one
@@ -531,17 +595,18 @@ extern "C" int gs_blend_bwd_win_v1(const float* table, long long ep,
                           alpha_cap, alpha_floor, 0.f, dcols, stream);
 }
 
-// The T-floor pass: as gs_blend_bwd_win_v1 plus logti [nb, ts*ts] f32 and
-// log_thr = log(transmittance_floor).
-extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
-                                   const int* block_src,
-                                   const int* block_valid,
-                                   const int* block_tile, const float* g,
-                                   const float* logti, int nb, int block,
-                                   int ts, int tiles_x, int row0,
-                                   float power_floor, float alpha_cap,
-                                   float alpha_floor, float log_thr,
-                                   float* dcols, void* stream) {
+// The first design of the T-floor pass: as gs_blend_bwd_win_v1 plus logti
+// [nb, ts*ts] f32 and log_thr = log(transmittance_floor), from which it
+// replays each pixel's termination.
+extern "C" int gs_blend_bwd_win_tf_v1(const float* table, long long ep,
+                                      const int* block_src,
+                                      const int* block_valid,
+                                      const int* block_tile, const float* g,
+                                      const float* logti, int nb, int block,
+                                      int ts, int tiles_x, int row0,
+                                      float power_floor, float alpha_cap,
+                                      float alpha_floor, float log_thr,
+                                      float* dcols, void* stream) {
   return launch_v1<true>(table, ep, block_src, block_valid, block_tile, g,
                          logti, nb, block, ts, tiles_x, row0, power_floor,
                          alpha_cap, alpha_floor, log_thr, dcols, stream);

@@ -7,8 +7,9 @@
 //                        is window b here;
 //   gs_blend_fwd_win_tf  _fwd_kernel_tf (:249, block_blend_cols_tf), the
 //                        exact T-floor second pass.
-// gs_blend_fwd_win_v1 is the first design of gs_blend_fwd_win (below), kept
-// for chip_smoke.py's A/B; nothing on the render or training path calls it.
+// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1 are the first design of
+// those two (below), kept for chip_smoke.py's A/B; nothing on the render or
+// training path calls them.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
@@ -24,41 +25,53 @@
 // What bounds it on the H100: ~4.3e8 (pixel, lane) power tests per 800x608
 // frame of the 100k-Gaussian scene (~11 flops each) and, per kept pair, an
 // exp for alpha, a log1p for S and ~14 flops: instruction issue, not HBM
-// (~150 MB in and out, 0.045 ms at 3.35 TB/s).
+// (~150 MB in and out, 0.045 ms at 3.35 TB/s).  The T-floor pass tests far
+// fewer pairs (pixels stop at the floor) and moves about as many bytes, so
+// HBM bounds it.
 //
-// gs_blend_fwd_win, the Hopper design: one CUDA block per pair block b and
-// kPixels = 4 pixels per thread (a column strip, blend_common.cuh), so 64
-// threads at ts = 16.  The live lanes are staged once as 48-byte records
-// (three float4: mean and cull extents, conic and opacity, colour), so a
-// thread reads each lane with three broadcast shared loads and uses it for
-// its 4 pixels, where the first design made nine scalar loads per pixel.
-// The transmittance is carried by multiplication (w = alpha T;
-// T *= 1 - alpha) instead of an expf(S) per kept pair; S is still the
-// sequential log1pf sum, bit for bit what the first design writes to row 3,
-// which the backward walks back from and the T-floor pass compares.  A warp
-// skips a lane whose padded ellipse box (blend_common.cuh, cull_extent)
-// misses the warp's 16 x 8 pixel rectangle: a test per warp and lane in
-// place of 4 power evaluations per thread, which never drops a pixel the
-// power test would keep.
+// gs_blend_fwd_win and gs_blend_fwd_win_tf, the Hopper design
+// (blend_fwd_win_hopper): one CUDA block per pair block b and kPixels = 4
+// pixels per thread (a column strip, blend_common.cuh), so 64 threads at
+// ts = 16; the T-floor instance takes kPixelsTF = 2 (128 threads, a warp
+// covers 16 x 4 pixels), which timed faster there than 4 or 1: its warps
+// run until their last pixel stops, and most of its blocks do little
+// besides read logti and write zeros.  The live lanes are staged once as 48-byte records (three float4:
+// mean and cull extents, conic and opacity, colour), so a thread reads each
+// lane with three broadcast shared loads and uses it for its 4 pixels, where
+// the first design made nine scalar loads per pixel.  The transmittance is
+// carried by multiplication (w = alpha T; T *= 1 - alpha) instead of an
+// expf(S) per kept pair; S is still the sequential log1pf sum, bit for bit
+// what the first design writes to row 3, which the backward walks back from
+// and the T-floor pass compares.  A warp skips a lane whose padded ellipse
+// box (blend_common.cuh, cull_extent) misses the warp's 16 x 8 pixel
+// rectangle: a test per warp and lane in place of 4 power evaluations per
+// thread, which never drops a pixel the power test would keep.
 //
-// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf, the first design: one thread
-// per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2, y + 0.5 - ts/2)
-// from the tile centre), the window's nine columns in shared memory, every
-// thread walking the lanes front to back carrying its log-transmittance S:
+// The T-floor pass (kTFloor) takes each pixel's incoming log T, logti[b, p],
+// from the unmasked first pass and stops the pixel at the first kept lane
+// where S + logti <= log_thr: the reference's per-pixel loop exit
+// (tiled_shaders.metal:334).  S only decreases, so every later lane would
+// be masked too and stopping is exact; it is also the work the exit saves.
+// The test is the first design's, on the same S bits, so S_b and the set
+// of surviving lanes are the first design's bit for bit.  A thread with 2
+// pixels cannot break for one of them: each pixel carries a done flag (set
+// before the loop where logti is already at or below the floor), and the
+// warp leaves the lane loop once every pixel of it is done (__all_sync).
+// A block whose pixels all arrive at or below the floor writes C = 0,
+// S = 0 and stages nothing.  The T-floor pass writes no gid; it writes each
+// pixel's stop lane, one past its last surviving lane (0 where none
+// survives), which the backward starts its walk from.
+//
+// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1, the first design: one
+// thread per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2,
+// y + 0.5 - ts/2) from the tile centre), the window's nine columns in shared
+// memory, every thread walking the lanes front to back carrying its
+// log-transmittance S:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  a_raw = op exp(power),
 //   kept iff power in [power_floor, 0] and a_raw >= alpha_floor,
 //   alpha = min(a_raw, alpha_cap),  w = alpha exp(S),  C += w rgb,
-//   S += log1p(-alpha).
-//
-// The T-floor pass (kTFloor) takes each pixel's incoming global log T,
-// logti[b, p], from the unmasked first pass and stops the pixel's loop at
-// the first kept lane where S + logti <= log_thr: the reference's per-pixel
-// loop exit (tiled_shaders.metal:334).  S only decreases, so every later
-// lane would be masked too and the break is exact; it is also the work the
-// exit saves.  A block whose pixels all arrive at or below the floor writes
-// C = 0, S = 0 and stages nothing.  Its S comes from the same rounded
-// sequential log1pf sum as both designs' first pass, from which logti was
-// summed.  The T-floor pass writes no gid.
+//   S += log1p(-alpha);
+// its T-floor instance breaks at the first failing kept lane.
 
 #include <cuda_runtime.h>
 
@@ -67,7 +80,8 @@
 namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
-constexpr int kPixels = 4;  // pixels per thread of the Hopper design
+constexpr int kPixels = 4;    // pixels per thread of the Hopper design
+constexpr int kPixelsTF = 2;  // ... of its T-floor instance
 
 template <bool kTFloor>
 __global__ void blend_fwd_win_kernel(
@@ -76,12 +90,14 @@ __global__ void blend_fwd_win_kernel(
     const int* __restrict__ block_tile, const float* __restrict__ logti,
     int block, int ts, int tiles_x, int row0, float power_floor,
     float alpha_cap, float alpha_floor, float log_thr,
-    float* __restrict__ out, float* __restrict__ gid_out) {
+    float* __restrict__ out, float* __restrict__ gid_out,
+    int* __restrict__ stop_out) {
   extern __shared__ float cols[];  // [kCols][block]
   const int b = blockIdx.x;
   const int p2 = ts * ts;
   float* out_b = out + (size_t)b * 4 * p2;
   float* gid_b = kTFloor ? nullptr : gid_out + (size_t)b * block;
+  int* stop_b = kTFloor ? stop_out + (size_t)b * p2 : nullptr;
   int nv = min(block_valid[b], block);
   if (kTFloor) {
     // does any pixel of the tile arrive above the floor?  (each thread
@@ -95,7 +111,9 @@ __global__ void blend_fwd_win_kernel(
 
   if (nv <= 0) {
     for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
-    if (!kTFloor)
+    if (kTFloor)
+      for (int p = threadIdx.x; p < p2; p += blockDim.x) stop_b[p] = 0;
+    else
       for (int i = threadIdx.x; i < block; i += blockDim.x) gid_b[i] = -1.f;
     return;
   }
@@ -142,6 +160,7 @@ __global__ void blend_fwd_win_kernel(
     const float py = __fsub_rn((float)(p / ts) + 0.5f, half);
     const float lt = kTFloor ? logti[(size_t)b * p2 + p] : 0.f;
     float S = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+    int stop = 0;
     for (int k = 0; k < nv; ++k) {
       const float op = s_op[k];
       if (op == 0.f) continue;  // a_raw = 0 is below any alpha floor > 0
@@ -158,52 +177,90 @@ __global__ void blend_fwd_win_kernel(
       c1 += w * s_g[k];
       c2 += w * s_b[k];
       S += log1pf(-alpha);
+      stop = k + 1;
     }
     out_b[p] = c0;
     out_b[p2 + p] = c1;
     out_b[2 * p2 + p] = c2;
     out_b[3 * p2 + p] = S;
+    if (kTFloor) stop_b[p] = stop;
   }
 }
 
-// No __launch_bounds__: with (256) ptxas fits it in 48 registers and spills
-// 12 bytes; without, it takes 56 and spills nothing.
+// No __launch_bounds__: with (256) ptxas fits the plain instance in 48
+// registers and spills 12 bytes; without, it takes 56 and spills nothing.
+template <bool kTFloor>
 __global__ void blend_fwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
-    const int* __restrict__ block_tile, int block, int ts, int tiles_x,
-    int row0, float power_floor, float alpha_cap, float alpha_floor,
-    float* __restrict__ out, float* __restrict__ gid_out) {
-  constexpr int P = kPixels;
+    const int* __restrict__ block_tile, const float* __restrict__ logti,
+    int block, int ts, int tiles_x, int row0, float power_floor,
+    float alpha_cap, float alpha_floor, float log_thr,
+    float* __restrict__ out, float* __restrict__ gid_out,
+    int* __restrict__ stop_out) {
+  constexpr int P = kTFloor ? kPixelsTF : kPixels;
   extern __shared__ float4 lane_smem[];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);  // [block]
   const int b = blockIdx.x;
   const int p2 = ts * ts;
   float* out_b = out + (size_t)b * 4 * p2;
-  float* gid_b = gid_out + (size_t)b * block;
-  const int nv = min(block_valid[b], block);
-  for (int t = threadIdx.x; t < block; t += blockDim.x)
-    gid_b[t] = t < nv ? table[(long long)block_src[b] + t] : -1.f;
-  if (nv <= 0) {
-    for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
-    return;
+  int nv = min(block_valid[b], block);
+  if (!kTFloor) {
+    float* gid_b = gid_out + (size_t)b * block;
+    for (int t = threadIdx.x; t < block; t += blockDim.x)
+      gid_b[t] = t < nv ? table[(long long)block_src[b] + t] : -1.f;
   }
 
   const float half = 0.5f * (float)ts;
+  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
+  // T-floor: each pixel's incoming log T, and done where it arrives at or
+  // below the floor (the first design stops it at its first kept lane,
+  // before anything is added) or lies off the tile
+  float lt[P];
+  bool done[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    lt[j] = 0.f;
+    done[j] = !st.on(j, ts);
+  }
+  if (kTFloor) {
+    bool open = false;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (!st.on(j, ts)) continue;
+      lt[j] = logti[(size_t)b * p2 + (st.y0 + j) * ts + st.x];
+      done[j] = !(lt[j] > log_thr);
+      open |= !done[j];
+    }
+    if (!__syncthreads_or(open)) nv = 0;  // uniform: all threads or none
+  }
+  if (nv <= 0) {
+    for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
+    if (kTFloor)
+      for (int p = threadIdx.x; p < p2; p += blockDim.x) stop_out[(size_t)b * p2 + p] = 0;
+    return;
+  }
+
   const int tile = block_tile[b];
   blend::stage_lanes(lanes, table, ep, block_src[b], nv,
-                  (float)(tile % tiles_x) * (float)ts + half,
-                  (float)(tile / tiles_x + row0) * (float)ts + half,
-                  power_floor, alpha_floor);
+                     (float)(tile % tiles_x) * (float)ts + half,
+                     (float)(tile / tiles_x + row0) * (float)ts + half,
+                     power_floor, alpha_floor);
   __syncthreads();
 
-  const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
   const float4 rect = blend::warp_rect<P>(st, ts, half);
   float T[P], S[P], c0[P], c1[P], c2[P];
+  int stop[P];
 #pragma unroll
-  for (int j = 0; j < P; ++j) T[j] = 1.f, S[j] = c0[j] = c1[j] = c2[j] = 0.f;
+  for (int j = 0; j < P; ++j) T[j] = 1.f, S[j] = c0[j] = c1[j] = c2[j] = 0.f, stop[j] = 0;
 
   for (int k = 0; k < nv; ++k) {
+    if (kTFloor) {
+      bool all = true;
+#pragma unroll
+      for (int j = 0; j < P; ++j) all &= done[j];
+      if (__all_sync(blend::kFullMask, all)) break;  // the warp's pixels all stopped
+    }
     const float4 q0 = lanes[k].q0;
     if (blend::culled(rect, q0)) continue;
     const float4 q1 = lanes[k].q1;
@@ -212,11 +269,16 @@ __global__ void blend_fwd_win_hopper(
     const float dx = __fsub_rn(st.px, q0.x);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
+      if (kTFloor && done[j]) continue;
       const float dy = __fsub_rn(st.py[j], q0.y);
       const float power = blend::power_of(dx, dy, q1.x, q1.y, q1.z);
       if (!(st.on(j, ts) && power <= 0.f && power >= power_floor)) continue;
       const float a_raw = __fmul_rn(q1.w, expf(power));
       if (!(a_raw >= alpha_floor)) continue;
+      if (kTFloor && !(__fadd_rn(S[j], lt[j]) > log_thr)) {  // terminated
+        done[j] = true;
+        continue;
+      }
       const float alpha = fminf(a_raw, alpha_cap);
       const float w = alpha * T[j];
       c0[j] += w * q2.x;
@@ -224,6 +286,7 @@ __global__ void blend_fwd_win_hopper(
       c2[j] += w * q2.z;
       T[j] *= 1.f - alpha;
       S[j] += log1pf(-alpha);
+      if (kTFloor) stop[j] = k + 1;
     }
   }
 #pragma unroll
@@ -234,8 +297,11 @@ __global__ void blend_fwd_win_hopper(
     out_b[p2 + p] = c1[j];
     out_b[2 * p2 + p] = c2[j];
     out_b[3 * p2 + p] = S[j];
+    if (kTFloor) stop_out[(size_t)b * p2 + p] = stop[j];
   }
 }
+
+int hopper_threads(int ts, int p) { return (ts * ((ts + p - 1) / p) + 31) / 32 * 32; }
 
 }  // namespace
 
@@ -251,11 +317,30 @@ extern "C" int gs_blend_fwd_win(const float* table, long long ep,
                                 float power_floor, float alpha_cap,
                                 float alpha_floor, float* out, float* gid,
                                 void* stream) {
-  const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
   const size_t smem = (size_t)block * sizeof(blend::Lane);
-  blend_fwd_win_hopper<<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, block, ts, tiles_x, row0,
-      power_floor, alpha_cap, alpha_floor, out, gid);
+  blend_fwd_win_hopper<false><<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
+      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The T-floor pass: as gs_blend_fwd_win plus logti [nb, ts*ts] f32 and
+// log_thr = log(transmittance_floor); writes out and stop [nb, ts*ts] i32
+// (each pixel's stop lane), no gid.  ts * ceil(ts / 2) threads, rounded up
+// to whole warps.
+extern "C" int gs_blend_fwd_win_tf(const float* table, long long ep,
+                                   const int* block_src,
+                                   const int* block_valid,
+                                   const int* block_tile, const float* logti,
+                                   int nb, int block, int ts, int tiles_x,
+                                   int row0, float power_floor,
+                                   float alpha_cap, float alpha_floor,
+                                   float log_thr, float* out, int* stop,
+                                   void* stream) {
+  const size_t smem = (size_t)block * sizeof(blend::Lane);
+  blend_fwd_win_hopper<true><<<nb, hopper_threads(ts, kPixelsTF), smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, logti, block, ts, tiles_x,
+      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr, stop);
   return (int)cudaGetLastError();
 }
 
@@ -272,23 +357,25 @@ extern "C" int gs_blend_fwd_win_v1(const float* table, long long ep,
   const size_t smem = (size_t)kCols * block * sizeof(float);
   blend_fwd_win_kernel<false><<<nb, ts * ts, smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, nullptr, block, ts,
-      tiles_x, row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid);
+      tiles_x, row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid,
+      nullptr);
   return (int)cudaGetLastError();
 }
 
-// The T-floor pass: as gs_blend_fwd_win_v1 plus logti [nb, ts*ts] f32 and
-// log_thr = log(transmittance_floor); writes out only.
-extern "C" int gs_blend_fwd_win_tf(const float* table, long long ep,
-                                   const int* block_src,
-                                   const int* block_valid,
-                                   const int* block_tile, const float* logti,
-                                   int nb, int block, int ts, int tiles_x,
-                                   int row0, float power_floor,
-                                   float alpha_cap, float alpha_floor,
-                                   float log_thr, float* out, void* stream) {
+// The first design of the T-floor pass, with the same arguments as
+// gs_blend_fwd_win_tf.
+extern "C" int gs_blend_fwd_win_tf_v1(const float* table, long long ep,
+                                      const int* block_src,
+                                      const int* block_valid,
+                                      const int* block_tile,
+                                      const float* logti, int nb, int block,
+                                      int ts, int tiles_x, int row0,
+                                      float power_floor, float alpha_cap,
+                                      float alpha_floor, float log_thr,
+                                      float* out, int* stop, void* stream) {
   const size_t smem = (size_t)kCols * block * sizeof(float);
   blend_fwd_win_kernel<true><<<nb, ts * ts, smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, logti, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr);
+      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr, stop);
   return (int)cudaGetLastError();
 }

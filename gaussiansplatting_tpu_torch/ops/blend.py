@@ -24,17 +24,21 @@ tile_size**2 pixels:
            opacity, r, g, b), zero on dead lanes and dead blocks.  d mx is
            the cotangent of the screen x position (mx = sx - tile centre).
   T-floor  the ``_tf`` variants take two more arguments, logti [NB, P2] f32
-           (each block's incoming global log-transmittance, from the
-           unmasked first pass) and log_thr = log(transmittance_floor).  A
-           kept lane survives iff its exclusive in-block log T plus logti is
-           > log_thr (tiled_shaders.metal:334); termination is monotone, so
-           the survivors are a prefix of each pixel's kept lanes.  The
-           forward returns out only (C and S over survivors); the backward
-           holds the mask constant, and logti gets no cotangent.
+           (each block's incoming log-transmittance within its tile, from
+           the unmasked first pass, ops.rasterize.incoming_log_t) and
+           log_thr = log(transmittance_floor).  A kept lane survives iff
+           its exclusive in-block log T plus logti is > log_thr
+           (tiled_shaders.metal:334); termination is monotone, so the
+           survivors are a prefix of each pixel's kept lanes.  The forward
+           returns (out, stop): out is C and S over the survivors, stop
+           [NB, P2] int32 each pixel's stop lane, one past its last
+           surviving lane (0 where none survives).  The backward holds the
+           mask constant, and logti gets no cotangent.
 
-  s_b      the plain backward also takes s_b [NB, P2] f32, the forward's
-           S_b (``out[:, 3]``): the kernel walks each pixel's transmittance
-           back from it instead of replaying the forward.
+  s_b      the backward also takes s_b [NB, P2] f32, the forward's S_b
+           (``out[:, 3]``; of the T-floor forward, its masked S_b, with its
+           ``stop``): the kernel walks each pixel's transmittance back from
+           it instead of replaying the forward.
 
 On a CUDA tensor each wrapper launches its kernel (csrc/blend_fwd.cu,
 csrc/blend_bwd.cu); on a CPU tensor it runs the plain version.  Nothing falls
@@ -42,14 +46,13 @@ back from one to the other.  The wrappers are raw kernel entries: gradients
 reach the backward through ops/rasterize._BlendWindows, so the forward
 refuses inputs that require grad.
 
-The forward and backward without the T-floor have two kernel designs each:
-the Hopper design (``gs_blend_fwd_win`` / ``gs_blend_bwd_win``: several
-pixels per thread, staged lane records, a per-warp cull, the backward
-walking back from s_b with a batched warp exchange), which the wrappers
-launch, and the first design (``gs_blend_fwd_win_v1`` /
-``gs_blend_bwd_win_v1``: one thread per pixel), which only
-``windowed_blend_fwd_v1`` / ``windowed_blend_bwd_v1`` launch, for
-chip_smoke.py's A/B.  The T-floor entries keep the first design.
+Every entry has two kernel designs: the Hopper design (``gs_blend_*_win``
+and ``gs_blend_*_win_tf``: several pixels per thread, staged lane records, a
+per-warp cull, the backward walking back from s_b with a batched warp
+exchange), which the wrappers launch, and the first design (the same names
+with ``_v1``: one thread per pixel, the backward replaying the forward),
+which only ``windowed_blend_{fwd,bwd}[_tf]_v1`` launch, for chip_smoke.py's
+A/B.
 """
 
 from __future__ import annotations
@@ -62,10 +65,13 @@ import torch
 _P2_MAX_THREADS = 1024   # the first design: one CUDA thread per tile pixel
 _B_MAX = 1024            # staged window lanes
 _SMEM_MAX = 232_448      # bytes of shared memory a Hopper block can have
-_V1_BWD_STATIC_SMEM = 128  # blend_bwd.cu's static per-warp kend array
+# blend_bwd.cu's static per-warp arrays: kend (first design), warp_stop
+# (the Hopper T-floor instance)
+_V1_BWD_STATIC_SMEM = _TF_BWD_STATIC_SMEM = 128
 _LANE_BYTES = 48         # blend_common.cuh's staged lane record
-# pixels per thread of the Hopper designs (kPixels in blend_fwd.cu, blend_bwd.cu)
-_FWD_PIXELS, _BWD_PIXELS = 4, 2
+# pixels per thread of the Hopper designs, (forward, backward): kPixels and,
+# for the T-floor instances, kPixelsTF in blend_fwd.cu and blend_bwd.cu
+_PIXELS = {False: (4, 2), True: (2, 2)}
 
 
 def _check_no_grad(*tensors):
@@ -90,8 +96,9 @@ def windowed_blend_fwd(table, block_src, block_valid, block_tile, row0, block,
     ``windowed_blend_fwd.launches`` counts CUDA kernel launches."""
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd", table) == "cuda":
-        return _launch_fwd_cuda(table, block_src, block_valid, block_tile,
-                                row0, block, cfg_consts)
+        return _launch_fwd_cuda(windowed_blend_fwd, table, block_src,
+                                block_valid, block_tile, row0, block,
+                                cfg_consts)
     return windowed_blend_fwd_plain(table, block_src, block_valid, block_tile,
                                     row0, block, cfg_consts)
 
@@ -101,15 +108,15 @@ windowed_blend_fwd.launches = 0
 
 def windowed_blend_fwd_tf(table, block_src, block_valid, block_tile, row0,
                           block, cfg_consts, logti, log_thr):
-    """Forward windowed blend with the exact T-floor: returns out [NB, 4,
-    P2] over each pixel's surviving lanes.
+    """Forward windowed blend with the exact T-floor: returns (out [NB, 4,
+    P2] over each pixel's surviving lanes, stop [NB, P2] int32).
 
     ``windowed_blend_fwd_tf.launches`` counts CUDA kernel launches."""
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd_tf", table) == "cuda":
-        out, _ = _launch_fwd_cuda(table, block_src, block_valid, block_tile,
-                                  row0, block, cfg_consts, logti, log_thr)
-        return out
+        return _launch_fwd_cuda(windowed_blend_fwd_tf, table, block_src,
+                                block_valid, block_tile, row0, block,
+                                cfg_consts, logti, log_thr)
     return windowed_blend_fwd_tf_plain(table, block_src, block_valid,
                                        block_tile, row0, block, cfg_consts,
                                        logti, log_thr)
@@ -126,8 +133,9 @@ def windowed_blend_bwd(table, block_src, block_valid, block_tile, row0, block,
 
     ``windowed_blend_bwd.launches`` counts CUDA kernel launches."""
     if _device_type("windowed_blend_bwd", table) == "cuda":
-        return _launch_bwd_cuda(table, block_src, block_valid, block_tile,
-                                row0, block, g, cfg_consts, s_b=s_b)
+        return _launch_bwd_cuda(windowed_blend_bwd, table, block_src,
+                                block_valid, block_tile, row0, block, g,
+                                cfg_consts, s_b=s_b)
     return windowed_blend_bwd_plain(table, block_src, block_valid, block_tile,
                                     row0, block, g, s_b, cfg_consts)
 
@@ -141,11 +149,10 @@ def windowed_blend_fwd_v1(table, block_src, block_valid, block_tile, row0,
     (``gs_blend_fwd_win_v1``), CUDA tensors only: chip_smoke.py's A/B
     against the Hopper design.  ``.launches`` counts its launches."""
     _check_no_grad(table)
-    if _device_type("windowed_blend_fwd_v1", table) != "cuda":
-        raise RuntimeError("windowed_blend_fwd_v1 launches a CUDA kernel; the "
-                           "CPU runs windowed_blend_fwd_plain")
-    return _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0,
-                            block, cfg_consts, v1=True)
+    _check_cuda_only("windowed_blend_fwd_v1", table, "windowed_blend_fwd_plain")
+    return _launch_fwd_cuda(windowed_blend_fwd_v1, table, block_src,
+                            block_valid, block_tile, row0, block, cfg_consts,
+                            v1=True)
 
 
 windowed_blend_fwd_v1.launches = 0
@@ -157,31 +164,72 @@ def windowed_blend_bwd_v1(table, block_src, block_valid, block_tile, row0,
     (``gs_blend_bwd_win_v1``, which replays the forward instead of taking
     s_b), CUDA tensors only: chip_smoke.py's A/B against the Hopper design.
     ``.launches`` counts its launches."""
-    if _device_type("windowed_blend_bwd_v1", table) != "cuda":
-        raise RuntimeError("windowed_blend_bwd_v1 launches a CUDA kernel; the "
-                           "CPU runs windowed_blend_bwd_plain")
-    return _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0,
-                            block, g, cfg_consts, v1=True)
+    _check_cuda_only("windowed_blend_bwd_v1", table, "windowed_blend_bwd_plain")
+    return _launch_bwd_cuda(windowed_blend_bwd_v1, table, block_src,
+                            block_valid, block_tile, row0, block, g,
+                            cfg_consts, v1=True)
 
 
 windowed_blend_bwd_v1.launches = 0
 
 
 def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
-                          block, g, cfg_consts, logti, log_thr):
+                          block, g, s_b, stop, cfg_consts, logti, log_thr):
     """Backward of windowed_blend_fwd_tf with the termination mask held
-    constant: the nine [NB, B] column cotangents given ``g`` [NB, 4, P2].
+    constant: the nine [NB, B] column cotangents given ``g`` [NB, 4, P2]
+    and the T-floor forward's masked S_b ``s_b`` = ``out[:, 3]`` [NB, P2]
+    and ``stop`` [NB, P2] int32, from which the kernel walks each pixel
+    back.  ``logti`` and ``log_thr`` are the forward's (the plain version
+    replays the mask from them).
 
     ``windowed_blend_bwd_tf.launches`` counts CUDA kernel launches."""
     if _device_type("windowed_blend_bwd_tf", table) == "cuda":
-        return _launch_bwd_cuda(table, block_src, block_valid, block_tile,
-                                row0, block, g, cfg_consts, logti, log_thr)
+        _checked_plane("logti", logti, block_src.shape[0], int(cfg_consts[0]) ** 2,
+                       table.device)
+        return _launch_bwd_cuda(windowed_blend_bwd_tf, table, block_src,
+                                block_valid, block_tile, row0, block, g,
+                                cfg_consts, s_b=s_b, stop=stop)
     return windowed_blend_bwd_tf_plain(table, block_src, block_valid,
-                                       block_tile, row0, block, g, cfg_consts,
-                                       logti, log_thr)
+                                       block_tile, row0, block, g, s_b, stop,
+                                       cfg_consts, logti, log_thr)
 
 
 windowed_blend_bwd_tf.launches = 0
+
+
+def windowed_blend_fwd_tf_v1(table, block_src, block_valid, block_tile, row0,
+                             block, cfg_consts, logti, log_thr):
+    """windowed_blend_fwd_tf through the first kernel design
+    (``gs_blend_fwd_win_tf_v1``), CUDA tensors only: chip_smoke.py's A/B
+    against the Hopper design.  ``.launches`` counts its launches."""
+    _check_no_grad(table)
+    _check_cuda_only("windowed_blend_fwd_tf_v1", table, "windowed_blend_fwd_tf_plain")
+    return _launch_fwd_cuda(windowed_blend_fwd_tf_v1, table, block_src,
+                            block_valid, block_tile, row0, block, cfg_consts,
+                            logti, log_thr, v1=True)
+
+
+windowed_blend_fwd_tf_v1.launches = 0
+
+
+def windowed_blend_bwd_tf_v1(table, block_src, block_valid, block_tile, row0,
+                             block, g, cfg_consts, logti, log_thr):
+    """windowed_blend_bwd_tf through the first kernel design
+    (``gs_blend_bwd_win_tf_v1``, which replays the termination from logti
+    instead of taking s_b and stop), CUDA tensors only: chip_smoke.py's
+    A/B.  ``.launches`` counts its launches."""
+    _check_cuda_only("windowed_blend_bwd_tf_v1", table, "windowed_blend_bwd_tf_plain")
+    return _launch_bwd_cuda(windowed_blend_bwd_tf_v1, table, block_src,
+                            block_valid, block_tile, row0, block, g,
+                            cfg_consts, logti=logti, log_thr=log_thr, v1=True)
+
+
+windowed_blend_bwd_tf_v1.launches = 0
+
+
+def _check_cuda_only(name, table, plain):
+    if _device_type(name, table) != "cuda":
+        raise RuntimeError(f"{name} launches a CUDA kernel; the CPU runs {plain}")
 
 
 def _checked_launch_args(table, block_src, block_valid, block_tile, block,
@@ -209,33 +257,38 @@ def _checked_launch_args(table, block_src, block_valid, block_tile, block,
                                            float(alpha_floor))
 
 
-def _checked_plane(name, x, nb, p2, dev):
-    """A [NB, P2] float32 input (logti, s_b) on ``dev``, contiguous."""
-    if x.dtype != torch.float32 or x.shape != (nb, p2) or x.device != dev:
-        raise ValueError(f"{name} must be [{nb}, {p2}] float32 on {dev}, got "
-                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+def _checked_plane(name, x, nb, p2, dev, dtype=torch.float32):
+    """A [NB, P2] input (logti, s_b: float32; stop: int32) on ``dev``,
+    contiguous."""
+    if x.dtype != dtype or x.shape != (nb, p2) or x.device != dev:
+        raise ValueError(f"{name} must be [{nb}, {p2}] {str(dtype)[6:]} on {dev}, "
+                         f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     return x.contiguous()
 
 
-def launch_geometry(ts, block, backward, v1=False):
+def launch_geometry(ts, block, backward, v1=False, tfloor=False):
     """(threads, shared-memory bytes) of one CUDA block of the blend at tile
     size ``ts`` and ``block`` lanes, as csrc/blend_fwd.cu and blend_bwd.cu
     launch it.  The Hopper design: ts * ceil(ts / P) threads (P = 4 pixels
-    each in the forward, 2 in the backward) rounded up to whole warps, 48
-    bytes per staged lane and, in the backward, 9 floats per (warp, lane) of
-    partial sums.  The first design (``v1``): one thread per pixel, 9 floats
-    per lane, and in the backward 9 per (warp, lane) plus the static kend
-    array.  Raises where the block would need more shared memory than a
-    Hopper block can have (232,448 bytes)."""
+    each in the forward, 2 in the backward; 2 in both T-floor instances,
+    ``tfloor``) rounded up to whole warps, 48 bytes per staged lane and, in
+    the backward, 9 floats per (warp, lane) of partial sums (plus, in the
+    T-floor instance, the static warp_stop array).  The first design
+    (``v1``): one thread per pixel, 9 floats per lane, and in the backward 9
+    per (warp, lane) plus the static kend array.  Raises where the block
+    would need more shared memory than a Hopper block can have (232,448
+    bytes)."""
     ts, block = int(ts), int(block)
     if v1:
         threads = -(-ts * ts // 32) * 32
         smem = (9 * block * 4 if not backward else
                 (1 + threads // 32) * 9 * block * 4 + _V1_BWD_STATIC_SMEM)
     else:
-        pixels = _BWD_PIXELS if backward else _FWD_PIXELS
+        pixels = _PIXELS[bool(tfloor)][int(bool(backward))]
         threads = -(-ts * -(-ts // pixels) // 32) * 32
-        smem = block * _LANE_BYTES + (threads // 32 * 9 * block * 4 if backward else 0)
+        smem = block * _LANE_BYTES
+        if backward:
+            smem += threads // 32 * 9 * block * 4 + (_TF_BWD_STATIC_SMEM if tfloor else 0)
     if smem > _SMEM_MAX:
         raise ValueError(f"pair_block {block} at tile_size {ts} needs {smem} "
                          f"bytes of shared memory (at most {_SMEM_MAX})")
@@ -255,11 +308,12 @@ def _c_fn(lib, name, pointers_before, ints, floats, pointers_after):
     return fn
 
 
-def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
-                     cfg_consts, logti=None, log_thr=None, v1=False):
-    """gs_blend_fwd_win, gs_blend_fwd_win_v1 with ``v1``, or
-    gs_blend_fwd_win_tf when ``logti`` is given (then gid is None: the
-    T-floor pass takes it from the first pass)."""
+def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
+                     block, cfg_consts, logti=None, log_thr=None, v1=False):
+    """gs_blend_fwd_win, which returns (out, gid), or, when ``logti`` is
+    given, gs_blend_fwd_win_tf, which returns (out, stop); with ``v1``
+    their first design.  ``counter`` is the wrapper whose count a launch
+    adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -268,43 +322,43 @@ def _launch_fwd_cuda(table, block_src, block_valid, block_tile, row0, block,
     nb = block_src.shape[0]
     dev = table.device
     tf = logti is not None
-    launch_geometry(ts, block, False, v1 or tf)
+    launch_geometry(ts, block, False, v1, tf)
     out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
-    gid = None if tf else torch.empty((nb, block), dtype=torch.float32, device=dev)
     if tf:
         logti = _checked_plane("logti", logti, nb, ts * ts, dev)
+        second = torch.empty((nb, ts * ts), dtype=torch.int32, device=dev)
+    else:
+        second = torch.empty((nb, block), dtype=torch.float32, device=dev)
     if nb == 0:
-        return out, gid
+        return out, second
     lib = build.load_library("blend_fwd")
+    name = "gs_blend_fwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
     stream = torch.cuda.current_stream(dev).cuda_stream
     windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                block_valid.data_ptr(), block_tile.data_ptr())
     ints = (nb, block, ts, tiles_x, int(row0))
     with torch.cuda.device(dev):
         if tf:
-            name, counter = "gs_blend_fwd_win_tf", windowed_blend_fwd_tf
-            err = _c_fn(lib, name, 4, 5, 4, 1)(
+            err = _c_fn(lib, name, 4, 5, 4, 2)(
                 *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
-                out.data_ptr(), stream)
-        elif v1:
-            name, counter = "gs_blend_fwd_win_v1", windowed_blend_fwd_v1
-            err = _c_fn(lib, name, 3, 5, 3, 2)(
-                *windows, *ints, *floats, out.data_ptr(), gid.data_ptr(), stream)
+                out.data_ptr(), second.data_ptr(), stream)
         else:
-            name, counter = "gs_blend_fwd_win", windowed_blend_fwd
             err = _c_fn(lib, name, 3, 5, 3, 2)(
-                *windows, *ints, *floats, out.data_ptr(), gid.data_ptr(), stream)
+                *windows, *ints, *floats, out.data_ptr(), second.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1
-    return out, gid
+    return out, second
 
 
-def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
-                     g, cfg_consts, logti=None, log_thr=None, s_b=None,
-                     v1=False):
-    """gs_blend_bwd_win given the forward's ``s_b``, gs_blend_bwd_win_v1
-    with ``v1``, or gs_blend_bwd_win_tf when ``logti`` is given."""
+def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
+                     block, g, cfg_consts, s_b=None, stop=None, logti=None,
+                     log_thr=None, v1=False):
+    """gs_blend_bwd_win given the forward's ``s_b``, or gs_blend_bwd_win_tf
+    given the T-floor forward's ``s_b`` and ``stop``; with ``v1`` their
+    first design, gs_blend_bwd_win_v1 (no s_b) or, given ``logti`` and
+    ``log_thr``, gs_blend_bwd_win_tf_v1.  ``counter`` is the wrapper whose
+    count a launch adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -316,36 +370,29 @@ def _launch_bwd_cuda(table, block_src, block_valid, block_tile, row0, block,
     if g.dtype != torch.float32 or g.shape != (nb, 4, p2) or g.device != dev:
         raise ValueError(f"g must be [{nb}, 4, {p2}] float32 on {dev}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    tf = logti is not None
-    hopper = not (tf or v1)
-    launch_geometry(ts, block, True, not hopper)
+    tf = stop is not None or logti is not None
+    launch_geometry(ts, block, True, v1, tf)
     g = g.contiguous()
-    if tf:
-        logti = _checked_plane("logti", logti, nb, p2, dev)
-    if hopper:
-        s_b = _checked_plane("s_b", s_b, nb, p2, dev)
+    # the pointers each entry takes after g, and its float constants
+    if v1:
+        planes = (_checked_plane("logti", logti, nb, p2, dev),) if tf else ()
+        floats = floats + ((float(log_thr),) if tf else ())
+    else:
+        planes = (_checked_plane("s_b", s_b, nb, p2, dev),)
+        if tf:
+            planes += (_checked_plane("stop", stop, nb, p2, dev, torch.int32),)
     dcols = torch.empty((9, nb, block), dtype=torch.float32, device=dev)
     if nb > 0:
         lib = build.load_library("blend_bwd")
+        name = "gs_blend_bwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
         windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                    block_valid.data_ptr(), block_tile.data_ptr(), g.data_ptr())
         ints = (nb, block, ts, tiles_x, int(row0))
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            if tf:
-                name, counter = "gs_blend_bwd_win_tf", windowed_blend_bwd_tf
-                err = _c_fn(lib, name, 5, 5, 4, 1)(
-                    *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
-                    dcols.data_ptr(), stream)
-            elif v1:
-                name, counter = "gs_blend_bwd_win_v1", windowed_blend_bwd_v1
-                err = _c_fn(lib, name, 4, 5, 3, 1)(
-                    *windows, *ints, *floats, dcols.data_ptr(), stream)
-            else:
-                name, counter = "gs_blend_bwd_win", windowed_blend_bwd
-                err = _c_fn(lib, name, 5, 5, 3, 1)(
-                    *windows, s_b.data_ptr(), *ints, *floats, dcols.data_ptr(),
-                    stream)
+            err = _c_fn(lib, name, 4 + len(planes), 5, len(floats), 1)(
+                *windows, *(x.data_ptr() for x in planes), *ints, *floats,
+                dcols.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         counter.launches += 1
@@ -365,6 +412,7 @@ class _Replay(NamedTuple):
     log1m: torch.Tensor     # [K, P2, B] log1p(-alpha)
     t_local: torch.Tensor   # [K, P2, B] in-block transmittance in front
     margin: torch.Tensor | None  # [K, P2] T-floor termination margin
+    stop: torch.Tensor | None    # [K, P2] int32 T-floor stop lane
 
 
 def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
@@ -382,7 +430,9 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
     _fwd_kernel_tf does; alpha and l are zeroed past it.  Survivors are a
     prefix of the kept lanes, so their T is unchanged.  ``margin`` is each
     pixel's smallest |(cumsum(l) - l) + logti - log_thr| over kept lanes
-    (inf where none is kept): how near the decision came to flipping."""
+    (inf where none is kept): how near the decision came to flipping;
+    ``stop`` one past each pixel's last surviving lane (0 where none
+    survives)."""
     ts, power_floor, alpha_cap, alpha_floor, tiles_x = cfg_consts
     ts, tiles_x, block = int(ts), int(tiles_x), int(block)
     dev = table.device
@@ -414,7 +464,7 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
     log1m = torch.log1p(-alpha)
     log_excl = torch.cumsum(log1m, dim=-1) - log1m
     t_local = torch.exp(log_excl)
-    margin = None
+    margin = stop = None
     if logti is not None:
         log_global = log_excl + logti[k0:k1, :, None]
         survive = log_global > log_thr
@@ -422,17 +472,21 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
                              torch.inf).amin(-1)                    # [K, P2]
         alpha = torch.where(survive, alpha, 0.0)
         log1m = torch.where(survive, log1m, 0.0)
-    return _Replay(live, w, op, dx, dy, a_raw, alpha, log1m, t_local, margin)
+        # alpha > 0 exactly on the kept lanes that survive
+        stop = torch.where(alpha > 0.0, lane + 1, 0).amax(-1).to(torch.int32)
+    return _Replay(live, w, op, dx, dy, a_raw, alpha, log1m, t_local, margin,
+                   stop)
 
 
 def _fwd_plain(table, block_src, block_valid, block_tile, row0, block,
                cfg_consts, logti, log_thr, chunk_blocks):
-    """(out, gid, margin) of the plain forward, in chunks of blocks."""
+    """(out, gid, margin, stop) of the plain forward, in chunks of blocks
+    (margin and stop None without logti)."""
     _check_no_grad(table)
     dev = table.device
     nb = block_src.shape[0]
     p2 = int(cfg_consts[0]) ** 2
-    outs, gids, margins = [], [], []
+    outs, gids, margins, stops = [], [], [], []
     for k0 in range(0, nb, chunk_blocks):
         r = _replay(table, block_src, block_valid, block_tile, row0, block,
                     cfg_consts, k0, min(k0 + chunk_blocks, nb), logti, log_thr)
@@ -444,12 +498,15 @@ def _fwd_plain(table, block_src, block_valid, block_tile, row0, block,
         outs.append(torch.cat([c_b, s_b], dim=1))
         if r.margin is not None:
             margins.append(r.margin)
+            stops.append(r.stop)
     if not outs:
         return (torch.zeros((0, 4, p2), dtype=torch.float32, device=dev),
                 torch.zeros((0, int(block)), dtype=torch.float32, device=dev),
-                torch.zeros((0, p2), dtype=torch.float32, device=dev))
-    return (torch.cat(outs), torch.cat(gids),
-            torch.cat(margins) if margins else None)
+                torch.zeros((0, p2), dtype=torch.float32, device=dev),
+                torch.zeros((0, p2), dtype=torch.int32, device=dev))
+    if not margins:
+        return torch.cat(outs), torch.cat(gids), None, None
+    return torch.cat(outs), torch.cat(gids), torch.cat(margins), torch.cat(stops)
 
 
 def windowed_blend_fwd_plain(table, block_src, block_valid, block_tile, row0,
@@ -458,8 +515,8 @@ def windowed_blend_fwd_plain(table, block_src, block_valid, block_tile, row0,
     kernel's oracle): the replay (see _replay), then C = sum w c and
     S = sum log1p(-alpha).  Blocks go in chunks of ``chunk_blocks`` so no
     [NB, P2, B] intermediate is ever whole."""
-    out, gid, _ = _fwd_plain(table, block_src, block_valid, block_tile, row0,
-                             block, cfg_consts, None, 0.0, chunk_blocks)
+    out, gid, _, _ = _fwd_plain(table, block_src, block_valid, block_tile, row0,
+                                block, cfg_consts, None, 0.0, chunk_blocks)
     return out, gid
 
 
@@ -468,13 +525,14 @@ def windowed_blend_fwd_tf_plain(table, block_src, block_valid, block_tile,
                                 return_margin: bool = False,
                                 chunk_blocks: int = 256):
     """Plain PyTorch version of the T-floor forward kernel: C = sum w c over
-    the surviving lanes and S = sum of their log1p(-alpha).  With
-    ``return_margin``, returns (out, margin [NB, P2]) (see _replay), which
-    the kernel comparisons use to excuse termination flips."""
-    out, _, margin = _fwd_plain(table, block_src, block_valid, block_tile,
-                                row0, block, cfg_consts, logti, log_thr,
-                                chunk_blocks)
-    return (out, margin) if return_margin else out
+    the surviving lanes and S = sum of their log1p(-alpha); returns (out,
+    stop), stop taken from the replay's survivors.  With ``return_margin``,
+    returns (out, stop, margin [NB, P2]) (see _replay), which the kernel
+    comparisons use to excuse termination flips."""
+    out, _, margin, stop = _fwd_plain(table, block_src, block_valid, block_tile,
+                                      row0, block, cfg_consts, logti, log_thr,
+                                      chunk_blocks)
+    return (out, stop, margin) if return_margin else (out, stop)
 
 
 def _bwd_plain(table, block_src, block_valid, block_tile, row0, block, g,
@@ -551,8 +609,8 @@ def windowed_blend_bwd_plain(table, block_src, block_valid, block_tile, row0,
 
 
 def windowed_blend_bwd_tf_plain(table, block_src, block_valid, block_tile,
-                                row0, block, g, cfg_consts, logti, log_thr,
-                                return_margin: bool = False,
+                                row0, block, g, s_b, stop, cfg_consts, logti,
+                                log_thr, return_margin: bool = False,
                                 chunk_blocks: int = 256):
     """Plain PyTorch version of the T-floor backward kernel, the chain rule
     of _bwd_kernel_tf: the replay with the termination mask held constant,
@@ -562,7 +620,15 @@ def windowed_blend_bwd_tf_plain(table, block_src, block_valid, block_tile,
         dpow = dalpha a_raw on lanes both kept and surviving;
 
     logti gets no cotangent.  With ``return_margin``, returns (columns,
-    margin [NB, P2])."""
+    margin [NB, P2]).
+
+    ``s_b`` and ``stop`` [NB, P2] are the T-floor forward's masked S_b and
+    stop lanes, which the kernel walks each pixel back from; the plain
+    version checks their shapes and replays the mask from logti, so it
+    stays an independent oracle of the kernel's use of them."""
+    nb, p2 = block_src.shape[0], int(cfg_consts[0]) ** 2
+    _checked_plane("s_b", s_b, nb, p2, table.device)
+    _checked_plane("stop", stop, nb, p2, table.device, torch.int32)
     dcols, margin = _bwd_plain(table, block_src, block_valid, block_tile,
                                row0, block, g, cfg_consts, logti, log_thr,
                                chunk_blocks)

@@ -236,27 +236,28 @@ class _BlendWindowsTF(torch.autograd.Function):
     the first pass, detached).  Differentiable in ``data`` only: the
     termination mask is constant and ``logti`` gets no cotangent.
 
-    Forward returns out [NB, 4, P2] (C_b and S_b over the survivors);
-    backward runs the T-floor blend backward, then the same per-Gaussian
-    reduction by the first pass's ``gid``."""
+    Forward returns out [NB, 4, P2] (C_b and S_b over the survivors) and
+    keeps its masked S_b (``out[:, 3]``) and each pixel's stop lane;
+    backward runs the T-floor blend backward from them, then the same
+    per-Gaussian reduction by the first pass's ``gid``."""
 
     @staticmethod
     def forward(ctx, data, win, gid, counts, logti, pcfg, bconsts, log_thr):
-        out = blend_mod.windowed_blend_fwd_tf(
+        out, stop = blend_mod.windowed_blend_fwd_tf(
             win.table, win.block_src, win.block_valid, win.tile, 0, pcfg[4],
             bconsts, logti, log_thr,
         )
         ctx.win, ctx.pcfg, ctx.bconsts, ctx.log_thr = win, pcfg, bconsts, log_thr
-        ctx.save_for_backward(gid, counts, logti)
+        ctx.save_for_backward(gid, counts, logti, out[:, 3].contiguous(), stop)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        gid, counts, logti = ctx.saved_tensors
+        gid, counts, logti, s_b, stop = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd_tf(
             win.table, win.block_src, win.block_valid, win.tile, 0, block,
-            d_out.contiguous(), ctx.bconsts, logti, ctx.log_thr,
+            d_out.contiguous(), s_b, stop, ctx.bconsts, logti, ctx.log_thr,
         )
         return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 7
 
@@ -301,8 +302,9 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
     Returns (blend_args, block_tile, RenderAux) where blend_args are the
     positional arguments of ops.blend.windowed_blend_fwd (and, with the
     cotangent and the forward's S_b inserted before the constants, of
-    windowed_blend_bwd; the T-floor variants take the cotangent alone there
-    and (logti, log_thr) after the constants)."""
+    windowed_blend_bwd; the T-floor variants take (logti, log_thr) after
+    the constants, and the backward the cotangent, the T-floor forward's
+    S_b and its stop lanes before them)."""
     plan = _plan(params, camera, cfg)
     win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
     blend_args = (win.table, win.block_src, win.block_valid, win.tile, 0,
@@ -337,18 +339,52 @@ def _tile_bounds(seg, num_tiles):
     return torch.searchsorted(seg, q, right=False)
 
 
+def _transposed64(x: torch.Tensor) -> torch.Tensor:
+    """[NB, P2] -> contiguous float64 [P2, NB], so the scans run along the
+    innermost dimension (pairs._prefix_sum)."""
+    return x.t().to(torch.float64, memory_format=torch.contiguous_format)
+
+
+class _IncomingLogT(torch.autograd.Function):
+    """Each block's exclusive prefix of S_b over its own tile's run of
+    blocks (see incoming_log_t)."""
+
+    @staticmethod
+    def forward(ctx, s_b, seg, num_tiles):
+        bounds = _tile_bounds(seg, num_tiles)
+        tile = torch.clamp(seg, max=num_tiles).long()
+        ctx.save_for_backward(bounds[tile + 1] - 1)             # tile's last block
+        incl = pairs_mod._prefix_sum(_transposed64(s_b))        # [P2, NB]
+        excl = torch.nn.functional.pad(incl[:, :-1], (1, 0))
+        out = excl - excl[:, bounds[tile]]                      # minus the tile's first
+        return out.t().to(s_b.dtype, memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        (last,) = ctx.saved_tensors
+        incl = pairs_mod._prefix_sum(_transposed64(g))
+        d = incl[:, last] - incl            # sum of g over the tile's later blocks
+        return d.t().to(g.dtype, memory_format=torch.contiguous_format), None, None
+
+
 def incoming_log_t(s_b: torch.Tensor, seg: torch.Tensor, num_tiles: int):
     """Each block's incoming log-transmittance [NB, P2] from the blocks'
-    S_b [NB, P2] and tile ids ``seg`` [NB], as compose builds it: a global
-    cumsum over all blocks minus its value at the tile's first block (the
-    JAX package's form, rasterize.py:509-518).  Runs in the dtype of
-    ``s_b``."""
-    num_blocks = seg.shape[0]
-    cum_excl = torch.cumsum(s_b, dim=0) - s_b                       # [NB, P2]
-    bounds = _tile_bounds(seg, num_tiles)
-    first_block = torch.clamp(bounds[:-1], 0, max(num_blocks - 1, 0))
-    base = cum_excl[first_block[torch.clamp(seg, max=num_tiles).long()]]
-    return cum_excl - base
+    S_b [NB, P2] and their tile ids ``seg`` [NB] (non-decreasing; padding
+    blocks carry num_tiles): the sum of S_b over the blocks before it in
+    its tile.  Differentiable in ``s_b``; returns ``s_b``'s dtype.
+
+    The prefix runs in float64 over the transposed [P2, NB] layout and is
+    rounded once, so logti is within a rounding of the exact per-tile sum.
+    The JAX package (rasterize.py:509-518) takes a float32 cumsum over all
+    blocks of the frame and subtracts its value at the tile's first block:
+    at 18,284 blocks that difference of two large sums is up to ~1e-2 off,
+    enough to move a pixel's termination under the T-floor.  The backward
+    is each block's exclusive suffix sum of the cotangent over its tile,
+    the same way; a block whose later blocks get zero cotangent gets exactly
+    0 (pairs._prefix_sum), where the JAX form leaves the other tiles'
+    cancellation residue.  Both devices run this code; the scans are
+    fixed-order, so a replay gives the same bits."""
+    return _IncomingLogT.apply(s_b, seg, num_tiles)
 
 
 def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
@@ -357,9 +393,10 @@ def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
     the image (the associative (C, T) combine across a tile's blocks).
 
     ``seg`` [NB] is each block's tile id, non-decreasing (blocks of a tile
-    are contiguous; padding blocks carry num_tiles at the end).  As in the
-    JAX package, a block's incoming log T is a global cumsum minus the value
-    at its tile's first block; segment sums are sequential per segment
+    are contiguous; padding blocks carry num_tiles at the end).  A block's
+    incoming log T is the float64 per-tile prefix of incoming_log_t (the
+    JAX package takes a float32 global cumsum minus its value at the tile's
+    first block); segment sums are sequential per segment
     (torch.segment_reduce), so the result is deterministic.
 
     With ``blend_tfloor`` (rasterize.py:520-530) the incoming log T, detached,

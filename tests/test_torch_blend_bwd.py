@@ -204,9 +204,13 @@ def test_bwd_launch_geometry(block, smem):
     """The Hopper backward at ts = 16: 2 pixels per thread, so 128 threads
     (4 warps); 48 bytes per staged lane plus 9 floats per (warp, lane) of
     partials.  The forward, 4 pixels per thread, stages the lanes alone;
-    the first design keeps one thread per pixel."""
+    the first design keeps one thread per pixel.  The T-floor instances
+    take 2 pixels per thread in both directions, and the backward's keeps
+    a static per-warp stop array."""
     assert tblend.launch_geometry(16, block, True) == (128, smem)
     assert tblend.launch_geometry(16, block, False) == (64, block * 48)
+    assert tblend.launch_geometry(16, block, True, tfloor=True) == (128, smem + 128)
+    assert tblend.launch_geometry(16, block, False, tfloor=True) == (128, block * 48)
     if block < 1024:
         assert tblend.launch_geometry(16, block, True, v1=True) == (
             256, 9 * 9 * block * 4 + 128)
@@ -229,8 +233,14 @@ def test_first_design_wrappers_refuse_cpu_tensors():
         tblend.windowed_blend_bwd_v1(table, src, valid, tile, 0, 16, g, CONSTS)
     with pytest.raises(RuntimeError, match="CPU runs windowed_blend_fwd_plain"):
         tblend.windowed_blend_fwd_v1(table, src, valid, tile, 0, 16, CONSTS)
-    assert tblend.windowed_blend_bwd_v1.launches == 0
-    assert tblend.windowed_blend_fwd_v1.launches == 0
+    logti = torch.zeros((src.shape[0], 256))
+    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_fwd_tf_plain"):
+        tblend.windowed_blend_fwd_tf_v1(table, src, valid, tile, 0, 16, CONSTS, logti, -9.2)
+    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_bwd_tf_plain"):
+        tblend.windowed_blend_bwd_tf_v1(table, src, valid, tile, 0, 16, g, CONSTS, logti, -9.2)
+    for f in (tblend.windowed_blend_bwd_v1, tblend.windowed_blend_fwd_v1,
+              tblend.windowed_blend_fwd_tf_v1, tblend.windowed_blend_bwd_tf_v1):
+        assert f.launches == 0
 
 
 @pytest.mark.cuda

@@ -111,7 +111,7 @@ def test_tf_plain_forward_matches_jax_kernel(seed, row0):
         *(jnp.asarray(c) for c in cols), jnp.asarray(logti),
         CONSTS[:4] + (LOG_THR,)))
     with torch.no_grad():
-        got, margin = tblend.windowed_blend_fwd_tf_plain(
+        got, _, margin = tblend.windowed_blend_fwd_tf_plain(
             *_torch(table, src, valid, tile), row0, BLOCK, CONSTS,
             torch.from_numpy(logti), LOG_THR, return_margin=True)
         full, _ = tblend.windowed_blend_fwd_plain(
@@ -141,9 +141,13 @@ def test_tf_plain_backward_matches_jax_vjp(seed, row0):
         lambda *c: pallas_blend.block_blend_cols_tf(*c, consts),
         *(jnp.asarray(c) for c in cols), jnp.asarray(logti))
     *want, want_logti = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    args = _torch(table, src, valid, tile) + [row0, BLOCK]
+    with torch.no_grad():
+        out, stop = tblend.windowed_blend_fwd_tf_plain(
+            *args, CONSTS, torch.from_numpy(logti), LOG_THR)
     got, margin = tblend.windowed_blend_bwd_tf_plain(
-        *_torch(table, src, valid, tile), row0, BLOCK, torch.from_numpy(g),
-        CONSTS, torch.from_numpy(logti), LOG_THR, return_margin=True)
+        *args, torch.from_numpy(g), out[:, 3].contiguous(), stop, CONSTS,
+        torch.from_numpy(logti), LOG_THR, return_margin=True)
     assert t2n(margin).min() > NO_FLIP_MARGIN, "a termination flip is possible"
     assert (want_logti == 0).all()
     names = ("mx", "my", "a", "b", "c", "op", "r", "g", "b")
@@ -153,10 +157,47 @@ def test_tf_plain_backward_matches_jax_vjp(seed, row0):
         assert scale > 0 and err <= COL_REL * scale, f"d{name}: {err} of {scale}"
     # g_S reaches surviving lanes only: with logti at the floor everywhere,
     # nothing survives and every cotangent is zero
+    floor = torch.full((NB, P2), LOG_THR)
+    with torch.no_grad():
+        out, stop = tblend.windowed_blend_fwd_tf_plain(*args, CONSTS, floor, LOG_THR)
+    assert (stop == 0).all() and (out == 0).all()
     none = tblend.windowed_blend_bwd_tf_plain(
-        *_torch(table, src, valid, tile), row0, BLOCK, torch.from_numpy(g),
-        CONSTS, torch.full((NB, P2), LOG_THR), LOG_THR)
+        *args, torch.from_numpy(g), out[:, 3].contiguous(), stop, CONSTS, floor,
+        LOG_THR)
     assert all(bool((c == 0).all()) for c in none)
+
+
+@pytest.mark.parametrize("seed,row0", [(3, 0), (11, 1)])
+def test_tf_plain_stop_lanes_end_the_survivors(seed, row0):
+    """The plain T-floor forward's stop lane is one past each pixel's last
+    surviving lane: against the unmasked replay, every kept lane before it
+    arrives above the floor (float64 prefix), every kept lane at or past it
+    at or below, lane stop - 1 is kept, and S_b sums exactly the kept lanes
+    before it.  All three cases occur: stopped before the block (0), inside
+    it, and never."""
+    table, src, valid, tile, logti = _windows_logti(seed, row0=row0)
+    args = _torch(table, src, valid, tile) + [row0, BLOCK]
+    with torch.no_grad():
+        out, stop = tblend.windowed_blend_fwd_tf_plain(
+            *args, CONSTS, torch.from_numpy(logti), LOG_THR)
+        r = tblend._replay(*args, CONSTS, 0, NB)                    # unmasked
+    kept = t2n(r.alpha) > 0                                         # [NB, P2, B]
+    l = t2n(r.log1m).astype(np.float64)
+    arrive = np.cumsum(l, -1) - l + logti[:, :, None]
+    stop = t2n(stop)
+    assert stop.dtype == np.int32
+    before = np.arange(BLOCK)[None, None, :] < stop[:, :, None]
+    assert (arrive[kept & before] > LOG_THR).all()
+    assert (arrive[kept & ~before] <= LOG_THR).all()
+    last = np.take_along_axis(kept, np.maximum(stop - 1, 0)[:, :, None], -1)[..., 0]
+    assert last[stop > 0].all()
+    np.testing.assert_allclose(t2n(out)[:, 3], np.where(kept & before, l, 0).sum(-1),
+                               atol=1e-5)
+    ends = kept.any(-1)
+    stopped = kept & ~before
+    assert (ends & (stop == 0)).sum() > 100
+    assert (stopped.any(-1) & (stop > 0)).sum() > 30
+    assert (ends & ~stopped.any(-1)).sum() > 500
 
 
 def test_tf_plain_without_termination_is_the_plain_blend():
@@ -168,12 +209,14 @@ def test_tf_plain_without_termination_is_the_plain_blend():
     zero = torch.zeros((NB, P2))
     with torch.no_grad():
         out, _ = tblend.windowed_blend_fwd_plain(*args, CONSTS)
-        out_tf = tblend.windowed_blend_fwd_tf(*args, CONSTS, zero, -1e4)
-        out_tf3 = tblend.windowed_blend_fwd_tf_plain(*args, CONSTS, zero, -1e4,
-                                                     chunk_blocks=3)
+        out_tf, stop = tblend.windowed_blend_fwd_tf(*args, CONSTS, zero, -1e4)
+        out_tf3, stop3 = tblend.windowed_blend_fwd_tf_plain(*args, CONSTS, zero, -1e4,
+                                                            chunk_blocks=3)
     assert torch.equal(out, out_tf) and torch.equal(out, out_tf3)
+    assert torch.equal(stop, stop3) and stop.dtype == torch.int32
     d = tblend.windowed_blend_bwd_plain(*args, g, out[:, 3], CONSTS)
-    d_tf = tblend.windowed_blend_bwd_tf(*args, g, CONSTS, zero, -1e4)
+    d_tf = tblend.windowed_blend_bwd_tf(*args, g, out_tf[:, 3].contiguous(), stop,
+                                        CONSTS, zero, -1e4)
     assert all(torch.equal(a, b) for a, b in zip(d, d_tf))
     assert tblend.windowed_blend_fwd_tf.launches == 0     # the CPU runs plain
     assert tblend.windowed_blend_bwd_tf.launches == 0
@@ -313,14 +356,16 @@ def test_tfloor_train_step_matches_jax():
 
     A Gaussian behind every pixel's floor gets, in exact arithmetic, no
     gradient: its pairs are masked in the second pass, and its first-pass
-    S_b only reaches the t_in of later blocks of its tile.  Both packages
-    take t_in from a global cumsum minus its value at the tile's first
-    block, whose transposes cancel the other tiles' terms in float32; in
-    JAX a residue of ~2e-8 (of a largest view-space gradient ~1) survives
-    where the port's cancels to 0, so density's grad_count (|grad| > 0)
-    may count such a Gaussian in JAX alone.  Those entries must be noise
-    (<= VS_NOISE_REL of the largest, 0 in the port); every other
-    grad_count entry must match exactly."""
+    S_b only reaches the t_in of later blocks of its tile, whose T-floor
+    colour is zero.  JAX takes t_in from a global float32 cumsum minus its
+    value at the tile's first block, whose transpose cancels the other
+    tiles' terms: a residue of ~2e-8 (of a largest view-space gradient ~1)
+    survives, so density's grad_count (|grad| > 0) may count such a
+    Gaussian in JAX alone.  The port sums each tile's blocks on their own
+    (ops.rasterize.incoming_log_t), so its gradient there is exactly 0.
+    Those entries must be noise in JAX (<= VS_NOISE_REL of the largest) and
+    exactly 0 in the port; every other grad_count entry must match
+    exactly."""
     jp, _, _ = _dense_scene()
     jc, tc = cameras(32, 32)
     jr, tr = _tf_configs()
@@ -349,7 +394,9 @@ def test_tf_kernels_match_plain_cuda(block):
     """The CUDA T-floor kernels against their plain versions on the card
     under chip_smoke's flip rule (forward within KERNEL_ATOL/RTOL, backward
     within BWD_REL of each column's max, entries beyond excused only at a
-    termination margin below FLIP_MARGIN); the backward bit-identical on a
+    termination margin below FLIP_MARGIN); the Hopper forward's S_b and
+    stop lanes equal to the first design's bit for bit; both backward
+    designs against the plain version, the Hopper one bit-identical on a
     second launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -360,15 +407,21 @@ def test_tf_kernels_match_plain_cuda(block):
     dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile, logti, g)]
     args = dev[:4] + [0, block]
     with torch.no_grad():
-        want, margin = tblend.windowed_blend_fwd_tf_plain(
+        want, _, margin = tblend.windowed_blend_fwd_tf_plain(
             *args, CONSTS, dev[4], LOG_THR, return_margin=True)
         before = tblend.windowed_blend_fwd_tf.launches
-        got = tblend.windowed_blend_fwd_tf(*args, CONSTS, dev[4], LOG_THR)
+        got, stop = tblend.windowed_blend_fwd_tf(*args, CONSTS, dev[4], LOG_THR)
+        first, first_stop = tblend.windowed_blend_fwd_tf_v1(*args, CONSTS, dev[4], LOG_THR)
     assert tblend.windowed_blend_fwd_tf.launches == before + 1
+    assert torch.equal(got[:, 3], first[:, 3]) and torch.equal(stop, first_stop)
     _compare_tf(f"B={block}", got, want, margin)
-    bargs = args + [dev[5], CONSTS, dev[4], LOG_THR]
+    _compare_tf(f"B={block}, first design", first, want, margin)
+    bargs = args + [dev[5], got[:, 3].contiguous(), stop, CONSTS, dev[4], LOG_THR]
     d_got = tblend.windowed_blend_bwd_tf(*bargs)
     d_again = tblend.windowed_blend_bwd_tf(*bargs)
-    _compare_tf_bwd(f"B={block}", d_got, tblend.windowed_blend_bwd_tf_plain(*bargs), margin)
+    d_want = tblend.windowed_blend_bwd_tf_plain(*bargs)
+    _compare_tf_bwd(f"B={block}", d_got, d_want, margin)
+    _compare_tf_bwd(f"B={block}, first design", tblend.windowed_blend_bwd_tf_v1(
+        *args, dev[5], CONSTS, dev[4], LOG_THR), d_want, margin)
     for a, b in zip(d_got, d_again):
         assert torch.equal(a, b)
