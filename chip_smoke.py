@@ -400,11 +400,14 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
     lanes up to its first kept lane that fails (all, if none does; none if
     it arrives at or below the floor); the backward reads the lanes before
     the block's largest stop lane and a pixel tests the lanes before its
-    own.  Without logti, also the (warp, lane) pairs that enter the first
-    design's backward shuffle tree (a warp = 32 consecutive pixels, lanes
-    below block_valid) and the (warp, batch of 4 lanes) exchanges of the
-    Hopper backward.  Raises if a kept pair lies in a culled (warp, lane)
-    pair."""
+    own.  The backward's output depends on a pixel's cotangent and S_b
+    only where the pixel keeps a lane (with logti: a surviving one, stop >
+    0), ``bwd_pixels``; ``bwd_blocks`` counts the blocks whose lanes it
+    reads (a live lane; with logti, a stop > 0).  Without logti, also the (warp,
+    lane) pairs that enter the first design's backward shuffle tree (a warp
+    = 32 consecutive pixels, lanes below block_valid) and the (warp, batch
+    of 4 lanes) exchanges of the Hopper backward.  Raises if a kept pair
+    lies in a culled (warp, lane) pair."""
     import torch
     import torch.nn.functional as F
 
@@ -417,8 +420,8 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
         raise ValueError(f"_blend_work counts 16 x 16 tiles, got tile_size {ts}")
     layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd", tfloor=logti is not None)[0]
                for d in ("fwd", "bwd")}
-    w = dict.fromkeys(("live_fwd", "live_bwd", "kept", "tree_v1", "lanes_v1", "exchanges",
-                       "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
+    w = dict.fromkeys(("live_fwd", "live_bwd", "bwd_blocks", "bwd_pixels", "kept", "tree_v1",
+                       "lanes_v1", "exchanges", "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
                                           for d in layouts), 0)
     w["pixels"] = layouts
     for k0 in range(0, nb, chunk):
@@ -433,6 +436,8 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
             need = {d: nv[:, None].expand(k, p2) for d in layouts}   # [K, P2]
             w["live_fwd"] += int(nv.sum())
             w["live_bwd"] += int(nv.sum())
+            w["bwd_blocks"] += int((nv > 0).sum())
+            w["bwd_pixels"] += int(kept.any(-1).sum())
         else:
             arrive = torch.cumsum(r.log1m, -1) - r.log1m + logti[k0:k1, :, None]
             surv = kept & (arrive > log_thr)
@@ -443,6 +448,8 @@ def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
                     "bwd": stop}
             w["live_fwd"] += int((nv * open_px.any(1)).sum())
             w["live_bwd"] += int(stop.amax(1).sum())
+            w["bwd_blocks"] += int((stop.amax(1) > 0).sum())
+            w["bwd_pixels"] += int((stop > 0).sum())
         w["kept"] += int(surv.sum())
         t = tile[k0:k1]
         mx = r.cols[1] - ((t % tiles_x).float() * 16 + 8)[:, None]    # [K, B]
@@ -641,8 +648,11 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
         f"each) on {smi}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
     nb, p2, block = args[1].shape[0], 256, args[5]
-    bound, line = _work_bound(w, "bwd", 40 * w["live_bwd"] + 12 * nb + 4 * nb * (5 * p2 + 9 * block),
-                              BWD_OPS_PER_KEPT)
+    # bytes: 40 per lane read, block_valid, block_src and tile of the blocks
+    # with a live lane, g and s_b of the pixels that keep a lane, nine
+    # columns out
+    bound, line = _work_bound(w, "bwd", 40 * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
+                              + 20 * w["bwd_pixels"] + 36 * nb * block, BWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel bwd] backward work ({w['pixels']['bwd']} pixels per thread): {line}")
     # the first design's shuffle tree: 45 shuffles per (warp, lane) that a
@@ -858,6 +868,24 @@ def _check_reduction(params, camera, raster, gt, smi):
         x64 = torch.rand((9, lanes), dtype=torch.float64, device=DEVICE,
                          generator=torch.Generator(DEVICE).manual_seed(0))
         res["prefix64_ms_2e22"] = cuda_time_ms(lambda: pairs._prefix_sum(x64), reps=10)
+        # zero runs planted at every offset the sort gives: a tenth of the
+        # Gaussians get all-zero cotangents, and must sum to exactly 0
+        quiet = torch.rand(n, device=DEVICE,
+                           generator=torch.Generator(DEVICE).manual_seed(1)) < 0.1
+        dq = torch.where(live & quiet[gid.clamp(min=0).long()], 0.0, d_rows)
+        got_q = pairs.reduce_aligned_cotangents(dq, gid, counts, n)
+        csum = F.pad(pairs._prefix_sum(dq[:, perm].double()), (1, 0))
+        raw = (csum[:, ends] - csum[:, ends - counts]).T.float()     # without the count mask
+        res["zero_runs"] = int((quiet & (counts > 0)).sum())
+        res["zero_runs_nonzero"] = int((got_q[quiet] != 0).any(1).sum())
+        res["zero_runs_nonzero_unmasked"] = int((raw[quiet] != 0).any(1).sum())
+    log(f"[train] per-Gaussian reduction, {res['zero_runs']} Gaussians with all-zero "
+        f"cotangents planted: {res['zero_runs_nonzero']} sum to nonzero "
+        f"({res['zero_runs_nonzero_unmasked']} do in the float64 prefix difference "
+        f"alone, without the count of nonzeros)")
+    if res["zero_runs_nonzero"]:
+        raise AssertionError("reduce_aligned_cotangents: a run of zero cotangents sums to "
+                             "nonzero")
     log(f"[train] per-Gaussian reduction at full size ({d_rows.shape[1]} lanes, {n} "
         f"Gaussians, loss cotangent): each column within {res['rel_norm']:.3e} of a float64 "
         f"sum in relative norm (the float32 prefix: {res['rel_norm_f32']:.3e}); "
@@ -1038,7 +1066,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
 
     from gaussiansplatting_tpu_torch.config import Config
     from gaussiansplatting_tpu_torch.core import gaussians
-    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.ops import blend, pairs
     from gaussiansplatting_tpu_torch.ops.projection import num_tiles
     from gaussiansplatting_tpu_torch.ops.rasterize import (
         blend_windows, incoming_log_t, render)
@@ -1128,14 +1156,18 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     w = _blend_work(args, logti, log_thr)
     nb, p2, block = args[1].shape[0], 256, args[5]
     # bytes: 36 per lane read (no gid), the block's three ints; forward logti
-    # in, out and stop out; backward g, s_b and stop in, nine columns out
+    # in, out and stop out; backward stop in, the three ints of the blocks
+    # with a stop > 0, g and s_b of the pixels with a stop > 0 (a block
+    # whose stops are all 0 writes zeros from stop alone), nine columns out
     res["fwd_bound"], line = _work_bound(
         w, "fwd", 36 * w["live_fwd"] + 12 * nb + 4 * nb * 6 * p2, FWD_OPS_PER_KEPT)
     log(f"[tfloor] forward work ({w['pixels']['fwd']} pixels per thread; power tests up "
         f"to each pixel's first failing kept lane, surviving kept pairs): {line}")
     res["bwd_bound"], line = _work_bound(
-        w, "bwd", 36 * w["live_bwd"] + 12 * nb + 4 * nb * (6 * p2 + 9 * block),
-        BWD_OPS_PER_KEPT)
+        w, "bwd", 36 * w["live_bwd"] + 12 * w["bwd_blocks"] + 4 * nb * p2
+        + 20 * w["bwd_pixels"] + 36 * nb * block, BWD_OPS_PER_KEPT)
+    log(f"[tfloor bwd] {w['bwd_blocks']} of {nb} blocks and {w['bwd_pixels']} of "
+        f"{nb * p2} (block, pixel) entries have a stop lane > 0")
     log(f"[tfloor bwd] backward work ({w['pixels']['bwd']} pixels per thread; power "
         f"tests before each pixel's stop lane): {line}")
     log(f"[tfloor] full size: fwd_tf Hopper {res['fwd_ms']:.4f} ms, first design "
@@ -1171,6 +1203,31 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         incoming_log_t(s_b, block_tile, nt), s_b, g_lt), reps=20)
     log(f"[tfloor] incoming_log_t at {tuple(s_b.shape)}: forward {res['logti_ms']:.4f} ms, "
         f"forward + backward {res['logti_fwd_bwd_ms']:.4f} ms (CUDA events, 20 calls) on {smi}")
+    # its backward behind zero tails planted at every offset: each (tile,
+    # pixel) gets zero cotangent from a random block of the tile on, and
+    # every block before only zeros in its tile must get exactly 0
+    gen = torch.Generator(DEVICE).manual_seed(2)
+    seg = block_tile.long().clamp(max=nt)
+    bounds = torch.searchsorted(seg, torch.arange(nt + 2, device=DEVICE))
+    first, size = bounds[seg], bounds[seg + 1] - bounds[seg]                 # [NB]
+    u = torch.rand((nt + 1, g_lt.shape[1]), device=DEVICE, generator=gen)[seg]  # [NB, P2]
+    cut = first[:, None] + (u * (size[:, None] + 1)).long()      # in [first, last + 1]
+    idx = torch.arange(seg.numel(), device=DEVICE)[:, None]
+    g_zero = torch.where(idx >= cut, 0.0, torch.randn(g_lt.shape, device=DEVICE, generator=gen))
+    behind = idx >= cut - 1
+    d_zero = torch.autograd.grad(incoming_log_t(s_b, block_tile, nt), s_b, g_zero)[0]
+    with torch.no_grad():
+        incl = pairs._prefix_sum(g_zero.t().double().contiguous())
+        last = (bounds[seg + 1] - 1)
+        raw = (incl[:, last] - incl).t().float()                # without the count mask
+    res["logti_zero_tails"] = int(behind.sum())
+    res["logti_zero_tails_nonzero"] = int((d_zero[behind] != 0).sum())
+    unmasked = int((raw[behind] != 0).sum())
+    log(f"[tfloor] incoming_log_t backward, {res['logti_zero_tails']} (block, pixel) entries "
+        f"behind planted zero tails: {res['logti_zero_tails_nonzero']} nonzero ({unmasked} "
+        f"in the float64 prefix difference alone, without the count of nonzeros)")
+    if res["logti_zero_tails_nonzero"]:
+        raise AssertionError("incoming_log_t: nonzero gradient behind a zero cotangent tail")
 
     # (iv) the T-floor render main path at full size
     with torch.no_grad():
@@ -1230,6 +1287,12 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     _check_finite_state("T-floor train step", st)
     if min(train_launches[k] for k in MAIN_ENTRIES) < 1:
         raise AssertionError(f"the T-floor step did not launch every kernel: {train_launches}")
+    res["step_device_ms"], _ = _device_profile(
+        "[tfloor] full-size T-floor step",
+        lambda: train_step(st, camera, gt, tcfg, TRAIN_TOTAL_ITERS), STEP_PROFILE_STEPS, smi)
+    log(f"[tfloor] full-size T-floor step: the card idles "
+        f"{1 - res['step_device_ms'] / res['step_ms']:.3f} of the step (1 - device time / "
+        f"host clock {res['step_ms']:.3f} ms)")
     _reset_launches()
     replay, _ = train_step(state0, camera, gt, tcfg, TRAIN_TOTAL_ITERS)
     torch.cuda.synchronize()
@@ -1553,6 +1616,11 @@ def _device_profile(label, fn, reps, smi):
     for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:STEP_PROFILE_TOP]:
         log(f"{label}   {e.self_device_time_total / per:8.3f} ms x{e.count // reps:4d}  "
             f"{e.key[:90]}")
+    # what compose's global float32 prefix used to cost: torch's outer-dim
+    # cumsum and the gather's index-put backward
+    outer, put = (sum(v for k, v in kernels.items() if s in k)
+                  for s in ("scan_outer_dim", "indexing_backward"))
+    log(f"{label}   outer-dim scans {outer:.3f} ms, index-put backward {put:.3f} ms per call")
     return total, kernels
 
 
@@ -1911,13 +1979,17 @@ def main() -> int:
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],
         "tfloor_train_step_ms": tf["step_ms"],
+        "tfloor_train_step_device_ms": tf["step_device_ms"],
         "tfloor_launches_per_step": tf["per_step"],
         "logti_max_ulps_vs_f64": tf["logti_ulps"],
         "logti_moved_stops_vs_f64": tf["logti_moved"],
+        "logti_zero_tail_entries": tf["logti_zero_tails"],
         "incoming_log_t_ms": tf["logti_ms"],
         "incoming_log_t_fwd_bwd_ms": tf["logti_fwd_bwd_ms"],
         "reduce_max_col_rel_norm_vs_f64": red["rel_norm"],
         "reduce_f32_max_col_rel_norm_vs_f64": red["rel_norm_f32"],
+        "reduce_zero_runs": red["zero_runs"],
+        "reduce_zero_runs_nonzero_unmasked": red["zero_runs_nonzero_unmasked"],
         "reduce_ms": red["ms"], "reduce_f32_ms": red["ms_f32"],
         "reduce_prefix64_ms": red["prefix64_ms"],
         "reduce_prefix64_ms_2e22": red["prefix64_ms_2e22"],

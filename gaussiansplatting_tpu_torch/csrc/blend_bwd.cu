@@ -93,8 +93,7 @@ namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
 constexpr int kBatch = 4;  // lanes per warp exchange of the Hopper design
-constexpr int kPixels = 2;    // pixels per thread of the Hopper design
-constexpr int kPixelsTF = 2;  // ... of its T-floor instance
+constexpr int kPixels = 2;  // pixels per thread of the Hopper design (both instances)
 // Below this log-transmittance expf(S) loses precision (it reaches the
 // denormals at S < -87), so a pixel of the Hopper design whose S_b lies
 // below it walks back in log space until S rises above it
@@ -338,7 +337,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ s_b, const int* __restrict__ stop, int nb,
     int block, int ts, int tiles_x, int row0, float power_floor,
     float alpha_cap, float alpha_floor, float* __restrict__ dcols) {
-  constexpr int P = kTFloor ? kPixelsTF : kPixels;
+  constexpr int P = kPixels;
   extern __shared__ float4 lane_smem[];
   __shared__ int warp_stop[32];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);        // [block]
@@ -526,8 +525,7 @@ int launch_hopper(bool tfloor, const float* table, long long ep,
                   int row0, float power_floor, float alpha_cap,
                   float alpha_floor, float* dcols, void* stream) {
   const auto kernel = tfloor ? blend_bwd_win_hopper<true> : blend_bwd_win_hopper<false>;
-  const int p = tfloor ? kPixelsTF : kPixels;
-  const int threads = (ts * ((ts + p - 1) / p) + 31) / 32 * 32;
+  const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
   const size_t smem = (size_t)block * sizeof(blend::Lane) +
                       (size_t)(threads / 32) * kCols * block * sizeof(float);
   if (smem > 48 * 1024) {

@@ -69,9 +69,11 @@ _SMEM_MAX = 232_448      # bytes of shared memory a Hopper block can have
 # (the Hopper T-floor instance)
 _V1_BWD_STATIC_SMEM = _TF_BWD_STATIC_SMEM = 128
 _LANE_BYTES = 48         # blend_common.cuh's staged lane record
-# pixels per thread of the Hopper designs, (forward, backward): kPixels and,
-# for the T-floor instances, kPixelsTF in blend_fwd.cu and blend_bwd.cu
-_PIXELS = {False: (4, 2), True: (2, 2)}
+# pixels per thread of the Hopper designs: the forward's kPixels and, for
+# its T-floor instance, kPixelsTF (blend_fwd.cu); the backward's kPixels in
+# both instances (blend_bwd.cu)
+_FWD_PIXELS = {False: 4, True: 2}
+_BWD_PIXELS = 2
 
 
 def _check_no_grad(*tensors):
@@ -179,13 +181,11 @@ def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
     constant: the nine [NB, B] column cotangents given ``g`` [NB, 4, P2]
     and the T-floor forward's masked S_b ``s_b`` = ``out[:, 3]`` [NB, P2]
     and ``stop`` [NB, P2] int32, from which the kernel walks each pixel
-    back.  ``logti`` and ``log_thr`` are the forward's (the plain version
-    replays the mask from them).
+    back.  ``logti`` and ``log_thr`` are the forward's; only the plain
+    version reads them (it replays the mask from them).
 
     ``windowed_blend_bwd_tf.launches`` counts CUDA kernel launches."""
     if _device_type("windowed_blend_bwd_tf", table) == "cuda":
-        _checked_plane("logti", logti, block_src.shape[0], int(cfg_consts[0]) ** 2,
-                       table.device)
         return _launch_bwd_cuda(windowed_blend_bwd_tf, table, block_src,
                                 block_valid, block_tile, row0, block, g,
                                 cfg_consts, s_b=s_b, stop=stop)
@@ -284,7 +284,7 @@ def launch_geometry(ts, block, backward, v1=False, tfloor=False):
         smem = (9 * block * 4 if not backward else
                 (1 + threads // 32) * 9 * block * 4 + _V1_BWD_STATIC_SMEM)
     else:
-        pixels = _PIXELS[bool(tfloor)][int(bool(backward))]
+        pixels = _BWD_PIXELS if backward else _FWD_PIXELS[bool(tfloor)]
         threads = -(-ts * -(-ts // pixels) // 32) * 32
         smem = block * _LANE_BYTES
         if backward:

@@ -237,17 +237,25 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
     from run to run, and a cumsum along dim 0 of [A, D] is D threads walking
     A serially.
 
-    The carry into chunk c is the running sum of the totals before it (a
-    shift, not the inclusive sum minus the chunk's own total), so a run of
-    zeros adds exactly nothing: the prefix at the run's end equals the
-    prefix before it, bit for bit, on both devices, and a difference of two
-    prefixes across zeros is exactly 0."""
+    A block scan adds in a tree whose shape depends on the position, so on
+    CUDA the prefixes at the two ends of a run of zeros may differ in their
+    last bit; a caller that needs such a difference to be exactly 0 masks
+    it by a count of nonzeros (nonzero_prefix)."""
     d, a = x.shape
     k = max(-(-a // _SCAN_CHUNK), 1)
     xp = torch.nn.functional.pad(x, (0, k * _SCAN_CHUNK - a))
-    local = torch.cumsum(xp.view(d, k, _SCAN_CHUNK), dim=2)
-    carry = torch.nn.functional.pad(torch.cumsum(local[:, :-1, -1], dim=1), (1, 0))
+    local = torch.cumsum(xp.view(d, k, _SCAN_CHUNK), dim=2, dtype=x.dtype)
+    carry = torch.nn.functional.pad(torch.cumsum(local[:, :-1, -1], dim=1, dtype=x.dtype),
+                                    (1, 0))
     return (local + carry[:, :, None]).view(d, k * _SCAN_CHUNK)[:, :a]
+
+
+def nonzero_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Zero-led inclusive count of the nonzero entries of x [D, A] along A,
+    int32 [D, A + 1]: exact in any order of summation.  Chunked by
+    _prefix_sum: on CUDA a cumsum along a few rows of millions of entries
+    leaves most of the card idle."""
+    return _prefix_sum(torch.nn.functional.pad((x != 0).to(torch.int32), (1, 0)))
 
 
 def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
@@ -269,18 +277,22 @@ def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
     only the digits the prefix has left: at 2^21 lanes of same-sign
     cotangents each column was 2.1e-3 off float64 in relative norm, in
     float64 it is within a rounding of it.  A Gaussian whose cotangents are
-    all zero gets exactly 0 (see _prefix_sum)."""
+    all zero (behind every pixel's T-floor) gets exactly 0, on both devices:
+    a count of the run's lanes with a nonzero cotangent (nonzero_prefix)
+    zeroes the difference, which a block scan's rounding alone need not
+    (see _prefix_sum)."""
     if grad_reduce != "sortprefix":
         raise NotImplementedError(
             f"grad_reduce={grad_reduce!r} is not ported; only 'sortprefix' is "
             "(a torch scatter form would be index_add_, which uses float "
             "atomics on CUDA)"
         )
-    d = d_rows.shape[0]
     key = torch.where(gid_aligned >= 0, gid_aligned, n)
     _, perm = torch.sort(key, stable=True)
-    csum = torch.nn.functional.pad(
-        _prefix_sum(d_rows[:, perm].to(torch.float64)), (1, 0))  # [D, a_cap + 1]
+    rows = d_rows[:, perm]
+    csum = _prefix_sum(torch.nn.functional.pad(rows, (1, 0)).to(torch.float64))
+    nz = nonzero_prefix((rows != 0).any(0, keepdim=True))   # [1, a_cap + 1]
     ends = torch.cumsum(counts, 0)                      # [N] int64 run ends
-    return (csum[:, ends] - csum[:, ends - counts]).T.to(
-        d_rows.dtype, memory_format=torch.contiguous_format)
+    starts = ends - counts
+    sums = torch.where(nz[:, ends] == nz[:, starts], 0.0, csum[:, ends] - csum[:, starts])
+    return sums.T.to(d_rows.dtype, memory_format=torch.contiguous_format)

@@ -362,8 +362,10 @@ class _IncomingLogT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (last,) = ctx.saved_tensors
-        incl = pairs_mod._prefix_sum(_transposed64(g))
-        d = incl[:, last] - incl            # sum of g over the tile's later blocks
+        incl = pairs_mod._prefix_sum(_transposed64(g))          # [P2, NB]
+        nz = pairs_mod.nonzero_prefix(g.t())[:, 1:]
+        # the sum of g over the tile's later blocks; exactly 0 where all are 0
+        d = torch.where(nz[:, last] == nz, 0.0, incl[:, last] - incl)
         return d.t().to(g.dtype, memory_format=torch.contiguous_format), None, None
 
 
@@ -381,9 +383,10 @@ def incoming_log_t(s_b: torch.Tensor, seg: torch.Tensor, num_tiles: int):
     enough to move a pixel's termination under the T-floor.  The backward
     is each block's exclusive suffix sum of the cotangent over its tile,
     the same way; a block whose later blocks get zero cotangent gets exactly
-    0 (pairs._prefix_sum), where the JAX form leaves the other tiles'
-    cancellation residue.  Both devices run this code; the scans are
-    fixed-order, so a replay gives the same bits."""
+    0 (a count of nonzeros, pairs.nonzero_prefix, zeroes it), where the JAX
+    form leaves the other tiles' cancellation residue.  Both devices run
+    this code; the scans are fixed-order, so a replay gives the same
+    bits."""
     return _IncomingLogT.apply(s_b, seg, num_tiles)
 
 

@@ -222,3 +222,56 @@ def test_reduce_aligned_cotangents_zero_runs_are_exactly_zero():
     got = tpairs.reduce_aligned_cotangents(
         torch.from_numpy(d_rows), torch.from_numpy(gid), torch.from_numpy(counts), n).numpy()
     assert (got[quiet] == 0).all() and (got[~quiet & (counts > 0)] != 0).all()
+
+
+@pytest.mark.parametrize("fn", ["reduce_aligned_cotangents", "incoming_log_t"])
+def test_zero_runs_stay_exact_under_a_position_dependent_scan(fn, monkeypatch):
+    """The exact zeros do not rest on the CPU's sequential cumsum: with a
+    prefix sum whose rounding depends on the position (as a CUDA block
+    scan's tree does; here a relative 2^-50 at every third position), a run
+    of zero cotangents still gives exactly 0, and the other sums stay
+    within the float64 bars."""
+    orig = tpairs._prefix_sum
+
+    def scan(x):
+        p = orig(x)
+        if not p.is_floating_point():       # the nonzero counts stay exact
+            return p
+        return p + p * (torch.arange(p.shape[1]) % 3 == 1) * 2.0 ** -50
+
+    rng = np.random.default_rng(9)
+    if fn == "reduce_aligned_cotangents":
+        d_rows, gid, counts = _aligned_cotangents(10, False, n=1 << 12)
+        n = counts.size
+        quiet = rng.random(n) < 0.2
+        d_rows[:, (gid >= 0) & quiet[np.maximum(gid, 0)]] = 0.0
+        _, perm = torch.sort(torch.from_numpy(np.where(gid >= 0, gid, n)), stable=True)
+        ends = np.cumsum(counts)
+        prefix = np.pad(scan(torch.from_numpy(d_rows)[:, perm].double()).numpy(),
+                        ((0, 0), (1, 0)))
+        raw = (prefix[:, ends] - prefix[:, ends - counts]).T  # the difference alone
+        monkeypatch.setattr(tpairs, "_prefix_sum", scan)
+        got = tpairs.reduce_aligned_cotangents(
+            torch.from_numpy(d_rows), torch.from_numpy(gid), torch.from_numpy(counts),
+            n).numpy()
+        assert (raw[quiet] != 0).any() and (got[quiet] == 0).all()
+        assert _col_rel_norm(got.astype(np.float64), _bincount64(d_rows, gid, n)).max() \
+            <= COL_REL_NORM
+    else:
+        s_b, seg = _frame_blocks(11, nb=2_000, num_tiles=150, pad=50)
+        g = rng.normal(size=s_b.shape).astype(np.float32)
+        tail = np.zeros(s_b.shape, bool)    # each (tile, pixel) from a random block on
+        for a, b in _runs(seg):
+            cut = rng.integers(a, b + 1, P2)
+            tail[a:b] = np.arange(a, b)[:, None] >= cut[None, :]
+        g[tail] = 0.0
+        behind = tail | np.roll(tail, -1, axis=0) & (np.roll(seg, -1) == seg)[:, None]
+        monkeypatch.setattr(tpairs, "_prefix_sum", scan)
+        x = torch.from_numpy(s_b).requires_grad_(True)
+        got = torch.autograd.grad(trast.incoming_log_t(x, torch.from_numpy(seg), 150), x,
+                                  torch.from_numpy(g))[0].numpy()
+        ref = torch.autograd.grad(
+            (_per_tile_f64_torch(x, torch.from_numpy(seg), 150)
+             * torch.from_numpy(g).double()).sum(), x)[0].numpy()
+        assert behind.sum() > 10_000 and (got[behind] == 0).all()
+        assert _ulps_off(got, ref).max() <= 1.0
