@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-GPU smoke test of the PyTorch port's render and training paths (one
-NVIDIA card).
+"""On-GPU smoke test of the PyTorch port's render and training paths, its
+user tools and its measuring tools (one NVIDIA card).
 
 Run from the repository root with no arguments:
 
@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   3. kernel   the Hopper designs of the forward and backward kernels
               (gs_blend_fwd_win, gs_blend_bwd_win) against their plain
               PyTorch versions on the card: small edge-case windows (dead,
-              partial, full and unaligned blocks, B = 16 and 128, row0 0 and
+              partial, full and unaligned blocks, B = 16, 64 and 128, row0 0 and
               3) and the full-size windows of the 100k-Gaussian scene's
               canonical 800x608 view (the backward given the forward's S_b
               and the real cotangent of the full-size loss, launched twice
@@ -24,7 +24,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               its first design (gs_blend_*_win_v1, one thread per pixel,
               which nothing else calls) timed in turns (first, Hopper,
               Hopper, first) with CUDA events, the plain versions timed;
-              the work the inputs need (_blend_work: power tests on the
+              the work the inputs need (utils.sol.blend_work: power tests on the
               (warp, lane) pairs the box cull keeps, kept pairs) and from it
               each kernel's bound; the share of (warp, lane) pairs that
               entered the first design's backward shuffle tree.
@@ -82,8 +82,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               capacities and its device-time breakdown (torch.profiler) at
               iterations 0 and 36; the density event, opacity reset,
               checkpoint and CLI iteration times.
+  8. garden    the garden main path at full width: utils/scenegen's procedural
+              scene through tools.make_dataset at its defaults (200 views,
+              800x608, 150,000 SfM points, seed 0; the ray tracer's ms per
+              view, the PNG writing and the total time); render_view and the
+              SfM colours on the card against the CPU (64x48, tests/
+              test_torch_scenegen.py's bars); the config-4 flags the port has
+              through tools.train (GARDEN_* below; one cut, 4 epochs: 760
+              iterations, densify at 600 and 700): every step finite, `alive`
+              a prefix after each event, both kernels once per step, the
+              rate, events, rebuckets, peak pairs, overflow steps, train
+              PSNR, the held-out eval and the PLY, the final state's step at
+              the adaptive pair capacity and at the pinned 2^24 (its
+              device-time profile); the facade (models.
+              GaussianModel) on its checkpoint and PLY and from_colmap_scene
+              with 16 iterations of train; the HTTP viewer (tools.view) on
+              its PLY (20 frames along an orbit: JPEGs that decode, no
+              overflow, p50 / p90 ms request to response) and on its
+              checkpoint (/train?n=10 advances the iteration and changes the
+              next frame); the graft entry (graft_entry.entry, #1 at B = 64)
+              against the plain blend.
+  9. tools     the measuring tools at the full-size scene: tools.profile's
+              stage times, tools.trace's 5-step capture (top groups, device
+              ms per step, the card's idle share), utils.sol.step_model's
+              floor, which must lie below the measured device time.  The
+              kernels' bounds (phases 3 and 6) come from utils.sol too.
 
-Every main path (phases 4-7) runs with the launch counts set to 0 before
+Every main path (phases 4-9) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
@@ -94,7 +119,7 @@ bound_by (the larger of
 this run's bytes over the HBM rate and its instructions over the f32
 instruction rate), the work behind it (power_tests, kept_pairs,
 culled_share), library_ms (null: no single PyTorch call computes the
-windowed blend)) and the paths' times, then as its last line
+windowed blend)) and the paths' times and counts, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -129,26 +154,12 @@ PAIRS_REL_TOL = 1e-3
 # S_b reaches |S_b| ~ 1e2 where float32 spacing is ~8e-6, hence the
 # relative term
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 1e-5
-# phase 3: launches per CUDA-event time
+# phase 3: launches per CUDA-event time; the edge windows' pair_block
+# values (64: the graft entry's, graft_entry.entry)
 KERNEL_REPS = 20
-# the bound of a kernel (bound_ms): an H100 SXM's HBM rate and its f32
-# instruction rate outside the tensor cores (NVIDIA's data sheet, at 700 W:
-# its 67 TFLOP/s counts an FMA as two operations, so 33.5e12 instructions
-# per second, 128 per SM per clock), and the instructions the blend needs,
-# each separately rounded multiply, add, compare or FMA counted once: per
-# (pixel, lane) power test 7 multiplies, 1 add, 1 subtraction and the 2
-# window compares (11; dx and dy are shared along a column and a row); per
-# kept pair in the forward op * exp, the floor compare, the cap,
-# w = alpha T, 3 colour FMAs, T *= 1 - alpha and S += log1p (12); in the
-# backward op * exp, the floor compare, the cap, 1 - alpha and its
-# reciprocal, T, w, e (3), dl, dpow (3), dpow dx and dpow dy, the nine sums
-# and the suffix (27).  exp, log1p and the reciprocal count as one each,
-# though each takes several, so the bound stays a lower bound
-HBM_BYTES_PER_S = 3.35e12
-F32_INSTR_PER_S = 67e12 / 2
-OPS_PER_TEST = 11
-FWD_OPS_PER_KEPT = 12
-BWD_OPS_PER_KEPT = 27
+EDGE_BLOCKS = (16, 64, 128)
+# the bound of a kernel (bound_ms): utils.sol (the H100's rates, the
+# instructions per power test and per kept pair)
 # backward kernel vs plain, per cotangent column, relative to the column's
 # largest magnitude: both take every mask from the same rounded power, but
 # the kernel sums the suffix sum_{j>i} e_j w_j and the log-transmittance
@@ -211,8 +222,8 @@ TRAINLOOP_CKPT_EVERY = 16
 # the smallest power of two above the run's peak (3,439,743 pairs after the
 # densify at 32 on the H100); the step's compose and sorts scale with it
 TRAINLOOP_PAIR_CAPACITY = 1 << 22
-# the device-time profiles (_device_profile) of the frame, the full-size
-# step and the COLMAP trainer's step (_step_breakdown): calls profiled,
+# the device-time profiles (tools.trace.device_profile) of the frame, the full-size
+# step and the COLMAP trainer's step (tools.trace.step_breakdown): calls profiled,
 # kernels printed
 STEP_PROFILE_STEPS = 3
 STEP_PROFILE_TOP = 12
@@ -221,6 +232,42 @@ STEP_PROFILE_TOP = 12
 DENSITY_ATOL = 1e-6
 DENSITY_SEED = 7
 DENSITY_EXTENT = 4.0
+# phase 8: the garden, utils/scenegen's procedural scene at the size of
+# BASELINE.md config #4 (tools.make_dataset's defaults), trained with the
+# flags of scripts/run_config4.sh:11-27 that the port has (f32: no
+# --payload-dtype bf16, no --scan-steps 10), one cut: GARDEN_EPOCHS of the
+# schedule's 150 (760 of 28,500 iterations; the default density schedule
+# densifies at 600 and 700, its first opacity reset at 3,000 lies beyond)
+GARDEN_VIEWS = 200
+GARDEN_WIDTH, GARDEN_HEIGHT = 800, 608
+GARDEN_POINTS = 150_000
+GARDEN_EPOCHS = 4
+GARDEN_EVAL_SPLIT = 20
+GARDEN_CKPT_EVERY = 250
+GARDEN_DENSIFY_AT = [600, 700]
+# the renderer on the card vs the CPU (tests/test_torch_scenegen.py's bars):
+# render_view at 64x48 of two ring poses and 2000 SfM colours, each channel
+# within SCENE_COLOR_ATOL; beyond it only where a camera hit, palette,
+# shadow or texture hash (a wrap) differs, at most SCENE_MAX_EXCUSED of the
+# pixels.  The card's sinf wraps a hash more often than torch's CPU sin does
+# against JAX's, most on the ground, whose lattice coordinates are largest
+# (12 of 2000 SfM colours excused, 6 and 9 of 3072 pixels, on an NVIDIA H100
+# 80GB HBM3 at 700 W): the points' share is capped at SCENE_MAX_EXCUSED_POINTS
+GARDEN_SMALL = (64, 48)
+GARDEN_SAMPLES = 2000
+SCENE_COLOR_ATOL = 3e-3
+SCENE_MAX_EXCUSED = 5e-3
+SCENE_MAX_EXCUSED_POINTS = 2e-2
+# the facade: from_colmap_scene then train on this many views; a PLY round
+# trip renders within FACADE_PLY_ATOL (tests/test_model.py:40)
+FACADE_ITERS = 16
+FACADE_PLY_ATOL = 1e-3
+# the viewer: its default size, frames along an orbit, /train steps
+VIEWER_SIZE = (800, 600)
+VIEWER_FRAMES = 20
+VIEWER_TRAIN = 10
+# phase 9: tools.trace's steps
+TRACE_STEPS = 5
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -230,18 +277,11 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    import torch
+    """ms per call of ``fn`` on DEVICE (tools.profile.time_ms: CUDA events
+    around ``reps`` calls after a warm one)."""
+    from gaussiansplatting_tpu_torch.tools.profile import time_ms
 
-    fn()                                   # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return time_ms(fn, reps, DEVICE)
 
 
 def phase_device():
@@ -367,146 +407,6 @@ def _turns(first, second, reps=KERNEL_REPS):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def _cull_extent(ca, cb, cc, op, power_floor, alpha_floor):
-    """Half-extents (ex, ey) of each lane's padded ellipse box, as
-    blend_common.cuh's cull_extent computes them: -inf where no pixel can
-    keep the lane, +inf where the conic is too near singular to cull."""
-    import torch
-
-    inf = torch.full_like(op, float("inf"))
-    thr = torch.fmax(torch.log(alpha_floor / op), torch.full_like(op, power_floor))
-    thr = thr - (1e-3 + 1e-4 * thr.abs())
-    det = ca * cc - cb * cb
-    regular = (ca > 0) & (cc > 0) & (det > 0.1 * ca * cc)
-    r = -2.0 * thr
-    never = (op == 0) | (thr >= 0)
-    ex = torch.where(regular, torch.sqrt(r * cc / det) * 1.001 + 0.01, inf)
-    ey = torch.where(regular, torch.sqrt(r * ca / det) * 1.001 + 0.01, inf)
-    return torch.where(never, -inf, ex), torch.where(never, -inf, ey)
-
-
-def _blend_work(args, logti=None, log_thr=0.0, chunk=128):
-    """What the blend's inputs need at ts = 16, counted from the plain
-    replay on the card (ops.blend._replay) in chunks of blocks, for the
-    Hopper designs' layouts (``fwd`` and ``bwd``: column strips of P pixels
-    per thread, P from ops.blend.launch_geometry, of the T-floor instances
-    with logti; a warp covers 16 x 2P pixels): the lanes each reads (``live_fwd``, ``live_bwd``); the kept
-    pairs (with logti, those that survive the T-floor); per layout the
-    (warp, lane) pairs on lanes with opacity (``pairs_*``), those whose
-    padded box misses the warp's rectangle (``culled_*``), and on the rest
-    the power tests the pixels need (``tests_*``).  Without logti a pixel
-    tests every live lane.  With logti (the T-floor pass) the forward reads
-    the lanes of blocks with a pixel above the floor and a pixel tests the
-    lanes up to its first kept lane that fails (all, if none does; none if
-    it arrives at or below the floor); the backward reads the lanes before
-    the block's largest stop lane and a pixel tests the lanes before its
-    own.  The backward's output depends on a pixel's cotangent and S_b
-    only where the pixel keeps a lane (with logti: a surviving one, stop >
-    0), ``bwd_pixels``; ``bwd_blocks`` counts the blocks whose lanes it
-    reads (a live lane; with logti, a stop > 0).  Without logti, also the (warp,
-    lane) pairs that enter the first design's backward shuffle tree (a warp
-    = 32 consecutive pixels, lanes below block_valid) and the (warp, batch
-    of 4 lanes) exchanges of the Hopper backward.  Raises if a kept pair
-    lies in a culled (warp, lane) pair."""
-    import torch
-    import torch.nn.functional as F
-
-    from gaussiansplatting_tpu_torch.ops import blend
-
-    table, src, valid, tile, row0, block, consts = args
-    ts, power_floor, _, alpha_floor, tiles_x = consts
-    nb, p2 = src.shape[0], int(ts) ** 2
-    if p2 != 256:
-        raise ValueError(f"_blend_work counts 16 x 16 tiles, got tile_size {ts}")
-    layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd", tfloor=logti is not None)[0]
-               for d in ("fwd", "bwd")}
-    w = dict.fromkeys(("live_fwd", "live_bwd", "bwd_blocks", "bwd_pixels", "kept", "tree_v1",
-                       "lanes_v1", "exchanges", "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
-                                          for d in layouts), 0)
-    w["pixels"] = layouts
-    for k0 in range(0, nb, chunk):
-        k1 = min(k0 + chunk, nb)
-        r = blend._replay(table, src, valid, tile, row0, block, consts, k0, k1)
-        kept = r.alpha > 0                                          # [K, P2, B]
-        k, b = kept.shape[0], kept.shape[2]
-        lane = torch.arange(b, device=kept.device)
-        nv = r.live.sum(1)                                          # [K]
-        if logti is None:
-            surv = kept
-            need = {d: nv[:, None].expand(k, p2) for d in layouts}   # [K, P2]
-            w["live_fwd"] += int(nv.sum())
-            w["live_bwd"] += int(nv.sum())
-            w["bwd_blocks"] += int((nv > 0).sum())
-            w["bwd_pixels"] += int(kept.any(-1).sum())
-        else:
-            arrive = torch.cumsum(r.log1m, -1) - r.log1m + logti[k0:k1, :, None]
-            surv = kept & (arrive > log_thr)
-            fail = torch.where(kept & ~surv, lane, b).amin(-1)       # [K, P2]
-            open_px = logti[k0:k1] > log_thr
-            stop = torch.where(surv, lane + 1, 0).amax(-1)
-            need = {"fwd": torch.where(open_px, torch.minimum(fail + 1, nv[:, None]), 0),
-                    "bwd": stop}
-            w["live_fwd"] += int((nv * open_px.any(1)).sum())
-            w["live_bwd"] += int(stop.amax(1).sum())
-            w["bwd_blocks"] += int((stop.amax(1) > 0).sum())
-            w["bwd_pixels"] += int((stop > 0).sum())
-        w["kept"] += int(surv.sum())
-        t = tile[k0:k1]
-        mx = r.cols[1] - ((t % tiles_x).float() * 16 + 8)[:, None]    # [K, B]
-        my = r.cols[2] - ((t // tiles_x + row0).float() * 16 + 8)[:, None]
-        ex, ey = _cull_extent(r.cols[3], r.cols[4], r.cols[5], r.op, power_floor,
-                              alpha_floor)
-        has_op = (r.op > 0)[:, None, :]                              # [K, 1, B]
-        for name, pixels in layouts.items():
-            rows = 2 * pixels                  # a warp: 16 columns x rows
-            warps = 16 // rows
-            cy = (torch.arange(warps, device=kept.device) * rows
-                  + (rows - 1) / 2.0 + 0.5 - 8.0)[None, :, None]   # [1, W, 1]
-            meets = (((0.0 - mx).abs() <= 7.5 + ex)[:, None, :]
-                     & ((cy - my[:, None, :]).abs() <= (rows - 1) / 2.0 + ey[:, None, :]))
-            if bool((kept.reshape(k, warps, -1, b).any(2) & ~meets).any()):
-                raise AssertionError(f"_blend_work ({name}): a kept pair lies outside "
-                                     f"its lane's padded box")
-            tested = has_op & meets                                 # [K, W, B]
-            w[f"pairs_{name}"] += int(has_op.sum()) * warps
-            w[f"culled_{name}"] += int((has_op & ~meets).sum())
-            testers = (lane < need[name][:, :, None]).reshape(k, warps, -1, b).sum(2)
-            w[f"tests_{name}"] += int((tested * testers).sum())
-        if logti is None:
-            w["tree_v1"] += int(kept.reshape(k, 8, 32, b).any(2).sum())
-            w["lanes_v1"] += 8 * int(nv.sum())
-            warps = p2 // (32 * layouts["bwd"])
-            parts = F.pad(kept.reshape(k, warps, -1, b).any(2), (0, -b % 4))
-            w["exchanges"] += int(parts.reshape(k, warps, -1, 4).any(3).sum())
-            w["batches"] += warps * int(((nv + 3) // 4).sum())
-    return w
-
-
-def _bound(nbytes, ops):
-    """(bound ms, what sets it): the larger of the bytes over the H100's HBM
-    rate and the instructions over its f32 instruction rate (NVIDIA's data
-    sheet)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _work_bound(w, layout, nbytes, ops_per_kept):
-    """A kernel's bound from _blend_work's counts for its layout: the
-    kernels-line fields (bound_ms, bound_by, power_tests, kept_pairs,
-    culled_share) and a log line of the work."""
-    tests, kept = w[f"tests_{layout}"], w["kept"]
-    ops = OPS_PER_TEST * tests + ops_per_kept * kept
-    bound_ms, bound_by = _bound(nbytes, ops)
-    res = {"bound_ms": bound_ms, "bound_by": bound_by, "power_tests": tests,
-           "kept_pairs": kept, "culled_share": w[f"culled_{layout}"] / w[f"pairs_{layout}"]}
-    line = (f"{w[f'live_{layout}']} lanes read; the box cull skips {w[f'culled_{layout}']} of "
-            f"{w[f'pairs_{layout}']} (warp, lane) pairs ({res['culled_share']:.4f}); "
-            f"{tests} power tests, {kept} kept pairs ({kept / max(tests, 1):.4f} of the "
-            f"tests); {nbytes} bytes, {ops} instructions: bound {bound_ms:.4f} ms "
-            f"({bound_by})")
-    return res, line
-
-
 def _edge_args(block, row0, cfg):
     import torch
 
@@ -525,8 +425,9 @@ def phase_kernel(params, camera, cfg, smi):
 
     from gaussiansplatting_tpu_torch.ops import blend
     from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows
+    from gaussiansplatting_tpu_torch.utils import sol
 
-    for block in (16, 128):
+    for block in EDGE_BLOCKS:
         for row0 in (0, 3):
             args = _edge_args(block, row0, cfg)
             want = blend.windowed_blend_fwd_plain(*args)
@@ -553,10 +454,10 @@ def phase_kernel(params, camera, cfg, smi):
         f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
         f"each) on {smi}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
-    w = _blend_work(args)
+    w = sol.blend_work(args)
     p2, block = 256, args[5]
-    bound, line = _work_bound(w, "fwd", 40 * w["live_fwd"] + 12 * nb + 4 * nb * (4 * p2 + block),
-                              FWD_OPS_PER_KEPT)
+    bound, line = sol.work_bound(w, "fwd", 40 * w["live_fwd"] + 12 * nb + 4 * nb * (4 * p2 + block),
+                                 sol.FWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel] forward work ({w['pixels']['fwd']} pixels per thread): {line}")
     return res, args, block_tile, w
@@ -614,8 +515,9 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     import torch
 
     from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.utils import sol
 
-    for block in (16, 128):
+    for block in EDGE_BLOCKS:
         for row0 in (0, 3):
             e = _edge_args(block, row0, cfg)
             g = torch.from_numpy(np.random.default_rng(block + row0 + 1).normal(
@@ -651,8 +553,8 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     # bytes: 40 per lane read, block_valid, block_src and tile of the blocks
     # with a live lane, g and s_b of the pixels that keep a lane, nine
     # columns out
-    bound, line = _work_bound(w, "bwd", 40 * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
-                              + 20 * w["bwd_pixels"] + 36 * nb * block, BWD_OPS_PER_KEPT)
+    bound, line = sol.work_bound(w, "bwd", 40 * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
+                                 + 20 * w["bwd_pixels"] + 36 * nb * block, sol.BWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel bwd] backward work ({w['pixels']['bwd']} pixels per thread): {line}")
     # the first design's shuffle tree: 45 shuffles per (warp, lane) that a
@@ -725,7 +627,7 @@ def phase_train(params, camera, gt, smi):
     from gaussiansplatting_tpu_torch.config import Config, RasterConfig
     from gaussiansplatting_tpu_torch.core import gaussians
     from gaussiansplatting_tpu_torch.ops import blend
-    from gaussiansplatting_tpu_torch.tools import bench_train
+    from gaussiansplatting_tpu_torch.tools import bench_train, trace
     from gaussiansplatting_tpu_torch.train import schedule
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train.trainer import train_step
@@ -775,9 +677,9 @@ def phase_train(params, camera, gt, smi):
     if st.opt.t != TRAIN_TIMED_STEPS + 1:
         raise AssertionError(f"full-size train step: t is {st.opt.t}")
     _check_finite_state("full-size train step", st)
-    step_device_ms, _ = _device_profile(
+    step_device_ms, _ = trace.device_profile(
         "[train] full-size step", lambda: train_step(st, camera, gt, cfg, TRAIN_TOTAL_ITERS),
-        STEP_PROFILE_STEPS, smi)
+        STEP_PROFILE_STEPS, smi, DEVICE, log, STEP_PROFILE_TOP)
     log(f"[train] main path: {launches[0]} windowed_blend_fwd and {launches[1]} "
         f"windowed_blend_bwd kernel launches")
     if min(launches) <= 0:
@@ -1070,10 +972,11 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     from gaussiansplatting_tpu_torch.ops.projection import num_tiles
     from gaussiansplatting_tpu_torch.ops.rasterize import (
         blend_windows, incoming_log_t, render)
+    from gaussiansplatting_tpu_torch.tools import trace
     from gaussiansplatting_tpu_torch.train import schedule
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train.trainer import train_step
-    from gaussiansplatting_tpu_torch.utils import synthetic
+    from gaussiansplatting_tpu_torch.utils import sol, synthetic
 
     cfg_tf = cfg.replace(t_floor_exact=True)
     log_thr = math.log(cfg_tf.transmittance_floor)
@@ -1153,19 +1056,19 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         b1 = args[:6] + (g1, out[:, 3].contiguous(), args[6])
         _compare_bwd("first pass (as _bwd_kernel)", blend.windowed_blend_bwd(*b1),
                      blend.windowed_blend_bwd_plain(*b1))
-    w = _blend_work(args, logti, log_thr)
+    w = sol.blend_work(args, logti, log_thr)
     nb, p2, block = args[1].shape[0], 256, args[5]
     # bytes: 36 per lane read (no gid), the block's three ints; forward logti
     # in, out and stop out; backward stop in, the three ints of the blocks
     # with a stop > 0, g and s_b of the pixels with a stop > 0 (a block
     # whose stops are all 0 writes zeros from stop alone), nine columns out
-    res["fwd_bound"], line = _work_bound(
-        w, "fwd", 36 * w["live_fwd"] + 12 * nb + 4 * nb * 6 * p2, FWD_OPS_PER_KEPT)
+    res["fwd_bound"], line = sol.work_bound(
+        w, "fwd", 36 * w["live_fwd"] + 12 * nb + 4 * nb * 6 * p2, sol.FWD_OPS_PER_KEPT)
     log(f"[tfloor] forward work ({w['pixels']['fwd']} pixels per thread; power tests up "
         f"to each pixel's first failing kept lane, surviving kept pairs): {line}")
-    res["bwd_bound"], line = _work_bound(
+    res["bwd_bound"], line = sol.work_bound(
         w, "bwd", 36 * w["live_bwd"] + 12 * w["bwd_blocks"] + 4 * nb * p2
-        + 20 * w["bwd_pixels"] + 36 * nb * block, BWD_OPS_PER_KEPT)
+        + 20 * w["bwd_pixels"] + 36 * nb * block, sol.BWD_OPS_PER_KEPT)
     log(f"[tfloor bwd] {w['bwd_blocks']} of {nb} blocks and {w['bwd_pixels']} of "
         f"{nb * p2} (block, pixel) entries have a stop lane > 0")
     log(f"[tfloor bwd] backward work ({w['pixels']['bwd']} pixels per thread; power "
@@ -1287,9 +1190,10 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     _check_finite_state("T-floor train step", st)
     if min(train_launches[k] for k in MAIN_ENTRIES) < 1:
         raise AssertionError(f"the T-floor step did not launch every kernel: {train_launches}")
-    res["step_device_ms"], _ = _device_profile(
+    res["step_device_ms"], _ = trace.device_profile(
         "[tfloor] full-size T-floor step",
-        lambda: train_step(st, camera, gt, tcfg, TRAIN_TOTAL_ITERS), STEP_PROFILE_STEPS, smi)
+        lambda: train_step(st, camera, gt, tcfg, TRAIN_TOTAL_ITERS), STEP_PROFILE_STEPS, smi,
+        DEVICE, log, STEP_PROFILE_TOP)
     log(f"[tfloor] full-size T-floor step: the card idles "
         f"{1 - res['step_device_ms'] / res['step_ms']:.3f} of the step (1 - device time / "
         f"host clock {res['step_ms']:.3f} ms)")
@@ -1340,10 +1244,12 @@ def _read_ppm(path):
     return np.frombuffer(body, np.uint8).reshape(h, w, 3).copy()
 
 
-def _check_image(label, img):
+def _check_image(label, img, width=None, height=None):
+    """A finite, non-constant [height, width, 3] image (default: the
+    full-size frame)."""
     import torch
 
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+    if tuple(img.shape) != (height or HEIGHT, width or WIDTH, 3):
         raise AssertionError(f"{label}: shape {tuple(img.shape)}")
     img = torch.as_tensor(img).float()
     if not bool(torch.isfinite(img).all()):
@@ -1360,6 +1266,7 @@ def phase_render(params, camera, cfg, smi):
     from gaussiansplatting_tpu_torch.ops import blend
     from gaussiansplatting_tpu_torch.ops.rasterize import render
     from gaussiansplatting_tpu_torch.tools import render as render_cli
+    from gaussiansplatting_tpu_torch.tools import trace
     from gaussiansplatting_tpu_torch.utils import synthetic
 
     os.makedirs(SCRATCH, exist_ok=True)
@@ -1404,8 +1311,9 @@ def phase_render(params, camera, cfg, smi):
     frame_ms = cuda_time_ms(frame, reps=10)
     log(f"[render] canonical view: {frame_ms:.3f} ms/frame warm (CUDA events, "
         f"10 frames) on {smi}")
-    frame_device_ms, _ = _device_profile("[render] canonical view", frame,
-                                         STEP_PROFILE_STEPS, smi)
+    frame_device_ms, _ = trace.device_profile("[render] canonical view", frame,
+                                              STEP_PROFILE_STEPS, smi, DEVICE, log,
+                                              STEP_PROFILE_TOP)
 
     # the whole path on the card against the CPU path (plain blend) at a
     # small size
@@ -1596,61 +1504,6 @@ def _psnr_rises(psnr, n_views, events):
     return out
 
 
-def _device_profile(label, fn, reps, smi):
-    """Kernels-only torch.profiler of ``reps`` calls of ``fn`` (warmed once):
-    logs the device ms per call and the STEP_PROFILE_TOP largest kernels;
-    returns (device ms per call, {kernel name: ms per call})."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    per = 1e3 * reps                                # profiler us -> ms per call
-    kernels = {e.key: e.self_device_time_total / per for e in ka}
-    total = sum(kernels.values())
-    log(f"{label}: device time {total:.3f} ms per call (torch.profiler, {reps} calls) on {smi}")
-    for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:STEP_PROFILE_TOP]:
-        log(f"{label}   {e.self_device_time_total / per:8.3f} ms x{e.count // reps:4d}  "
-            f"{e.key[:90]}")
-    # what compose's global float32 prefix used to cost: torch's outer-dim
-    # cumsum and the gather's index-put backward
-    outer, put = (sum(v for k, v in kernels.items() if s in k)
-                  for s in ("scan_outer_dim", "indexing_backward"))
-    log(f"{label}   outer-dim scans {outer:.3f} ms, index-put backward {put:.3f} ms per call")
-    return total, kernels
-
-
-def _step_breakdown(st0, st36, cam, gt, cfg, smi):
-    """Where the COLMAP trainer's step goes on the card: one train step from
-    the state at iteration 0 (the SfM start) and at 36 (after the last
-    densify), timed with CUDA events at pair capacities PAIR_CAPACITY (2^21)
-    and TRAINLOOP_PAIR_CAPACITY, and a kernels-only torch.profiler breakdown of
-    STEP_PROFILE_STEPS steps at TRAINLOOP_PAIR_CAPACITY (device ms per step,
-    the STEP_PROFILE_TOP largest kernels).  Returns {label: device ms per
-    step} from the profile."""
-    from gaussiansplatting_tpu_torch.train import trainer
-
-    device_ms = {}
-    for label, st in (("iteration 0", st0), ("iteration 36", st36)):
-        alive = int(st.params.alive.sum())
-        for pc in sorted({PAIR_CAPACITY, TRAINLOOP_PAIR_CAPACITY}):
-            c = cfg.replace(raster=cfg.raster.replace(pair_capacity=pc))
-            _, m = trainer.train_step(st, cam, gt, c, 36)
-            ms = cuda_time_ms(lambda: trainer.train_step(st, cam, gt, c, 36), reps=3)
-            log(f"[trainloop step] {label}: {alive} alive of {st.params.capacity} slots, "
-                f"pair_capacity {pc}: {ms:.3f} ms/step (CUDA events, 3 steps), pairs "
-                f"{int(m.num_pairs)}, overflow {bool(m.overflow)} on {smi}")
-        c = cfg.replace(raster=cfg.raster.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
-        device_ms[label], _ = _device_profile(
-            f"[trainloop step] {label} profile at pair_capacity {TRAINLOOP_PAIR_CAPACITY}",
-            lambda: trainer.train_step(st, cam, gt, c, 36), STEP_PROFILE_STEPS, smi)
-    return device_ms
-
-
 def phase_trainloop(params, smi):
     """The COLMAP trainer (tools.train) end to end: write the scene, train
     through the CLI, resume through the CLI, a bit-exact resume across a
@@ -1663,7 +1516,7 @@ def phase_trainloop(params, smi):
     from gaussiansplatting_tpu_torch.config import Config
     from gaussiansplatting_tpu_torch.density import control
     from gaussiansplatting_tpu_torch.io.dataset import load_colmap_scene
-    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.tools import trace
     from gaussiansplatting_tpu_torch.train import checkpoint, trainer
     from gaussiansplatting_tpu_torch.train import state as state_mod
 
@@ -1882,8 +1735,12 @@ def phase_trainloop(params, smi):
     # (vi) times at full capacity: the step's breakdown, the density
     # event, the opacity reset
     st0 = state_mod.create(scene.params, seed=saved_cfg.train.seed)
-    res["step_device_ms"] = _step_breakdown(st0, state36, views[0][0], views[0][1],
-                                            saved_cfg, smi)
+    # where the step goes: timed at 2^21 and TRAINLOOP_PAIR_CAPACITY, and
+    # profiled at the latter, at iterations 0 (the SfM start) and 36
+    res["step_device_ms"] = trace.step_breakdown(
+        {"iteration 0": st0, "iteration 36": state36}, views[0][0], views[0][1], saved_cfg,
+        [PAIR_CAPACITY, TRAINLOOP_PAIR_CAPACITY], TRAINLOOP_PAIR_CAPACITY, 36, smi, DEVICE,
+        log, "[trainloop step]", STEP_PROFILE_STEPS, STEP_PROFILE_TOP)
     st = state36
     fx = views[0][0].fx
     res["densify_ms"] = cuda_time_ms(lambda: trainer.densify_step(st, scene.extent, fx, saved_cfg),
@@ -1904,6 +1761,436 @@ def phase_trainloop(params, smi):
         f"save {res['save_s']:.3f} s, load {res['load_s']:.3f} s ({os.path.getsize(path)} "
         f"bytes) on {smi}")
     shutil.rmtree(root)
+    return res
+
+
+def _shading_differs(points, normals, pal):
+    """[N] True where the card's shading of CPU surface points rests on
+    another decision than the CPU's (scenegen.shading_flags: the shadow
+    ray's hit, or a texture hash that wraps, off by > 0.5)."""
+    from gaussiansplatting_tpu_torch.utils import scenegen
+
+    sh_c, hash_c = scenegen.shading_flags(points, normals, pal)
+    sh_d, hash_d = scenegen.shading_flags(points.to(DEVICE), normals.to(DEVICE), pal.to(DEVICE))
+    return (sh_c != sh_d.cpu()) | ((hash_c - hash_d.cpu()).abs() > 0.5).any(-1)
+
+
+def _scene_card_vs_cpu(smi):
+    """The garden renderer on the card against the CPU at the bars of
+    tests/test_torch_scenegen.py: render_view at 64x48 of the first two ring
+    poses and sample_surface_points(2000) (positions exact).  Every channel
+    within SCENE_COLOR_ATOL; a pixel or point beyond it is excused only
+    where its camera hit, palette, shadow or a texture hash (a wrap)
+    differs, and the excused ones may be at most SCENE_MAX_EXCUSED of the
+    pixels, SCENE_MAX_EXCUSED_POINTS of the points.
+    Returns the max error outside them."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.core.camera import quat_to_rotmat_np
+    from gaussiansplatting_tpu_torch.utils import scenegen
+
+    def judge(label, err, flagged, max_share):
+        beyond = err > SCENE_COLOR_ATOL
+        excused = beyond & flagged
+        worst = float(err[~excused].max())
+        log(f"[garden] {label}, card vs CPU: max|err| {worst:.2e} outside {int(excused.sum())} "
+            f"excused of {err.numel()} ({int(flagged.sum())} flagged)")
+        if bool((beyond & ~flagged).any()) or excused.float().mean() > max_share:
+            raise AssertionError(f"{label} on the card disagrees with the CPU")
+        return worst
+
+    w, h = GARDEN_SMALL
+    fx = 0.5 * w / np.tan(0.5 * np.deg2rad(60.0))
+    sph, box, _, _ = scenegen._scene_arrays("cpu")
+    worst = 0.0
+    for i, (q, t, _) in enumerate(scenegen.camera_ring_poses(GARDEN_VIEWS, seed=0)[:2]):
+        view = (quat_to_rotmat_np(q), t, fx, fx, w / 2, h / 2, w, h)
+        ref = torch.from_numpy(scenegen.render_view(*view, device="cpu"))
+        got = torch.from_numpy(scenegen.render_view(*view, device=DEVICE))
+        o, d = scenegen.camera_rays(*view, device="cpu")
+        tc, hc, nc, pc = scenegen._intersect(sph, box, o, d)
+        _, hd, _, pd = scenegen._intersect(sph.to(DEVICE), box.to(DEVICE), o.to(DEVICE),
+                                           d.to(DEVICE))
+        p = o + tc[..., None] * d
+        flagged = (hc != hd.cpu()) | (pc != pd.cpu()) | (hc & _shading_differs(p, nc, pc))
+        worst = max(worst, judge(f"render_view {w}x{h}, ring pose {i}",
+                                 (got - ref).abs().amax(-1), flagged, SCENE_MAX_EXCUSED))
+    pc_, cc = scenegen.sample_surface_points(GARDEN_SAMPLES, seed=1, device="cpu")
+    pd_, cd = scenegen.sample_surface_points(GARDEN_SAMPLES, seed=1, device=DEVICE)
+    if not np.array_equal(pd_, pc_):
+        raise AssertionError("sample_surface_points: positions differ between card and CPU")
+    pts, nrm, pal = (torch.from_numpy(x) for x in
+                     scenegen.surface_samples(GARDEN_SAMPLES, np.random.default_rng(1)))
+    return max(worst, judge(f"sample_surface_points({GARDEN_SAMPLES}) colours",
+                            torch.from_numpy(np.abs(cd - cc).max(1)),
+                            _shading_differs(pts, nrm, pal), SCENE_MAX_EXCUSED_POINTS))
+
+
+def _garden_camera(sparse, images_dir, index):
+    """The ``index``-th COLMAP view of the garden on the card, with its
+    ground truth as a host array."""
+    from gaussiansplatting_tpu_torch.core import camera as camera_mod
+    from gaussiansplatting_tpu_torch.io import colmap, images
+
+    data = colmap.load_colmap(sparse)
+    im = data.images[index]
+    c = data.cameras[im.camera_id]
+    cam = camera_mod.make_camera(im.quat_wxyz, im.translation, c.fx, c.fy, c.cx, c.cy,
+                                 c.width, c.height, device=DEVICE)
+    return cam, images.load_image(images.find_image(images_dir, im.name))
+
+
+def _psnr(img, gt):
+    import numpy as np
+
+    return float(-10.0 * np.log10(max(float(np.mean((img - gt) ** 2)), 1e-10)))
+
+
+def _http_get(url, timeout=300):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def phase_garden(smi):
+    """The garden main path: the dataset through tools.make_dataset, the
+    renderer on the card against the CPU, the config-4 schedule through
+    tools.train (one cut: GARDEN_EPOCHS), the facade on its outputs, the
+    viewer on its PLY and checkpoint, and the graft entry."""
+    import argparse
+    import contextlib
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussiansplatting_tpu_torch import graft_entry
+    from gaussiansplatting_tpu_torch.config import RasterConfig
+    from gaussiansplatting_tpu_torch.io import colmap
+    from gaussiansplatting_tpu_torch.models import GaussianModel
+    from gaussiansplatting_tpu_torch.ops import blend, rasterize
+    from gaussiansplatting_tpu_torch.tools import make_dataset, trace, view
+    from gaussiansplatting_tpu_torch.train import checkpoint, trainer
+
+    root = os.path.join(SCRATCH, "garden")
+    shutil.rmtree(root, ignore_errors=True)
+    sparse, image_dir = os.path.join(root, "sparse", "0"), os.path.join(root, "images")
+    res = {"launches": {}}
+
+    # (i) the dataset through its CLI, at its defaults
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = make_dataset.main(["--out", root, "--device", DEVICE])
+    ds = json.loads(buf.getvalue().strip().splitlines()[-1])
+    n_images = len(os.listdir(image_dir))
+    n_points = len(colmap.load_colmap(sparse).points)
+    log(f"[garden] tools.make_dataset: {n_images} views {ds['width']}x{ds['height']}, "
+        f"{n_points} SfM points; the ray tracer {ds['render_ms_per_view']:.3f} ms per view "
+        f"(CUDA events), PNG writing {ds['png_s']:.3f} s (summed over the writer threads), "
+        f"views traced and written {ds['views_s']:.3f} s, point cloud {ds['points_s']:.3f} s, "
+        f"total {ds['total_s']:.3f} s (host clock) on {smi}")
+    if rc != 0 or (n_images, ds["width"], ds["height"], n_points) != (
+            GARDEN_VIEWS, GARDEN_WIDTH, GARDEN_HEIGHT, GARDEN_POINTS):
+        raise AssertionError("tools.make_dataset did not write the garden at its defaults")
+    res["dataset"] = ds
+    res["scene_err"] = _scene_card_vs_cpu(smi)
+
+    # (ii) the config-4 schedule through tools.train, observed from outside
+    min_cap = 1 << 21
+    ck_dir = os.path.join(root, "ck")
+    ck = os.path.join(ck_dir, "latest.npz")
+    metrics_path, out_ply = os.path.join(root, "metrics.jsonl"), os.path.join(root, "out.ply")
+    argv = ["--colmap", sparse, "--images", image_dir, "--output", out_ply,
+            "--epochs", str(GARDEN_EPOCHS), "--eval-split", str(GARDEN_EVAL_SPLIT),
+            "--adaptive-capacity", "--pair-capacity", str(1 << 24), "--adaptive-pairs",
+            "--min-pair-capacity", str(min_cap), "--chunk-slack", "0.5",
+            "--checkpoint-dir", ck_dir, "--checkpoint-interval", str(GARDEN_CKPT_EVERY),
+            "--metrics", metrics_path, "--device", DEVICE]
+    n_eval = len(range(0, GARDEN_VIEWS, GARDEN_EVAL_SPLIT))
+    iters = GARDEN_EPOCHS * (GARDEN_VIEWS - n_eval)
+    events, stamps = [], []
+    originals = (trainer.train_step, trainer.densify_step, trainer.opacity_reset_step)
+
+    def train_step(*a, **k):
+        out = originals[0](*a, **k)
+        if len(stamps) in (0, iters - 1):          # after the first and the last step
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    def densify_step(*a, **k):
+        st, stats = originals[1](*a, **k)
+        n = _check_prefix("garden densify", st.params)
+        if n != int(stats.count):
+            raise AssertionError(f"densify: {n} alive, stats say {int(stats.count)}")
+        events.append(("densify", st.opt.t, tuple(int(x) for x in stats), st.params.capacity))
+        return st, stats
+
+    def opacity_reset_step(*a, **k):
+        st = originals[2](*a, **k)
+        _check_prefix("garden opacity reset", st.params)
+        events.append(("reset", st.opt.t, None, st.params.capacity))
+        return st
+
+    _reset_launches()
+    trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = (
+        train_step, densify_step, opacity_reset_step)
+    try:
+        _cli(argv, os.path.join(root, "console.txt"))
+    finally:
+        trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = originals
+    torch.cuda.synchronize()
+    launches = _tf_launches()
+    _check_no_v1("the garden trainer", launches)
+    lines = _read_jsonl(metrics_path)
+    steps = [x for x in lines if x["event"] == "step"]
+    info = [x["msg"] for x in lines if x["event"] == "info"]
+    if [x["iter"] for x in steps] != list(range(1, iters + 1)):
+        raise AssertionError(f"garden: expected step lines 1..{iters}")
+    for x in steps:
+        if not all(np.isfinite(x[f]) for f in ("loss", "l1", "dssim", "psnr", "mean_scale")):
+            raise AssertionError(f"garden step {x['iter']}: non-finite metrics")
+    if [e[1] for e in events if e[0] == "densify"] != GARDEN_DENSIFY_AT or \
+            any(e[0] == "reset" for e in events):
+        raise AssertionError(f"garden density events {events}")
+    if launches["windowed_blend_fwd"] != iters + n_eval or \
+            launches["windowed_blend_bwd"] != iters:
+        raise AssertionError(f"garden: expected {iters + n_eval} forward and {iters} backward "
+                             f"launches, got {launches}")
+    res["launches"]["garden"] = launches
+    wall = stamps[-1] - stamps[0]
+    res["iters_per_s"] = (iters - 1) / wall
+    res["peak_pairs"] = max(x["pairs"] for x in steps)
+    res["overflow_steps"] = sum(bool(x["overflow"]) for x in steps)
+    rebuckets = [m for m in info if "pair capacity" in m]
+    grows = [m for m in info if ": capacity " in m]
+    res["rebuckets"] = len(rebuckets)
+    last_cap = int(rebuckets[-1].split("-> ")[1].split()[0]) if rebuckets else min_cap
+    psnr = np.array([x["psnr"] for x in steps])
+    cuts = [0] + GARDEN_DENSIFY_AT + [iters]
+    stretch = [(a + 1, b, float(psnr[a:b].mean())) for a, b in zip(cuts, cuts[1:])]
+    n_train = GARDEN_VIEWS - n_eval
+    epoch_psnr = psnr.reshape(GARDEN_EPOCHS, n_train).mean(1)
+    log(f"[garden] tools.train (config-4 flags, {GARDEN_EPOCHS} epochs of {n_train} views, "
+        f"{n_eval} held out): {res['iters_per_s']:.3f} iterations/s over iterations 2-{iters} "
+        f"({wall:.3f} s, host clock, synchronized) on {smi}")
+    log(f"[garden] scene: {steps[0]['n']} alive at iteration 1; density events (iteration, "
+        f"(pruned, cloned, split, alive), capacity): "
+        + "; ".join(f"{e[1]} {e[2]} {e[3]}" for e in events) + f"; {'; '.join(grows) or 'no grow'}")
+    log(f"[garden] pair capacity: {len(rebuckets)} rebuckets ({'; '.join(rebuckets)}), last "
+        f"{last_cap}; peak pairs {res['peak_pairs']}; {res['overflow_steps']} overflow steps")
+    log(f"[garden] train PSNR: per epoch {np.round(epoch_psnr, 3).tolist()} dB; between "
+        f"events " + "; ".join(f"iterations {a}-{b}: {m:.3f} dB" for a, b, m in stretch))
+    ev = [x for x in lines if x["event"] == "eval"]
+    ex = [x for x in lines if x["event"] == "export_ply"]
+    final, saved_cfg = checkpoint.load(ck, DEVICE)
+    res["final_alive"] = _check_prefix("garden final state", final.params)
+    if not ev or not np.isfinite(ev[0]["psnr"]) or not ex or final.opt.t != iters:
+        raise AssertionError("garden: missing eval / export_ply line or final checkpoint")
+    res["heldout_psnr"] = ev[0]["psnr"]
+    ply_n = _ply_vertex_count(out_ply)
+    log(f"[garden] held-out eval: {ev[0]} ; PLY {ply_n} vertices, final alive "
+        f"{res['final_alive']} of {final.params.capacity} slots")
+    if ex[0]["alive"] != res["final_alive"] or ply_n != res["final_alive"]:
+        raise AssertionError("garden: the PLY does not hold the final alive count")
+    # --adaptive-pairs against the pinned capacity: the final state's step at
+    # the capacity the rebuckets reached and at the flag's 2^24, which the
+    # run holds without --adaptive-pairs
+    cam1, gt1 = _garden_camera(sparse, image_dir, 1)
+    res["step_device_ms"] = trace.step_breakdown(
+        {f"iteration {iters}": final}, cam1, torch.from_numpy(gt1).to(DEVICE), saved_cfg,
+        [last_cap, 1 << 24], last_cap, iters, smi, DEVICE, log, "[garden step]",
+        STEP_PROFILE_STEPS, STEP_PROFILE_TOP)[f"iteration {iters}"]
+
+    # (iii) the facade on the trainer's outputs
+    cam0, gt0 = _garden_camera(sparse, image_dir, 0)        # held out (index % 20 == 0)
+    _reset_launches()
+    model = GaussianModel.from_checkpoint(ck, device=DEVICE)
+    img = model.render(cam0)
+    res["facade_psnr"] = _psnr(img, gt0)
+    ply2 = os.path.join(root, "facade.ply")
+    model.save_ply(ply2)
+    again = GaussianModel.from_ply(ply2, model.config, device=DEVICE).render(cam0)
+    ply_err = float(np.abs(again - img).max())
+    model, cams, gts = GaussianModel.from_colmap_scene(sparse, image_dir, device=DEVICE)
+    n0 = model.num_gaussians
+    model.train(cams[1:1 + FACADE_ITERS], gts[1:1 + FACADE_ITERS], epochs=1)
+    torch.cuda.synchronize()
+    launches = _tf_launches()
+    _check_no_v1("the facade", launches)
+    res["launches"]["facade"] = launches
+    log(f"[garden] GaussianModel.from_checkpoint: held-out view 0 at {res['facade_psnr']:.3f} "
+        f"dB; save_ply / from_ply max|diff| {ply_err:.2e}; from_colmap_scene {n0} alive of "
+        f"{model.params.capacity}, train {FACADE_ITERS} iterations -> t {model.state.opt.t}; "
+        f"launches {launches}")
+    if ply_err > FACADE_PLY_ATOL or n0 != GARDEN_POINTS or model.state.opt.t != FACADE_ITERS:
+        raise AssertionError("the facade path failed its checks")
+    if launches["windowed_blend_fwd"] != 2 + FACADE_ITERS or \
+            launches["windowed_blend_bwd"] != FACADE_ITERS:
+        raise AssertionError(f"facade launches {launches}")
+    del model, cams, gts
+    torch.cuda.empty_cache()
+
+    # (iv) the viewer: frames of the trained PLY, then /train from the
+    # trainer's checkpoint
+    vw, vh = VIEWER_SIZE
+    state = view.build_state(out_ply, vw, vh, 60.0, 0, last_cap, device=DEVICE)
+    overflow = []
+    inner = rasterize.render
+
+    def render(*a, **k):
+        img, aux = inner(*a, **k)
+        overflow.append(aux.overflow)
+        return img, aux
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), view.make_handler(state))
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    frame_ms = []
+    rasterize.render = render
+    try:
+        page = _http_get(base + "/")
+        st = json.loads(_http_get(base + "/state"))
+        _reset_launches()
+        for i in range(VIEWER_FRAMES):
+            q = (f"/frame?az={st['az'] + 2 * np.pi * i / VIEWER_FRAMES:.4f}&el={st['el']:.4f}"
+                 f"&r={st['r']:.4f}&cx={st['cx']:.4f}&cy={st['cy']:.4f}&cz={st['cz']:.4f}")
+            t0 = time.perf_counter()
+            jpg = _http_get(base + q)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            arr = np.asarray(Image.open(io.BytesIO(jpg)))
+            if arr.shape != (vh, vw, 3) or arr.min() == arr.max():
+                raise AssertionError(f"viewer frame {i}: shape {arr.shape} or constant")
+        torch.cuda.synchronize()
+        launches = _tf_launches()
+    finally:
+        rasterize.render = inner
+        srv.shutdown()
+        srv.server_close()
+        serving.join(timeout=60)
+    _check_no_v1("the viewer's frames", launches)
+    res["frame_ms_p50"], res["frame_ms_p90"] = (float(np.percentile(frame_ms, p))
+                                                for p in (50, 90))
+    n_over = int(torch.stack(overflow).sum())
+    log(f"[garden] tools.view {vw}x{vh}, pair capacity {last_cap}: page {len(page)} bytes, "
+        f"state {st}; {VIEWER_FRAMES} frames along an orbit: p50 {res['frame_ms_p50']:.3f} ms, "
+        f"p90 {res['frame_ms_p90']:.3f} ms per frame (host clock, request to response), "
+        f"{n_over} overflowed; launches {launches} on {smi}")
+    if b"viewer" not in page or n_over or launches["windowed_blend_fwd"] != VIEWER_FRAMES \
+            or launches["windowed_blend_bwd"] != 0:
+        raise AssertionError("the viewer's frames failed their checks")
+    viewer_launches = dict(launches)
+
+    args = argparse.Namespace(colmap=sparse, images=image_dir, checkpoint=ck, downscale=1,
+                              iters=iters, width=vw, height=vh, fov=60.0, sh_degree=0,
+                              pair_capacity=last_cap, device=DEVICE)
+    tstate = view.build_training_state(args)
+    t_ck = tstate.iteration
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), view.make_handler(tstate))
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    try:
+        q = "/frame?az=0.3&el=0.3"
+        before = _http_get(base + q)
+        _reset_launches()
+        t0 = time.perf_counter()
+        trained = json.loads(_http_get(base + f"/train?n={VIEWER_TRAIN}"))
+        train_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _tf_launches()
+        after = _http_get(base + q)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        serving.join(timeout=60)
+    _check_no_v1("the viewer's /train", launches)
+    log(f"[garden] tools.view with the dataset and checkpoint (iteration {t_ck}): "
+        f"/train?n={VIEWER_TRAIN} -> {trained} in {train_s:.3f} s (host clock); launches "
+        f"{launches}; the frame at the same pose {'changed' if after != before else 'SAME'}")
+    if trained["iteration"] != t_ck + VIEWER_TRAIN or not np.isfinite(trained["loss"]) or \
+            after == before or launches["windowed_blend_fwd"] != VIEWER_TRAIN or \
+            launches["windowed_blend_bwd"] != VIEWER_TRAIN:
+        raise AssertionError("the viewer's /train failed its checks")
+    res["launches"]["viewer"] = {k: viewer_launches[k] + launches[k] for k in launches}
+    del state, tstate
+    torch.cuda.empty_cache()
+
+    # (v) the graft entry: one forward on the card, #1 at B = 64
+    forward, (params, camera) = graft_entry.entry(DEVICE)
+    _reset_launches()
+    with torch.no_grad():
+        img = forward(params, camera)
+    torch.cuda.synchronize()
+    res["launches"]["entry"] = _tf_launches()
+    _check_no_v1("the graft entry", res["launches"]["entry"])
+    if res["launches"]["entry"]["windowed_blend_fwd"] != 1:
+        raise AssertionError(f"entry launches {res['launches']['entry']}")
+    cfg64 = RasterConfig(pair_capacity=1 << 15, pair_block=64)
+    with torch.no_grad():
+        args, _, aux = rasterize.blend_windows(params, camera, cfg64)
+        res["entry_err"] = _compare("graft entry B=64", blend.windowed_blend_fwd(*args),
+                                    blend.windowed_blend_fwd_plain(*args))
+        blend.windowed_blend_fwd, kernel = blend.windowed_blend_fwd_plain, blend.windowed_blend_fwd
+        try:
+            plain = forward(params, camera)
+        finally:
+            blend.windowed_blend_fwd = kernel
+    _check_image("graft entry", img, 256, 256)
+    img_err = float((img - plain).abs().max())
+    log(f"[garden] graft_entry.entry(): 256x256, {int(aux.num_pairs)} pairs, overflow "
+        f"{bool(aux.overflow)}; image vs the plain blend's max|err| {img_err:.3e}")
+    if bool(((img - plain).abs() > KERNEL_ATOL + KERNEL_RTOL * plain.abs()).any()):
+        raise AssertionError("graft entry: the image disagrees with the plain blend's")
+    shutil.rmtree(root)
+    return res
+
+
+def phase_tools(work, smi):
+    """The measuring tools at full size: tools.profile's stage times,
+    tools.trace's capture of 5 steps (top groups, device ms per step, the
+    card's idle share) and utils.sol's floor, which must lie below the
+    measured step's device time."""
+    from gaussiansplatting_tpu_torch.tools import profile, trace
+    from gaussiansplatting_tpu_torch.utils import sol
+
+    res = {}
+    _reset_launches()
+    res["stages_ms"] = profile.stage_times(
+        N_GAUSSIANS, WIDTH, HEIGHT, PAIR_CAPACITY, PAIR_BLOCK, names=profile.STAGES, device=DEVICE,
+        emit=lambda s, ms: log(f"[tools] tools.profile {s}: {ms:.3f} ms (CUDA events) on {smi}"))
+    out = os.path.join(SCRATCH, "trace")
+    res["host_ms"] = trace.capture(TRACE_STEPS, N_GAUSSIANS, WIDTH, HEIGHT, PAIR_CAPACITY, out,
+                                   DEVICE)
+    rows = trace.aggregate(out, TRACE_STEPS, top=STEP_PROFILE_TOP)
+    launches = _tf_launches()
+    _check_no_v1("the measuring tools", launches)
+    for name, ms in rows:
+        log(f"[tools] tools.trace {ms:9.3f} ms/step  {name[:90]}")
+    res["device_ms"] = rows[-1][1]
+    res["idle"] = 1 - res["device_ms"] / res["host_ms"]
+    log(f"[tools] tools.trace ({TRACE_STEPS} steps): device {res['device_ms']:.3f} ms per step, "
+        f"host clock {res['host_ms']:.3f} ms per step: the card idles {res['idle']:.3f} of it; "
+        f"launches {launches} on {smi}")
+    model = sol.step_model(N_GAUSSIANS, PAIR_CAPACITY, HEIGHT, WIDTH, block=PAIR_BLOCK, work=work)
+    res["floor_ms"], res["sol"] = model["floor_ms"], model
+    log(f"[tools] utils.sol.step_model: {model['bytes_total']:.4e} bytes ({model['t_bytes_ms']:.4f}"
+        f" ms), {model['instructions']:.4e} f32 instructions ({model['t_flops_ms']:.4f} ms): "
+        f"floor {model['floor_ms']:.4f} ms against the measured {res['device_ms']:.3f} ms of "
+        f"device time ({model['floor_ms'] / res['device_ms']:.4f}); by stage "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in model["bytes_by_stage"].items()))
+    if not 0 < model["floor_ms"] < res["device_ms"]:
+        raise AssertionError("utils.sol's floor is not below the measured step")
+    if min(launches["windowed_blend_fwd"], launches["windowed_blend_bwd"]) < 1:
+        raise AssertionError(f"the measuring tools launched no kernel: {launches}")
+    res["launches"] = launches
+    shutil.rmtree(out)
     return res
 
 
@@ -1937,6 +2224,11 @@ def main() -> int:
         params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
+    del params, camera, gt
+    torch.cuda.empty_cache()
+    gd = phase_garden(smi)
+    tools = phase_tools(work, smi)
+    paths = dict(gd["launches"], tools=tools["launches"])
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
@@ -1951,14 +2243,16 @@ def main() -> int:
         entry("windowed_blend_fwd", "blend_fwd.cu", f"{tpu}601, {tpu}161", "hopper",
               {"render": render_launches, "train": train_fwd,
                "tfloor": tf_launches["windowed_blend_fwd"],
-               "trainloop": tl["launches"]["windowed_blend_fwd"]},
+               "trainloop": tl["launches"]["windowed_blend_fwd"],
+               **{k: v["windowed_blend_fwd"] for k, v in paths.items()}},
               per_step["windowed_blend_fwd"],
               {k: fwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
                                    "bound_by", "power_tests", "kept_pairs",
                                    "culled_share")}),
         entry("windowed_blend_bwd", "blend_bwd.cu", f"{tpu}671, {tpu}188", "hopper",
               {"train": train_bwd, "tfloor": tf_launches["windowed_blend_bwd"],
-               "trainloop": tl["launches"]["windowed_blend_bwd"]},
+               "trainloop": tl["launches"]["windowed_blend_bwd"],
+               **{k: v["windowed_blend_bwd"] for k, v in paths.items()}},
               per_step["windowed_blend_bwd"],
               {k: bwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
                                    "bound_by", "power_tests", "kept_pairs", "culled_share",
@@ -2005,7 +2299,31 @@ def main() -> int:
         "opacity_reset_step_ms": tl["reset_ms"],
         "checkpoint_save_s": tl["save_s"],
         "checkpoint_load_s": tl["load_s"],
-        "density_card_vs_cpu_max_abs_err": tl["density_err"]}))
+        "density_card_vs_cpu_max_abs_err": tl["density_err"],
+        "dataset_ms_per_view": gd["dataset"]["render_ms_per_view"],
+        "dataset_png_s": gd["dataset"]["png_s"],
+        "dataset_views_s": gd["dataset"]["views_s"],
+        "dataset_points_s": gd["dataset"]["points_s"],
+        "dataset_total_s": gd["dataset"]["total_s"],
+        "scene_card_vs_cpu_max_abs_err": gd["scene_err"],
+        "garden_iters_per_s": gd["iters_per_s"],
+        "garden_peak_pairs": gd["peak_pairs"],
+        "garden_overflow_steps": gd["overflow_steps"],
+        "garden_rebuckets": gd["rebuckets"],
+        "garden_final_alive": gd["final_alive"],
+        "garden_heldout_psnr": gd["heldout_psnr"],
+        "garden_step_device_ms": gd["step_device_ms"],
+        "facade_heldout_psnr": gd["facade_psnr"],
+        "viewer_frame_ms_p50": gd["frame_ms_p50"],
+        "viewer_frame_ms_p90": gd["frame_ms_p90"],
+        "entry_max_abs_err": gd["entry_err"],
+        "profile_stage_ms": tools["stages_ms"],
+        "trace_device_ms_per_step": tools["device_ms"],
+        "trace_host_ms_per_step": tools["host_ms"],
+        "trace_idle_share": tools["idle"],
+        "sol_floor_ms": tools["floor_ms"],
+        "sol_bytes_total": tools["sol"]["bytes_total"],
+        "sol_instructions": tools["sol"]["instructions"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
