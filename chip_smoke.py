@@ -107,8 +107,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               ms per step, the card's idle share), utils.sol.step_model's
               floor, which must lie below the measured device time.  The
               kernels' bounds (phases 3 and 6) come from utils.sol too.
+ 10. parallel  tile strips, multi-view batched steps and tile-strip
+              sharding at full size (phase_parallel): the canonical view in
+              2 and 4 strips (render(tile_rows)) against the full render,
+              default and T-floor, with their gradients, the strips' pair
+              counts summing to the frame's, each kernel entry on the last
+              strip (row0 > 0) against its plain version (main path
+              `strips`); train_step_batched K = 1 bit for bit as train_step,
+              K = 2 of one view, K = 1, 2, 4 timed, a 64x48 batched step on
+              the card against the CPU (`batched`); the sharded render,
+              step and batched step on 2 ranks sharing the card (gloo) and 1
+              rank (nccl), started by parallel.launch.spawn, against the
+              single-card ones, the ranks' states bit-identical, chunked
+              all-reduces bit for bit, the sharded step timed and profiled
+              (`sharded`); tools.train --batch-views 2 and --devices 2 on
+              phase 7's scene; tools.bench_scaling and
+              graft_entry.dryrun_multichip(2).
 
-Every main path (phases 4-9) runs with the launch counts set to 0 before
+Every main path (phases 4-10) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
@@ -268,6 +284,22 @@ VIEWER_FRAMES = 20
 VIEWER_TRAIN = 10
 # phase 9: tools.trace's steps
 TRACE_STEPS = 5
+# phase 10: tile strips of the canonical view (2 of 19 tile rows; 4 of 10,
+# the last with 2 rows of padding) against the full render within
+# STRIP_IMG_MAX (tests/test_sharding.py:55's bar; a strip's tiles get the
+# same blocks as in the full frame, so 0 is expected); train_step_batched at
+# K views of the 100k scene, canonical cameras at these fov scales (each
+# frames fewer pairs than the canonical 1.2); the sharded steps at the JAX
+# package's bars (tests/test_sharding.py:87-103) but for noise-level
+# gradients (_sharded_bars); tools.train's epochs on phase 7's scene
+PARALLEL_STRIPS = (2, 4)
+STRIP_IMG_MAX = 1e-5
+BATCH_VIEWS = (1, 2, 4)
+BATCH_FOVS = (1.2, 1.15, 1.1, 1.05)
+PARALLEL_TIMED_STEPS = 5
+SHARDED_TIMED_STEPS = 5
+SHARDED_LOSS_RTOL, SHARDED_PARAM_ATOL, SHARDED_ACCUM_ATOL = 1e-5, 2e-5, 1e-4
+PARALLEL_CLI_EPOCHS = 1
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -488,9 +520,10 @@ def _compare_bwd(label, got, want, quiet=False):
     return worst
 
 
-def _loss_cotangent(out, block_tile, camera, cfg, gt):
+def _loss_cotangent(out, block_tile, camera, cfg, gt, tile_rows=None):
     """The real cotangent of the blend's output: autograd of compose and
-    the default photometric loss (D-SSIM differentiated) at ``out``."""
+    the default photometric loss (D-SSIM differentiated) at ``out``; of a
+    strip (``tile_rows``) against ``gt``, its rows of the ground truth."""
     import torch
 
     from gaussiansplatting_tpu_torch.config import LossConfig
@@ -499,7 +532,7 @@ def _loss_cotangent(out, block_tile, camera, cfg, gt):
 
     with torch.enable_grad():
         out = out.detach().requires_grad_(True)
-        img = compose(out, block_tile, camera, cfg)
+        img = compose(out, block_tile, camera, cfg, tile_rows=tile_rows)[:gt.shape[0]]
         rep = photometric_loss(img, gt, LossConfig())
         (g,) = torch.autograd.grad(rep.grad_loss, out)
     return g
@@ -930,10 +963,11 @@ def dense_scene(seed, device=None):
     return gaussians.params_from_numpy(host, device)
 
 
-def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
+def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr, tile_rows=None):
     """The full-size logti and the real loss cotangent of each pass: compose
     at the first pass's ``out`` with the T-floor kernel as its second pass,
-    then autograd of the default photometric loss.  Returns (logti, out_tf,
+    then autograd of the default photometric loss (of a strip, ``tile_rows``,
+    against ``gt``, its rows of the ground truth).  Returns (logti, out_tf,
     stop, g_first, g_tf)."""
     import torch
 
@@ -952,7 +986,7 @@ def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr):
 
     with torch.enable_grad():
         out1 = out.detach().requires_grad_(True)
-        img = compose(out1, block_tile, camera, cfg_tf, blend_tfloor)
+        img = compose(out1, block_tile, camera, cfg_tf, blend_tfloor, tile_rows)[:gt.shape[0]]
         rep = photometric_loss(img, gt, LossConfig())
         g1, g2 = torch.autograd.grad(rep.grad_loss, [out1, held["out_tf"]])
     if float(g1[:, :3].abs().max()) != 0.0:
@@ -2194,6 +2228,407 @@ def phase_tools(work, smi):
     return res
 
 
+def _digest(state):
+    """sha256 of every state array, for comparing ranks' states."""
+    import hashlib
+
+    from gaussiansplatting_tpu_torch.train.state import state_to_numpy
+
+    h = hashlib.sha256()
+    for k, v in sorted(state_to_numpy(state).items()):
+        h.update(k.encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def _sharded_bars(label, st, m, ref, ref_m, lrs):
+    """A sharded step against the single-card step: the loss within
+    SHARDED_LOSS_RTOL, grad_accum within SHARDED_ACCUM_ATOL, pairs exact;
+    parameters within SHARDED_PARAM_ATOL where the gradient is signal
+    (|m| above NOISE_REL of the field's largest) and within 3 learning rates
+    elsewhere: a first Adam step moves every element by about lr * sign(g),
+    and a strip's partial sum rounds once more, which may flip the sign of a
+    gradient that cancels to rounding noise (tests/test_sharding.py:377-391).
+    Returns the errors: per field (signal max, max, entries beyond
+    SHARDED_PARAM_ATOL)."""
+    import numpy as np
+
+    from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
+    from gaussiansplatting_tpu_torch.train.state import state_to_numpy
+
+    got, want = state_to_numpy(st), state_to_numpy(ref)
+    err = {"loss": abs(float(m.loss) - float(ref_m.loss)) / abs(float(ref_m.loss)),
+           "accum": float(np.abs(got["accum/grad_accum"] - want["accum/grad_accum"]).max()),
+           "pairs": (int(m.num_pairs), int(ref_m.num_pairs)),
+           "bits": all(np.array_equal(got[k], want[k]) for k in got)}
+    bad = (err["loss"] > SHARDED_LOSS_RTOL or err["accum"] > SHARDED_ACCUM_ATOL
+           or err["pairs"][0] != err["pairs"][1] or bool(m.overflow))
+    for f, lr in zip(TRAINABLE, lrs):
+        mm = np.abs(want[f"opt/m/{f}"])
+        signal = mm > NOISE_REL * mm.max()
+        d = np.abs(got[f"params/{f}"] - want[f"params/{f}"])
+        err[f] = (float(d[signal].max(initial=0.0)), float(d.max()),
+                  int((d > SHARDED_PARAM_ATOL).sum()))
+        bad |= err[f][0] > SHARDED_PARAM_ATOL or err[f][1] > 3 * lr + 1e-6
+    if bad:
+        raise AssertionError(f"{label} against the single-card step: {err}")
+    return err
+
+
+def _sharded_rank(topo, size):
+    """One rank of phase 10 (iii), started by parallel.launch.spawn: the
+    single-card references first, then the sharded render, step (plain and
+    chunked) and batched step (K = 2) with their launches, the sharded step
+    timed and profiled (the collectives' share).  ``size``: the scene's
+    n, width, height, pair_capacity and pair_block, and the timed steps."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config, RasterConfig
+    from gaussiansplatting_tpu_torch.ops.rasterize import render
+    from gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
+    from gaussiansplatting_tpu_torch.parallel import sharded
+    from gaussiansplatting_tpu_torch.tools.trace import device_profile
+    from gaussiansplatting_tpu_torch.train import schedule
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.train.trainer import train_step, train_step_batched
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    dev = torch.device(topo["device"])
+    w, h, reps = size["width"], size["height"], size["reps"]
+    params = synthetic.make_scene(size["n"], seed=0, device=dev)
+    cams = [synthetic.make_canonical_camera(w, h, fov_scale=f, device=dev)
+            for f in BATCH_FOVS[:2]]
+    gts = [torch.from_numpy(np.random.default_rng(1 + v).uniform(
+        0, 1, (h, w, 3)).astype(np.float32)).to(dev) for v in range(2)]
+    cfg = Config(raster=RasterConfig(pair_capacity=size["pair_capacity"],
+                                     pair_block=size["pair_block"]))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    lrs = schedule.learning_rates(cfg.optim, 0, TRAIN_TOTAL_ITERS)
+    mesh = mesh_mod.make_mesh()
+    with torch.no_grad():
+        img_ref, aux_ref = render(params, cams[0], cfg.raster)
+    ref, ref_m = train_step(state_mod.create(params), cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
+    bref, bref_m = train_step_batched(state_mod.create(params), cams, gts, cfg,
+                                      TRAIN_TOTAL_ITERS)
+    sync()
+
+    _reset_launches()
+    out = sharded.make_sharded_render(mesh, cfg)(params, cams[0])
+    step = sharded.make_sharded_train_step(mesh, cfg, TRAIN_TOTAL_ITERS)
+    st, m = step(state_mod.create(params), cams[0], gts[0])
+    stc, _ = sharded.make_sharded_train_step(mesh, cfg, TRAIN_TOTAL_ITERS, grad_psum_chunks=4)(
+        state_mod.create(params), cams[0], gts[0])
+    sb, mb = sharded.make_sharded_train_step_batched(mesh, cfg, TRAIN_TOTAL_ITERS, 2)(
+        state_mod.create(params), cams, gts)
+    sync()
+    res = {"topo": topo, "launches": _tf_launches(),
+           "render_err": float((out.image - img_ref).abs().max()),
+           "render_pairs": (int(out.num_pairs), int(aux_ref.num_pairs)),
+           "step": _sharded_bars("sharded step", st, m, ref, ref_m, lrs),
+           "batched": _sharded_bars("sharded batched step", sb, mb, bref, bref_m, lrs),
+           "chunked_bits": _digest(stc) == _digest(st),
+           "digests": [_digest(st), _digest(sb)], "loss": float(m.loss)}
+    if res["render_pairs"][0] != res["render_pairs"][1] or res["render_err"] > RENDER_ATOL:
+        raise AssertionError(f"sharded render against the single-card render: {res}")
+    if not res["chunked_bits"]:
+        raise AssertionError("chunked gradient all-reduce differs from the unchunked one")
+
+    def one():
+        nonlocal st
+        st, _ = step(st, cams[0], gts[0])
+
+    def timed():
+        for _ in range(reps):
+            one()
+        sync()
+
+    timed()
+    t0 = time.perf_counter()
+    timed()
+    res["ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    # host time inside the collectives' spans (sharded.COLLECTIVE_SPANS):
+    # gloo returns once the sum is back on the card, nccl once its kernel
+    # is queued (its device time is in the kernels below)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        timed()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+    coll = {e.key: e.cpu_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.key in sharded.COLLECTIVE_SPANS}
+    quiet = topo["process_index"] != 0
+    device_ms, kernels = device_profile(
+        f"[parallel] sharded step, {size['ranks']} rank(s)", one, reps, size["smi"],
+        device=str(dev), log=(lambda *_: None) if quiet else log, top=8)
+    comm = {k: v for k, v in kernels.items() if "nccl" in k.lower() or k.startswith("Memcpy")}
+    res.update(profile_host_ms=host, collectives_ms=coll,
+               collectives_share=sum(coll.values()) / host, device_ms=device_ms,
+               device_comm_ms=sum(comm.values()), device_comm_kernels=comm)
+    return res
+
+
+def phase_parallel(params, camera, cfg, gt, smi):
+    """Tile strips, multi-view batched steps and tile-strip sharding at full
+    size: (i) strips of the canonical view against the full render, default
+    and T-floor, with their gradients (the main path `strips`), pair counts
+    summing to the full frame's, the four kernel entries against their plain
+    versions on strips at row0 > 0; (ii) train_step_batched against
+    train_step (K = 1 bit for bit; K = 2 of one view: parameters bit for
+    bit), K = 1, 2, 4 timed (`batched`), a 64x48 batched step card against
+    CPU; (iii) the sharded render, step and batched step on 2 ranks sharing
+    the card (gloo) and on 1 rank (nccl) against the single-card ones, the
+    ranks' states bit-identical, chunked against unchunked all-reduces bit
+    for bit, the sharded step timed and profiled (`sharded`); (iv)
+    tools.train --batch-views 2 and --devices 2 on phase 7's scene; (v)
+    tools.bench_scaling and graft_entry.dryrun_multichip(2)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch import graft_entry
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.core import gaussians
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.ops.losses import photometric_loss
+    from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows, render
+    from gaussiansplatting_tpu_torch.parallel import launch
+    from gaussiansplatting_tpu_torch.parallel.sharded import strip_rows
+    from gaussiansplatting_tpu_torch.tools import bench_scaling
+    from gaussiansplatting_tpu_torch.train import schedule
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
+    from gaussiansplatting_tpu_torch.train.trainer import train_step, train_step_batched
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    res, paths = {}, {}
+    cfg_tf = cfg.replace(t_floor_exact=True)
+    modes = (("default", cfg), ("tfloor", cfg_tf))
+    trainable = [getattr(params, f) for f in TRAINABLE]
+
+    # (i) strips against the full render, with their gradients
+    with torch.no_grad():
+        full = {mode: render(params, camera, c) for mode, c in modes}
+    _reset_launches()
+    res["strip_err"] = 0.0
+    for n in PARALLEL_STRIPS:
+        rows = strip_rows(HEIGHT, cfg.tile_size, n)
+        for mode, c in modes:
+            strips, pairs = [], 0
+            for r in range(n):
+                top = r * rows * cfg.tile_size
+                with torch.enable_grad():
+                    s, aux = render(params, camera, c, tile_rows=(r * rows, rows))
+                    valid = s[:max(min(HEIGHT - top, s.shape[0]), 0)]
+                    rep = photometric_loss(valid, gt[top:top + valid.shape[0]], Config().loss)
+                    grads = torch.autograd.grad(rep.grad_loss, trainable)
+                if bool(aux.overflow) or not all(bool(torch.isfinite(g).all()) for g in grads):
+                    raise AssertionError(f"strip {r} of {n} ({mode}): overflow or non-finite")
+                strips.append(s.detach())
+                pairs += int(aux.num_pairs)
+            err = float((torch.cat(strips)[:HEIGHT] - full[mode][0]).abs().max())
+            res["strip_err"] = max(res["strip_err"], err)
+            log(f"[parallel] {n} strips of {rows} tile rows ({mode}): max|stacked - full| "
+                f"{err:.3e}; pairs {pairs} (full frame {int(full[mode][1].num_pairs)})")
+            if pairs != int(full[mode][1].num_pairs) or err > STRIP_IMG_MAX:
+                raise AssertionError(f"{n} strips ({mode}) differ from the full render")
+    torch.cuda.synchronize()
+    paths["strips"] = _tf_launches()
+    _check_no_v1("the strips", paths["strips"])
+    if min(paths["strips"][k] for k in MAIN_ENTRIES) < 1:
+        raise AssertionError(f"the strips did not launch every kernel: {paths['strips']}")
+    log(f"[parallel] strips main path: launches {paths['strips']}")
+    log_thr = math.log(cfg_tf.transmittance_floor)
+    res["strip_kernel_err"] = {}
+    for n in PARALLEL_STRIPS:
+        rows = strip_rows(HEIGHT, cfg.tile_size, n)
+        tile_rows = ((n - 1) * rows, rows)                 # the last strip: row0 > 0
+        top = tile_rows[0] * cfg.tile_size
+        gt_rows = gt[top:top + rows * cfg.tile_size]
+        label = f"strip row0={tile_rows[0]} of {rows} rows"
+        with torch.no_grad():
+            args, block_tile, _ = blend_windows(params, camera, cfg, tile_rows)
+            out, gid = blend.windowed_blend_fwd(*args)
+            e_fwd = _compare(label, (out, gid), blend.windowed_blend_fwd_plain(*args))
+        g = _loss_cotangent(out, block_tile, camera, cfg, gt_rows, tile_rows)
+        bargs = args[:6] + (g, out[:, 3].contiguous(), args[6])
+        e_bwd = _compare_bwd(label, blend.windowed_blend_bwd(*bargs),
+                             blend.windowed_blend_bwd_plain(*bargs))
+        logti, out_tf, stop, _, g2 = _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf,
+                                                         gt_rows, log_thr, tile_rows)
+        with torch.no_grad():
+            want, _, margin = blend.windowed_blend_fwd_tf_plain(*args, logti, log_thr,
+                                                                 return_margin=True)
+            e_ftf, _ = _compare_tf(label, out_tf, want, margin)
+            targs = args[:6] + (g2, out_tf[:, 3].contiguous(), stop, args[6], logti, log_thr)
+            e_btf, _ = _compare_tf_bwd(label, blend.windowed_blend_bwd_tf(*targs),
+                                       blend.windowed_blend_bwd_tf_plain(*targs), margin)
+        res["strip_kernel_err"][tile_rows[0]] = (e_fwd, e_bwd, e_ftf, e_btf)
+
+    # (ii) train_step_batched against train_step, then K views timed
+    cfg_step = Config(raster=cfg)
+    ref, _ = train_step(state_mod.create(params), camera, gt, cfg_step, TRAIN_TOTAL_ITERS)
+    one, _ = train_step_batched(state_mod.create(params), [camera], [gt], cfg_step,
+                                TRAIN_TOTAL_ITERS)
+    two, _ = train_step_batched(state_mod.create(params), [camera, camera], [gt, gt], cfg_step,
+                                TRAIN_TOTAL_ITERS)
+    r, a, b = (state_mod.state_to_numpy(x) for x in (ref, one, two))
+    differ = [k for k in r if not np.array_equal(a[k], r[k])]
+    if differ:
+        raise AssertionError(f"batched K = 1 differs from train_step in {differ}")
+    params_differ = [f for f in TRAINABLE if not np.array_equal(b[f"params/{f}"],
+                                                                r[f"params/{f}"])]
+    moments = {k: (int((b[k] != r[k]).sum()), float(np.abs(b[k] - r[k]).max()))
+               for k in r if k.startswith("opt/") and not np.array_equal(b[k], r[k])}
+    res["k2_params_differ"], res["k2_moments_differ"] = params_differ, moments
+    log(f"[parallel] batched K = 1: all {len(r)} state arrays = train_step's bit for bit; "
+        f"K = 2 of one view: parameters differing {params_differ or 'none'}; moments "
+        f"differing (entries, max|diff|) {moments or 'none'}")
+    if params_differ:
+        for f in params_differ:
+            d = np.abs(b[f"params/{f}"] - r[f"params/{f}"])
+            log(f"[parallel]   params/{f}: {int((d > 0).sum())} entries, max {d.max():.3e}")
+        if max(float(np.abs(b[f"params/{f}"] - r[f"params/{f}"]).max())
+               for f in params_differ) > STEP_ATOL:
+            raise AssertionError("batched K = 2 of one view moves the parameters")
+    del ref, one, two
+    cams = [synthetic.make_canonical_camera(WIDTH, HEIGHT, fov_scale=f, device=DEVICE)
+            for f in BATCH_FOVS]
+    gts = [torch.from_numpy(np.random.default_rng(1 + v).uniform(
+        0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(DEVICE) for v in range(len(cams))]
+    res["batched_ms"], res["batched_views_per_s"] = {}, {}
+    _reset_launches()
+    for k in BATCH_VIEWS:
+        st, m = train_step_batched(state_mod.create(params), cams[:k], gts[:k], cfg_step,
+                                   TRAIN_TOTAL_ITERS)
+        overflow = [m.overflow]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PARALLEL_TIMED_STEPS):
+            st, m = train_step_batched(st, cams[:k], gts[:k], cfg_step, TRAIN_TOTAL_ITERS)
+            overflow.append(m.overflow)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / PARALLEL_TIMED_STEPS
+        res["batched_ms"][k], res["batched_views_per_s"][k] = ms, k * 1e3 / ms
+        _check_finite_state(f"batched K = {k}", st)
+        if bool(torch.stack(overflow).any()) or not math.isfinite(float(m.loss)):
+            raise AssertionError(f"batched K = {k}: overflow or non-finite loss")
+        log(f"[parallel] train_step_batched K = {k}: {ms:.3f} ms/step, "
+            f"{res['batched_views_per_s'][k]:.1f} views/s (CUDA events, "
+            f"{PARALLEL_TIMED_STEPS} steps) on {smi}; num_pairs (max over views) "
+            f"{int(m.num_pairs)}")
+    paths["batched"] = _tf_launches()
+    _check_no_v1("the batched steps", paths["batched"])
+    if min(paths["batched"]["windowed_blend_fwd"], paths["batched"]["windowed_blend_bwd"]) < 1:
+        raise AssertionError(f"the batched steps launched no kernel: {paths['batched']}")
+    small = synthetic.make_scene(64, seed=5, spread=0.6)
+    small_cfg = cfg_step.replace(raster=cfg.replace(pair_capacity=4096, pair_block=16))
+    small_gts = np.random.default_rng(2).uniform(0, 1, (2, 48, 64, 3)).astype(np.float32)
+    host = {f: getattr(small, f).detach().numpy() for f in gaussians.FIELDS}
+    small_cams = [synthetic.make_canonical_camera(64, 48, fov_scale=f) for f in BATCH_FOVS[:2]]
+    cpu_state, cpu_m = train_step_batched(
+        state_mod.create(small), small_cams, [torch.from_numpy(g) for g in small_gts],
+        small_cfg, 100)
+    dev_state, dev_m = train_step_batched(
+        state_mod.create(gaussians.params_from_numpy(host, DEVICE)),
+        [c.to(DEVICE) for c in small_cams],
+        [torch.from_numpy(g).to(DEVICE) for g in small_gts], small_cfg, 100)
+    _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
+                        schedule.learning_rates(small_cfg.optim, 0, 100),
+                        label="64x48 batched step (K = 2)")
+
+    # (iii) the sharded steps: 2 ranks sharing the card (gloo), 1 rank (nccl)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["sharded"] = {}
+    for n_ranks in (2, 1):
+        size = {"n": N_GAUSSIANS, "width": WIDTH, "height": HEIGHT, "reps": SHARDED_TIMED_STEPS,
+                "pair_capacity": PAIR_CAPACITY, "pair_block": PAIR_BLOCK, "ranks": n_ranks,
+                "smi": smi}
+        ranks = launch.spawn(_sharded_rank, n_ranks, (size,), device=DEVICE)
+        r0 = ranks[0]
+        backend = r0["topo"]["backend"]
+        if any(x["digests"] != r0["digests"] for x in ranks):
+            raise AssertionError(f"{n_ranks} ranks: the ranks' states differ")
+        res["sharded"][n_ranks] = {k: r0[k] for k in (
+            "ms", "profile_host_ms", "collectives_ms", "collectives_share", "device_ms",
+            "device_comm_ms", "render_err", "step", "batched")}
+        res["sharded"][n_ranks]["backend"] = backend
+        paths.setdefault("sharded", {k: 0 for k in r0["launches"]})
+        for x in ranks:
+            for k, v in x["launches"].items():
+                paths["sharded"][k] += v
+        log(f"[parallel] {r0['topo']}")
+        log(f"[parallel] sharded step, {n_ranks} rank(s) on one card ({backend}; the strip "
+            f"scheme's overhead on one card, not scaling): {r0['ms']:.3f} ms/step (host clock, "
+            f"{SHARDED_TIMED_STEPS} steps, synchronized) on {smi}; profiled "
+            f"{r0['profile_host_ms']:.3f} ms/step, of it in the collectives' spans "
+            f"{r0['collectives_share']:.3f} ({r0['collectives_ms']} ms/step); device time "
+            f"{r0['device_ms']:.3f} ms/step, of it nccl kernels and memcpys "
+            f"{r0['device_comm_ms']:.3f} ({r0['device_comm_kernels']}); vs the single-card "
+            f"step: step {r0['step']}, batched "
+            f"{r0['batched']}; render max|err| {r0['render_err']:.3e}; ranks' states "
+            f"bit-identical; chunked all-reduce bit-identical; launches rank 0 {r0['launches']}")
+    _check_no_v1("the sharded steps", paths["sharded"])
+    if min(paths["sharded"][k] for k in ("windowed_blend_fwd", "windowed_blend_bwd")) < 1:
+        raise AssertionError(f"the sharded steps launched no kernel: {paths['sharded']}")
+
+    # (iv) tools.train --batch-views 2 and --devices 2 on phase 7's scene
+    root = os.path.join(SCRATCH, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sparse, image_dir, _ = write_colmap_scene(
+        root, params, TRAINLOOP_VIEWS, WIDTH, HEIGHT,
+        cfg.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
+    res["cli"] = {}
+    for flags in (["--batch-views", "2"], ["--devices", "2"]):
+        out = os.path.join(root, flags[0][2:])
+        metrics_path = os.path.join(out, "metrics.jsonl")
+        t0 = time.time()
+        _cli(["--colmap", sparse, "--images", image_dir, "--output", os.path.join(out, "out.ply"),
+              "--device", DEVICE, "--pair-capacity", str(TRAINLOOP_PAIR_CAPACITY),
+              "--eval-split", "4", "--epochs", str(PARALLEL_CLI_EPOCHS), "--metrics",
+              metrics_path, *flags], os.path.join(root, "cli.log"))
+        seconds = time.time() - t0
+        lines = _read_jsonl(metrics_path)
+        steps = [x for x in lines if x["event"] == "step"]
+        n_train = TRAINLOOP_VIEWS - len(range(0, TRAINLOOP_VIEWS, 4))
+        per_epoch = -(-n_train // (2 if flags[0] == "--batch-views" else 1))
+        start = next(x for x in lines if x["event"] == "start")
+        if ([x["iter"] for x in steps] != list(range(1, PARALLEL_CLI_EPOCHS * per_epoch + 1))
+                or not all(math.isfinite(x["loss"]) and not x["overflow"] for x in steps)
+                or sum(x["event"] == "export_ply" for x in lines) != 1):
+            raise AssertionError(f"tools.train {' '.join(flags)}: {lines}")
+        res["cli"][flags[0]] = {"iters": len(steps), "seconds": seconds,
+                                "psnr": [steps[0]["psnr"], steps[-1]["psnr"]],
+                                "process_count": start["process_count"],
+                                "backend": start["backend"]}
+        log(f"[parallel] tools.train {' '.join(flags)}: {len(steps)} iterations in "
+            f"{seconds:.1f} s (start to exit, ranks' start-up included), PSNR "
+            f"{steps[0]['psnr']:.2f} -> {steps[-1]['psnr']:.2f}, {start['process_count']} "
+            f"process(es), backend {start['backend']}, one metrics stream and one PLY")
+    shutil.rmtree(root)
+
+    # (v) the scaling tool and the graft entry's dry run
+    res["scaling"] = bench_scaling.bench([
+        "--n", str(N_GAUSSIANS), "--width", str(WIDTH), "--height", str(HEIGHT),
+        "--pair-capacity", str(PAIR_CAPACITY), "--steps", str(SHARDED_TIMED_STEPS),
+        "--devices", "2", "--device", DEVICE])
+    if any(x["overflow"] for x in res["scaling"]) or len(res["scaling"]) != 2:
+        raise AssertionError(f"tools.bench_scaling: {res['scaling']}")
+    res["dryrun"] = graft_entry.dryrun_multichip(2, device=DEVICE)
+    log(f"[parallel] tools.bench_scaling (2 ranks on one card: overhead, not scaling): "
+        f"{res['scaling']} on {smi}; graft_entry.dryrun_multichip(2): {res['dryrun'][0]}")
+    res["launches"] = paths
+    return res
+
+
 def main() -> int:
     name, smi, clock_mhz = phase_device()
 
@@ -2224,6 +2659,7 @@ def main() -> int:
         params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
+    par = phase_parallel(params, camera, cfg, gt, smi)
     del params, camera, gt
     torch.cuda.empty_cache()
     gd = phase_garden(smi)
@@ -2234,6 +2670,7 @@ def main() -> int:
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
 
     def entry(name, source, replaces, design, by_path, per, res):
+        by_path.update({k: v[name] for k, v in par["launches"].items()})
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "design": design,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2323,7 +2760,15 @@ def main() -> int:
         "trace_idle_share": tools["idle"],
         "sol_floor_ms": tools["floor_ms"],
         "sol_bytes_total": tools["sol"]["bytes_total"],
-        "sol_instructions": tools["sol"]["instructions"]}))
+        "sol_instructions": tools["sol"]["instructions"],
+        "strip_max_abs_err_vs_full": par["strip_err"],
+        "strip_kernel_max_abs_err_by_row0": par["strip_kernel_err"],
+        "batched_step_ms": par["batched_ms"],
+        "batched_views_per_s": par["batched_views_per_s"],
+        "batched_k2_moments_differ": par["k2_moments_differ"],
+        "sharded_by_ranks": par["sharded"],
+        "parallel_cli": par["cli"],
+        "bench_scaling": par["scaling"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

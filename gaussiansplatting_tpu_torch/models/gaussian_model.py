@@ -151,8 +151,10 @@ class GaussianModel:
         metrics_fn=None,
     ) -> "GaussianModel":
         """train_loop over the views (ground truth as host arrays or
-        tensors, moved to the model's device); ``devices`` > 1 reaches
-        train_loop's refusal (the tile-sharded step is not ported)."""
+        tensors, moved to the model's device); ``devices`` > 1 shards tile
+        strips over that many ranks of the initialized torch.distributed
+        process group (parallel/; every rank calls train with the same
+        arguments), and raises without one."""
         from gaussiansplatting_tpu_torch.train import trainer
 
         self.state = trainer.train_loop(

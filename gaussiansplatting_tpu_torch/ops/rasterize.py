@@ -53,19 +53,30 @@ class RenderAux(NamedTuple):
     overflow: torch.Tensor   # [] bool pair capacity exceeded
 
 
-def _check_ported(cfg: RasterConfig, tile_rows) -> None:
+def _check_ported(cfg: RasterConfig) -> None:
     unported = {
         "payload_dtype='bf16'": cfg.payload_dtype != "f32",
         "pack_positions=True": cfg.pack_positions,
         "overflow_drop='impact'": cfg.overflow_drop != "index",
-        "tile_rows": tile_rows is not None,
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
         raise NotImplementedError(
             f"render: {', '.join(missing)} not ported to the torch package "
-            "yet (only the f32 windowed path of the full image is)"
+            "yet (only the f32 windowed path is; ROADMAP.md §A, modes and variants)"
         )
+
+
+def _tile_rows(camera: Camera, cfg: RasterConfig, tile_rows) -> tuple[int, int]:
+    """(row0, n_rows) of the tile rows to rasterize: the whole image, or the
+    strip ``tile_rows`` = (row0, n_rows), which may run past the image's
+    last tile row (those rows hold only the background)."""
+    if tile_rows is None:
+        return 0, proj_mod.num_tiles(camera.height, cfg.tile_size)
+    row0, n_rows = (int(x) for x in tile_rows)
+    if row0 < 0 or n_rows < 1:
+        raise ValueError(f"render: tile_rows {tuple(tile_rows)} needs row0 >= 0 and n_rows >= 1")
+    return row0, n_rows
 
 
 def _color_with_dead_zone(raw_color: torch.Tensor) -> torch.Tensor:
@@ -103,13 +114,15 @@ class _Plan(NamedTuple):
 
 
 def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
-          vs_dummy: torch.Tensor | None = None) -> _Plan:
+          vs_dummy: torch.Tensor | None = None, row0: int = 0,
+          tiles_y: int | None = None) -> _Plan:
     """Projection, the dead-zone colour, the stable depth presort and the
-    capacity plan (rasterize.py:287-363)."""
+    capacity plan (rasterize.py:287-363) of tile rows [row0, row0 +
+    tiles_y) (default: the whole image)."""
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
-    tiles_y = proj_mod.num_tiles(camera.height, ts)
-    row0 = 0
+    if tiles_y is None:
+        tiles_y = proj_mod.num_tiles(camera.height, ts)
 
     proj = proj_mod.project(params, camera, cfg)
     screen_pos = proj.screen_pos
@@ -173,16 +186,17 @@ class _Windows(NamedTuple):
     block_valid: torch.Tensor  # [NB] int32 live lanes
     tile: torch.Tensor         # [NB] int32 tile, clamped to num_tiles-1
     block_tile: torch.Tensor   # [NB] int32 tile, num_tiles on padding blocks
+    row0: int                  # first tile row: the kernels add it to a tile's row
 
 
-def _windows(data, ints, pcfg) -> _Windows:
-    """pair_windows_fwd of the plan (row0 = 0)."""
+def _windows(data, ints, pcfg, row0: int = 0) -> _Windows:
+    """pair_windows_fwd of the plan (tile ids relative to ``row0``)."""
     counts, ccounts, coffsets, ty_lo, tmin_x, span_x = ints
     table, block_src, block_valid, block_tile, _ = pairs_mod.pair_windows_fwd(
-        data, 0, counts, ccounts, coffsets, ty_lo, tmin_x, span_x, pcfg,
+        data, row0, counts, ccounts, coffsets, ty_lo, tmin_x, span_x, pcfg,
     )
     t = torch.clamp(block_tile, max=pcfg[2] * pcfg[3] - 1)
-    return _Windows(table, block_src, block_valid, t, block_tile)
+    return _Windows(table, block_src, block_valid, t, block_tile, row0)
 
 
 def _reduce_to_data(dcols, gid, counts, n):
@@ -209,7 +223,7 @@ class _BlendWindows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, win, counts, pcfg, bconsts):
         out, gid = blend_mod.windowed_blend_fwd(
-            win.table, win.block_src, win.block_valid, win.tile, 0, pcfg[4],
+            win.table, win.block_src, win.block_valid, win.tile, win.row0, pcfg[4],
             bconsts,
         )
         ctx.win, ctx.pcfg, ctx.bconsts = win, pcfg, bconsts
@@ -222,7 +236,7 @@ class _BlendWindows(torch.autograd.Function):
         gid, counts, s_b = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd(
-            win.table, win.block_src, win.block_valid, win.tile, 0, block,
+            win.table, win.block_src, win.block_valid, win.tile, win.row0, block,
             d_out.contiguous(), s_b, ctx.bconsts,
         )
         return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 4
@@ -244,7 +258,7 @@ class _BlendWindowsTF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, win, gid, counts, logti, pcfg, bconsts, log_thr):
         out, stop = blend_mod.windowed_blend_fwd_tf(
-            win.table, win.block_src, win.block_valid, win.tile, 0, pcfg[4],
+            win.table, win.block_src, win.block_valid, win.tile, win.row0, pcfg[4],
             bconsts, logti, log_thr,
         )
         ctx.win, ctx.pcfg, ctx.bconsts, ctx.log_thr = win, pcfg, bconsts, log_thr
@@ -256,7 +270,7 @@ class _BlendWindowsTF(torch.autograd.Function):
         gid, counts, logti, s_b, stop = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd_tf(
-            win.table, win.block_src, win.block_valid, win.tile, 0, block,
+            win.table, win.block_src, win.block_valid, win.tile, win.row0, block,
             d_out.contiguous(), s_b, stop, ctx.bconsts, logti, ctx.log_thr,
         )
         return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 7
@@ -271,14 +285,22 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     its gradient is the per-Gaussian view-space positional gradient the
     density statistics accumulate (tiled_shaders.metal:717-720).
 
+    tile_rows: optional (row0, n_rows) — rasterize only tile rows [row0,
+    row0 + n_rows) and return the strip [n_rows * tile_size, W, 3], padded
+    rows kept, so every strip of a split has one shape (rasterize.py:269-
+    273, 548-551); parallel/sharded.py renders one strip per rank.  Cull and
+    pair semantics are the full render's restricted to the strip: the
+    strips' pair counts sum to the full frame's.
+
     With ``cfg.t_floor_exact`` the frame takes two blend passes over one
     set of windows (the expansion and sort run once): compose turns the
     first pass's S_b into each block's incoming log T, and the second pass
     zeroes every pair behind a pixel's T-floor.  The image takes C_b and
     S_b from the second pass and the blocks' incoming T from the first."""
-    _check_ported(cfg, tile_rows)
-    plan = _plan(params, camera, cfg, vs_dummy)
-    win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
+    _check_ported(cfg)
+    row0, n_rows = _tile_rows(camera, cfg, tile_rows)
+    plan = _plan(params, camera, cfg, vs_dummy, row0, n_rows)
+    win = _windows(plan.data.detach(), plan.ints, plan.pcfg, row0)
     counts = plan.ints[0]
     out, gid = _BlendWindows.apply(plan.data, win, counts, plan.pcfg,
                                    plan.bconsts)
@@ -291,13 +313,15 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
                                            plan.pcfg, plan.bconsts, log_thr)
             return out_tf[:, :3, :], out_tf[:, 3, :]
 
-    img = compose(out, win.block_tile, camera, cfg, blend_tfloor)
+    img = compose(out, win.block_tile, camera, cfg, blend_tfloor, tile_rows)
     return img, plan.aux
 
 
-def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
+def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+                  tile_rows: tuple | None = None):
     """Everything render does before the blend: projection, the stable
-    depth presort, the capacity plan and the per-block windows.
+    depth presort, the capacity plan and the per-block windows (of the
+    strip ``tile_rows``, as render takes it).
 
     Returns (blend_args, block_tile, RenderAux) where blend_args are the
     positional arguments of ops.blend.windowed_blend_fwd (and, with the
@@ -305,17 +329,21 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig):
     windowed_blend_bwd; the T-floor variants take (logti, log_thr) after
     the constants, and the backward the cotangent, the T-floor forward's
     S_b and its stop lanes before them)."""
-    plan = _plan(params, camera, cfg)
-    win = _windows(plan.data.detach(), plan.ints, plan.pcfg)
-    blend_args = (win.table, win.block_src, win.block_valid, win.tile, 0,
+    _check_ported(cfg)
+    row0, n_rows = _tile_rows(camera, cfg, tile_rows)
+    plan = _plan(params, camera, cfg, None, row0, n_rows)
+    win = _windows(plan.data.detach(), plan.ints, plan.pcfg, row0)
+    blend_args = (win.table, win.block_src, win.block_valid, win.tile, win.row0,
                   cfg.pair_block, plan.bconsts)
     return blend_args, win.block_tile, plan.aux
 
 
 def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
-            cfg: RasterConfig, blend_tfloor=None) -> torch.Tensor:
-    """The image [H, W, 3] from the blend's per-block summaries ``out``
-    [NB, 4, P2] and each block's tile id.
+            cfg: RasterConfig, blend_tfloor=None,
+            tile_rows: tuple | None = None) -> torch.Tensor:
+    """The image [H, W, 3] (the strip [n_rows * tile_size, W, 3] with
+    ``tile_rows``) from the blend's per-block summaries ``out`` [NB, 4, P2]
+    and each block's tile id, relative to the strip's first row.
 
     blend_tfloor: with ``cfg.t_floor_exact``, a function of each block's
     incoming log T ``logti`` [NB, P2] (detached) that returns the T-floor
@@ -323,13 +351,13 @@ def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
     incoming T from ``out``."""
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
-    tiles_y = proj_mod.num_tiles(camera.height, ts)
+    _, tiles_y = _tile_rows(camera, cfg, tile_rows)
     if cfg.t_floor_exact and blend_tfloor is None:
         raise ValueError("compose: t_floor_exact needs blend_tfloor")
     return _compose_tiles(
         out[:, :3, :], out[:, 3, :], block_tile, tiles_x * tiles_y, tiles_x,
         tiles_y, ts, camera.width, camera.height, cfg,
-        blend_tfloor if cfg.t_floor_exact else None,
+        blend_tfloor if cfg.t_floor_exact else None, tile_rows,
     )
 
 
@@ -391,9 +419,11 @@ def incoming_log_t(s_b: torch.Tensor, seg: torch.Tensor, num_tiles: int):
 
 
 def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
-                   height, cfg: RasterConfig, blend_tfloor=None):
+                   height, cfg: RasterConfig, blend_tfloor=None, tile_rows=None):
     """Segmented exclusive-prefix composition of per-block summaries into
-    the image (the associative (C, T) combine across a tile's blocks).
+    the image (the associative (C, T) combine across a tile's blocks),
+    cropped to [height, width]; a strip (``tile_rows``) keeps its padded
+    rows, as the JAX strip does (rasterize.py:548-551).
 
     ``seg`` [NB] is each block's tile id, non-decreasing (blocks of a tile
     are contiguous; padding blocks carry num_tiles at the end).  A block's
@@ -424,4 +454,4 @@ def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
 
     img = tile_img.reshape(tiles_y, tiles_x, 3, ts, ts)
     img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * ts, tiles_x * ts, 3)
-    return img[:height, :width]
+    return img[:height, :width] if tile_rows is None else img[:, :width]

@@ -11,35 +11,32 @@ Usage:
   python -m gaussiansplatting_tpu_torch.tools.train \
       --colmap scene/sparse/0 --images scene/images --output out.ply \
       [--epochs 155] [--downscale 4] [--checkpoint-dir ckpt/ --resume] \
-      [--config cfg.json] [--metrics metrics.jsonl] \
-      [--export-renders renders/] [--device cuda]
+      [--config cfg.json] [--metrics metrics.jsonl] [--devices N] \
+      [--batch-views K] [--export-renders renders/] [--device cuda]
 
 ``--device cuda`` (the default) exits with an error if CUDA is unavailable;
-the CPU runs only when asked for with ``--device cpu``.  Flags of modes not
-ported yet (``--devices`` > 1, ``--coordinator``, ``--batch-views`` > 1,
-``--payload-dtype bf16``, ``--pack-positions 1``, ``--overflow-drop
-impact``) exit with an error that names the ROADMAP.md item.
+the CPU runs only when asked for with ``--device cpu``.  ``--devices N``
+shards tile strips over N ranks (parallel/): under a launcher (the
+environment of parallel/launch.py, or ``--coordinator``) every rank runs
+this program; without one it starts N local ranks itself
+(``launch.spawn``).  Only rank 0 writes metrics, checkpoints, snapshots,
+renders and the PLY.  Flags of modes not ported yet (``--payload-dtype
+bf16``, ``--pack-positions 1``, ``--overflow-drop impact``) exit with an
+error that names the ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 
-from gaussiansplatting_tpu_torch.tools.render import _device
-
 # flags of modes the port does not have yet: (test on the parsed args,
 # the ROADMAP.md item that ports it)
 _UNPORTED = (
-    ("--devices > 1", lambda a: a.devices > 1,
-     "ROADMAP.md §A still to port: parallel/ (tile-strip sharding)"),
-    ("--coordinator", lambda a: a.coordinator is not None,
-     "ROADMAP.md §A still to port: parallel/ (multi-host)"),
-    ("--batch-views > 1", lambda a: a.batch_views > 1,
-     "ROADMAP.md §A still to port: train_step_batched"),
     ("--payload-dtype bf16", lambda a: a.payload_dtype == "bf16",
      "ROADMAP.md §A still to port: modes and variants (payload_dtype)"),
     ("--pack-positions 1", lambda a: a.pack_positions == 1,
@@ -76,11 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-interval", type=int, default=5000, help="iters between checkpoints (0=end only)")
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint in --checkpoint-dir")
     p.add_argument("--metrics", default=None, help="JSONL metrics path")
-    p.add_argument("--devices", type=int, default=1, help="shard tiles across N devices (1 only)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shard tile strips across N ranks, one device each")
     p.add_argument("--export-renders", default=None, help="dir for final per-view renders")
     p.add_argument("--knn-mode", choices=("reference", "exact"), default="reference")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator host:port (not ported yet)")
+                   help="process-group coordinator host:port (rank 0's); the "
+                        "process count and rank come from NUM_PROCESSES and "
+                        "PROCESS_ID (or WORLD_SIZE and RANK)")
     p.add_argument("--snapshot-dir", default=None,
                    help="write render+gt PNG snapshots every config snapshot_interval iters")
     p.add_argument("--sh-degree", type=int, default=None, choices=(0, 1),
@@ -95,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-pair-capacity", type=int, default=1 << 16,
                    help="adaptive-pairs lower bound")
     p.add_argument("--batch-views", type=int, default=1, metavar="K",
-                   help="one Adam step on the mean gradient of K views (1 only)")
+                   help="one Adam step on the mean gradient of K views "
+                        "(larger effective batch; 1 = reference parity)")
     p.add_argument("--shuffle", action="store_true",
                    help="shuffle view order each epoch (official-3DGS style; "
                         "default keeps the reference's fixed order)")
@@ -167,19 +168,55 @@ def main(argv=None) -> int:
         if given(args):
             raise SystemExit(
                 f"error: {flag} is not ported to the torch package yet ({item})")
+    if args.batch_views < 1:
+        raise SystemExit(f"error: --batch-views {args.batch_views}: train_step_batched "
+                         "takes K >= 1 views")
+    if args.devices < 1:
+        raise SystemExit(f"error: --devices {args.devices}: parallel/ needs N >= 1 ranks")
 
+    import torch
+
+    from gaussiansplatting_tpu_torch.parallel import launch
+
+    if args.devices > 1 and args.coordinator is None and not launch.launched():
+        # no launcher: this process starts the ranks, each runs _train
+        if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit(f"error: --devices {args.devices} starts one rank per card "
+                             "(parallel/launch.spawn), but CUDA is not available (pass "
+                             "--device cpu for gloo ranks on the CPU)")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return launch.spawn(_rank_main, args.devices, (argv,), device=args.device)[0]
+    try:
+        topo = launch.initialize(coordinator=args.coordinator, device=args.device)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}")
+    try:
+        return _train(args, topo)
+    finally:
+        launch.shutdown()
+
+
+def _rank_main(topo, argv):
+    """One rank of ``--devices N`` started by launch.spawn."""
+    return _train(build_parser().parse_args(argv), topo)
+
+
+def _train(args, topo) -> int:
     import torch
 
     from gaussiansplatting_tpu_torch.config import Config
     from gaussiansplatting_tpu_torch.io import images as images_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
     from gaussiansplatting_tpu_torch.ops.rasterize import render as raster_render
+    from gaussiansplatting_tpu_torch.parallel import launch
     from gaussiansplatting_tpu_torch.train import checkpoint as ckpt_mod
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train import trainer
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
-    device = _device(args.device)
+    device = torch.device(topo["device"])
+    # every rank runs the same steps; only rank 0 touches the filesystem
+    primary = launch.is_primary()
     if args.config:
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
@@ -192,10 +229,8 @@ def main(argv=None) -> int:
         default_pair_capacity=None if args.config else 1 << 21,
     ))
 
-    log = MetricsLogger(path=args.metrics)
-    log.log("start", colmap=args.colmap, devices=args.devices, process_index=0,
-            process_count=1, local_devices=1, global_devices=1,
-            device=str(device))
+    log = MetricsLogger(path=args.metrics if primary else None, echo=primary)
+    log.log("start", colmap=args.colmap, devices=args.devices, **topo)
 
     if args.metrics:
         # the JSONL stream records every step; the console echo line costs
@@ -237,6 +272,14 @@ def main(argv=None) -> int:
         log.log("resume", path=latest, iteration=int(state.opt.t))
     else:
         state = state_mod.create(params, seed=cfg.train.seed)
+    if topo["process_count"] > 1:
+        # checkpoints live on a shared filesystem (rank 0 writes them); ranks
+        # that resumed from different points would train different states
+        its = torch.tensor([state.opt.t, -state.opt.t], dtype=torch.int64, device=device)
+        torch.distributed.all_reduce(its, op=torch.distributed.ReduceOp.MAX)
+        if int(its[0]) != -int(its[1]):
+            raise SystemExit("error: the resume iteration differs across ranks: checkpoints "
+                             "must live on a shared filesystem (only rank 0 writes them)")
 
     gts = [torch.from_numpy(g).to(device) for g in gts]
 
@@ -266,6 +309,8 @@ def main(argv=None) -> int:
             )
 
     def metrics_fn(iteration, m):
+        if not primary:
+            return
         vec = torch.stack([
             m.loss, m.l1, m.dssim, m.psnr,
             m.num_gaussians.to(torch.float32), m.num_pairs.to(torch.float32),
@@ -276,7 +321,7 @@ def main(argv=None) -> int:
             flush_metrics()
 
     def checkpoint_fn(iteration, st):
-        if latest:
+        if latest and primary:
             ckpt_mod.save(latest, st, cfg)
             log.log("checkpoint", iter=iteration, path=latest)
 
@@ -286,6 +331,8 @@ def main(argv=None) -> int:
         return img.cpu().numpy()
 
     def snapshot_fn(iteration, st, cam, gt):
+        if not primary:
+            return
         os.makedirs(args.snapshot_dir, exist_ok=True)
         images_mod.save_png(
             os.path.join(args.snapshot_dir, f"render_{iteration:06d}.png"),
@@ -306,8 +353,10 @@ def main(argv=None) -> int:
         metrics_fn=metrics_fn,
         checkpoint_fn=checkpoint_fn if args.checkpoint_dir else None,
         checkpoint_interval=args.checkpoint_interval,
+        mesh_devices=args.devices,
         snapshot_fn=snapshot_fn if args.snapshot_dir else None,
         shuffle_seed=cfg.train.seed if args.shuffle else None,
+        batch_views=args.batch_views,
         adaptive_pairs=args.adaptive_pairs,
         min_pair_capacity=args.min_pair_capacity,
         adaptive_capacity=args.adaptive_capacity,
@@ -320,6 +369,9 @@ def main(argv=None) -> int:
     if args.checkpoint_dir:
         checkpoint_fn(int(state.opt.t), state)
 
+    if not primary:
+        log.close()
+        return 0
     # held-out evaluation (official-3DGS test split)
     if eval_cams:
         psnrs = []

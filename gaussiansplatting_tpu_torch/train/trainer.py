@@ -9,15 +9,16 @@ from ``torch.autograd.grad`` over the five trainable parameter groups and a
 zero ``vs_dummy`` whose gradient is the view-space positional gradient.
 Every function is functional: it returns a new state and leaves its input
 as it was, so a step or an event can be replayed from the same state.
-``train_step_batched`` (``batch_views > 1``) and the tile-sharded step
-(``mesh_devices > 1``, ``parallel/``) are not ported yet (ROADMAP.md §A).
+``train_step_batched`` (``batch_views > 1``) takes one Adam step on the mean
+gradient of K views; ``train_loop(mesh_devices > 1)`` runs the tile-sharded
+steps of ``parallel/sharded.py`` over a ``torch.distributed`` process group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -64,8 +65,16 @@ def train_step(
         img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
         rep = photometric_loss(img, gt_image, cfg.loss)
         *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
-    grad = dict(zip(optimizer.TRAINABLE, grads))
+    return step_update(state, dict(zip(optimizer.TRAINABLE, grads)), vs_grad, rep, img,
+                       gt_image, aux.num_pairs, aux.overflow, cfg, total_iters)
 
+
+def step_update(state: TrainState, grad: dict, vs_grad, rep, img, gt_image, num_pairs,
+                overflow, cfg: Config, total_iters: int) -> tuple[TrainState, StepMetrics]:
+    """The rest of train_step once the view's gradients exist: Adam, the
+    density statistics and the metrics (parallel/sharded.py calls it with
+    the all-reduced gradients)."""
+    params = state.params
     # LR uses the pre-increment iteration count (mtl_engine.mm:1092-1094)
     lrs = schedule.learning_rates(cfg.optim, state.opt.t, total_iters)
     new_params, new_opt = optimizer.step(params, grad, state.opt, lrs, cfg.optim)
@@ -80,8 +89,8 @@ def train_step(
             l1=rep.l1_mean.detach(),
             dssim=rep.dssim_mean.detach(),
             psnr=psnr(img.detach(), gt_image),
-            num_pairs=aux.num_pairs,
-            overflow=aux.overflow,
+            num_pairs=num_pairs,
+            overflow=overflow,
             position_lr=lrs.position,
             num_gaussians=new_params.count(),
             mean_opacity=_mean_opacity(new_params),
@@ -113,6 +122,107 @@ def train_steps(
         for xs in zip(*steps)
     ]
     return state, StepMetrics(*stacked)
+
+
+class _ParamsView(NamedTuple):
+    """The fields render reads, for a view of the parameters whose means
+    carry a per-view zero (train_step_batched's ``pos_dummy``)."""
+    means: torch.Tensor
+    log_scales: torch.Tensor
+    quats: torch.Tensor
+    raw_opacities: torch.Tensor
+    sh: torch.Tensor
+    alive: torch.Tensor
+
+
+def batched_view_grads(params, cameras, gt_images, cfg: Config, render_view=None):
+    """The autograd half of train_step_batched: the K views' losses under
+    one ``torch.autograd.grad`` of their mean (JAX vmaps one_view,
+    trainer.py:169-188; a CUDA kernel has no vmap, so the views run in a
+    Python loop and their graphs are kept until the one backward).
+
+    ``render_view(p, camera, vs_dummy) -> (image, RenderAux)`` renders one
+    view (default: ``render`` of the whole image; parallel/sharded.py passes
+    its strip render and gather).  Returns (grads dict, vs_grad [K, N, 2],
+    pos_grad [K, N, 3], reps, auxs, imgs): each view's vs_grad / pos_grad is
+    its gradient / K."""
+    if render_view is None:
+        def render_view(p, cam, vs):
+            return render(p, cam, cfg.raster, vs_dummy=vs)
+
+    k = len(cameras)
+    trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
+    dev = params.means.device
+    vs_zero = torch.zeros((k, params.capacity, 2), dtype=torch.float32, device=dev,
+                          requires_grad=True)
+    pos_zero = torch.zeros((k, params.capacity, 3), dtype=torch.float32, device=dev,
+                           requires_grad=True)
+    reps, auxs, imgs = [], [], []
+    with torch.enable_grad():
+        for v, (cam, gt) in enumerate(zip(cameras, gt_images)):
+            view = _ParamsView(params.means + pos_zero[v], params.log_scales, params.quats,
+                               params.raw_opacities, params.sh, params.alive)
+            img, aux = render_view(view, cam, vs_zero[v])
+            reps.append(photometric_loss(img, gt, cfg.loss))
+            auxs.append(aux)
+            imgs.append(img)
+        loss = torch.stack([r.grad_loss for r in reps]).mean()
+        *grads, vs_grad, pos_grad = torch.autograd.grad(loss, trainable + [vs_zero, pos_zero])
+    return dict(zip(optimizer.TRAINABLE, grads)), vs_grad, pos_grad, reps, auxs, imgs
+
+
+def batched_update(state: TrainState, grad: dict, vs_grad, pos_grad, reps, imgs, gt_images,
+                   num_pairs, overflow, cfg: Config, total_iters: int):
+    """The rest of train_step_batched: Adam on the mean gradient, then the
+    K views' density statistics folded in view order, each at its own
+    gradient (vs_grad * K, pos_grad * K), as K sequential accumulate()
+    calls would (trainer.py:190-202)."""
+    k = len(reps)
+    lrs = schedule.learning_rates(cfg.optim, state.opt.t, total_iters)
+    new_params, new_opt = optimizer.step(state.params, grad, state.opt, lrs, cfg.optim)
+    accum = state.accum
+    for v in range(k):
+        accum = density.accumulate(accum, vs_grad[v] * k, pos_grad[v] * k, cfg.density)
+    with torch.no_grad():
+        metrics = StepMetrics(
+            loss=torch.stack([r.combined_mean for r in reps]).detach().mean(),
+            l1=torch.stack([r.l1_mean for r in reps]).detach().mean(),
+            dssim=torch.stack([r.dssim_mean for r in reps]).detach().mean(),
+            # of the K views' pooled MSE, as JAX's psnr of the stacked views
+            psnr=psnr(torch.stack([img.detach() for img in imgs]),
+                      torch.stack(list(gt_images))),
+            num_pairs=num_pairs,
+            overflow=overflow,
+            position_lr=lrs.position,
+            num_gaussians=new_params.count(),
+            mean_opacity=_mean_opacity(new_params),
+            mean_world_scale=_mean_world_scale(new_params),
+        )
+    new_state = TrainState(params=new_params, opt=new_opt, accum=accum,
+                           generator=state.generator)
+    return new_state, metrics
+
+
+def train_step_batched(
+    state: TrainState,
+    cameras: Sequence[Camera],
+    gt_images,
+    cfg: Config,
+    total_iters: int,
+) -> tuple[TrainState, StepMetrics]:
+    """One Adam step on the MEAN loss over K views (gradient accumulation),
+    the JAX ``train_step_batched`` (trainer.py:141-216): ``cameras`` K
+    cameras of one resolution, ``gt_images`` [K, H, W, 3] or K images.
+    Per-view density statistics come from a per-view zero ``pos_dummy``
+    added to the means and a per-view ``vs_dummy``.  ``metrics.num_pairs``
+    is the MAX per-view pair count (what pair capacity must cover),
+    ``overflow`` any view's.  With K = 1 it is train_step, bit for bit."""
+    grad, vs_grad, pos_grad, reps, auxs, imgs = batched_view_grads(
+        state.params, cameras, gt_images, cfg)
+    num_pairs = torch.stack([a.num_pairs for a in auxs]).amax()
+    overflow = torch.stack([a.overflow for a in auxs]).any()
+    return batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
+                          num_pairs, overflow, cfg, total_iters)
 
 
 def _mean_opacity(params) -> torch.Tensor:
@@ -252,29 +362,30 @@ def train_loop(
     ``shuffle_seed`` shuffles the view order per epoch with
     ``random.Random`` (the JAX package's order for the same seed).
 
+    ``batch_views`` > 1 takes one Adam step on the mean gradient of K views
+    (train_step_batched): the views of an epoch go in groups of K in view
+    order, the last group wrapping around to the epoch's first views, and
+    the iteration counts optimizer steps, so the schedules see ceil(views /
+    K) steps per epoch; densify and snapshots take the group's first view.
+    ``mesh_devices`` > 1 runs the tile-sharded step (or sharded batched
+    step) of parallel/sharded.py on every rank of the initialized
+    ``torch.distributed`` process group (launch.initialize or
+    launch.spawn); without one it raises.
+
     ``scan_steps`` > 1 runs chunks of that many steps through
     ``train_steps`` (a loop here, the same semantics as the JAX scan)
-    wherever no event falls inside the chunk.  ``adaptive_pairs``
+    wherever no event falls inside the chunk; only the plain single-view
+    path chunks (batch_views == 1, mesh_devices == 1).  ``adaptive_pairs``
     rebuckets the pair capacity every ``adapt_interval`` iters to the next
     power of two above 1.5x the recent peak (within [min_pair_capacity,
     cfg.raster.pair_capacity]), doubling on overflow.  ``adaptive_capacity``
     grows the Gaussian arrays (``state.grow``) to the next power of two when
     a densify event fills 85% of them, up to ``max_capacity`` (default: the
     density hard cap).
-
-    ``mesh_devices`` > 1 (tile sharding, JAX ``parallel/``) and
-    ``batch_views`` > 1 (``train_step_batched``) are not ported yet.
     """
-    if mesh_devices > 1:
-        raise NotImplementedError(
-            "train_loop: mesh_devices > 1 (parallel/, tile-strip sharding) is "
-            "not ported to the torch package yet (ROADMAP.md §A, still to port)")
-    if batch_views > 1:
-        raise NotImplementedError(
-            "train_loop: batch_views > 1 (train_step_batched) is not ported to "
-            "the torch package yet (ROADMAP.md §A, still to port)")
     epochs = num_epochs if num_epochs is not None else cfg.train.epochs
-    total_iters = epochs * len(cameras)
+    steps_per_epoch = -(-len(cameras) // batch_views)
+    total_iters = epochs * steps_per_epoch
     iteration = int(state.opt.t)
 
     max_pair_capacity = cfg.raster.pair_capacity
@@ -283,22 +394,49 @@ def train_loop(
         cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=cap))
     recent_peak = 0
 
+    if mesh_devices > 1:
+        from gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
+        from gaussiansplatting_tpu_torch.parallel import sharded
+
+        mesh = mesh_mod.make_mesh(mesh_devices)
+
+    def build_step_fn(cfg):
+        if mesh_devices > 1:
+            if batch_views > 1:
+                return sharded.make_sharded_train_step_batched(mesh, cfg, total_iters,
+                                                               batch_views)
+            return sharded.make_sharded_train_step(mesh, cfg, total_iters)
+        if batch_views > 1:
+            return lambda st, cams, gts: train_step_batched(st, cams, gts, cfg, total_iters)
+        return lambda st, cam, gt: train_step(st, cam, gt, cfg, total_iters)
+
+    step_fn = build_step_fn(cfg)
     order_rng = random.Random(shuffle_seed) if shuffle_seed is not None else None
 
-    if scan_steps > 1:
+    if batch_views > 1 or scan_steps > 1:
         sizes = {(c.width, c.height) for c in cameras}
         if len(sizes) > 1:
-            raise ValueError(f"scan_steps requires one resolution, got {sizes}")
+            which = "batch_views" if batch_views > 1 else "scan_steps"
+            raise ValueError(f"{which} requires one resolution, got {sizes}")
+    use_scan = scan_steps > 1 and mesh_devices == 1 and batch_views == 1
 
     for epoch in range(epochs):
         order = list(range(len(cameras)))
         if order_rng is not None:
             order_rng.shuffle(order)
-        views = [(cameras[v], gt_images[v]) for v in order]
+        if batch_views > 1:
+            # (cameras, ground truth, the first view's camera and ground
+            # truth: densify needs one focal, snapshot_fn one view)
+            groups = [[order[(i + j) % len(order)] for j in range(batch_views)]
+                      for i in range(0, len(order), batch_views)]
+            views = [([cameras[v] for v in g], [gt_images[v] for v in g],
+                      cameras[g[0]], gt_images[g[0]]) for g in groups]
+        else:
+            views = [(cameras[v], gt_images[v], cameras[v], gt_images[v]) for v in order]
         idx = 0
         while idx < len(views):
             k = 1
-            if scan_steps > 1 and idx + scan_steps <= len(views):
+            if use_scan and idx + scan_steps <= len(views):
                 gap = _steps_until_event(
                     iteration, cfg, adaptive_pairs, adapt_interval,
                     checkpoint_interval if checkpoint_fn else 0,
@@ -308,20 +446,20 @@ def train_loop(
                     k = scan_steps
             if k > 1:
                 chunk = views[idx:idx + k]
-                state, ms = train_steps(state, [c for c, _ in chunk],
-                                        [g for _, g in chunk], cfg, total_iters)
+                state, ms = train_steps(state, [c[0] for c in chunk],
+                                        [c[1] for c in chunk], cfg, total_iters)
                 for i in range(k):
                     iteration += 1
                     if metrics_fn:
                         metrics_fn(iteration, _metrics_at(ms, i))
                 metrics = _metrics_at(ms, k - 1)
             else:
-                cam, gt = views[idx]
-                state, metrics = train_step(state, cam, gt, cfg, total_iters)
+                cam, gt, _, _ = views[idx]
+                state, metrics = step_fn(state, cam, gt)
                 iteration += 1
                 if metrics_fn:
                     metrics_fn(iteration, metrics)
-            cam0, gt0 = views[idx + k - 1]
+            cam0, gt0 = views[idx + k - 1][2:]
             idx += k
 
             if adaptive_pairs and iteration % adapt_interval == 0:
@@ -335,6 +473,7 @@ def train_loop(
                     want = min(max(want, min_pair_capacity), max_pair_capacity)
                 if want != cur:
                     cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=want))
+                    step_fn = build_step_fn(cfg)
                     recent_peak = pairs_now
                     if log_fn:
                         log_fn(

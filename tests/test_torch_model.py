@@ -69,10 +69,13 @@ def test_train_matches_jax():
 
 
 def test_train_refuses_devices():
+    """devices > 1 shards over a torch.distributed process group; without
+    one the facade raises, it does not train on one device instead."""
     _, tm = _models(24)
     jc, tc = cameras()
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
+    with pytest.raises(RuntimeError, match="process group"):
         tm.train([tc], [np.zeros((48, 64, 3), np.float32)], epochs=1, devices=2)
+    assert tm.state.opt.t == 0
 
 
 def test_ply_and_checkpoint_round_trips(tmp_path):

@@ -112,10 +112,13 @@ def test_unported_modes_raise(kw):
 
 
 def test_tile_rows_raise():
+    """A strip needs row0 >= 0 and at least one row (tests/test_torch_batched.py
+    holds the strips against JAX's)."""
     _, tp = scene_params(15, n=16)
     _, tc = cameras()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="tile_rows"):
-        render(tp, tc, configs()[1], tile_rows=(0, 1))
+    for tile_rows in ((0, 0), (-1, 2)):
+        with torch.no_grad(), pytest.raises(ValueError, match="tile_rows"):
+            render(tp, tc, configs()[1], tile_rows=tile_rows)
 
 
 def _tiny_ply(path, seed=16, n=40):

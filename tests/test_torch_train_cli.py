@@ -256,14 +256,15 @@ def test_evaluate_cli_matches_jax(scene_dir, capsys, monkeypatch):
     (["--device", "cuda"], "CUDA is not available"),
     (["--devices", "2"], "parallel/"),
     (["--coordinator", "localhost:1234"], "parallel/"),
-    (["--batch-views", "2"], "train_step_batched"),
+    (["--batch-views", "0"], "train_step_batched"),
     (["--payload-dtype", "bf16"], "payload_dtype"),
     (["--pack-positions", "1"], "pack_positions"),
     (["--overflow-drop", "impact"], "overflow_drop"),
 ])
 def test_train_cli_refuses_what_it_cannot_run(scene_dir, tmp_path, monkeypatch, flags, needle):
-    """No fallback: --device cuda without CUDA and the flags of modes not
-    ported yet exit non-zero, naming the reason."""
+    """No fallback: --device cuda without CUDA (also for --devices 2's ranks
+    and --coordinator's process group), a batch of no views and the flags
+    of modes not ported yet exit non-zero, naming the reason."""
     from gaussiansplatting_tpu_torch.tools import train as train_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
