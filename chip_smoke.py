@@ -123,14 +123,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               (`sharded`); tools.train --batch-views 2 and --devices 2 on
               phase 7's scene; tools.bench_scaling and
               graft_entry.dryrun_multichip(2).
+ 11. modes     the bf16 payload mode (payload_dtype="bf16", with and without
+              pack_positions), the impact drop and the scatter reduction at
+              full size (phase_modes): the packed kernels
+              (gs_blend_{fwd,bwd}_win_packed) against their plain versions
+              on edge windows and the canonical view's packed windows with
+              the real loss cotangent (the backward twice, bit-identical),
+              timed in turns against the float32 Hopper kernels, their work
+              and bounds; the bf16 render (`modes_render`) and train step
+              (`modes_train`, timed, replayed bit for bit, its device time
+              profiled) against the float32 ones at JAX's bars, only the
+              packed kernels launching; a 64x48 bf16 + pack_pos step card
+              against CPU;
+              the impact capacity plan card against CPU, integer-exact; the
+              scatter reduction twice bit for bit and against float64, a
+              scatter step replayed; tools.train --payload-dtype bf16
+              --pack-positions 1 (`modes_cli`).
 
-Every main path (phases 4-10) runs with the launch counts set to 0 before
+Every main path (phases 4-11) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
 Prints one JSON line describing the kernels (per kernel: launches on the
 main paths and per step, max_abs_err against the plain version, ms, ms_v1
-(the first design's time in the same turns), plain_ms, bound_ms with
+(the first design's time in the same turns; for the packed entries ms_f32,
+the float32 Hopper kernel's, and their pack_pos instances' times and
+bounds), plain_ms, bound_ms with
 bound_by (the larger of
 this run's bytes over the HBM rate and its instructions over the f32
 instruction rate), the work behind it (power_tests, kept_pairs,
@@ -300,6 +318,21 @@ PARALLEL_TIMED_STEPS = 5
 SHARDED_TIMED_STEPS = 5
 SHARDED_LOSS_RTOL, SHARDED_PARAM_ATOL, SHARDED_ACCUM_ATOL = 1e-5, 2e-5, 1e-4
 PARALLEL_CLI_EPOCHS = 1
+# phase 11: the bf16 payload mode (payload_dtype="bf16", pack_positions),
+# the impact drop and the scatter reduction.  Packed backward vs plain, per
+# unpacked cotangent: within one bf16 ulp of the value (2^-7 relative: the
+# final round to nearest even takes a last-bit difference either way) plus
+# PACKED_BWD_REL of the column's largest (the suffix's bf16-rounded terms
+# may round either way too).  bf16 vs f32 at JAX's own bars
+# (tests/test_packing.py:97-202): image max and mean, gradients relative to
+# the field's largest.  The scatter reduction against a float64 sum,
+# PACKED_REDUCE_REL_NORM per column; tools.train's epochs in the bf16 mode;
+# the impact drop's capacity (a third of the frame's pairs)
+PACKED_BWD_REL = 1e-4
+MODE_IMG_MAX, MODE_IMG_MEAN, MODE_GRAD_REL = 0.06, 5e-3, 5e-2
+SCATTER_REL_NORM = 1e-5
+MODES_TIMED_STEPS = 5
+MODES_CLI_EPOCHS = 1
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -391,6 +424,31 @@ def edge_windows(block, seed, row0, nb=24, ts=16, tiles_x=50, tiles_y=38):
         table[1, lanes] = cx + rng.uniform(-10, 10, block)
         table[2, lanes] = cy + rng.uniform(-10, 10, block)
     return table, src, valid, tile
+
+
+def packed_edge_windows(block, seed, row0, pack_pos, **kw):
+    """edge_windows' windows over the bf16 payload mode's 8-row table
+    (ops/pairs.py): gid, sx, sy, then bf16 pairs (a, b), (c, op), (r, g),
+    (b, 0); with ``pack_pos`` gid, then tile-relative (mx, my) drawn in
+    [-10, 10] as one pair, then the same four pairs.  Returns (table,
+    src, valid, tile)."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.ops import packing
+
+    table, src, valid, tile = edge_windows(block, seed, row0, **kw)
+    t = torch.from_numpy(table)
+    data = packing.pack_cols(list(t[3:10]))
+    if pack_pos:
+        rel = np.random.default_rng(seed + 7).uniform(-10, 10, (2, t.shape[1]))
+        rel = torch.from_numpy(rel.astype(np.float32))
+        rows = [t[0], packing.pack2(rel[0], rel[1])] + data
+    else:
+        rows = [t[0], t[1], t[2]] + data
+    packed = torch.zeros((8, t.shape[1]), dtype=torch.float32)
+    packed[:len(rows)] = torch.stack(rows)
+    return packed.numpy(), src, valid, tile
 
 
 def edge_logti(nb, seed, p2=256):
@@ -920,13 +978,14 @@ def _compare_tf_bwd(label, got, want, margin):
 
 
 def _blend_wrappers():
-    """The kernel entries' wrappers, each with its launch count: the four
-    of the main paths and the first design's four, which only the A/Bs of
-    phases 3 and 6 call."""
+    """The kernel entries' wrappers, each with its launch count: the six
+    of the main paths (four float32, two packed) and the first design's
+    four, which only the A/Bs of phases 3 and 6 call."""
     from gaussiansplatting_tpu_torch.ops import blend
 
     return (blend.windowed_blend_fwd, blend.windowed_blend_fwd_tf,
             blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf,
+            blend.windowed_blend_fwd_packed, blend.windowed_blend_bwd_packed,
             blend.windowed_blend_fwd_v1, blend.windowed_blend_bwd_v1,
             blend.windowed_blend_fwd_tf_v1, blend.windowed_blend_bwd_tf_v1)
 
@@ -2629,6 +2688,367 @@ def phase_parallel(params, camera, cfg, gt, smi):
     return res
 
 
+def _packed_consts(cfg, pack_pos, tiles_x=50):
+    return (16, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x, 1, int(pack_pos))
+
+
+def _compare_packed_bwd(label, got, want, quiet=False):
+    """Packed backward kernel vs plain: both unpacked, each of the nine
+    columns within one bf16 ulp of the value (2^-7 |value|) plus
+    PACKED_BWD_REL of the column's largest plain magnitude.  Returns the max
+    |err| and the largest error beyond the ulp term over the column's
+    largest."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.ops import packing
+
+    got = torch.stack(packing.unpack_cols(list(got), 9))
+    want = torch.stack(packing.unpack_cols(list(want), 9))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: packed backward has non-finite values")
+    err = (got - want).abs()
+    scale = want.abs().flatten(1).amax(1).clamp(min=1e-30)[:, None, None]
+    beyond = ((err - 2.0 ** -7 * want.abs()).clamp(min=0) / scale)
+    worst, rel = float(err.max()), float(beyond.max())
+    if not quiet or rel > PACKED_BWD_REL:
+        log(f"[modes] {label}: packed backward max|err| {worst:.3e}; beyond a bf16 ulp "
+            f"{rel:.2e} of the column's largest (bar {PACKED_BWD_REL}); entries differing "
+            f"{int((err > 0).sum())} of {err.numel()}")
+    if rel > PACKED_BWD_REL:
+        raise AssertionError(f"{label}: packed backward disagrees with the plain version")
+    return worst, rel
+
+
+def _compare_packed_fwd(label, got, want, quiet=False):
+    """Packed forward kernel vs plain: (out, gid) as _compare, q_b within
+    KERNEL_ATOL + KERNEL_RTOL.  Returns the max |err| over out and q_b."""
+    err = _compare(label, got[:2], want[:2], quiet)
+    q_err = (got[2] - want[2]).abs()
+    if bool((q_err > KERNEL_ATOL + KERNEL_RTOL * want[2].abs()).any()):
+        raise AssertionError(f"{label}: q_b disagrees with the plain version")
+    return max(err, float(q_err.max()))
+
+
+def _grads(params, camera, cfg, weights):
+    """The trainable fields' gradients of sum(image * weights), the loss of
+    JAX's bf16 gradient bar (tests/test_packing.py:111-131)."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.ops.rasterize import render
+    from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
+
+    with torch.enable_grad():
+        img, _ = render(params, camera, cfg)
+        return dict(zip(TRAINABLE, torch.autograd.grad(
+            (img * weights).sum(), [getattr(params, f) for f in TRAINABLE])))
+
+
+def _packed_launches(label, both):
+    """The counts of a bf16 path just run: the packed forward (``both``:
+    and backward) launched, the float32 entries not."""
+    launches = _tf_launches()
+    _check_no_v1(label, launches)
+    names = ("windowed_blend_fwd_packed", "windowed_blend_bwd_packed")[:2 if both else 1]
+    if (min(launches[n] for n in names) < 1
+            or any(launches[n[:-len("_packed")]] for n in names)):
+        raise AssertionError(f"{label}: packed kernels not launched or float32 ones were: "
+                             f"{launches}")
+    return launches
+
+
+def phase_modes(params, camera, cfg, gt, smi):
+    """The bf16 payload mode, the impact drop and the scatter reduction at
+    full size: (i) the packed kernels (plain and pack_pos) against their
+    plain versions on edge windows and on the canonical view's packed
+    windows with the real loss cotangent (the backward launched twice,
+    bit-identical), timed against the float32 Hopper kernels in turns,
+    their work and bounds; (ii) the bf16 render (`modes_render`) and train
+    step (`modes_train`, timed, replayed bit for bit, profiled) against
+    the float32 ones at JAX's bars, only the packed kernels launching; a
+    64x48 bf16 + pack_pos step on the card against the CPU; (iii) the
+    impact drop's
+    capacity plan on the card against the CPU (integer-exact) and a capped
+    render; the scatter reduction twice bit for bit and against a float64
+    sum, a scatter step; (iv) tools.train --payload-dtype bf16
+    --pack-positions 1 (`modes_cli`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.core import gaussians
+    from gaussiansplatting_tpu_torch.ops import blend, packing, pairs
+    from gaussiansplatting_tpu_torch.ops import projection as proj_mod
+    from gaussiansplatting_tpu_torch.ops.rasterize import (
+        _plan, _windows, blend_windows, render)
+    from gaussiansplatting_tpu_torch.tools import trace
+    from gaussiansplatting_tpu_torch.train import schedule
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE
+    from gaussiansplatting_tpu_torch.train.trainer import train_step
+    from gaussiansplatting_tpu_torch.utils import sol, synthetic
+
+    res, paths = {"fwd": {}, "bwd": {}}, {}
+    bf16 = cfg.replace(payload_dtype="bf16")
+    modes = (("bf16", bf16), ("bf16+pack_pos", bf16.replace(pack_positions=True)))
+
+    # (i) the packed kernels against their plain versions
+    fwd_err = bwd_err = bwd_rel = 0.0
+    with torch.no_grad():
+        for block in EDGE_BLOCKS:
+            for row0 in (0, 3):
+                for pp in (False, True):
+                    e = [torch.from_numpy(x).to(DEVICE)
+                         for x in packed_edge_windows(block, block + row0, row0, pp)]
+                    a = (*e, row0, block, _packed_consts(cfg, pp))
+                    label = f"edge B={block} row0={row0} pack_pos={int(pp)}"
+                    got = blend.windowed_blend_fwd_packed(*a)
+                    fwd_err = max(fwd_err, _compare_packed_fwd(
+                        label, got, blend.windowed_blend_fwd_packed_plain(*a), quiet=True))
+                    g = torch.from_numpy(np.random.default_rng(block + row0).normal(
+                        size=(e[1].shape[0], 4, 256)).astype(np.float32)).to(DEVICE)
+                    b = a[:6] + (g, got[2], a[6])
+                    err, rel = _compare_packed_bwd(label, blend.windowed_blend_bwd_packed(*b),
+                                                   blend.windowed_blend_bwd_packed_plain(*b),
+                                                   quiet=True)
+                    bwd_err, bwd_rel = max(bwd_err, err), max(bwd_rel, rel)
+        log(f"[modes] edge windows (B = {EDGE_BLOCKS}, row0 0 and 3, pack_pos 0 and 1): "
+            f"packed forward max|err| {fwd_err:.3e} (bar {KERNEL_ATOL} + {KERNEL_RTOL} rel), "
+            f"backward max|err| {bwd_err:.3e}, beyond a bf16 ulp {bwd_rel:.2e} of the "
+            f"column's largest (bar {PACKED_BWD_REL})")
+        f32_args, block_tile, _ = blend_windows(params, camera, cfg)
+        f32_out, _ = blend.windowed_blend_fwd(*f32_args)
+        g = _loss_cotangent(f32_out, block_tile, camera, cfg, gt)
+        f32_bargs = f32_args[:6] + (g, f32_out[:, 3].contiguous(), f32_args[6])
+        for name, c in modes:
+            args, bt, aux = blend_windows(params, camera, c)
+            if not torch.equal(bt, block_tile):
+                raise AssertionError(f"{name}: the packed windows tile differently")
+            got = blend.windowed_blend_fwd_packed(*args)
+            want = blend.windowed_blend_fwd_packed_plain(*args)
+            fe = _compare_packed_fwd(f"full size {name}", got, want)
+            bargs = args[:6] + (g, got[2], args[6])
+            once = blend.windowed_blend_bwd_packed(*bargs)
+            again = blend.windowed_blend_bwd_packed(*bargs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(once, again)):
+                raise AssertionError(f"{name}: two packed backward launches differ")
+            be, br = _compare_packed_bwd(f"full size {name} (loss cotangent)", once,
+                                         blend.windowed_blend_bwd_packed_plain(*bargs))
+            fwd_ms, f32_fwd_ms, t_fwd = _turns(lambda: blend.windowed_blend_fwd_packed(*args),
+                                               lambda: blend.windowed_blend_fwd(*f32_args))
+            bwd_ms, f32_bwd_ms, t_bwd = _turns(lambda: blend.windowed_blend_bwd_packed(*bargs),
+                                               lambda: blend.windowed_blend_bwd(*f32_bargs))
+            w = sol.blend_work(args)
+            nb, p2, block = args[1].shape[0], 256, args[5]
+            rows = 6 if "pack_pos" in name else 7
+            fwd_bound, fline = sol.work_bound(
+                w, "fwd", 4 * rows * w["live_fwd"] + 12 * nb + 4 * nb * (5 * p2 + block),
+                sol.FWD_PACKED_OPS_PER_KEPT)
+            bwd_bound, bline = sol.work_bound(
+                w, "bwd", 4 * rows * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
+                + 20 * w["bwd_pixels"] + 20 * nb * block, sol.BWD_PACKED_OPS_PER_KEPT)
+            log(f"[modes] {name}: {nb} blocks, {int(aux.num_pairs)} pairs; two backward "
+                f"launches bit-identical; in turns (packed, float32, float32, packed) forward "
+                f"{', '.join(f'{t:.4f}' for t in t_fwd)} ms, backward "
+                f"{', '.join(f'{t:.4f}' for t in t_bwd)} ms (CUDA events, {KERNEL_REPS} "
+                f"launches each) on {smi}")
+            log(f"[modes] {name} forward work: {fline}")
+            log(f"[modes] {name} backward work: {bline}")
+            key = "pack_pos" if "pack_pos" in name else "bf16"
+            res["fwd"][key] = {"max_abs_err": max(fwd_err, fe), "ms": fwd_ms,
+                               "ms_f32": f32_fwd_ms, **fwd_bound}
+            res["bwd"][key] = {"max_abs_err": max(bwd_err, be), "beyond_ulp_rel": max(bwd_rel, br),
+                               "ms": bwd_ms, "ms_f32": f32_bwd_ms, **bwd_bound}
+            if key == "bf16":
+                res["fwd"][key]["plain_ms"] = cuda_time_ms(
+                    lambda: blend.windowed_blend_fwd_packed_plain(*args), reps=3)
+                res["bwd"][key]["plain_ms"] = cuda_time_ms(
+                    lambda: blend.windowed_blend_bwd_packed_plain(*bargs), reps=3)
+        del f32_args, f32_out, f32_bargs, args, bargs, got, want, once, again
+    for k in ("fwd", "bwd"):
+        r = res[k]["bf16"]
+        log(f"[modes] full size packed {k}: {r['ms']:.4f} ms (pack_pos "
+            f"{res[k]['pack_pos']['ms']:.4f}) vs float32 Hopper {r['ms_f32']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {smi}")
+
+    # (ii) the bf16 render and train step: main paths modes_render, modes_train
+    with torch.no_grad():
+        ref = render(params, camera, cfg)[0]
+    _reset_launches()
+    res["render"] = {}
+    for name, c in modes:
+        with torch.no_grad():
+            img, aux = render(params, camera, c)
+        d = (img - ref).abs()
+        res["render"][name] = (float(d.max()), float(d.mean()))
+        log(f"[modes] render {name} vs float32: max|diff| {float(d.max()):.3e}, mean "
+            f"{float(d.mean()):.3e} (JAX's bars {MODE_IMG_MAX}, {MODE_IMG_MEAN}); "
+            f"{int(aux.num_pairs)} pairs")
+        if bool(aux.overflow) or not (float(d.max()) < MODE_IMG_MAX
+                                      and float(d.mean()) < MODE_IMG_MEAN):
+            raise AssertionError(f"render {name}: beyond JAX's bf16 bars or overflowed")
+    torch.cuda.synchronize()
+    paths["modes_render"] = _packed_launches("the bf16 render", False)
+    weights = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 1.0, tuple(gt.shape)).astype(np.float32)).to(DEVICE)
+    g_ref = _grads(params, camera, cfg, weights)
+    _reset_launches()
+    res["grad_rel"] = {}
+    for name, c in modes:
+        gm = _grads(params, camera, c, weights)
+        rel = {f: float((gm[f] - g_ref[f]).abs().max() / g_ref[f].abs().max())
+               for f in TRAINABLE}
+        res["grad_rel"][name] = rel
+        log(f"[modes] gradients {name} vs float32, max|diff| over the field's largest: "
+            + ", ".join(f"{f} {v:.2e}" for f, v in rel.items()) + f" (bar {MODE_GRAD_REL})")
+        if max(rel.values()) >= MODE_GRAD_REL:
+            raise AssertionError(f"gradients {name}: beyond JAX's bf16 bar")
+    step_cfg = Config(raster=modes[1][1])
+    state0 = state_mod.create(params)
+    st, m = train_step(state0, camera, gt, step_cfg, TRAIN_TOTAL_ITERS)
+    first = st
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    flags = [m.overflow]
+    for _ in range(MODES_TIMED_STEPS):
+        st, m = train_step(st, camera, gt, step_cfg, TRAIN_TOTAL_ITERS)
+        flags.append(m.overflow)
+    end.record()
+    torch.cuda.synchronize()
+    res["step_ms"] = start.elapsed_time(end) / MODES_TIMED_STEPS
+    _check_finite_state("bf16 step", st)
+    if bool(torch.stack(flags).any()):
+        raise AssertionError("bf16 step overflowed")
+    paths["modes_train"] = _packed_launches("the bf16 train step", True)
+    _reset_launches()
+    replay, _ = train_step(state0, camera, gt, step_cfg, TRAIN_TOTAL_ITERS)
+    torch.cuda.synchronize()
+    res["per_step"] = _tf_launches()
+    a, b = state_mod.state_to_numpy(first), state_mod.state_to_numpy(replay)
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"replayed bf16 step differs in {differ}")
+    log(f"[modes] bf16 + pack_pos train step at full size: {res['step_ms']:.3f} ms/step "
+        f"(CUDA events, {MODES_TIMED_STEPS} steps) on {smi}; loss {float(m.loss):.5f}; "
+        f"replayed bit for bit; launches per step {res['per_step']}")
+    res["step_device_ms"], _ = trace.device_profile(
+        "[modes] bf16 + pack_pos step", lambda: train_step(st, camera, gt, step_cfg,
+                                                            TRAIN_TOTAL_ITERS),
+        STEP_PROFILE_STEPS, smi, DEVICE, log, STEP_PROFILE_TOP)
+    small = synthetic.make_scene(64, seed=5, spread=0.6)
+    small_cfg = step_cfg.replace(raster=step_cfg.raster.replace(pair_capacity=4096,
+                                                                pair_block=16))
+    small_gt = np.random.default_rng(2).uniform(0, 1, (48, 64, 3)).astype(np.float32)
+    host = {f: getattr(small, f).detach().numpy() for f in gaussians.FIELDS}
+    cpu_state, cpu_m = train_step(
+        state_mod.create(small), synthetic.make_canonical_camera(64, 48),
+        torch.from_numpy(small_gt), small_cfg, 100)
+    dev_state, dev_m = train_step(
+        state_mod.create(gaussians.params_from_numpy(host, DEVICE)),
+        synthetic.make_canonical_camera(64, 48, device=DEVICE),
+        torch.from_numpy(small_gt).to(DEVICE), small_cfg, 100)
+    _compare_small_step(dev_state, dev_m, cpu_state, cpu_m,
+                        schedule.learning_rates(small_cfg.optim, 0, 100),
+                        label="64x48 bf16 + pack_pos step")
+
+    # (iii) the impact drop and the scatter reduction
+    with torch.no_grad():
+        plan = _plan(params, camera, cfg)
+        proj = proj_mod.project(params, camera, cfg)
+        fields = {f.name: getattr(proj, f.name).detach() for f in dataclasses.fields(proj)}
+        proj = proj_mod.Projected(**fields)
+        tiles_x, tiles_y = plan.pcfg[2], plan.pcfg[3]
+        cap = int(plan.aux.num_pairs) // 3
+        dev_plan = pairs.capacity_plan(proj, tiles_x, tiles_y, cap, 0, "impact")
+        cpu_proj = proj_mod.Projected(**{k: v.cpu() for k, v in fields.items()})
+        cpu_plan = pairs.capacity_plan(cpu_proj, tiles_x, tiles_y, cap, 0, "impact")
+        for x, y in zip(dev_plan, cpu_plan):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError("impact capacity plan: card and CPU differ")
+        img, aux = render(params, camera, cfg.replace(pair_capacity=cap, overflow_drop="impact"))
+        if not (bool(aux.overflow) and bool(torch.isfinite(img).all())
+                and int(aux.num_pairs) <= cap):
+            raise AssertionError("impact render at a third of the pairs")
+        kept = int((dev_plan[0] > 0).sum())
+        log(f"[modes] impact drop at {cap} pairs (a third of the frame's): card = CPU, "
+            f"integer-exact; {kept} Gaussians keep {int(dev_plan[5])} pairs; the capped "
+            f"render finite")
+        win = _windows(plan.data, plan.ints, plan.pcfg)
+        args = (win.table, win.block_src, win.block_valid, win.tile, 0, cfg.pair_block,
+                plan.bconsts)
+        out, gid = blend.windowed_blend_fwd(*args)
+        d_rows = torch.stack([c.reshape(-1) for c in blend.windowed_blend_bwd(
+            *args[:6], _loss_cotangent(out, win.block_tile, camera, cfg, gt),
+            out[:, 3].contiguous(), args[6])])
+        gid = gid.reshape(-1).to(torch.int32)
+        counts, n = plan.ints[0], plan.pcfg[0]
+        once = pairs.reduce_aligned_cotangents(d_rows, gid, counts, n, "scatter")
+        again = pairs.reduce_aligned_cotangents(d_rows, gid, counts, n, "scatter")
+        torch.cuda.synchronize()
+        if not torch.equal(once, again):
+            raise AssertionError("scatter reduction: two calls differ")
+        live = gid >= 0
+        ref64 = torch.zeros((n, 9), dtype=torch.float64).index_add_(
+            0, gid[live].long().cpu(), d_rows[:, live].T.double().cpu())
+        rel = float(((once.cpu().double() - ref64).norm(dim=0) / ref64.norm(dim=0)).max())
+        res["scatter_rel_norm"] = rel
+        res["scatter_ms"] = cuda_time_ms(
+            lambda: pairs.reduce_aligned_cotangents(d_rows, gid, counts, n, "scatter"), reps=10)
+        res["sortprefix_ms"] = cuda_time_ms(
+            lambda: pairs.reduce_aligned_cotangents(d_rows, gid, counts, n), reps=10)
+        packed_rows = torch.stack(packing.pack_cols(list(d_rows)))
+        res["scatter_packed_ms"] = cuda_time_ms(
+            lambda: pairs.reduce_aligned_cotangents(packed_rows, gid, counts, n, "scatter", 9),
+            reps=10)
+    log(f"[modes] scatter reduction at full size ({d_rows.shape[1]} lanes): two calls "
+        f"bit-identical; each column within {rel:.3e} of a float64 sum in relative norm "
+        f"(bar {SCATTER_REL_NORM}); {res['scatter_ms']:.4f} ms (packed rows "
+        f"{res['scatter_packed_ms']:.4f} ms) vs sort-prefix {res['sortprefix_ms']:.4f} ms "
+        f"(CUDA events, 10 calls) on {smi}")
+    if rel > SCATTER_REL_NORM:
+        raise AssertionError(f"scatter reduction {rel:.3e} off float64")
+    sc_cfg = Config(raster=bf16.replace(grad_reduce="scatter"))
+    sc1, _ = train_step(state0, camera, gt, sc_cfg, TRAIN_TOTAL_ITERS)
+    sc2, _ = train_step(state0, camera, gt, sc_cfg, TRAIN_TOTAL_ITERS)
+    a, b = state_mod.state_to_numpy(sc1), state_mod.state_to_numpy(sc2)
+    if any(not np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("bf16 scatter step: a replay differs")
+    log("[modes] bf16 train step with grad_reduce='scatter': replayed bit for bit")
+    del state0, st, first, replay, sc1, sc2
+
+    # (iv) tools.train in the bf16 mode with packed positions
+    root = os.path.join(SCRATCH, "modes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sparse, image_dir, _ = write_colmap_scene(
+        root, params, TRAINLOOP_VIEWS, WIDTH, HEIGHT,
+        cfg.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
+    metrics_path = os.path.join(root, "metrics.jsonl")
+    _reset_launches()
+    t0 = time.time()
+    _cli(["--colmap", sparse, "--images", image_dir, "--output", os.path.join(root, "out.ply"),
+          "--device", DEVICE, "--pair-capacity", str(TRAINLOOP_PAIR_CAPACITY),
+          "--eval-split", "4", "--epochs", str(MODES_CLI_EPOCHS), "--metrics", metrics_path,
+          "--payload-dtype", "bf16", "--pack-positions", "1"], os.path.join(root, "cli.log"))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    paths["modes_cli"] = _packed_launches("tools.train --payload-dtype bf16", True)
+    steps = [x for x in _read_jsonl(metrics_path) if x["event"] == "step"]
+    if not steps or not all(np.isfinite(x["loss"]) and not x["overflow"] for x in steps):
+        raise AssertionError(f"tools.train in the bf16 mode: {steps}")
+    res["cli"] = {"iters": len(steps), "seconds": seconds,
+                  "psnr": [steps[0]["psnr"], steps[-1]["psnr"]]}
+    log(f"[modes] tools.train --payload-dtype bf16 --pack-positions 1: {len(steps)} "
+        f"iterations in {seconds:.1f} s, PSNR {steps[0]['psnr']:.2f} -> "
+        f"{steps[-1]['psnr']:.2f}; launches {paths['modes_cli']}")
+    shutil.rmtree(root)
+    res["launches"] = paths
+    return res
+
+
 def main() -> int:
     name, smi, clock_mhz = phase_device()
 
@@ -2660,11 +3080,12 @@ def main() -> int:
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
     par = phase_parallel(params, camera, cfg, gt, smi)
+    md = phase_modes(params, camera, cfg, gt, smi)
     del params, camera, gt
     torch.cuda.empty_cache()
     gd = phase_garden(smi)
     tools = phase_tools(work, smi)
-    paths = dict(gd["launches"], tools=tools["launches"])
+    paths = dict(gd["launches"], tools=tools["launches"], **md["launches"])
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
@@ -2706,6 +3127,16 @@ def main() -> int:
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
                "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms_v1"], "plain_ms": tf["bwd_plain_ms"],
                **tf["bwd_bound"]}),
+        *(entry(f"windowed_blend_{k}_packed", f"blend_{k}.cu",
+                f"{tpu}{line} (packed branch)", "hopper",
+                {p: v[f"windowed_blend_{k}_packed"] for p, v in paths.items()},
+                md["per_step"][f"windowed_blend_{k}_packed"],
+                {**md[k]["bf16"], "ms_pack_pos": md[k]["pack_pos"]["ms"],
+                 "ms_f32_pack_pos": md[k]["pack_pos"]["ms_f32"],
+                 "bound_ms_pack_pos": md[k]["pack_pos"]["bound_ms"],
+                 "max_abs_err": max(md[k]["bf16"]["max_abs_err"],
+                                    md[k]["pack_pos"]["max_abs_err"])})
+          for k, line in (("fwd", 601), ("bwd", 671))),
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],
@@ -2768,7 +3199,15 @@ def main() -> int:
         "batched_k2_moments_differ": par["k2_moments_differ"],
         "sharded_by_ranks": par["sharded"],
         "parallel_cli": par["cli"],
-        "bench_scaling": par["scaling"]}))
+        "bench_scaling": par["scaling"],
+        "bf16_render_max_mean_vs_f32": md["render"],
+        "bf16_grad_rel_vs_f32": md["grad_rel"],
+        "bf16_train_step_ms": md["step_ms"],
+        "bf16_train_step_device_ms": md["step_device_ms"],
+        "scatter_rel_norm_vs_f64": md["scatter_rel_norm"],
+        "scatter_ms": md["scatter_ms"], "scatter_packed_ms": md["scatter_packed_ms"],
+        "sortprefix_ms": md["sortprefix_ms"],
+        "bf16_cli": md["cli"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,7 +6,9 @@
 //                        the t_floor_exact path's first pass, whose
 //                        cotangent reaches S_b alone (colour rows zero);
 //   gs_blend_bwd_win_tf  _bwd_kernel_tf (:281, the VJP of
-//                        block_blend_cols_tf), the exact T-floor pass.
+//                        block_blend_cols_tf), the exact T-floor pass;
+//   gs_blend_bwd_win_packed  _bwd_kernel_win's packed branch (the bf16
+//                        payload mode, with or without pack_positions).
 // gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1 are the first design of
 // those two (below), kept for chip_smoke.py's A/B; nothing on the training
 // path calls them.
@@ -72,6 +74,21 @@
 // largest stop lane, lanes at or past the block's largest are zero for
 // every pixel, and a block in which nothing survives writes zeros and
 // stages nothing.
+//
+// gs_blend_bwd_win_packed, the bf16 payload mode (kPack 1, or 2 with
+// tile-relative positions): the Hopper design over the packed table, lanes
+// unpacked when staged.  The TPU kernel takes T from the bf16 prefix of l
+// (T_k = exp(Q_k - l_k), as the packed forward) and the suffix as a bf16
+// matmul of e w (_tri_dot(..., low_precision), pallas_blend.py:721, 751):
+// dl_k = g_S + sum_{j>k} bf16(e_j w_j).  The reciprocal walk of the
+// float32 instance does not invert that prefix, so this instance starts
+// each pixel from the packed forward's q_b (its Q over the block) and per
+// kept pair takes l = log1pf(-alpha), T = expf(Q - l), then steps Q back
+// by round_bf16(l); it adds round_bf16(e w) to the suffix and divides dl
+// by 1 - alpha.  Per lane it writes the nine cotangents as five bf16-pair
+// rows (dmx, dmy), (da, db), (dc, dop), (dr, dg), (db, 0) (pallas_blend.py:
+// 807-818), round to nearest even.  A log1pf and an expf per kept pair
+// more than the float32 instance; 5 output rows in place of 9.
 //
 // gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1, the first design: one
 // thread per pixel, the window's nine columns in shared memory.  Each
@@ -329,7 +346,9 @@ __global__ void blend_bwd_win_kernel(
   }
 }
 
-template <bool kTFloor>
+// kPack: the table's payload layout (blend_common.cuh); a packed instance
+// takes the packed forward's q_b in s_b and writes 5 packed rows.
+template <bool kTFloor, int kPack = 0>
 __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -338,6 +357,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     int block, int ts, int tiles_x, int row0, float power_floor,
     float alpha_cap, float alpha_floor, float* __restrict__ dcols) {
   constexpr int P = kPixels;
+  constexpr int kOut = kPack ? 5 : kCols;  // output rows
   extern __shared__ float4 lane_smem[];
   __shared__ int warp_stop[32];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);        // [block]
@@ -374,21 +394,22 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     nv = min(nv, kmax);  // uniform across the block
   }
   if (nv <= 0) {
-    for (int i = threadIdx.x; i < kCols * block; i += blockDim.x)
+    for (int i = threadIdx.x; i < kOut * block; i += blockDim.x)
       out_b[(size_t)(i / block) * plane + i % block] = 0.f;
     return;
   }
 
   const int tile = block_tile[b];
-  blend::stage_lanes(lanes, table, ep, block_src[b], nv,
-                  (float)(tile % tiles_x) * (float)ts + half,
-                  (float)(tile / tiles_x + row0) * (float)ts + half,
-                  power_floor, alpha_floor);
+  blend::stage_lanes<kPack>(lanes, table, ep, block_src[b], nv,
+                            (float)(tile % tiles_x) * (float)ts + half,
+                            (float)(tile / tiles_x + row0) * (float)ts + half,
+                            power_floor, alpha_floor);
 
   const float4 rect = blend::warp_rect<P>(st, ts, half);
   // per pixel: the cotangent, the suffix sum_{j > k} e_j w_j and the
   // transmittance behind the current lane, Tn = exp(S_b) at the start
-  // (while S < kLogWalk, S walks back instead and Tn is unused)
+  // (while S < kLogWalk, S walks back instead and Tn is unused); packed, S
+  // is Q, from q_b, and Tn is unused
   float g0[P], g1[P], g2[P], gS[P], S[P], Tn[P], suffix[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -401,7 +422,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       g2[j] = g_b[2 * p2];
       gS[j] = g_b[3 * p2];
       S[j] = s_b[(size_t)b * p2 + p];
-      Tn[j] = S[j] < kLogWalk ? 0.f : expf(S[j]);
+      Tn[j] = (kPack || S[j] < kLogWalk) ? 0.f : expf(S[j]);
     }
   }
   __syncthreads();
@@ -436,6 +457,28 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
         if (!(a_raw >= alpha_floor)) continue;
         kept = true;
         const float alpha = fminf(a_raw, alpha_cap);
+        if (kPack) {
+          const float l = log1pf(-alpha);
+          const float T = expf(__fsub_rn(S[j], l));  // Q_k inclusive
+          S[j] = __fsub_rn(S[j], blend::round_bf16(l));
+          const float w = alpha * T;
+          const float e = g0[j] * q2.x + g1[j] * q2.y + g2[j] * q2.z;
+          const float dl = suffix[j] + gS[j];
+          const float dpow = (e * T - __fdiv_rn(dl, 1.f - alpha)) * a_raw;
+          const float pdx = dpow * dx;
+          const float pdy = dpow * dy;
+          v[i][0] += pdx;
+          v[i][1] += pdy;
+          v[i][2] += pdx * dx;
+          v[i][3] += pdx * dy;
+          v[i][4] += pdy * dy;
+          v[i][5] += dpow;
+          v[i][6] += g0[j] * w;
+          v[i][7] += g1[j] * w;
+          v[i][8] += g2[j] * w;
+          suffix[j] += blend::round_bf16(e * w);
+          continue;
+        }
         const float inv = __frcp_rn(1.f - alpha);
         float T;  // the transmittance in front of the lane
         if (S[j] < kLogWalk) {
@@ -493,8 +536,14 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       const float4 q1 = lanes[k].q1;
       finish_lane(s, q1.x, q1.y, q1.z, q1.w, o);
     }
+    if (kPack) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) out_b[(size_t)c * plane + k] = o[c];
+      for (int c = 0; c < 5; ++c)
+        out_b[(size_t)c * plane + k] = blend::pack2(o[2 * c], c < 4 ? o[2 * c + 1] : 0.f);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) out_b[(size_t)c * plane + k] = o[c];
+    }
   }
 }
 
@@ -518,13 +567,17 @@ int launch_v1(const float* table, long long ep, const int* block_src,
   return (int)cudaGetLastError();
 }
 
-int launch_hopper(bool tfloor, const float* table, long long ep,
+// tfloor: the T-floor instance; pack: the payload layout (kPack)
+int launch_hopper(bool tfloor, int pack, const float* table, long long ep,
                   const int* block_src, const int* block_valid,
                   const int* block_tile, const float* g, const float* s_b,
                   const int* stop, int nb, int block, int ts, int tiles_x,
                   int row0, float power_floor, float alpha_cap,
                   float alpha_floor, float* dcols, void* stream) {
-  const auto kernel = tfloor ? blend_bwd_win_hopper<true> : blend_bwd_win_hopper<false>;
+  const auto kernel = tfloor      ? blend_bwd_win_hopper<true>
+                      : pack == 1 ? blend_bwd_win_hopper<false, 1>
+                      : pack == 2 ? blend_bwd_win_hopper<false, 2>
+                                  : blend_bwd_win_hopper<false>;
   const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
   const size_t smem = (size_t)block * sizeof(blend::Lane) +
                       (size_t)(threads / 32) * kCols * block * sizeof(float);
@@ -555,7 +608,7 @@ extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 int tiles_x, int row0, float power_floor,
                                 float alpha_cap, float alpha_floor,
                                 float* dcols, void* stream) {
-  return launch_hopper(false, table, ep, block_src, block_valid, block_tile, g,
+  return launch_hopper(false, 0, table, ep, block_src, block_valid, block_tile, g,
                        s_b, nullptr, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
 }
@@ -572,9 +625,28 @@ extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
                                    float power_floor, float alpha_cap,
                                    float alpha_floor, float* dcols,
                                    void* stream) {
-  return launch_hopper(true, table, ep, block_src, block_valid, block_tile, g,
+  return launch_hopper(true, 0, table, ep, block_src, block_valid, block_tile, g,
                        s_b, stop, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
+}
+
+// The bf16 payload mode: as gs_blend_bwd_win over the packed table (table
+// [>=7, ep], or [>=6, ep] with pack_pos != 0), given the packed forward's
+// q_b [nb, ts*ts] in place of s_b; dcols [5, nb, block] f32, the nine
+// cotangents as bf16 pairs (dmx, dmy), (da, db), (dc, dop), (dr, dg),
+// (db, 0).
+extern "C" int gs_blend_bwd_win_packed(const float* table, long long ep,
+                                       const int* block_src,
+                                       const int* block_valid,
+                                       const int* block_tile, const float* g,
+                                       const float* q_b, int nb, int block, int ts,
+                                       int tiles_x, int row0, int pack_pos,
+                                       float power_floor, float alpha_cap,
+                                       float alpha_floor, float* dcols,
+                                       void* stream) {
+  return launch_hopper(false, pack_pos ? 2 : 1, table, ep, block_src, block_valid,
+                       block_tile, g, q_b, nullptr, nb, block, ts, tiles_x, row0,
+                       power_floor, alpha_cap, alpha_floor, dcols, stream);
 }
 
 // The first design, as gs_blend_bwd_win without s_b: one

@@ -1,7 +1,8 @@
 // Pieces shared by the Hopper designs of the windowed blend, forward
 // (blend_fwd.cu, gs_blend_fwd_win) and backward (blend_bwd.cu,
 // gs_blend_bwd_win): the staged lane record, the explicitly rounded power,
-// the thread's pixels and the conservative per-warp cull.
+// the thread's pixels, the conservative per-warp cull and the bf16 payload
+// mode's packing (ops/packing.py).
 //
 // Pixel layout: thread t owns the P pixels (x, y0 + j), j < P, of one column
 // strip, x = t % ts, y0 = (t / ts) * P, p = y * ts + x.  A warp of 32
@@ -64,8 +65,33 @@ __device__ __forceinline__ float2 cull_extent(float ca, float cb, float cc,
                      sqrtf(r * ca / det) * 1.001f + 0.01f);
 }
 
+// The bf16 payload mode: float32 x rounded to bf16 (round to nearest, ties
+// to even) in integer arithmetic on its bits, as ops/packing.py and the JAX
+// package round, so the plain version and the kernels agree bit for bit.
+__device__ __forceinline__ unsigned rne_bits(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+}
+__device__ __forceinline__ float round_bf16(float x) { return __uint_as_float(rne_bits(x)); }
+// bf16(a) << 16 | bf16(b) in a float32-typed word, and its inverse
+__device__ __forceinline__ float pack2(float a, float b) {
+  return __uint_as_float(rne_bits(a) | (rne_bits(b) >> 16));
+}
+__device__ __forceinline__ float2 unpack2(float p) {
+  const unsigned u = __float_as_uint(p);
+  return make_float2(__uint_as_float(u & 0xffff0000u), __uint_as_float(u << 16));
+}
+
+// Payload layouts of the table (kPack): 0, float32 rows gid, sx, sy, conic
+// a, b, c, opacity, r, g, b; 1, packed rows gid, sx, sy, (a, b), (c, op),
+// (r, g), (b, 0); 2, packed with tile-relative positions, gid, (mx, my),
+// (a, b), (c, op), (r, g), (b, 0) (ops/pairs.py, pallas_blend.py:504-542).
+//
 // Stages lanes [0, nv) of the window starting at table column src; lanes
-// [nv, block) are never read.  Coalesced along each table row.
+// [nv, block) are never read.  Coalesced along each table row.  A packed
+// lane is unpacked here, and its degenerate-conic test and cull box are
+// taken on the unpacked values.
+template <int kPack = 0>
 __device__ __forceinline__ void stage_lanes(Lane* lanes, const float* table,
                                             long long ep, long long src, int nv,
                                             float tcx, float tcy,
@@ -73,14 +99,32 @@ __device__ __forceinline__ void stage_lanes(Lane* lanes, const float* table,
                                             float alpha_floor) {
   for (int t = threadIdx.x; t < nv; t += blockDim.x) {
     const float* col = table + src + t;
-    const float ca = col[3 * ep], cb = col[4 * ep], cc = col[5 * ep];
+    float mx, my, ca, cb, cc, op_raw, r, g, bl;
+    if (kPack == 0) {
+      mx = __fsub_rn(col[ep], tcx);
+      my = __fsub_rn(col[2 * ep], tcy);
+      ca = col[3 * ep], cb = col[4 * ep], cc = col[5 * ep], op_raw = col[6 * ep];
+      r = col[7 * ep], g = col[8 * ep], bl = col[9 * ep];
+    } else {
+      const int d = kPack == 2 ? 2 : 3;  // first packed data row
+      if (kPack == 2) {
+        const float2 m = unpack2(col[ep]);
+        mx = m.x, my = m.y;
+      } else {
+        mx = __fsub_rn(col[ep], tcx);
+        my = __fsub_rn(col[2 * ep], tcy);
+      }
+      const float2 ab = unpack2(col[d * ep]), cop = unpack2(col[(d + 1) * ep]);
+      const float2 rg = unpack2(col[(d + 2) * ep]), b0 = unpack2(col[(d + 3) * ep]);
+      ca = ab.x, cb = ab.y, cc = cop.x, op_raw = cop.y;
+      r = rg.x, g = rg.y, bl = b0.x;
+    }
     const float mag = __fadd_rn(__fadd_rn(fabsf(ca), fabsf(cb)), fabsf(cc));
-    const float op = mag >= 1e-4f ? col[6 * ep] : 0.f;
+    const float op = mag >= 1e-4f ? op_raw : 0.f;
     const float2 ext = cull_extent(ca, cb, cc, op, power_floor, alpha_floor);
-    lanes[t].q0 = make_float4(__fsub_rn(col[ep], tcx), __fsub_rn(col[2 * ep], tcy),
-                              ext.x, ext.y);
+    lanes[t].q0 = make_float4(mx, my, ext.x, ext.y);
     lanes[t].q1 = make_float4(ca, cb, cc, op);
-    lanes[t].q2 = make_float4(col[7 * ep], col[8 * ep], col[9 * ep], 0.f);
+    lanes[t].q2 = make_float4(r, g, bl, 0.f);
   }
 }
 

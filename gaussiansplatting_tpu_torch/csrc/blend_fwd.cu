@@ -6,7 +6,10 @@
 //                        t_floor_exact path's first pass: its aligned block b
 //                        is window b here;
 //   gs_blend_fwd_win_tf  _fwd_kernel_tf (:249, block_blend_cols_tf), the
-//                        exact T-floor second pass.
+//                        exact T-floor second pass;
+//   gs_blend_fwd_win_packed  _fwd_kernel_win's packed branch (cfg_consts[5],
+//                        [6]: the bf16 payload mode, with or without
+//                        pack_positions).
 // gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1 are the first design of
 // those two (below), kept for chip_smoke.py's A/B; nothing on the render or
 // training path calls them.
@@ -61,6 +64,20 @@
 // S = 0 and stages nothing.  The T-floor pass writes no gid; it writes each
 // pixel's stop lane, one past its last surviving lane (0 where none
 // survives), which the backward starts its walk from.
+//
+// gs_blend_fwd_win_packed, the bf16 payload mode (kPack 1, or 2 with
+// tile-relative positions): the Hopper design over the 8-row packed table,
+// each lane unpacked once when it is staged (blend_common.cuh), so the
+// power tests cost what they cost unpacked.  The TPU kernel takes the
+// in-block log T prefix as a bf16 matmul (_tri_dot(..., low_precision),
+// pallas_blend.py:647): T_k = exp(Q_k - l_k), Q_k the float32 sum of the
+// bf16-rounded l_j over j <= k.  Here each kept pair adds round_bf16(l) to
+// Q and takes T by an expf, in place of the multiplication that carries T
+// in the float32 instance; S (row 3) stays the unrounded log1pf sum, as in
+// the TPU kernel (:661).  It also writes each pixel's Q over the block,
+// q_b [nb, ts*ts], from which the packed backward walks back.  An expf
+// per kept pair more than the float32 instance, and 7 (6) table rows read
+// per lane instead of 10.
 //
 // gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1, the first design: one
 // thread per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2,
@@ -189,7 +206,9 @@ __global__ void blend_fwd_win_kernel(
 
 // No __launch_bounds__: with (256) ptxas fits the plain instance in 48
 // registers and spills 12 bytes; without, it takes 56 and spills nothing.
-template <bool kTFloor>
+// kPack: the table's payload layout (blend_common.cuh); packed instances
+// write q_out, the float32 instance none.
+template <bool kTFloor, int kPack = 0>
 __global__ void blend_fwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -197,7 +216,7 @@ __global__ void blend_fwd_win_hopper(
     int block, int ts, int tiles_x, int row0, float power_floor,
     float alpha_cap, float alpha_floor, float log_thr,
     float* __restrict__ out, float* __restrict__ gid_out,
-    int* __restrict__ stop_out) {
+    int* __restrict__ stop_out, float* __restrict__ q_out) {
   constexpr int P = kTFloor ? kPixelsTF : kPixels;
   extern __shared__ float4 lane_smem[];
   blend::Lane* lanes = reinterpret_cast<blend::Lane*>(lane_smem);  // [block]
@@ -238,21 +257,26 @@ __global__ void blend_fwd_win_hopper(
     for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
     if (kTFloor)
       for (int p = threadIdx.x; p < p2; p += blockDim.x) stop_out[(size_t)b * p2 + p] = 0;
+    if (kPack)
+      for (int p = threadIdx.x; p < p2; p += blockDim.x) q_out[(size_t)b * p2 + p] = 0.f;
     return;
   }
 
   const int tile = block_tile[b];
-  blend::stage_lanes(lanes, table, ep, block_src[b], nv,
+  blend::stage_lanes<kPack>(lanes, table, ep, block_src[b], nv,
                      (float)(tile % tiles_x) * (float)ts + half,
                      (float)(tile / tiles_x + row0) * (float)ts + half,
                      power_floor, alpha_floor);
   __syncthreads();
 
   const float4 rect = blend::warp_rect<P>(st, ts, half);
-  float T[P], S[P], c0[P], c1[P], c2[P];
+  // T carries the transmittance (float32 instance); Q the float32 sum of
+  // the bf16-rounded log1p(-alpha) (packed instances)
+  float T[P], Q[P], S[P], c0[P], c1[P], c2[P];
   int stop[P];
 #pragma unroll
-  for (int j = 0; j < P; ++j) T[j] = 1.f, S[j] = c0[j] = c1[j] = c2[j] = 0.f, stop[j] = 0;
+  for (int j = 0; j < P; ++j)
+    T[j] = 1.f, Q[j] = S[j] = c0[j] = c1[j] = c2[j] = 0.f, stop[j] = 0;
 
   for (int k = 0; k < nv; ++k) {
     if (kTFloor) {
@@ -280,6 +304,16 @@ __global__ void blend_fwd_win_hopper(
         continue;
       }
       const float alpha = fminf(a_raw, alpha_cap);
+      if (kPack) {
+        const float l = log1pf(-alpha);
+        Q[j] = __fadd_rn(Q[j], blend::round_bf16(l));
+        const float w = alpha * expf(__fsub_rn(Q[j], l));
+        c0[j] += w * q2.x;
+        c1[j] += w * q2.y;
+        c2[j] += w * q2.z;
+        S[j] += l;
+        continue;
+      }
       const float w = alpha * T[j];
       c0[j] += w * q2.x;
       c1[j] += w * q2.y;
@@ -298,6 +332,7 @@ __global__ void blend_fwd_win_hopper(
     out_b[2 * p2 + p] = c2[j];
     out_b[3 * p2 + p] = S[j];
     if (kTFloor) stop_out[(size_t)b * p2 + p] = stop[j];
+    if (kPack) q_out[(size_t)b * p2 + p] = Q[j];
   }
 }
 
@@ -320,7 +355,7 @@ extern "C" int gs_blend_fwd_win(const float* table, long long ep,
   const size_t smem = (size_t)block * sizeof(blend::Lane);
   blend_fwd_win_hopper<false><<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr);
+      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -340,7 +375,27 @@ extern "C" int gs_blend_fwd_win_tf(const float* table, long long ep,
   const size_t smem = (size_t)block * sizeof(blend::Lane);
   blend_fwd_win_hopper<true><<<nb, hopper_threads(ts, kPixelsTF), smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, logti, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr, stop);
+      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr, stop, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 payload mode: as gs_blend_fwd_win over the packed table (table
+// [>=7, ep], or [>=6, ep] with pack_pos != 0, the tile-relative positions),
+// plus q_b [nb, ts*ts] f32, each pixel's float32 sum of the bf16-rounded
+// log1p(-alpha) over the block.
+extern "C" int gs_blend_fwd_win_packed(const float* table, long long ep,
+                                       const int* block_src,
+                                       const int* block_valid,
+                                       const int* block_tile, int nb, int block,
+                                       int ts, int tiles_x, int row0, int pack_pos,
+                                       float power_floor, float alpha_cap,
+                                       float alpha_floor, float* out, float* gid,
+                                       float* q_b, void* stream) {
+  const size_t smem = (size_t)block * sizeof(blend::Lane);
+  const auto kernel = pack_pos ? blend_fwd_win_hopper<false, 2> : blend_fwd_win_hopper<false, 1>;
+  kernel<<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
+      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, q_b);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,7 @@ camera, ``pair_capacity=2^15`` and ``pair_block=64``.
 
 ``dryrun_multichip(n)`` runs the sharded training step (parallel/sharded.py)
 on n ranks started by ``parallel.launch.spawn`` and holds it against the
-single-card step.
+single-card step, also in the bf16 payload mode with packed positions.
 
     forward, (params, camera) = entry()          # on the card
     image = forward(params, camera)              # [256, 256, 3]
@@ -35,9 +35,12 @@ def entry(device="cuda"):
     return forward, (params, camera)
 
 
-# dryrun_multichip's bars (__graft_entry__.py:68-110): loss, parameters
+# dryrun_multichip's bars (__graft_entry__.py:68-130): loss, parameters;
+# the loss of the bf16 + pack_positions step, whose bf16 roundings may fall
+# the other way on another split of the frame
 LOSS_ATOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-6
+BF16_LOSS_ATOL = 1e-4
 
 
 def _close(label, got, want):
@@ -53,7 +56,7 @@ def _close(label, got, want):
 
 
 def _dryrun_rank(topo, n_devices):
-    """One rank of dryrun_multichip: the checks of __graft_entry__.py:33-110,
+    """One rank of dryrun_multichip: the checks of __graft_entry__.py:33-130,
     returning the losses it compared."""
     import numpy as np
     import torch
@@ -98,8 +101,22 @@ def _dryrun_rank(topo, n_devices):
     if abs(float(mb.loss) - float(ref_mb.loss)) >= LOSS_ATOL:
         raise AssertionError(f"batched sharded loss {float(mb.loss)} != {float(ref_mb.loss)}")
     _close("batched sharded step", stb.params, ref_stb.params)
+
+    # the bf16 payload mode with packed positions through the sharded step
+    # against the single-card step: the pair counts exactly, the loss within
+    # the bf16 envelope
+    cfg5 = cfg.replace(raster=cfg.raster.replace(payload_dtype="bf16", pack_positions=True))
+    st5, m5 = make_sharded_train_step(mesh, cfg5, total_iters=100)(st0, camera, gt)
+    ref5, rm5 = train_step(st0, camera, gt, cfg5, 100)
+    if not np.isfinite(float(m5.loss)) or int(m5.num_pairs) != int(rm5.num_pairs):
+        raise AssertionError(f"sharded bf16 step: loss {float(m5.loss)}, pairs "
+                             f"{int(m5.num_pairs)} vs {int(rm5.num_pairs)}")
+    if abs(float(m5.loss) - float(rm5.loss)) >= BF16_LOSS_ATOL:
+        raise AssertionError(f"sharded bf16 / pack_positions loss {float(m5.loss)} vs "
+                             f"single-card {float(rm5.loss)}")
     return {"loss": float(metrics.loss), "ref_loss": float(ref_metrics.loss),
-            "batched_loss": float(mb.loss), "batched_ref_loss": float(ref_mb.loss)}
+            "batched_loss": float(mb.loss), "batched_ref_loss": float(ref_mb.loss),
+            "bf16_loss": float(m5.loss), "bf16_ref_loss": float(rm5.loss)}
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> list:
@@ -108,10 +125,10 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> list:
     against the single-card step: loss within 1e-5 and every updated
     parameter within rtol 1e-5 / atol 1e-6; the chunked gradient all-reduce
     bit-identical to the unchunked one; the batched (K = 2) sharded step
-    against train_step_batched.  The JAX dry run's last block (bf16 payload
-    and packed positions through the sharded step, __graft_entry__.py:112-
-    130) waits for those modes' port (ROADMAP.md §A, modes and variants).
-    Returns each rank's compared losses."""
+    against train_step_batched; the bf16 payload mode with packed positions
+    through the sharded step against the single-card step, the pair counts
+    exactly and the loss within 1e-4 (__graft_entry__.py:112-130).  Returns
+    each rank's compared losses."""
     from gaussiansplatting_tpu_torch.parallel import launch
 
     return launch.spawn(_dryrun_rank, n_devices, (n_devices,), device=device)

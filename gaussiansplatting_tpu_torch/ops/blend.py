@@ -39,6 +39,19 @@ tile_size**2 pixels:
            (``out[:, 3]``; of the T-floor forward, its masked S_b, with its
            ``stop``): the kernel walks each pixel's transmittance back from
            it instead of replaying the forward.
+  packed   the bf16 payload mode (the TPU kernels' packed branch,
+           cfg_consts = (..., tiles_x, packed=1, pack_pos)): ``_packed``
+           entries over the 8-row table [8, EP] (0=gid, 1=sx, 2=sy,
+           3..6 = bf16 pairs (a, b), (c, op), (r, g), (b, 0); with pack_pos
+           1 = the tile-relative (mx, my) pair and 2..5 the four pairs).
+           The in-block prefix takes each l = log1p(-alpha) rounded to bf16
+           (T = exp(Q - l), Q their float32 sum up to the lane), the
+           backward's suffix each e w rounded to bf16; S_b stays the
+           unrounded sum.  The forward returns (out, gid, q_b), q_b [NB, P2]
+           each pixel's Q over the block, which the backward takes in place
+           of s_b; the backward returns five bf16-pair rows (dmx, dmy),
+           (da, db), (dc, dop), (dr, dg), (db, 0).  The float32 entries
+           refuse packed constants and the packed ones float32 constants.
 
 On a CUDA tensor each wrapper launches its kernel (csrc/blend_fwd.cu,
 csrc/blend_bwd.cu); on a CPU tensor it runs the plain version.  Nothing falls
@@ -46,13 +59,14 @@ back from one to the other.  The wrappers are raw kernel entries: gradients
 reach the backward through ops/rasterize._BlendWindows, so the forward
 refuses inputs that require grad.
 
-Every entry has two kernel designs: the Hopper design (``gs_blend_*_win``
-and ``gs_blend_*_win_tf``: several pixels per thread, staged lane records, a
-per-warp cull, the backward walking back from s_b with a batched warp
-exchange), which the wrappers launch, and the first design (the same names
-with ``_v1``: one thread per pixel, the backward replaying the forward),
-which only ``windowed_blend_{fwd,bwd}[_tf]_v1`` launch, for chip_smoke.py's
-A/B.
+Every float32 entry has two kernel designs: the Hopper design
+(``gs_blend_*_win`` and ``gs_blend_*_win_tf``: several pixels per thread,
+staged lane records, a per-warp cull, the backward walking back from s_b
+with a batched warp exchange), which the wrappers launch, and the first
+design (the same names with ``_v1``: one thread per pixel, the backward
+replaying the forward), which only ``windowed_blend_{fwd,bwd}[_tf]_v1``
+launch, for chip_smoke.py's A/B.  The packed entries
+(``gs_blend_*_win_packed``) are instances of the Hopper design.
 """
 
 from __future__ import annotations
@@ -61,6 +75,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from gaussiansplatting_tpu_torch.ops import packing
 
 _P2_MAX_THREADS = 1024   # the first design: one CUDA thread per tile pixel
 _B_MAX = 1024            # staged window lanes
@@ -96,6 +112,7 @@ def windowed_blend_fwd(table, block_src, block_valid, block_tile, row0, block,
     """Forward windowed blend: returns (out [NB, 4, P2], gid [NB, B] f32).
 
     ``windowed_blend_fwd.launches`` counts CUDA kernel launches."""
+    _check_payload("windowed_blend_fwd", cfg_consts, False)
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd", table) == "cuda":
         return _launch_fwd_cuda(windowed_blend_fwd, table, block_src,
@@ -114,6 +131,7 @@ def windowed_blend_fwd_tf(table, block_src, block_valid, block_tile, row0,
     P2] over each pixel's surviving lanes, stop [NB, P2] int32).
 
     ``windowed_blend_fwd_tf.launches`` counts CUDA kernel launches."""
+    _check_payload("windowed_blend_fwd_tf", cfg_consts, False)
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd_tf", table) == "cuda":
         return _launch_fwd_cuda(windowed_blend_fwd_tf, table, block_src,
@@ -134,6 +152,7 @@ def windowed_blend_bwd(table, block_src, block_valid, block_tile, row0, block,
     [NB, 4, P2] and its S_b ``s_b`` = ``out[:, 3]`` [NB, P2].
 
     ``windowed_blend_bwd.launches`` counts CUDA kernel launches."""
+    _check_payload("windowed_blend_bwd", cfg_consts, False)
     if _device_type("windowed_blend_bwd", table) == "cuda":
         return _launch_bwd_cuda(windowed_blend_bwd, table, block_src,
                                 block_valid, block_tile, row0, block, g,
@@ -145,11 +164,52 @@ def windowed_blend_bwd(table, block_src, block_valid, block_tile, row0, block,
 windowed_blend_bwd.launches = 0
 
 
+def windowed_blend_fwd_packed(table, block_src, block_valid, block_tile, row0,
+                              block, cfg_consts):
+    """Forward windowed blend of the bf16 payload mode (an 8-row packed
+    table; cfg_consts carries the (packed, pack_pos) flags): returns (out
+    [NB, 4, P2], gid [NB, B], q_b [NB, P2]), q_b each pixel's bf16-rounded
+    log T total, which the packed backward takes.
+
+    ``windowed_blend_fwd_packed.launches`` counts CUDA kernel launches."""
+    _check_no_grad(table)
+    _check_payload("windowed_blend_fwd_packed", cfg_consts, True)
+    if _device_type("windowed_blend_fwd_packed", table) == "cuda":
+        return _launch_fwd_cuda(windowed_blend_fwd_packed, table, block_src,
+                                block_valid, block_tile, row0, block, cfg_consts)
+    return windowed_blend_fwd_packed_plain(table, block_src, block_valid, block_tile,
+                                           row0, block, cfg_consts)
+
+
+windowed_blend_fwd_packed.launches = 0
+
+
+def windowed_blend_bwd_packed(table, block_src, block_valid, block_tile, row0,
+                              block, g, q_b, cfg_consts):
+    """Backward windowed blend of the bf16 payload mode: five [NB, B]
+    bf16-pair rows (dmx, dmy), (da, db), (dc, dop), (dr, dg), (db, 0) of
+    the packed forward's ``out`` given its cotangent ``g`` [NB, 4, P2] and
+    its ``q_b`` [NB, P2].
+
+    ``windowed_blend_bwd_packed.launches`` counts CUDA kernel launches."""
+    _check_payload("windowed_blend_bwd_packed", cfg_consts, True)
+    if _device_type("windowed_blend_bwd_packed", table) == "cuda":
+        return _launch_bwd_cuda(windowed_blend_bwd_packed, table, block_src,
+                                block_valid, block_tile, row0, block, g,
+                                cfg_consts, s_b=q_b)
+    return windowed_blend_bwd_packed_plain(table, block_src, block_valid, block_tile,
+                                           row0, block, g, q_b, cfg_consts)
+
+
+windowed_blend_bwd_packed.launches = 0
+
+
 def windowed_blend_fwd_v1(table, block_src, block_valid, block_tile, row0,
                           block, cfg_consts):
     """windowed_blend_fwd through the first kernel design
     (``gs_blend_fwd_win_v1``), CUDA tensors only: chip_smoke.py's A/B
     against the Hopper design.  ``.launches`` counts its launches."""
+    _check_payload("windowed_blend_fwd_v1", cfg_consts, False)
     _check_no_grad(table)
     _check_cuda_only("windowed_blend_fwd_v1", table, "windowed_blend_fwd_plain")
     return _launch_fwd_cuda(windowed_blend_fwd_v1, table, block_src,
@@ -166,6 +226,7 @@ def windowed_blend_bwd_v1(table, block_src, block_valid, block_tile, row0,
     (``gs_blend_bwd_win_v1``, which replays the forward instead of taking
     s_b), CUDA tensors only: chip_smoke.py's A/B against the Hopper design.
     ``.launches`` counts its launches."""
+    _check_payload("windowed_blend_bwd_v1", cfg_consts, False)
     _check_cuda_only("windowed_blend_bwd_v1", table, "windowed_blend_bwd_plain")
     return _launch_bwd_cuda(windowed_blend_bwd_v1, table, block_src,
                             block_valid, block_tile, row0, block, g,
@@ -185,6 +246,7 @@ def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
     version reads them (it replays the mask from them).
 
     ``windowed_blend_bwd_tf.launches`` counts CUDA kernel launches."""
+    _check_payload("windowed_blend_bwd_tf", cfg_consts, False)
     if _device_type("windowed_blend_bwd_tf", table) == "cuda":
         return _launch_bwd_cuda(windowed_blend_bwd_tf, table, block_src,
                                 block_valid, block_tile, row0, block, g,
@@ -202,6 +264,7 @@ def windowed_blend_fwd_tf_v1(table, block_src, block_valid, block_tile, row0,
     """windowed_blend_fwd_tf through the first kernel design
     (``gs_blend_fwd_win_tf_v1``), CUDA tensors only: chip_smoke.py's A/B
     against the Hopper design.  ``.launches`` counts its launches."""
+    _check_payload("windowed_blend_fwd_tf_v1", cfg_consts, False)
     _check_no_grad(table)
     _check_cuda_only("windowed_blend_fwd_tf_v1", table, "windowed_blend_fwd_tf_plain")
     return _launch_fwd_cuda(windowed_blend_fwd_tf_v1, table, block_src,
@@ -218,6 +281,7 @@ def windowed_blend_bwd_tf_v1(table, block_src, block_valid, block_tile, row0,
     (``gs_blend_bwd_win_tf_v1``, which replays the termination from logti
     instead of taking s_b and stop), CUDA tensors only: chip_smoke.py's
     A/B.  ``.launches`` counts its launches."""
+    _check_payload("windowed_blend_bwd_tf_v1", cfg_consts, False)
     _check_cuda_only("windowed_blend_bwd_tf_v1", table, "windowed_blend_bwd_tf_plain")
     return _launch_bwd_cuda(windowed_blend_bwd_tf_v1, table, block_src,
                             block_valid, block_tile, row0, block, g,
@@ -225,6 +289,16 @@ def windowed_blend_bwd_tf_v1(table, block_src, block_valid, block_tile, row0,
 
 
 windowed_blend_bwd_tf_v1.launches = 0
+
+
+def _check_payload(name, cfg_consts, packed):
+    """The packed entries take the bf16 payload mode's constants, the
+    others refuse them."""
+    if payload_flags(cfg_consts)[0] != packed:
+        raise ValueError(
+            f"{name} takes {'packed' if packed else 'float32'} payload constants, got "
+            f"{tuple(cfg_consts)}: the bf16 payload mode runs "
+            f"windowed_blend_{{fwd,bwd}}_packed")
 
 
 def _check_cuda_only(name, table, plain):
@@ -235,13 +309,16 @@ def _check_cuda_only(name, table, plain):
 def _checked_launch_args(table, block_src, block_valid, block_tile, block,
                          cfg_consts):
     """Validate what the kernels take; returns contiguous inputs and the
-    int/float constants."""
-    ts, power_floor, alpha_cap, alpha_floor, tiles_x = cfg_consts
+    int/float constants.  The table has 10 rows that the kernels read (16
+    in all); packed, 7, and 6 with pack_pos (8 in all)."""
+    ts, power_floor, alpha_cap, alpha_floor, tiles_x = cfg_consts[:5]
     ts, tiles_x, block = int(ts), int(tiles_x), int(block)
     nb = block_src.shape[0]
     dev = table.device
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] < 10:
-        raise ValueError(f"table must be [>=10, EP] float32, got "
+    packed, pack_pos = payload_flags(cfg_consts)
+    rows = (6 if pack_pos else 7) if packed else 10
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] < rows:
+        raise ValueError(f"table must be [>={rows}, EP] float32, got "
                          f"{tuple(table.shape)} {table.dtype}")
     for name, t in (("block_src", block_src), ("block_valid", block_valid),
                     ("block_tile", block_tile)):
@@ -312,8 +389,9 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
                      block, cfg_consts, logti=None, log_thr=None, v1=False):
     """gs_blend_fwd_win, which returns (out, gid), or, when ``logti`` is
     given, gs_blend_fwd_win_tf, which returns (out, stop); with ``v1``
-    their first design.  ``counter`` is the wrapper whose count a launch
-    adds to."""
+    their first design; with packed constants gs_blend_fwd_win_packed,
+    which returns (out, gid, q_b).  ``counter`` is the wrapper whose count
+    a launch adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -322,9 +400,15 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     nb = block_src.shape[0]
     dev = table.device
     tf = logti is not None
+    packed, pack_pos = payload_flags(cfg_consts)
     launch_geometry(ts, block, False, v1, tf)
     out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
-    if tf:
+    if packed:
+        second = torch.empty((nb, block), dtype=torch.float32, device=dev)
+        q_b = torch.empty((nb, ts * ts), dtype=torch.float32, device=dev)
+        if nb == 0:
+            return out, second, q_b
+    elif tf:
         logti = _checked_plane("logti", logti, nb, ts * ts, dev)
         second = torch.empty((nb, ts * ts), dtype=torch.int32, device=dev)
     else:
@@ -332,13 +416,18 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     if nb == 0:
         return out, second
     lib = build.load_library("blend_fwd")
-    name = "gs_blend_fwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
+    name = ("gs_blend_fwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
+            + ("_packed" if packed else ""))
     stream = torch.cuda.current_stream(dev).cuda_stream
     windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                block_valid.data_ptr(), block_tile.data_ptr())
     ints = (nb, block, ts, tiles_x, int(row0))
     with torch.cuda.device(dev):
-        if tf:
+        if packed:
+            err = _c_fn(lib, name, 3, 6, 3, 3)(
+                *windows, *ints, int(pack_pos), *floats, out.data_ptr(), second.data_ptr(),
+                q_b.data_ptr(), stream)
+        elif tf:
             err = _c_fn(lib, name, 4, 5, 4, 2)(
                 *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
                 out.data_ptr(), second.data_ptr(), stream)
@@ -348,7 +437,7 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1
-    return out, second
+    return (out, second, q_b) if packed else (out, second)
 
 
 def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
@@ -357,8 +446,10 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     """gs_blend_bwd_win given the forward's ``s_b``, or gs_blend_bwd_win_tf
     given the T-floor forward's ``s_b`` and ``stop``; with ``v1`` their
     first design, gs_blend_bwd_win_v1 (no s_b) or, given ``logti`` and
-    ``log_thr``, gs_blend_bwd_win_tf_v1.  ``counter`` is the wrapper whose
-    count a launch adds to."""
+    ``log_thr``, gs_blend_bwd_win_tf_v1; with packed constants
+    gs_blend_bwd_win_packed, given the packed forward's q_b as ``s_b``,
+    which returns five packed rows.  ``counter`` is the wrapper whose count
+    a launch adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -371,26 +462,31 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
         raise ValueError(f"g must be [{nb}, 4, {p2}] float32 on {dev}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     tf = stop is not None or logti is not None
+    packed, pack_pos = payload_flags(cfg_consts)
     launch_geometry(ts, block, True, v1, tf)
     g = g.contiguous()
-    # the pointers each entry takes after g, and its float constants
-    if v1:
+    # the pointers each entry takes after g, its ints and float constants
+    ints = (nb, block, ts, tiles_x, int(row0))
+    if packed:
+        planes = (_checked_plane("q_b", s_b, nb, p2, dev),)
+        ints += (int(pack_pos),)
+    elif v1:
         planes = (_checked_plane("logti", logti, nb, p2, dev),) if tf else ()
         floats = floats + ((float(log_thr),) if tf else ())
     else:
         planes = (_checked_plane("s_b", s_b, nb, p2, dev),)
         if tf:
             planes += (_checked_plane("stop", stop, nb, p2, dev, torch.int32),)
-    dcols = torch.empty((9, nb, block), dtype=torch.float32, device=dev)
+    dcols = torch.empty((5 if packed else 9, nb, block), dtype=torch.float32, device=dev)
     if nb > 0:
         lib = build.load_library("blend_bwd")
-        name = "gs_blend_bwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
+        name = ("gs_blend_bwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
+                + ("_packed" if packed else ""))
         windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                    block_valid.data_ptr(), block_tile.data_ptr(), g.data_ptr())
-        ints = (nb, block, ts, tiles_x, int(row0))
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = _c_fn(lib, name, 4 + len(planes), 5, len(floats), 1)(
+            err = _c_fn(lib, name, 4 + len(planes), len(ints), len(floats), 1)(
                 *windows, *(x.data_ptr() for x in planes), *ints, *floats,
                 dcols.data_ptr(), stream)
         if err != 0:
@@ -403,7 +499,11 @@ class _Replay(NamedTuple):
     """The forward of one chunk of K blocks, as both plain versions need
     it: [K, B] lane columns and [K, P2, B] pixel-by-lane terms."""
     live: torch.Tensor      # [K, B] lane < block_valid
-    cols: torch.Tensor      # [10, K, B] table rows 0..9 of the window
+    cols: torch.Tensor      # [10, K, B] the window's gid, sx, sy (packed
+                            # with pack_pos: mx, my), conic, opacity, rgb,
+                            # unpacked
+    mx: torch.Tensor        # [K, B] mean relative to the tile centre
+    my: torch.Tensor
     op: torch.Tensor        # [K, B] opacity, 0 on dead / degenerate lanes
     dx: torch.Tensor        # [K, P2, B] pixel minus tile-relative mean
     dy: torch.Tensor
@@ -413,6 +513,31 @@ class _Replay(NamedTuple):
     t_local: torch.Tensor   # [K, P2, B] in-block transmittance in front
     margin: torch.Tensor | None  # [K, P2] T-floor termination margin
     stop: torch.Tensor | None    # [K, P2] int32 T-floor stop lane
+    q_b: torch.Tensor | None     # [K, P2] packed: the bf16-rounded log T total
+
+
+def payload_flags(cfg_consts) -> tuple[bool, bool]:
+    """(packed, pack_pos) of a blend's constants: the JAX bconsts' two
+    trailing flags (rasterize.py:375-376), both False when absent."""
+    packed = len(cfg_consts) > 5 and bool(cfg_consts[5])
+    return packed, packed and len(cfg_consts) > 6 and bool(cfg_consts[6])
+
+
+def _window_columns(table, idx, tcx, tcy, packed, pack_pos):
+    """The window's ten columns [10, K, B] (gid, x, y, ca, cb, cc, op, r, g,
+    b) and its tile-relative mean (mx, my) [K, B], unpacking a packed table
+    (_win_cols, pallas_blend.py:504-542)."""
+    if not packed:
+        w = table[:10, idx]
+        return w, w[1] - tcx[:, None], w[2] - tcy[:, None]
+    rows = table[:7, idx]
+    if pack_pos:
+        mx, my = packing.unpack2(rows[1])
+        data = packing.unpack_cols(list(rows[2:6]), 7)
+        return torch.stack([rows[0], mx, my] + data), mx, my
+    data = packing.unpack_cols(list(rows[3:7]), 7)
+    w = torch.stack([rows[0], rows[1], rows[2]] + data)
+    return w, w[1] - tcx[:, None], w[2] - tcy[:, None]
 
 
 def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
@@ -425,6 +550,13 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
     written in the same operation order as the kernels, the alpha mask and
     T = exp(cumsum(l) - l).
 
+    Packed (``payload_flags(cfg_consts)``, the bf16 payload mode): the
+    window's columns are unpacked first (a lane's opacity is zeroed on the
+    unpacked conic), and the in-block prefix takes each l rounded to bf16,
+    T = exp(Q - l) with Q = cumsum(bf16(l)) in float32, as the TPU kernel's
+    bf16 triangular matmul does (pallas_blend.py:647, 652); ``q_b`` is each
+    pixel's Q over the block.
+
     With ``logti`` (the T-floor pass), a lane survives iff
     (cumsum(l) - l) + logti > log_thr, computed from the unmasked l as
     _fwd_kernel_tf does; alpha and l are zeroed past it.  Survivors are a
@@ -433,7 +565,11 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
     (inf where none is kept): how near the decision came to flipping;
     ``stop`` one past each pixel's last surviving lane (0 where none
     survives)."""
-    ts, power_floor, alpha_cap, alpha_floor, tiles_x = cfg_consts
+    ts, power_floor, alpha_cap, alpha_floor, tiles_x = cfg_consts[:5]
+    packed, pack_pos = payload_flags(cfg_consts)
+    if packed and logti is not None:
+        raise ValueError("the T-floor pass has no packed payload (JAX packs only the "
+                         "windowed branch, rasterize.py:304)")
     ts, tiles_x, block = int(ts), int(tiles_x), int(block)
     dev = table.device
     half = ts / 2.0
@@ -445,24 +581,27 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
     valid = block_valid[k0:k1].long()
     live = lane[None, :] < valid[:, None]                           # [K, B]
     idx = torch.where(live, block_src[k0:k1].long()[:, None] + lane, 0)
-    w = table[:10, idx]                                             # [10, K, B]
     t = block_tile[k0:k1]
     tcx = (t % tiles_x).to(torch.float32) * ts + half
     tcy = (t // tiles_x + int(row0)).to(torch.float32) * ts + half
-    mx = (w[1] - tcx[:, None])[:, None, :]                          # [K, 1, B]
-    my = (w[2] - tcy[:, None])[:, None, :]
+    w, mx, my = _window_columns(table, idx, tcx, tcy, packed, pack_pos)
     ca, cb, cc = (w[r][:, None, :] for r in (3, 4, 5))
     conic_mag = w[3].abs() + w[4].abs() + w[5].abs()
     op = torch.where(live & (conic_mag >= 1e-4), w[6], 0.0)
 
-    dx = px - mx                                                    # [K, P2, B]
-    dy = py - my
+    dx = px - mx[:, None, :]                                        # [K, P2, B]
+    dy = py - my[:, None, :]
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * (dx * dy)
     a_raw = op[:, None, :] * torch.exp(power)
     mask = (power <= 0.0) & (power >= power_floor) & (a_raw >= alpha_floor)
     alpha = torch.where(mask, torch.clamp(a_raw, max=alpha_cap), 0.0)
     log1m = torch.log1p(-alpha)
-    log_excl = torch.cumsum(log1m, dim=-1) - log1m
+    q_b = None
+    if packed:
+        q = torch.cumsum(packing.round_bf16(log1m), dim=-1)
+        log_excl, q_b = q - log1m, q[..., -1]
+    else:
+        log_excl = torch.cumsum(log1m, dim=-1) - log1m
     t_local = torch.exp(log_excl)
     margin = stop = None
     if logti is not None:
@@ -474,19 +613,19 @@ def _replay(table, block_src, block_valid, block_tile, row0, block, cfg_consts,
         log1m = torch.where(survive, log1m, 0.0)
         # alpha > 0 exactly on the kept lanes that survive
         stop = torch.where(alpha > 0.0, lane + 1, 0).amax(-1).to(torch.int32)
-    return _Replay(live, w, op, dx, dy, a_raw, alpha, log1m, t_local, margin,
-                   stop)
+    return _Replay(live, w, mx, my, op, dx, dy, a_raw, alpha, log1m, t_local, margin,
+                   stop, q_b)
 
 
 def _fwd_plain(table, block_src, block_valid, block_tile, row0, block,
                cfg_consts, logti, log_thr, chunk_blocks):
-    """(out, gid, margin, stop) of the plain forward, in chunks of blocks
-    (margin and stop None without logti)."""
+    """(out, gid, margin, stop, q_b) of the plain forward, in chunks of
+    blocks (margin and stop None without logti, q_b None unpacked)."""
     _check_no_grad(table)
     dev = table.device
     nb = block_src.shape[0]
     p2 = int(cfg_consts[0]) ** 2
-    outs, gids, margins, stops = [], [], [], []
+    outs, gids, margins, stops, qs = [], [], [], [], []
     for k0 in range(0, nb, chunk_blocks):
         r = _replay(table, block_src, block_valid, block_tile, row0, block,
                     cfg_consts, k0, min(k0 + chunk_blocks, nb), logti, log_thr)
@@ -499,14 +638,18 @@ def _fwd_plain(table, block_src, block_valid, block_tile, row0, block,
         if r.margin is not None:
             margins.append(r.margin)
             stops.append(r.stop)
+        if r.q_b is not None:
+            qs.append(r.q_b)
     if not outs:
+        plane = torch.zeros((0, p2), dtype=torch.float32, device=dev)
         return (torch.zeros((0, 4, p2), dtype=torch.float32, device=dev),
                 torch.zeros((0, int(block)), dtype=torch.float32, device=dev),
-                torch.zeros((0, p2), dtype=torch.float32, device=dev),
-                torch.zeros((0, p2), dtype=torch.int32, device=dev))
-    if not margins:
-        return torch.cat(outs), torch.cat(gids), None, None
-    return torch.cat(outs), torch.cat(gids), torch.cat(margins), torch.cat(stops)
+                plane, plane.to(torch.int32), plane)
+
+    def cat(xs):
+        return torch.cat(xs) if xs else None
+
+    return torch.cat(outs), torch.cat(gids), cat(margins), cat(stops), cat(qs)
 
 
 def windowed_blend_fwd_plain(table, block_src, block_valid, block_tile, row0,
@@ -515,8 +658,9 @@ def windowed_blend_fwd_plain(table, block_src, block_valid, block_tile, row0,
     kernel's oracle): the replay (see _replay), then C = sum w c and
     S = sum log1p(-alpha).  Blocks go in chunks of ``chunk_blocks`` so no
     [NB, P2, B] intermediate is ever whole."""
-    out, gid, _, _ = _fwd_plain(table, block_src, block_valid, block_tile, row0,
-                                block, cfg_consts, None, 0.0, chunk_blocks)
+    _check_payload("windowed_blend_fwd_plain", cfg_consts, False)
+    out, gid, _, _, _ = _fwd_plain(table, block_src, block_valid, block_tile, row0,
+                                   block, cfg_consts, None, 0.0, chunk_blocks)
     return out, gid
 
 
@@ -529,9 +673,9 @@ def windowed_blend_fwd_tf_plain(table, block_src, block_valid, block_tile,
     stop), stop taken from the replay's survivors.  With ``return_margin``,
     returns (out, stop, margin [NB, P2]) (see _replay), which the kernel
     comparisons use to excuse termination flips."""
-    out, _, margin, stop = _fwd_plain(table, block_src, block_valid, block_tile,
-                                      row0, block, cfg_consts, logti, log_thr,
-                                      chunk_blocks)
+    out, _, margin, stop, _ = _fwd_plain(table, block_src, block_valid, block_tile,
+                                         row0, block, cfg_consts, logti, log_thr,
+                                         chunk_blocks)
     return (out, stop, margin) if return_margin else (out, stop)
 
 
@@ -551,6 +695,8 @@ def _bwd_plain(table, block_src, block_valid, block_tile, row0, block, g,
              + gg[:, 1, :, None] * r.cols[8][:, None, :]
              + gg[:, 2, :, None] * r.cols[9][:, None, :])
         ew = e * wgt
+        if r.q_b is not None:
+            ew = packing.round_bf16(ew)    # the bf16 suffix (pallas_blend.py:751)
         suffix = ew.flip(-1).cumsum(-1).flip(-1) - ew               # sum_{j>i}
         dl = suffix + gg[:, 3, :, None]
         dalpha = e * r.t_local - dl / (1.0 - r.alpha)
@@ -573,13 +719,17 @@ def _bwd_plain(table, block_src, block_valid, block_tile, row0, block, g,
             torch.where(opv > 0.0, dpow.sum(1) / torch.where(opv > 0.0, opv, 1.0), 0.0),
             dcol[:, 0], dcol[:, 1], dcol[:, 2],
         ])                                                          # [9, K, B]
-        cols.append(torch.where(r.live, chunk, 0.0))
+        chunk = torch.where(r.live, chunk, 0.0)
+        if r.q_b is not None:
+            chunk = torch.stack(packing.pack_cols(list(chunk)))     # [5, K, B]
+        cols.append(chunk)
         if r.margin is not None:
             margins.append(r.margin)
     if not cols:
         p2 = int(cfg_consts[0]) ** 2
+        n_out = 5 if payload_flags(cfg_consts)[0] else 9
         return (tuple(torch.zeros((0, int(block)), dtype=torch.float32, device=dev)
-                      for _ in range(9)),
+                      for _ in range(n_out)),
                 torch.zeros((0, p2), dtype=torch.float32, device=dev))
     return (tuple(torch.cat(cols, dim=1).unbind(0)),
             torch.cat(margins) if margins else None)
@@ -601,6 +751,7 @@ def windowed_blend_bwd_plain(table, block_src, block_valid, block_tile, row0,
     pixel's transmittance back from; the plain version checks its shape and
     takes T from its own replay's prefix sums, so it stays an independent
     oracle of the kernel's use of s_b."""
+    _check_payload("windowed_blend_bwd_plain", cfg_consts, False)
     _checked_plane("s_b", s_b, block_src.shape[0], int(cfg_consts[0]) ** 2,
                    table.device)
     dcols, _ = _bwd_plain(table, block_src, block_valid, block_tile, row0,
@@ -633,3 +784,35 @@ def windowed_blend_bwd_tf_plain(table, block_src, block_valid, block_tile,
                                row0, block, g, cfg_consts, logti, log_thr,
                                chunk_blocks)
     return (dcols, margin) if return_margin else dcols
+
+
+def windowed_blend_fwd_packed_plain(table, block_src, block_valid, block_tile, row0,
+                                    block, cfg_consts, chunk_blocks: int = 256):
+    """Plain PyTorch version of the packed forward kernel (the bf16 payload
+    mode, the TPU kernel's packed branch): windowed_blend_fwd_plain on the
+    unpacked window, with T = exp(Q - l), Q the float32 prefix of the
+    bf16-rounded l (see _replay).  S_b stays the unrounded sum of l.
+    Returns (out [NB, 4, P2], gid [NB, B], q_b [NB, P2]), q_b each pixel's
+    Q over the block, which the backward walks back from."""
+    _check_payload("windowed_blend_fwd_packed_plain", cfg_consts, True)
+    out, gid, _, _, q_b = _fwd_plain(table, block_src, block_valid, block_tile, row0,
+                                     block, cfg_consts, None, 0.0, chunk_blocks)
+    return out, gid, q_b
+
+
+def windowed_blend_bwd_packed_plain(table, block_src, block_valid, block_tile, row0,
+                                    block, g, q_b, cfg_consts, chunk_blocks: int = 256):
+    """Plain PyTorch version of the packed backward kernel: the chain rule
+    of windowed_blend_bwd_plain with the packed forward's T and the suffix
+    sum_{j>i} bf16(e_j w_j) of bf16-rounded terms (pallas_blend.py:721,
+    751), the nine cotangents packed into five bf16-pair rows (dmx, dmy),
+    (da, db), (dc, dop), (dr, dg), (db, 0) (pallas_blend.py:807-818).
+
+    ``q_b`` [NB, P2] is the packed forward's; the plain version checks its
+    shape and takes T from its own replay, so it stays an independent
+    oracle of the kernel's use of q_b."""
+    _check_payload("windowed_blend_bwd_packed_plain", cfg_consts, True)
+    _checked_plane("q_b", q_b, block_src.shape[0], int(cfg_consts[0]) ** 2, table.device)
+    dcols, _ = _bwd_plain(table, block_src, block_valid, block_tile, row0, block, g,
+                          cfg_consts, None, 0.0, chunk_blocks)
+    return dcols

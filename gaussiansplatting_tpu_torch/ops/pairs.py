@@ -4,23 +4,30 @@ Counterpart of the WINDOWED half of gaussiansplatting_tpu/ops/pairs.py: the
 capacity plan, the two-tier chunked expansion, ONE stable single-key tile
 sort (Gaussians arrive depth-presorted, so a stable sort by tile leaves every
 tile's run depth-sorted) and the per-aligned-block source windows the blend
-reads; and, for the backward, the sort-prefix reduction of aligned-order
-cotangents to per-Gaussian sums.  Every integer output matches the JAX
-package exactly.
+reads; and, for the backward, the reduction of aligned-order cotangents to
+per-Gaussian sums (sort-prefix or scatter).  Every integer output matches
+the JAX package exactly, and so does the table, packed or not.
 
 Sort: ``lax.sort`` carries payload operands; ``torch.sort`` does not, so the
 int32 tile keys are sorted once (stable) and the payload is gathered by the
 returned permutation.  Public integer outputs are int32; indices are cast to
 int64 only where they index.
 
-Overflow beyond ``pair_capacity`` drops whole Gaussians in emission order
-(the "index" policy; "impact" is not ported).
+Overflow beyond ``pair_capacity`` drops whole Gaussians: in emission order
+(the "index" policy) or the least visible first ("impact").
+
+With the bf16 payload mode (``payload_dtype="bf16"``) the table carries
+conic, opacity and colour as bf16 pairs (ops/packing.py) in 8 rows instead
+of 16, and with ``pack_positions`` the tile-relative positions too; the
+backward's cotangents arrive as five packed rows and are unpacked after
+the gather by Gaussian id.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gaussiansplatting_tpu_torch.ops import packing
 from gaussiansplatting_tpu_torch.ops.projection import Projected
 
 # pairs per expansion chunk: the per-Gaussian metadata/render-data gather
@@ -64,16 +71,20 @@ def aligned_capacity(pair_capacity: int, num_tiles: int, block: int) -> int:
 def capacity_plan(proj: Projected, tiles_x: int, tiles_y: int, pair_capacity: int,
                   row0: int = 0, overflow_drop: str = "index",
                   chunk_slack: float = 1.0):
-    """Per-Gaussian pair/chunk counts with the capacity drop applied:
-    Gaussians whose run would cross the end of either the real-pair or the
-    chunk-slot capacity lose all their pairs.
+    """Per-Gaussian pair/chunk counts with the capacity drop applied.
+
+    ``overflow_drop`` picks which Gaussians lose all their pairs when the
+    frame exceeds a capacity: "index", those whose run would cross the end
+    of either the real-pair or the chunk-slot capacity in emission order;
+    "impact", all but the prefix of the Gaussians ranked by opacity x pair
+    count (stable, descending) that fits both capacities, so that a capped
+    capacity sheds the least visible content (pairs.py:160-169).  Nothing
+    is dropped when everything fits.
 
     Returns (counts, ccounts, coffsets, ty_lo, span_x, total, overflow); all
     int32 [N] except total (0-dim int32) and overflow (0-dim bool)."""
-    if overflow_drop != "index":
-        raise NotImplementedError(
-            f"overflow_drop={overflow_drop!r} is not ported; only 'index' is"
-        )
+    if overflow_drop not in ("index", "impact"):
+        raise ValueError(f"overflow_drop must be 'index' or 'impact', got {overflow_drop!r}")
     n = proj.depth.shape[0]
     chunk_cap = _chunk_capacity(pair_capacity, n, chunk_slack)
     ty_lo = torch.clamp(proj.tile_min[:, 1], min=row0)
@@ -90,7 +101,15 @@ def capacity_plan(proj: Projected, tiles_x: int, tiles_y: int, pair_capacity: in
     total = cum[-1] if n > 0 else zero
     ctotal = ccum[-1] if n > 0 else zero
 
-    fits = ((offsets + counts) <= pair_capacity) & ((coffsets + ccounts) <= chunk_cap)
+    if overflow_drop == "impact":
+        impact = torch.where(counts > 0, proj.opacity.detach() * counts, -1.0)
+        order = torch.argsort(-impact, stable=True)
+        fits_o = ((torch.cumsum(counts[order], 0) <= pair_capacity)
+                  & (torch.cumsum(ccounts[order], 0) <= chunk_cap))
+        fits = torch.empty_like(fits_o)
+        fits[order] = fits_o
+    else:
+        fits = ((offsets + counts) <= pair_capacity) & ((coffsets + ccounts) <= chunk_cap)
     counts = torch.where(fits, counts, 0)
     ccounts = torch.where(fits, ccounts, 0)
     overflow = (total > pair_capacity) | (ctotal > chunk_cap)
@@ -102,13 +121,13 @@ def capacity_plan(proj: Projected, tiles_x: int, tiles_y: int, pair_capacity: in
 
 def _expand_and_sort1(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
                       span_x, cfg):
-    """Two-tier expansion + the stable tile sort (depth-presorted input,
-    f32 payload).  Chunk slot -> Gaussian is a run-id lookup, chunk ->
-    PAIR_CHUNK lanes a broadcast.
+    """Two-tier expansion + the stable tile sort (depth-presorted input).
+    Chunk slot -> Gaussian is a run-id lookup, chunk -> PAIR_CHUNK lanes a
+    broadcast.
 
     Returns (sorted_tile [E] int32, sorted_gid [E] int32, sorted_data
     [E, D] f32, e_cap)."""
-    n, _p_cap, tiles_x, tiles_y, _block, chunk_cap = cfg
+    n, _p_cap, tiles_x, tiles_y, _block, chunk_cap = cfg[:6]
     dev = data.device
     num_tiles = tiles_x * tiles_y
     e_cap = chunk_cap * PAIR_CHUNK
@@ -144,6 +163,13 @@ def _expand_and_sort1(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     sorted_gid = gid_v[perm]
     # payload rides by the permutation: lane e belongs to chunk e // PAIR_CHUNK
     sorted_data = data[cgid.long()[perm // PAIR_CHUNK]]
+    if len(cfg) > 6 and cfg[6] and cfg[7]:
+        # pack_positions: positions relative to the pair's tile centre (its
+        # absolute tile row), every lane as JAX computes it (pairs.py:318-334)
+        ts, half = float(cfg[8]), float(cfg[8]) / 2.0
+        centre = torch.stack([tx[perm].to(torch.float32) * ts + half,
+                              ty[perm].to(torch.float32) * ts + half], dim=1)
+        sorted_data = torch.cat([sorted_data[:, :2] - centre, sorted_data[:, 2:]], dim=1)
     return sorted_tile, sorted_gid, sorted_data, e_cap
 
 
@@ -173,6 +199,18 @@ def _block_tiles(aligned_starts, aligned_counts, aligned_total, num_tiles: int,
 
 
 TABLE_ROWS = 16
+PACKED_TABLE_ROWS = 8
+
+
+def _packed_payload(sorted_data, pack_pos):
+    """The packed table's data rows [E, R] from the sorted pairs' [E, 9]
+    render data: sx, sy, then bf16 pairs (ca, cb), (cc, op), (r, g),
+    (b, 0); with ``pack_pos`` the first two columns are the tile-relative
+    (mx, my) of _expand_and_sort1 and ride as one pair."""
+    cols = packing.pack_cols([sorted_data[:, j] for j in range(2, sorted_data.shape[1])])
+    pos = ([packing.pack2(sorted_data[:, 0], sorted_data[:, 1])] if pack_pos
+           else [sorted_data[:, 0], sorted_data[:, 1]])
+    return torch.stack(pos + cols, dim=1)
 
 
 def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
@@ -182,22 +220,31 @@ def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     [block_src[b], block_src[b] + block) with its first block_valid[b]
     lanes live.
 
-    ``data`` is the depth-presorted [N, D] f32 render data (D <= 15);
-    ``cfg`` = (n, pair_capacity, tiles_x, tiles_y, block, chunk_cap).
+    ``data`` is the depth-presorted [N, D] f32 render data (D <= 15; D = 9
+    when packed); ``cfg`` = (n, pair_capacity, tiles_x, tiles_y, block,
+    chunk_cap), optionally followed by (packed, pack_pos, tile_size), the
+    JAX pcfg's packing flags (pcfg[8:11]).
 
-    Returns (table [16, EP] f32, block_src, block_valid, block_tile [NB]
+    Returns (table [R, EP] f32, block_src, block_valid, block_tile [NB]
     int32, aligned_total 0-dim int32).  Table rows are [gid, data0..D-1,
-    zeros...]; EP pads e_cap + 2*block up to a multiple of 512 as the JAX
-    table does, so the tables compare equal."""
-    n, p_cap, tiles_x, tiles_y, block, _chunk_cap = cfg
+    zeros...], R = 16; packed, R = 8 and the rows are gid, sx, sy, (ca,
+    cb), (cc, op), (r, g), (b, 0), with pack_pos gid, (mx, my), (ca, cb),
+    (cc, op), (r, g), (b, 0) (bf16 pairs, ops/packing.py).  EP pads e_cap +
+    2*block up to a multiple of 512 as the JAX table does, so the tables
+    compare equal, bit for bit."""
+    n, p_cap, tiles_x, tiles_y, block, _chunk_cap = cfg[:6]
+    packed = len(cfg) > 6 and bool(cfg[6])
+    pack_pos = packed and bool(cfg[7])
     dev = data.device
     num_tiles = tiles_x * tiles_y
     num_blocks = aligned_capacity(p_cap, num_tiles, block) // block
-    d = data.shape[-1]
 
     sorted_tile, sorted_gid, sorted_data, e_cap = _expand_and_sort1(
         data, row0, counts, ccounts, coffsets, ty_lo, tmin_x, span_x, cfg
     )
+    if packed:
+        sorted_data = _packed_payload(sorted_data, pack_pos)
+    d = sorted_data.shape[-1]
     (tile_starts, tile_counts, aligned_counts, aligned_starts,
      aligned_total) = _tile_runs(sorted_tile, num_tiles, block)
     block_tile = _block_tiles(
@@ -205,7 +252,8 @@ def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     )
 
     ep = -(-(e_cap + 2 * block) // 512) * 512
-    table = torch.zeros((TABLE_ROWS, ep), dtype=torch.float32, device=dev)
+    rows = PACKED_TABLE_ROWS if packed else TABLE_ROWS
+    table = torch.zeros((rows, ep), dtype=torch.float32, device=dev)
     table[0, :e_cap] = sorted_gid.to(torch.float32)   # exact: gid < 2^24
     table[1:1 + d, :e_cap] = sorted_data.T
 
@@ -260,39 +308,56 @@ def nonzero_prefix(x: torch.Tensor) -> torch.Tensor:
 
 def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
                               counts: torch.Tensor, n: int,
-                              grad_reduce: str = "sortprefix") -> torch.Tensor:
+                              grad_reduce: str = "sortprefix",
+                              packed_out: int = 0) -> torch.Tensor:
     """Per-Gaussian sums of aligned-order cotangents d_rows [D, a_cap]
     (the deterministic replacement for the reference's per-field atomics,
-    tiled_shaders.metal:698-736); the "sortprefix" form of the JAX
-    ``reduce_aligned_cotangents``.  Returns [N, D] in presorted order.
+    tiled_shaders.metal:698-736), the JAX ``reduce_aligned_cotangents``.
+    Returns [N, D] in presorted order (D = ``packed_out`` when the rows are
+    bf16 pairs of that many columns, which are unpacked after the gather by
+    Gaussian id; the sums themselves see the unpacked values).
 
     The key is gid, or n for padding lanes, sorted stably; the payload rides
     by the permutation.  Gaussian g's pairs are then the contiguous run of
-    counts[g] entries ending at cumsum(counts)[g], and its sum is a
-    difference of the zero-led prefix sum at the run's two ends.
+    counts[g] entries ending at cumsum(counts)[g], in aligned-lane order.
+    No float atomics in either form:
 
-    The prefix and the difference are taken in float64 and rounded once to
-    d_rows' dtype.  In float32 (the JAX form) a small per-Gaussian sum read
-    back as the difference of two prefixes over millions of lanes keeps
-    only the digits the prefix has left: at 2^21 lanes of same-sign
-    cotangents each column was 2.1e-3 off float64 in relative norm, in
-    float64 it is within a rounding of it.  A Gaussian whose cotangents are
-    all zero (behind every pixel's T-floor) gets exactly 0, on both devices:
-    a count of the run's lanes with a nonzero cotangent (nonzero_prefix)
-    zeroes the difference, which a block scan's rounding alone need not
-    (see _prefix_sum)."""
-    if grad_reduce != "sortprefix":
-        raise NotImplementedError(
-            f"grad_reduce={grad_reduce!r} is not ported; only 'sortprefix' is "
-            "(a torch scatter form would be index_add_, which uses float "
-            "atomics on CUDA)"
-        )
+    "sortprefix" (and "autodiff", which JAX's windowed path reduces the same
+    way, pairs.py:553): a difference of the zero-led prefix sum at the run's
+    two ends, taken in float64 and rounded once to d_rows' dtype.  In
+    float32 (the JAX form) a small per-Gaussian sum read back as the
+    difference of two prefixes over millions of lanes keeps only the digits
+    the prefix has left: at 2^21 lanes of same-sign cotangents each column
+    was 2.1e-3 off float64 in relative norm, in float64 it is within a
+    rounding of it.  A Gaussian whose cotangents are all zero (behind every
+    pixel's T-floor) gets exactly 0, on both devices: a count of the run's
+    lanes with a nonzero cotangent (nonzero_prefix) zeroes the difference,
+    which a block scan's rounding alone need not (see _prefix_sum).
+
+    "scatter": each run summed on its own in float32, lane by lane in
+    aligned order (torch.segment_reduce), which is the sum JAX's
+    duplicate-index scatter-add takes (pairs.py:547-552)."""
+    if grad_reduce not in ("sortprefix", "autodiff", "scatter"):
+        raise ValueError(f"grad_reduce must be 'sortprefix', 'autodiff' or 'scatter', "
+                         f"got {grad_reduce!r}")
     key = torch.where(gid_aligned >= 0, gid_aligned, n)
     _, perm = torch.sort(key, stable=True)
     rows = d_rows[:, perm]
+    if packed_out:
+        rows = torch.stack(packing.unpack_cols(list(rows), packed_out))
+    if grad_reduce == "scatter":
+        # the padding lanes sort last; they go in segments of at most
+        # _SCAN_CHUNK lanes, as one segment's lanes are summed by one CUDA
+        # thread (and their count stays on the device: no sync)
+        chunks = torch.arange(-(-rows.shape[1] // _SCAN_CHUNK), device=counts.device)
+        pad = rows.shape[1] - counts.sum()
+        fill = (pad - chunks * _SCAN_CHUNK).clamp(0, _SCAN_CHUNK).to(counts.dtype)
+        sums = torch.segment_reduce(rows.T.contiguous(), "sum",
+                                    lengths=torch.cat([counts, fill]), axis=0)
+        return sums[:n].contiguous()
     csum = _prefix_sum(torch.nn.functional.pad(rows, (1, 0)).to(torch.float64))
     nz = nonzero_prefix((rows != 0).any(0, keepdim=True))   # [1, a_cap + 1]
     ends = torch.cumsum(counts, 0)                      # [N] int64 run ends
     starts = ends - counts
     sums = torch.where(nz[:, ends] == nz[:, starts], 0.0, csum[:, ends] - csum[:, starts])
-    return sums.T.to(d_rows.dtype, memory_format=torch.contiguous_format)
+    return sums.T.to(rows.dtype, memory_format=torch.contiguous_format)

@@ -23,6 +23,8 @@ Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
 replaces:
   default path      windowed_blend_fwd    _fwd_kernel_win (:601)
                     windowed_blend_bwd    _bwd_kernel_win (:671)
+  bf16 payload      windowed_blend_fwd_packed  _fwd_kernel_win's packed branch
+                    windowed_blend_bwd_packed  _bwd_kernel_win's packed branch
   t_floor_exact     windowed_blend_fwd    _fwd_kernel (:161), the unmasked
                                           first pass: JAX's aligned block b
                                           is window b here, so the
@@ -53,18 +55,9 @@ class RenderAux(NamedTuple):
     overflow: torch.Tensor   # [] bool pair capacity exceeded
 
 
-def _check_ported(cfg: RasterConfig) -> None:
-    unported = {
-        "payload_dtype='bf16'": cfg.payload_dtype != "f32",
-        "pack_positions=True": cfg.pack_positions,
-        "overflow_drop='impact'": cfg.overflow_drop != "index",
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"render: {', '.join(missing)} not ported to the torch package "
-            "yet (only the f32 windowed path is; ROADMAP.md §A, modes and variants)"
-        )
+def _check_payload(cfg: RasterConfig) -> None:
+    if cfg.payload_dtype not in ("f32", "bf16"):
+        raise ValueError(f"payload_dtype must be 'f32' or 'bf16', got {cfg.payload_dtype!r}")
 
 
 def _tile_rows(camera: Camera, cfg: RasterConfig, tile_rows) -> tuple[int, int]:
@@ -108,8 +101,10 @@ class _Plan(NamedTuple):
     configuration of pair_windows_fwd and the blend."""
     data: torch.Tensor      # [N, 9] presorted (sx, sy, conic, opacity, rgb)
     ints: tuple             # counts, ccounts, coffsets, ty_lo, tmin_x, span_x [N] int32
-    pcfg: tuple             # (n, pair_capacity, tiles_x, tiles_y, block, chunk_cap)
-    bconsts: tuple          # (tile_size, power_floor, alpha_cap, alpha_floor, tiles_x)
+    pcfg: tuple             # (n, pair_capacity, tiles_x, tiles_y, block, chunk_cap,
+                            #  packed, pack_pos, tile_size)
+    bconsts: tuple          # (tile_size, power_floor, alpha_cap, alpha_floor, tiles_x,
+                            #  packed, pack_pos)
     aux: RenderAux
 
 
@@ -169,11 +164,17 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
         proj_p, tiles_x, tiles_y, cfg.pair_capacity, row0, cfg.overflow_drop,
         cfg.chunk_slack,
     )
+    # the bf16 payload mode packs the windowed branch only, as JAX does
+    # (rasterize.py:304, 364-376)
+    packed = cfg.payload_dtype == "bf16" and not cfg.t_floor_exact
+    pack_pos = packed and cfg.pack_positions
     pcfg = (
         n, cfg.pair_capacity, tiles_x, tiles_y, cfg.pair_block,
         pairs_mod._chunk_capacity(cfg.pair_capacity, n, cfg.chunk_slack),
+        packed, pack_pos, ts,
     )
-    bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x)
+    bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x,
+               int(packed), int(pack_pos))
     ints = (counts, ccounts, coffsets, ty_lo, proj_p.tile_min[:, 0], span_x)
     return _Plan(data, ints, pcfg, bconsts,
                  RenderAux(num_pairs=total, overflow=overflow))
@@ -181,7 +182,7 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
 
 class _Windows(NamedTuple):
     """pair_windows_fwd of the plan: the blend's input windows."""
-    table: torch.Tensor        # [16, EP] tile-sorted pair rows
+    table: torch.Tensor        # [16, EP] tile-sorted pair rows ([8, EP] packed)
     block_src: torch.Tensor    # [NB] int32 window starts
     block_valid: torch.Tensor  # [NB] int32 live lanes
     tile: torch.Tensor         # [NB] int32 tile, clamped to num_tiles-1
@@ -199,12 +200,14 @@ def _windows(data, ints, pcfg, row0: int = 0) -> _Windows:
     return _Windows(table, block_src, block_valid, t, block_tile, row0)
 
 
-def _reduce_to_data(dcols, gid, counts, n):
-    """The nine aligned-order column cotangents [NB, B] -> per-Gaussian
-    [N, 9] sums (the sort-prefix reduction)."""
-    d_rows = torch.stack([c.reshape(-1) for c in dcols])           # [9, a_cap]
+def _reduce_to_data(dcols, gid, counts, n, grad_reduce):
+    """The nine aligned-order column cotangents [NB, B] (five packed rows
+    in the bf16 payload mode) -> per-Gaussian [N, 9] sums, by
+    ``grad_reduce``."""
+    d_rows = torch.stack([c.reshape(-1) for c in dcols])           # [9 or 5, a_cap]
     return pairs_mod.reduce_aligned_cotangents(
-        d_rows, gid.reshape(-1).to(torch.int32), counts, n
+        d_rows, gid.reshape(-1).to(torch.int32), counts, n, grad_reduce,
+        packed_out=9 if len(dcols) == 5 else 0,
     )
 
 
@@ -216,30 +219,34 @@ class _BlendWindows(torch.autograd.Function):
     are built from ``data.detach()``; differentiable in ``data`` only.
 
     Forward returns (out [NB, 4, P2], gid [NB, B] f32) and keeps this
-    pass's own S_b (``out[:, 3]``); backward runs the blend backward over the
-    same windows from that S_b, then reduces the aligned-order column
-    cotangents to per-Gaussian sums."""
+    pass's own S_b (``out[:, 3]``; in the bf16 payload mode the packed
+    forward's q_b); backward runs the blend backward over the same windows
+    from it, then reduces the aligned-order column cotangents to
+    per-Gaussian sums by ``grad_reduce``."""
 
     @staticmethod
-    def forward(ctx, data, win, counts, pcfg, bconsts):
-        out, gid = blend_mod.windowed_blend_fwd(
-            win.table, win.block_src, win.block_valid, win.tile, win.row0, pcfg[4],
-            bconsts,
-        )
-        ctx.win, ctx.pcfg, ctx.bconsts = win, pcfg, bconsts
-        ctx.save_for_backward(gid, counts, out[:, 3].contiguous())
+    def forward(ctx, data, win, counts, pcfg, bconsts, grad_reduce):
+        args = (win.table, win.block_src, win.block_valid, win.tile, win.row0, pcfg[4],
+                bconsts)
+        if blend_mod.payload_flags(bconsts)[0]:
+            out, gid, keep = blend_mod.windowed_blend_fwd_packed(*args)
+        else:
+            out, gid = blend_mod.windowed_blend_fwd(*args)
+            keep = out[:, 3].contiguous()
+        ctx.win, ctx.pcfg, ctx.bconsts, ctx.grad_reduce = win, pcfg, bconsts, grad_reduce
+        ctx.save_for_backward(gid, counts, keep)
         ctx.mark_non_differentiable(gid)
         return out, gid
 
     @staticmethod
     def backward(ctx, d_out, _d_gid):
-        gid, counts, s_b = ctx.saved_tensors
+        gid, counts, keep = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
-        dcols = blend_mod.windowed_blend_bwd(
-            win.table, win.block_src, win.block_valid, win.tile, win.row0, block,
-            d_out.contiguous(), s_b, ctx.bconsts,
-        )
-        return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 4
+        bwd = (blend_mod.windowed_blend_bwd_packed if blend_mod.payload_flags(ctx.bconsts)[0]
+               else blend_mod.windowed_blend_bwd)
+        dcols = bwd(win.table, win.block_src, win.block_valid, win.tile, win.row0, block,
+                    d_out.contiguous(), keep, ctx.bconsts)
+        return (_reduce_to_data(dcols, gid, counts, n, ctx.grad_reduce),) + (None,) * 5
 
 
 class _BlendWindowsTF(torch.autograd.Function):
@@ -256,12 +263,13 @@ class _BlendWindowsTF(torch.autograd.Function):
     per-Gaussian reduction by the first pass's ``gid``."""
 
     @staticmethod
-    def forward(ctx, data, win, gid, counts, logti, pcfg, bconsts, log_thr):
+    def forward(ctx, data, win, gid, counts, logti, pcfg, bconsts, log_thr, grad_reduce):
         out, stop = blend_mod.windowed_blend_fwd_tf(
             win.table, win.block_src, win.block_valid, win.tile, win.row0, pcfg[4],
             bconsts, logti, log_thr,
         )
         ctx.win, ctx.pcfg, ctx.bconsts, ctx.log_thr = win, pcfg, bconsts, log_thr
+        ctx.grad_reduce = grad_reduce
         ctx.save_for_backward(gid, counts, logti, out[:, 3].contiguous(), stop)
         return out
 
@@ -273,7 +281,7 @@ class _BlendWindowsTF(torch.autograd.Function):
             win.table, win.block_src, win.block_valid, win.tile, win.row0, block,
             d_out.contiguous(), s_b, stop, ctx.bconsts, logti, ctx.log_thr,
         )
-        return (_reduce_to_data(dcols, gid, counts, n),) + (None,) * 7
+        return (_reduce_to_data(dcols, gid, counts, n, ctx.grad_reduce),) + (None,) * 8
 
 
 def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
@@ -297,20 +305,21 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     first pass's S_b into each block's incoming log T, and the second pass
     zeroes every pair behind a pixel's T-floor.  The image takes C_b and
     S_b from the second pass and the blocks' incoming T from the first."""
-    _check_ported(cfg)
+    _check_payload(cfg)
     row0, n_rows = _tile_rows(camera, cfg, tile_rows)
     plan = _plan(params, camera, cfg, vs_dummy, row0, n_rows)
     win = _windows(plan.data.detach(), plan.ints, plan.pcfg, row0)
     counts = plan.ints[0]
     out, gid = _BlendWindows.apply(plan.data, win, counts, plan.pcfg,
-                                   plan.bconsts)
+                                   plan.bconsts, cfg.grad_reduce)
     blend_tfloor = None
     if cfg.t_floor_exact:
         log_thr = math.log(cfg.transmittance_floor)
 
         def blend_tfloor(logti):
             out_tf = _BlendWindowsTF.apply(plan.data, win, gid, counts, logti,
-                                           plan.pcfg, plan.bconsts, log_thr)
+                                           plan.pcfg, plan.bconsts, log_thr,
+                                           cfg.grad_reduce)
             return out_tf[:, :3, :], out_tf[:, 3, :]
 
     img = compose(out, win.block_tile, camera, cfg, blend_tfloor, tile_rows)
@@ -328,8 +337,11 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     cotangent and the forward's S_b inserted before the constants, of
     windowed_blend_bwd; the T-floor variants take (logti, log_thr) after
     the constants, and the backward the cotangent, the T-floor forward's
-    S_b and its stop lanes before them)."""
-    _check_ported(cfg)
+    S_b and its stop lanes before them).  In the bf16 payload mode they
+    are those of windowed_blend_fwd_packed (the packed table, constants
+    with the payload flags), and of windowed_blend_bwd_packed with the
+    cotangent and the packed forward's q_b inserted."""
+    _check_payload(cfg)
     row0, n_rows = _tile_rows(camera, cfg, tile_rows)
     plan = _plan(params, camera, cfg, None, row0, n_rows)
     win = _windows(plan.data.detach(), plan.ints, plan.pcfg, row0)

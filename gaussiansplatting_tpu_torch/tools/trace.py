@@ -8,13 +8,14 @@ synchronized steps taken just before the capture, without the profiler).
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
+      [--payload-dtype f32|bf16] [--pack-positions 0|1]
       [--out build/trace] [--parse-only] [--device cuda]
 
 The chrome trace goes to ``<out>/trace.json``; ``--parse-only`` aggregates
 an existing one.  On the card the groups are the CUDA kernels (and memory
 copies and sets); a CPU capture (``--device cpu``) groups the operators'
-self time instead.  The JAX tool's ``--payload-dtype bf16`` and
-``--pack-positions 1`` name modes not ported yet and are refused.
+self time instead.  ``--payload-dtype bf16`` (with ``--pack-positions 1``)
+traces the bf16 payload mode, as the JAX tool does.
 
 ``device_profile`` and ``step_breakdown`` are the kernels-only profiles
 chip_smoke.py prints for its paths.
@@ -29,21 +30,15 @@ import os
 import re
 import time
 
-# flags of modes the port does not have yet: (test on the parsed args, the
-# ROADMAP.md item that ports it), as tools/train.py refuses them
-_UNPORTED = (
-    ("--payload-dtype bf16", lambda a: a.payload_dtype == "bf16",
-     "ROADMAP.md §A still to port: modes and variants (payload_dtype)"),
-    ("--pack-positions 1", lambda a: a.pack_positions == 1,
-     "ROADMAP.md §A still to port: modes and variants (pack_positions)"),
-)
 # chrome-trace categories of work on the card
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _setup(n, width, height, pair_capacity, device):
+def _setup(n, width, height, pair_capacity, device, payload_dtype="f32",
+           pack_positions=False):
     """The JAX tool's workload: the synthetic scene (seed 0), its canonical
-    camera, random ground truth, L1-only loss gradient, B = 128."""
+    camera, random ground truth, L1-only loss gradient, B = 128, the
+    payload mode given."""
     import numpy as np
     import torch
 
@@ -51,7 +46,9 @@ def _setup(n, width, height, pair_capacity, device):
     from gaussiansplatting_tpu_torch.train import state as train_state
     from gaussiansplatting_tpu_torch.utils import synthetic
 
-    cfg = Config(raster=RasterConfig(pair_capacity=pair_capacity, pair_block=128),
+    cfg = Config(raster=RasterConfig(pair_capacity=pair_capacity, pair_block=128,
+                                     payload_dtype=payload_dtype,
+                                     pack_positions=bool(pack_positions)),
                  loss=LossConfig(dssim_in_grad=False))
     params = synthetic.make_scene(n=n, seed=0, device=device)
     camera = synthetic.make_canonical_camera(width=width, height=height, device=device)
@@ -67,7 +64,8 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def capture(steps, n, width, height, pair_capacity, out, device="cuda"):
+def capture(steps, n, width, height, pair_capacity, out, device="cuda",
+            payload_dtype="f32", pack_positions=False):
     """Warm one step, time ``steps`` synchronized steps on the host clock,
     then profile ``steps`` more and write ``<out>/trace.json``.  Returns the
     host ms per step."""
@@ -76,7 +74,8 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda"):
     from gaussiansplatting_tpu_torch.train.trainer import train_step
 
     device = torch.device(device)
-    st, camera, gt, cfg = _setup(n, width, height, pair_capacity, device)
+    st, camera, gt, cfg = _setup(n, width, height, pair_capacity, device, payload_dtype,
+                                 pack_positions)
     st, _ = train_step(st, camera, gt, cfg, 30_000)   # warm
     _sync(device)
     t0 = time.perf_counter()
@@ -223,9 +222,9 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=608)
     p.add_argument("--pair-capacity", type=int, default=1 << 21)
     p.add_argument("--payload-dtype", choices=("f32", "bf16"), default="f32",
-                   help="sort-payload precision (bf16 not ported yet)")
+                   help="pair-payload precision (bf16: the packed table and blends)")
     p.add_argument("--pack-positions", type=int, choices=(0, 1), default=0,
-                   help="tile-relative position packing (not ported yet)")
+                   help="with --payload-dtype bf16: tile-relative bf16 positions")
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--out", default=os.path.join("build", "trace"))
     p.add_argument("--parse-only", action="store_true",
@@ -233,16 +232,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to trace (default cuda; no fallback)")
     args = p.parse_args(argv)
-    for flag, given, item in _UNPORTED:
-        if given(args):
-            raise SystemExit(f"error: {flag} is not ported to the torch package yet ({item})")
 
     host_ms = None
     if not args.parse_only:
         from gaussiansplatting_tpu_torch.tools.render import _device
 
         host_ms = capture(args.steps, args.n, args.width, args.height, args.pair_capacity,
-                          args.out, _device(args.device))
+                          args.out, _device(args.device), args.payload_dtype,
+                          bool(args.pack_positions))
     rows = aggregate(args.out, args.steps, args.top)
     for name, ms in rows:
         print(f"{ms:9.3f} ms/step  {name}")

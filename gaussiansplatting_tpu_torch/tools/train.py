@@ -20,9 +20,9 @@ shards tile strips over N ranks (parallel/): under a launcher (the
 environment of parallel/launch.py, or ``--coordinator``) every rank runs
 this program; without one it starts N local ranks itself
 (``launch.spawn``).  Only rank 0 writes metrics, checkpoints, snapshots,
-renders and the PLY.  Flags of modes not ported yet (``--payload-dtype
-bf16``, ``--pack-positions 1``, ``--overflow-drop impact``) exit with an
-error that names the ROADMAP.md item.
+renders and the PLY.  ``--payload-dtype bf16`` (with ``--pack-positions
+1``) trains in the bf16 payload mode and ``--overflow-drop impact`` sheds
+the least visible Gaussians under overflow, as in the JAX tool.
 """
 
 from __future__ import annotations
@@ -33,18 +33,6 @@ import sys
 import time
 
 import numpy as np
-
-# flags of modes the port does not have yet: (test on the parsed args,
-# the ROADMAP.md item that ports it)
-_UNPORTED = (
-    ("--payload-dtype bf16", lambda a: a.payload_dtype == "bf16",
-     "ROADMAP.md §A still to port: modes and variants (payload_dtype)"),
-    ("--pack-positions 1", lambda a: a.pack_positions == 1,
-     "ROADMAP.md §A still to port: modes and variants (pack_positions)"),
-    ("--overflow-drop impact", lambda a: a.overflow_drop == "impact",
-     "ROADMAP.md §A still to port: modes and variants (overflow_drop)"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -59,16 +47,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="padded (tile,depth) pairs per frame (default 1<<21; "
                         "on --resume, None keeps the checkpoint's value)")
     p.add_argument("--payload-dtype", choices=("f32", "bf16"), default=None,
-                   help="sort-payload precision (bf16 not ported yet)")
+                   help="pair-payload precision (bf16: conic, opacity, colour "
+                        "and the cotangents as bf16 pairs, ops/packing.py, with "
+                        "the packed blend kernels)")
     p.add_argument("--pack-positions", type=int, choices=(0, 1), default=None,
-                   help="pack tile-relative screen positions (not ported yet)")
+                   help="with --payload-dtype bf16: pack tile-relative screen "
+                        "positions as one bf16 pair")
     p.add_argument("--chunk-slack", type=float, default=None,
                    help="expansion chunk-padding allowance scale (1.0 = "
                         "worst case; the overflow path covers undersizing)")
     p.add_argument("--overflow-drop", choices=("index", "impact"), default=None,
                    help="which Gaussians lose pairs on overflow: 'index' = "
-                        "emission-order prefix (reference parity); 'impact' "
-                        "is not ported yet")
+                        "emission-order prefix (reference parity, "
+                        "tiled_shaders.metal:779-780), 'impact' = keep the "
+                        "highest opacity*tiles set")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-interval", type=int, default=5000, help="iters between checkpoints (0=end only)")
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint in --checkpoint-dir")
@@ -164,10 +156,6 @@ def main(argv=None) -> int:
         raise SystemExit(f"error: images dir not found: {args.images}")
     if args.config and not os.path.exists(args.config):
         raise SystemExit(f"error: config not found: {args.config}")
-    for flag, given, item in _UNPORTED:
-        if given(args):
-            raise SystemExit(
-                f"error: {flag} is not ported to the torch package yet ({item})")
     if args.batch_views < 1:
         raise SystemExit(f"error: --batch-views {args.batch_views}: train_step_batched "
                          "takes K >= 1 views")

@@ -24,8 +24,14 @@ a column and a row); per kept pair in the forward op * exp, the floor
 compare, the cap, w = alpha T, 3 colour FMAs, T *= 1 - alpha and S += log1p
 (12); in the backward op * exp, the floor compare, the cap, 1 - alpha and its
 reciprocal, T, w, e (3), dl, dpow (3), dpow dx and dpow dy, the nine sums and
-the suffix (27).  exp, log1p and the reciprocal count as one each, though
-each takes several, so the bound stays a lower bound.
+the suffix (27).  The bf16 payload mode's packed kernels: in the forward
+op * exp, the floor compare, the cap, log1p, Q += bf16(l), Q - l, exp for T,
+w, 3 colour FMAs and S += l (13); in the backward op * exp, the floor
+compare, the cap, log1p, Q - l, exp for T, Q -= bf16(l), 1 - alpha, the
+division, w, e (3), dl, dpow (3), dpow dx and dpow dy, the nine sums, e w
+and the suffix (31); the bf16 roundings are integer operations and count
+nothing.  exp, log1p and the reciprocal count as one each, though each
+takes several, so the bound stays a lower bound.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ F32_INSTR_PER_S = 67e12 / 2
 OPS_PER_TEST = 11
 FWD_OPS_PER_KEPT = 12
 BWD_OPS_PER_KEPT = 27
+FWD_PACKED_OPS_PER_KEPT = 13
+BWD_PACKED_OPS_PER_KEPT = 31
 
 F32 = I32 = 4
 F64 = 8
@@ -90,7 +98,7 @@ def blend_work(args, logti=None, log_thr=0.0, chunk=128):
     from gaussiansplatting_tpu_torch.ops import blend
 
     table, src, valid, tile, row0, block, consts = args
-    ts, power_floor, _, alpha_floor, tiles_x = consts
+    ts, power_floor, _, alpha_floor, tiles_x = consts[:5]
     nb, p2 = src.shape[0], int(ts) ** 2
     if p2 != 256:
         raise ValueError(f"blend_work counts 16 x 16 tiles, got tile_size {ts}")
@@ -127,9 +135,7 @@ def blend_work(args, logti=None, log_thr=0.0, chunk=128):
             w["bwd_blocks"] += int((stop.amax(1) > 0).sum())
             w["bwd_pixels"] += int((stop > 0).sum())
         w["kept"] += int(surv.sum())
-        t = tile[k0:k1]
-        mx = r.cols[1] - ((t % tiles_x).float() * 16 + 8)[:, None]    # [K, B]
-        my = r.cols[2] - ((t // tiles_x + row0).float() * 16 + 8)[:, None]
+        mx, my = r.mx, r.my                                         # [K, B]
         ex, ey = cull_extent(r.cols[3], r.cols[4], r.cols[5], r.op, power_floor, alpha_floor)
         has_op = (r.op > 0)[:, None, :]                              # [K, 1, B]
         for name, pixels in layouts.items():
@@ -190,9 +196,18 @@ def step_model(
     block: int = 128,
     chunk_slack: float = 1.0,
     work: dict | None = None,
+    packed: bool = False,
+    pack_positions: bool = False,
 ) -> dict:
     """Single-touch bytes and f32 instructions of one fwd+bwd+Adam step of
     the default path at the given STATIC shapes.
+
+    ``packed`` (the bf16 payload mode) and ``pack_positions``, as in the
+    JAX model (utils/sol.py:45-70): the table has 8 rows (16 unpacked), a
+    window lane reads 7 of them (6 with pack_positions; 10 unpacked), the
+    forward writes and the backward reads each pixel's q_b in place of S_b,
+    and the backward writes 5 packed cotangent rows (9 unpacked), which the
+    reduction gathers and then unpacks to 9.
 
     ``work`` (blend_work of the frame's windows) gives the blend kernels'
     instructions; without it they count 0, and the floor stays a lower
@@ -211,7 +226,10 @@ def step_model(
     a_cap = pairs_mod.aligned_capacity(pair_capacity, tiles, block)
     nb = a_cap // block
     ep = -(-(e_cap + 2 * block) // 512) * 512
-    rows = pairs_mod.TABLE_ROWS
+    pack_positions = packed and pack_positions
+    rows = pairs_mod.PACKED_TABLE_ROWS if packed else pairs_mod.TABLE_ROWS
+    lane_rows = (6 if pack_positions else 7) if packed else 10   # rows a lane reads
+    n_out = 5 if packed else 9           # backward cotangent rows
     d_full = 9                           # cotangent columns
     npix = height * width
 
@@ -244,21 +262,25 @@ def step_model(
     # per-block windows: src, valid and tile from the tile runs (JAX: the
     # aligned destination sort, not ported)
     b["windows"] = nb * 3 * I32 + tiles * 4 * I32
-    # blend forward: each block reads its own window of 10 rows once (JAX:
-    # a 2x over-fetched DMA), out [NB, 4, P2] and gid [NB, B] written
-    b["blend_fwd"] = nb * block * 10 * F32 + nb * 3 * I32 + nb * (4 * p2 + block) * F32
+    # blend forward: each block reads its own window of lane_rows rows once
+    # (JAX: a 2x over-fetched DMA), out [NB, 4, P2] and gid [NB, B] written
+    # (packed: q_b [NB, P2] too)
+    b["blend_fwd"] = (nb * block * lane_rows * F32 + nb * 3 * I32
+                      + nb * (4 * p2 + block) * F32 + (nb * p2 * F32 if packed else 0))
     # blend backward: the window again, g [NB, 4, P2] and the forward's S_b
-    # in (no replay), nine columns out
-    b["blend_bwd"] = (nb * block * 10 * F32 + nb * 3 * I32 + nb * 5 * p2 * F32
-                      + nb * d_full * block * F32)
+    # (packed: q_b) in (no replay), n_out columns out
+    b["blend_bwd"] = (nb * block * lane_rows * F32 + nb * 3 * I32 + nb * 5 * p2 * F32
+                      + nb * n_out * block * F32)
     # compose's incoming log T: a float64 per-tile prefix of S_b over the
     # transposed [P2, NB], forward and backward (JAX: a float32 global
     # cumsum, inside image_loss)
     b["compose_log_t"] = 2 * 2 * nb * p2 * F64
     # per-Gaussian sums: a stable int32 key sort with its permutation, the
-    # nine rows gathered, their float64 prefix and the int32 count of
-    # nonzero lanes, the run ends read, [N, 9] out
-    b["grad_reduce"] = (2 * a_cap * 2 * I32 + 2 * a_cap * d_full * F32
+    # n_out rows gathered (packed: then unpacked to nine), their float64
+    # prefix and the int32 count of nonzero lanes, the run ends read,
+    # [N, 9] out
+    b["grad_reduce"] = (2 * a_cap * 2 * I32 + 2 * a_cap * n_out * F32
+                        + (a_cap * d_full * F32 if packed else 0)
                         + 2 * a_cap * d_full * F64 + 2 * a_cap * I32
                         + 2 * n * d_full * F64 + n * d_full * F32)
 

@@ -147,9 +147,22 @@ def test_prefix_sum_spans_chunks(monkeypatch):
 
 
 def test_reduce_scatter_is_not_ported():
-    with pytest.raises(NotImplementedError, match="scatter"):
-        tpairs.reduce_aligned_cotangents(torch.zeros((9, 4)), torch.zeros(4, dtype=torch.int32),
-                                         torch.zeros(2, dtype=torch.int32), 2, "scatter")
+    """The scatter form is ported: it sums what the sort-prefix form sums
+    (to float32 rounding, 1e-5 at these magnitudes), "autodiff" reduces as
+    "sortprefix" (JAX's windowed path, pairs.py:553), and a form neither
+    package has is refused (tests/test_torch_packing.py holds the scatter
+    against JAX's)."""
+    rng = np.random.default_rng(5)
+    gid = torch.from_numpy(rng.integers(-1, 6, 64).astype(np.int32))
+    rows = torch.from_numpy(rng.normal(size=(9, 64)).astype(np.float32))
+    rows[:, gid < 0] = 0.0
+    counts = torch.bincount(gid[gid >= 0].long(), minlength=6).to(torch.int32)
+    ref = tpairs.reduce_aligned_cotangents(rows, gid, counts, 6)
+    torch.testing.assert_close(tpairs.reduce_aligned_cotangents(rows, gid, counts, 6, "scatter"),
+                               ref, rtol=0, atol=1e-5)
+    assert torch.equal(tpairs.reduce_aligned_cotangents(rows, gid, counts, 6, "autodiff"), ref)
+    with pytest.raises(ValueError, match="grad_reduce"):
+        tpairs.reduce_aligned_cotangents(rows, gid, counts, 6, "atomic")
 
 
 @pytest.mark.parametrize("shape", [(NB, TS * TS + 1), (NB - 1, TS * TS),

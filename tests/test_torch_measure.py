@@ -50,6 +50,28 @@ def test_step_model_shared_stages_equal_jax(n, cap, h, w, block):
     assert more["bytes_total"] == got["bytes_total"]
 
 
+@pytest.mark.parametrize("n,cap,h,w,block", [(100_000, 1 << 21, 608, 800, 128),
+                                             (48, 2048, 48, 64, 16)])
+def test_step_model_packed_modes(n, cap, h, w, block):
+    """step_model's packed and pack_positions as the JAX model takes them
+    (tests/test_packing.py:134-153): packing moves fewer bytes, pack_positions
+    fewer still, the instructions stay; the shared stages stay JAX's; the
+    table, the blends and the reduction shrink by the rows they move."""
+    f32 = sol.step_model(n, cap, h, w, block=block)
+    b16 = sol.step_model(n, cap, h, w, block=block, packed=True)
+    pp = sol.step_model(n, cap, h, w, block=block, packed=True, pack_positions=True)
+    assert sol.step_model(n, cap, h, w, block=block, pack_positions=True) == f32
+    assert pp["bytes_total"] < b16["bytes_total"] < f32["bytes_total"]
+    assert pp["instructions"] == b16["instructions"] == f32["instructions"]
+    want = jsol.step_model(n, cap, h, w, block=block, packed=True, pack_positions=True)
+    for stage in SHARED:
+        assert pp["bytes_by_stage"][stage] == want["bytes_by_stage"][stage], stage
+    fb, bb = f32["bytes_by_stage"], b16["bytes_by_stage"]
+    for stage in ("table", "blend_fwd", "blend_bwd", "grad_reduce"):
+        assert bb[stage] != fb[stage], stage
+    assert bb["table"] < fb["table"] and bb["blend_bwd"] < fb["blend_bwd"]
+
+
 def _two_blocks(block=16):
     """A two-block window (edge_windows' full block and its unaligned one)
     with the blend's arguments."""
@@ -163,9 +185,13 @@ def test_trace_on_the_cpu(tmp_path, capsys):
     assert len(rows) == 9 and rows[-1][0] == "TOTAL(device)"
     assert all(math.isfinite(ms) and ms >= 0 for _, ms in rows) and rows[-1][1] > 0
     assert trace.main(["--parse-only", "--out", out, "--steps", "2"]) == 0
-    for flag in (["--payload-dtype", "bf16"], ["--pack-positions", "1"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            trace.main(flag + ["--device", "cpu"])
+    # the bf16 payload mode with packed positions, as the JAX tool traces it
+    out16 = str(tmp_path / "tr16")
+    assert trace.main(["--steps", "1", "--n", "40", "--width", "32", "--height", "32",
+                       "--pair-capacity", "1024", "--top", "4", "--out", out16,
+                       "--payload-dtype", "bf16", "--pack-positions", "1",
+                       "--device", "cpu"]) == 0
+    assert trace.aggregate(out16, 1, top=4)[-1][1] > 0
     # the device profile and the step breakdown, profiling the CPU
     st, cam, gt, cfg = trace._setup(40, 32, 32, 1024, "cpu")
     logs = []

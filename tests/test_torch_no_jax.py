@@ -1,6 +1,7 @@
 """The port stands alone: with jax, flax and gaussiansplatting_tpu blocked
-from import, every module of gaussiansplatting_tpu_torch imports and a tiny
-scene renders on the CPU (the machine with the GPU has no JAX)."""
+from import, every module of gaussiansplatting_tpu_torch (ops/packing.py
+among them) imports and a tiny scene renders on the CPU, in float32 and in
+the bf16 payload mode (the machine with the GPU has no JAX)."""
 
 import os
 import subprocess
@@ -44,6 +45,12 @@ SCRIPT = textwrap.dedent("""
         img, aux = render(params, cam, RasterConfig(pair_capacity=1024, pair_block=16))
     assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
     assert int(aux.num_pairs) > 0 and float(img.min()) < 0.99
+    # the bf16 payload mode and its packing stand alone too
+    assert "gaussiansplatting_tpu_torch.ops.packing" in names
+    with torch.no_grad():
+        img16, _ = render(params, cam, RasterConfig(pair_capacity=1024, pair_block=16,
+                                                    payload_dtype="bf16", pack_positions=True))
+    assert bool(torch.isfinite(img16).all()) and float((img16 - img).abs().max()) < 0.06
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names), int(aux.num_pairs))

@@ -30,20 +30,21 @@ def _to_port(proj_p):
     })
 
 
-def _port_windows(jp, jc, jcfg):
+def _port_windows(jp, jc, jcfg, packed=False, pack_pos=False, tile_rows=None):
     """The port's plan and windows on the JAX-presorted projection (handed
-    over as numpy, so the comparison isolates ops/pairs)."""
+    over as numpy, so the comparison isolates ops/pairs), with the bf16
+    payload flags, of the strip ``tile_rows`` = (row0, n_rows)."""
     proj_p, data = jax_presorted_inputs(jp, jc, jcfg)
     tp = _to_port(proj_p)
     tiles_x = tproj.num_tiles(jc.width, jcfg.tile_size)
-    tiles_y = tproj.num_tiles(jc.height, jcfg.tile_size)
+    row0, tiles_y = tile_rows or (0, tproj.num_tiles(jc.height, jcfg.tile_size))
     n = tp.depth.shape[0]
-    plan = tpairs.capacity_plan(tp, tiles_x, tiles_y, jcfg.pair_capacity, 0)
+    plan = tpairs.capacity_plan(tp, tiles_x, tiles_y, jcfg.pair_capacity, row0)
     counts, ccounts, coffsets, ty_lo, span_x, _total, _ = plan
     pcfg = (n, jcfg.pair_capacity, tiles_x, tiles_y, jcfg.pair_block,
-            tpairs._chunk_capacity(jcfg.pair_capacity, n))
+            tpairs._chunk_capacity(jcfg.pair_capacity, n), packed, pack_pos, jcfg.tile_size)
     windows = tpairs.pair_windows_fwd(
-        torch.from_numpy(np.array(data)), 0, counts, ccounts, coffsets, ty_lo,
+        torch.from_numpy(np.array(data)), row0, counts, ccounts, coffsets, ty_lo,
         tp.tile_min[:, 0], span_x, pcfg,
     )
     return plan, windows
@@ -161,8 +162,15 @@ def test_capacities_match_jax(cap, n):
 
 
 def test_impact_drop_not_ported():
+    """The impact drop is ported: without overflow its plan is JAX's (and
+    the index plan); a policy neither package has is refused
+    (tests/test_torch_packing.py forces the overflow)."""
     jp, _ = scene_params(47, n=8)
     jc, _ = cameras()
-    tp = _to_port(jax_presorted_inputs(jp, jc, configs()[0])[0])
-    with pytest.raises(NotImplementedError, match="impact"):
-        tpairs.capacity_plan(tp, 4, 3, 2048, 0, overflow_drop="impact")
+    jproj = jax_presorted_inputs(jp, jc, configs()[0])[0]
+    tp = _to_port(jproj)
+    got = tpairs.capacity_plan(tp, 4, 3, 2048, 0, overflow_drop="impact")
+    _assert_same(jpairs.capacity_plan(jproj, 4, 3, 2048, jnp.int32(0), "impact"), got, PLAN)
+    _assert_same(tpairs.capacity_plan(tp, 4, 3, 2048, 0), got, PLAN)
+    with pytest.raises(ValueError, match="overflow_drop"):
+        tpairs.capacity_plan(tp, 4, 3, 2048, 0, overflow_drop="depth")

@@ -99,16 +99,22 @@ def test_render_requires_no_grad():
     assert torch.equal(img.detach(), img_ng)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(payload_dtype="bf16"),
-    dict(payload_dtype="bf16", pack_positions=True),
-    dict(overflow_drop="impact"),
+@pytest.mark.parametrize("kw,bad", [
+    (dict(payload_dtype="bf16"), dict(payload_dtype="f16")),
+    (dict(payload_dtype="bf16", pack_positions=True), dict(payload_dtype="int8")),
+    (dict(overflow_drop="impact"), dict(overflow_drop="depth")),
 ], ids=["bf16", "pack_positions", "impact"])
-def test_unported_modes_raise(kw):
+def test_unported_modes_raise(kw, bad):
+    """The modes the JAX package has render (tests/test_torch_packing.py
+    holds them against JAX's); a value no package has is refused."""
     _, tp = scene_params(15, n=16)
     _, tc = cameras()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="not ported"):
-        render(tp, tc, RasterConfig(**{**dict(pair_capacity=2048, pair_block=16), **kw}))
+    base = dict(pair_capacity=2048, pair_block=16)
+    with torch.no_grad():
+        img, aux = render(tp, tc, RasterConfig(**base, **kw))
+        assert bool(torch.isfinite(img).all()) and int(aux.num_pairs) > 0
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            render(tp, tc, RasterConfig(**base, **bad))
 
 
 def test_tile_rows_raise():

@@ -282,3 +282,4 @@ def test_dryrun_multichip_two_ranks(monkeypatch):
     out = dryrun_multichip(2, device="cpu")
     assert len(out) == 2 and out[0] == out[1]
     assert abs(out[0]["loss"] - out[0]["ref_loss"]) < 1e-5
+    assert abs(out[0]["bf16_loss"] - out[0]["bf16_ref_loss"]) < 1e-4

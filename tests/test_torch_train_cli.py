@@ -257,14 +257,11 @@ def test_evaluate_cli_matches_jax(scene_dir, capsys, monkeypatch):
     (["--devices", "2"], "parallel/"),
     (["--coordinator", "localhost:1234"], "parallel/"),
     (["--batch-views", "0"], "train_step_batched"),
-    (["--payload-dtype", "bf16"], "payload_dtype"),
-    (["--pack-positions", "1"], "pack_positions"),
-    (["--overflow-drop", "impact"], "overflow_drop"),
 ])
 def test_train_cli_refuses_what_it_cannot_run(scene_dir, tmp_path, monkeypatch, flags, needle):
     """No fallback: --device cuda without CUDA (also for --devices 2's ranks
-    and --coordinator's process group), a batch of no views and the flags
-    of modes not ported yet exit non-zero, naming the reason."""
+    and --coordinator's process group) and a batch of no views exit
+    non-zero, naming the reason."""
     from gaussiansplatting_tpu_torch.tools import train as train_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -273,3 +270,27 @@ def test_train_cli_refuses_what_it_cannot_run(scene_dir, tmp_path, monkeypatch, 
         train_cli.main(_cli_args(scene_dir, tmp_path / "out", cfg_path, flags))
     assert e.value.code != 0
     assert not (tmp_path / "out" / "out.ply").exists()
+
+
+@pytest.mark.parametrize("flags,raster", [
+    (["--payload-dtype", "bf16"], dict(payload_dtype="bf16", pack_positions=False)),
+    (["--payload-dtype", "bf16", "--pack-positions", "1"],
+     dict(payload_dtype="bf16", pack_positions=True)),
+    (["--overflow-drop", "impact"], dict(overflow_drop="impact")),
+], ids=["bf16", "pack_positions", "impact"])
+def test_train_cli_modes(scene_dir, tmp_path, flags, raster):
+    """The flags of the bf16 payload mode and the impact drop train on the
+    CPU (the JAX tool's flags, tools/train.py:35-53): finite steps, the
+    config they set saved in the checkpoint."""
+    from gaussiansplatting_tpu_torch.tools import train as train_cli
+    from gaussiansplatting_tpu_torch.train import checkpoint
+
+    out = tmp_path / "out"
+    cfg_path = _write_config(tmp_path / "cfg.json")
+    assert train_cli.main(_cli_args(scene_dir, out, cfg_path,
+                                    flags + ["--epochs", "1", "--device", "cpu"])) == 0
+    steps = [s for s in map(json.loads, open(out / "metrics.jsonl")) if s["event"] == "step"]
+    assert [s["iter"] for s in steps] == [1, 2]
+    assert all(np.isfinite(s["loss"]) and not s["overflow"] for s in steps)
+    _, cfg = checkpoint.load(str(out / "ck" / "latest.npz"), "cpu")
+    assert {k: getattr(cfg.raster, k) for k in raster} == raster

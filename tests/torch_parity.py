@@ -72,25 +72,27 @@ def jax_presorted_inputs(jp, jc, jcfg):
     return proj_p, data
 
 
-def jax_windows(jp, jc, jcfg):
-    """JAX capacity plan + pair windows for one view.  Returns (plan,
-    windows, pcfg) with plan = capacity_plan's 7-tuple and windows =
+def jax_windows(jp, jc, jcfg, packed=False, pack_pos=False, tile_rows=None):
+    """JAX capacity plan + pair windows for one view (of the strip
+    ``tile_rows`` = (row0, n_rows)), with the bf16 payload flags.  Returns
+    (plan, windows, pcfg) with plan = capacity_plan's 7-tuple and windows =
     pair_windows_fwd's 5-tuple."""
     proj_p, data = jax_presorted_inputs(jp, jc, jcfg)
     tiles_x = jproj.num_tiles(jc.width, jcfg.tile_size)
-    tiles_y = jproj.num_tiles(jc.height, jcfg.tile_size)
+    row0, tiles_y = tile_rows or (0, jproj.num_tiles(jc.height, jcfg.tile_size))
     n = proj_p.depth.shape[0]
     plan = jpairs.capacity_plan(
-        proj_p, tiles_x, tiles_y, jcfg.pair_capacity, jnp.int32(0)
+        proj_p, tiles_x, tiles_y, jcfg.pair_capacity, jnp.int32(row0),
+        jcfg.overflow_drop,
     )
     counts, ccounts, coffsets, ty_lo, span_x, total, _ = plan
     pcfg = (
         n, jcfg.pair_capacity, tiles_x, tiles_y, jcfg.pair_block,
         jcfg.grad_reduce, jpairs._chunk_capacity(jcfg.pair_capacity, n),
-        True, False,
+        True, packed, packed and pack_pos, jcfg.tile_size,
     )
     windows = jpairs.pair_windows_fwd(
-        data, proj_p.depth, jnp.int32(0), counts, ccounts, coffsets, ty_lo,
+        data, proj_p.depth, jnp.int32(row0), counts, ccounts, coffsets, ty_lo,
         proj_p.tile_min[:, 0], span_x, pcfg,
     )
     return plan, windows, pcfg
