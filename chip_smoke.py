@@ -87,10 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               800x608, 150,000 SfM points, seed 0; the ray tracer's ms per
               view, the PNG writing and the total time); render_view and the
               SfM colours on the card against the CPU (64x48, tests/
-              test_torch_scenegen.py's bars); the config-4 flags the port has
-              through tools.train (GARDEN_* below; one cut, 4 epochs: 760
-              iterations, densify at 600 and 700): every step finite, `alive`
-              a prefix after each event, both kernels once per step, the
+              test_torch_scenegen.py's bars); the config-4 flags but bf16
+              through tools.train, --scan-steps 10 included (GARDEN_* below;
+              one cut, 4 epochs: 760 iterations, densify at 600 and 700):
+              every step finite, `alive` a prefix after each event, both
+              kernels once per step (and once per graph warm-up step), the
               rate, events, rebuckets, peak pairs, overflow steps, train
               PSNR, the held-out eval and the PLY, the final state's step at
               the adaptive pair capacity and at the pinned 2^24 (its
@@ -139,8 +140,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               scatter reduction twice bit for bit and against float64, a
               scatter step replayed; tools.train --payload-dtype bf16
               --pack-positions 1 (`modes_cli`).
+ 12. graph     the train step's CUDA graph (train/graph.py; phase_graph) at
+              full size: per mode (default, T-floor, bf16 + pack_positions)
+              one warm eager step under torch.cuda.set_sync_debug_mode
+              ("error"), then train_step (K = 1, which captures) and
+              train_steps (10 replays) against the eager steps
+              (train_step_eager) from the same state, every state array and
+              metric bit for bit; the kernels' counts per replay equal to
+              what the capture recorded and the blend kernels K times in a
+              torch.profiler trace of one chunk; the host clock of 10 eager
+              steps and 10 replays in turns, device time and the card's
+              idle share of both, capture time and pool bytes, the state's
+              copy in and clone out; the impact drop with the scatter
+              reduction at K = 1; recapture at pair_capacity 2^22, after
+              state.grow and for an evicted key, the cache within its bound;
+              in a child process, a step body with a host read must fail
+              its capture with an error naming that line (no fallback);
+              tools.train --scan-steps 10 against --scan-steps 1 on a
+              25-view COLMAP scene of the 100k Gaussians (60 iterations,
+              densify at 20, 40, 60): final checkpoints bit-identical, both
+              rates (`graph`).
 
-Every main path (phases 4-11) runs with the launch counts set to 0 before
+Phases 4-12 train through train/trainer.train_step and train_steps, which
+on the card replay the step's CUDA graph: a capture's warm-up step
+launches its mode's kernels once outside any replay, and the exact launch
+checks count them (graph.counts["warmup_steps"]).
+
+Every main path (phases 4-12) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
@@ -268,8 +294,8 @@ DENSITY_SEED = 7
 DENSITY_EXTENT = 4.0
 # phase 8: the garden, utils/scenegen's procedural scene at the size of
 # BASELINE.md config #4 (tools.make_dataset's defaults), trained with the
-# flags of scripts/run_config4.sh:11-27 that the port has (f32: no
-# --payload-dtype bf16, no --scan-steps 10), one cut: GARDEN_EPOCHS of the
+# flags of scripts/run_config4.sh:11-27 but --payload-dtype bf16 (phase 11
+# trains that mode; --scan-steps 10 is GRAPH_STEPS), one cut: GARDEN_EPOCHS of the
 # schedule's 150 (760 of 28,500 iterations; the default density schedule
 # densifies at 600 and 700, its first opacity reset at 3,000 lies beyond)
 GARDEN_VIEWS = 200
@@ -333,6 +359,19 @@ MODE_IMG_MAX, MODE_IMG_MEAN, MODE_GRAD_REL = 0.06, 5e-3, 5e-2
 SCATTER_REL_NORM = 1e-5
 MODES_TIMED_STEPS = 5
 MODES_CLI_EPOCHS = 1
+# phase 12: the step's CUDA graph.  K replays (config #4's --scan-steps 10)
+# against K eager steps from one state, bit for bit, in three modes; the
+# host clock of both in turns (eager, graph, graph, eager); tools.train
+# --scan-steps against --scan-steps 1 on a COLMAP scene of the 100k
+# Gaussians written as phase 7 writes its own, with enough training views
+# (GRAPH_CLI_VIEWS, every GRAPH_CLI_EVAL_SPLIT-th held out) for chunks of K
+# within an epoch, a densify event at each GRAPH_CLI_DENSIFY_EVERY-th
+# iteration (at a chunk's end) and the one checkpoint at the last
+GRAPH_STEPS = 10
+GRAPH_CLI_VIEWS = 25
+GRAPH_CLI_EVAL_SPLIT = 5
+GRAPH_CLI_EPOCHS = 3
+GRAPH_CLI_DENSIFY_EVERY = 20
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -977,19 +1016,6 @@ def _compare_tf_bwd(label, got, want, margin):
     return worst, n_excused
 
 
-def _blend_wrappers():
-    """The kernel entries' wrappers, each with its launch count: the six
-    of the main paths (four float32, two packed) and the first design's
-    four, which only the A/Bs of phases 3 and 6 call."""
-    from gaussiansplatting_tpu_torch.ops import blend
-
-    return (blend.windowed_blend_fwd, blend.windowed_blend_fwd_tf,
-            blend.windowed_blend_bwd, blend.windowed_blend_bwd_tf,
-            blend.windowed_blend_fwd_packed, blend.windowed_blend_bwd_packed,
-            blend.windowed_blend_fwd_v1, blend.windowed_blend_bwd_v1,
-            blend.windowed_blend_fwd_tf_v1, blend.windowed_blend_bwd_tf_v1)
-
-
 MAIN_ENTRIES = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
                 "windowed_blend_bwd_tf")
 
@@ -1002,12 +1028,33 @@ def _check_no_v1(label, launches):
 
 
 def _tf_launches():
-    return {f.__name__: f.launches for f in _blend_wrappers()}
+    from gaussiansplatting_tpu_torch.ops import blend
+
+    return blend.launch_counts()
+
+
+_warm_mark = [0]
 
 
 def _reset_launches():
-    for f in _blend_wrappers():
-        f.launches = 0
+    """Set every kernel entry's launch count to 0 (ops.blend.COUNTED: the
+    six of the main paths and the first design's four, which only the A/Bs
+    of phases 3 and 6 call)."""
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.train import graph
+
+    for name in blend.COUNTED:
+        getattr(blend, name).launches = 0
+    _warm_mark[0] = graph.counts["warmup_steps"]
+
+
+def _warmups():
+    """Eager warm-up steps the step graphs' captures ran since the counts
+    were last set to 0: each launches its mode's kernels once, outside any
+    replay (train/graph.py)."""
+    from gaussiansplatting_tpu_torch.train import graph
+
+    return graph.counts["warmup_steps"] - _warm_mark[0]
 
 
 def dense_scene(seed, device=None):
@@ -1740,10 +1787,12 @@ def phase_trainloop(params, smi):
     if len(rises) < 2 or not all(y > x for _, _, x, y in rises):
         raise AssertionError(f"PSNR does not rise between events: {rises}")
     n_eval = TRAINLOOP_VIEWS - n_train
-    if launches["windowed_blend_fwd"] != iters + n_eval or \
-            launches["windowed_blend_bwd"] != iters:
+    warm = _warmups()
+    if launches["windowed_blend_fwd"] != iters + n_eval + warm or \
+            launches["windowed_blend_bwd"] != iters + warm:
         raise AssertionError(f"expected {iters + n_eval} forward and {iters} backward "
-                             f"launches, got {launches}")
+                             f"launches and {warm} of each in the graphs' warm-up steps, "
+                             f"got {launches}")
     ev = [x for x in lines if x["event"] == "eval"]
     ex = [x for x in lines if x["event"] == "export_ply"]
     state36, saved_cfg = checkpoint.load(os.path.join(ck, "latest.npz"), DEVICE)
@@ -2003,21 +2052,14 @@ def phase_garden(smi):
             "--adaptive-capacity", "--pair-capacity", str(1 << 24), "--adaptive-pairs",
             "--min-pair-capacity", str(min_cap), "--chunk-slack", "0.5",
             "--checkpoint-dir", ck_dir, "--checkpoint-interval", str(GARDEN_CKPT_EVERY),
-            "--metrics", metrics_path, "--device", DEVICE]
+            "--metrics", metrics_path, "--device", DEVICE, "--scan-steps", str(GRAPH_STEPS)]
     n_eval = len(range(0, GARDEN_VIEWS, GARDEN_EVAL_SPLIT))
     iters = GARDEN_EPOCHS * (GARDEN_VIEWS - n_eval)
     events, stamps = [], []
-    originals = (trainer.train_step, trainer.densify_step, trainer.opacity_reset_step)
-
-    def train_step(*a, **k):
-        out = originals[0](*a, **k)
-        if len(stamps) in (0, iters - 1):          # after the first and the last step
-            torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        return out
+    originals = (trainer.densify_step, trainer.opacity_reset_step)
 
     def densify_step(*a, **k):
-        st, stats = originals[1](*a, **k)
+        st, stats = originals[0](*a, **k)
         n = _check_prefix("garden densify", st.params)
         if n != int(stats.count):
             raise AssertionError(f"densify: {n} alive, stats say {int(stats.count)}")
@@ -2025,20 +2067,22 @@ def phase_garden(smi):
         return st, stats
 
     def opacity_reset_step(*a, **k):
-        st = originals[2](*a, **k)
+        st = originals[1](*a, **k)
         _check_prefix("garden opacity reset", st.params)
         events.append(("reset", st.opt.t, None, st.params.capacity))
         return st
 
     _reset_launches()
-    trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = (
-        train_step, densify_step, opacity_reset_step)
+    stepping = _stamp_steps(trainer, iters, stamps)
+    trainer.densify_step, trainer.opacity_reset_step = densify_step, opacity_reset_step
     try:
         _cli(argv, os.path.join(root, "console.txt"))
     finally:
-        trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = originals
+        trainer.train_step, trainer.train_steps = stepping
+        trainer.densify_step, trainer.opacity_reset_step = originals
     torch.cuda.synchronize()
     launches = _tf_launches()
+    warm = _warmups()
     _check_no_v1("the garden trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
@@ -2051,13 +2095,15 @@ def phase_garden(smi):
     if [e[1] for e in events if e[0] == "densify"] != GARDEN_DENSIFY_AT or \
             any(e[0] == "reset" for e in events):
         raise AssertionError(f"garden density events {events}")
-    if launches["windowed_blend_fwd"] != iters + n_eval or \
-            launches["windowed_blend_bwd"] != iters:
+    if launches["windowed_blend_fwd"] != iters + n_eval + warm or \
+            launches["windowed_blend_bwd"] != iters + warm:
         raise AssertionError(f"garden: expected {iters + n_eval} forward and {iters} backward "
-                             f"launches, got {launches}")
+                             f"launches and {warm} of each in the graphs' warm-up steps, "
+                             f"got {launches}")
     res["launches"]["garden"] = launches
-    wall = stamps[-1] - stamps[0]
-    res["iters_per_s"] = (iters - 1) / wall
+    wall = stamps[-1][0] - stamps[0][0]
+    res["iters_per_s"] = _rate(stamps)
+    res["chunks"] = sum(c == GRAPH_STEPS for _, _, c in stamps)
     res["peak_pairs"] = max(x["pairs"] for x in steps)
     res["overflow_steps"] = sum(bool(x["overflow"]) for x in steps)
     rebuckets = [m for m in info if "pair capacity" in m]
@@ -2070,8 +2116,10 @@ def phase_garden(smi):
     n_train = GARDEN_VIEWS - n_eval
     epoch_psnr = psnr.reshape(GARDEN_EPOCHS, n_train).mean(1)
     log(f"[garden] tools.train (config-4 flags, {GARDEN_EPOCHS} epochs of {n_train} views, "
-        f"{n_eval} held out): {res['iters_per_s']:.3f} iterations/s over iterations 2-{iters} "
-        f"({wall:.3f} s, host clock, synchronized) on {smi}")
+        f"{n_eval} held out, --scan-steps {GRAPH_STEPS}: {res['chunks']} chunks in "
+        f"{len(stamps)} calls, {warm} graph warm-up steps): {res['iters_per_s']:.3f} "
+        f"iterations/s over iterations {stamps[0][1] + 1}-{iters} ({wall:.3f} s, host clock, "
+        f"synchronized) on {smi}")
     log(f"[garden] scene: {steps[0]['n']} alive at iteration 1; density events (iteration, "
         f"(pruned, cloned, split, alive), capacity): "
         + "; ".join(f"{e[1]} {e[2]} {e[3]}" for e in events) + f"; {'; '.join(grows) or 'no grow'}")
@@ -2123,9 +2171,10 @@ def phase_garden(smi):
         f"launches {launches}")
     if ply_err > FACADE_PLY_ATOL or n0 != GARDEN_POINTS or model.state.opt.t != FACADE_ITERS:
         raise AssertionError("the facade path failed its checks")
-    if launches["windowed_blend_fwd"] != 2 + FACADE_ITERS or \
-            launches["windowed_blend_bwd"] != FACADE_ITERS:
-        raise AssertionError(f"facade launches {launches}")
+    warm = _warmups()
+    if launches["windowed_blend_fwd"] != 2 + FACADE_ITERS + warm or \
+            launches["windowed_blend_bwd"] != FACADE_ITERS + warm:
+        raise AssertionError(f"facade launches {launches} ({warm} graph warm-up steps)")
     del model, cams, gts
     torch.cuda.empty_cache()
 
@@ -2207,9 +2256,10 @@ def phase_garden(smi):
     log(f"[garden] tools.view with the dataset and checkpoint (iteration {t_ck}): "
         f"/train?n={VIEWER_TRAIN} -> {trained} in {train_s:.3f} s (host clock); launches "
         f"{launches}; the frame at the same pose {'changed' if after != before else 'SAME'}")
+    warm = _warmups()
     if trained["iteration"] != t_ck + VIEWER_TRAIN or not np.isfinite(trained["loss"]) or \
-            after == before or launches["windowed_blend_fwd"] != VIEWER_TRAIN or \
-            launches["windowed_blend_bwd"] != VIEWER_TRAIN:
+            after == before or launches["windowed_blend_fwd"] != VIEWER_TRAIN + warm or \
+            launches["windowed_blend_bwd"] != VIEWER_TRAIN + warm:
         raise AssertionError("the viewer's /train failed its checks")
     res["launches"]["viewer"] = {k: viewer_launches[k] + launches[k] for k in launches}
     del state, tstate
@@ -3049,6 +3099,385 @@ def phase_modes(params, camera, cfg, gt, smi):
     return res
 
 
+def _graph_views(k):
+    """k views of the canonical 800x608 camera, the i-th moved by (4, -3, 2)
+    * i mm (each replay must read its own camera), and k ground truths, the
+    first the phases' own (bench.py:358-360)."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.core import camera as camera_mod
+
+    cams, gts = [], []
+    for i in range(k):
+        cams.append(camera_mod.make_camera(
+            np.array([1.0, 0.0, 0.0, 0.0], np.float32),
+            np.array([0.004, -0.003, 0.002], np.float32) * i, WIDTH * 1.2, WIDTH * 1.2,
+            WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, device=DEVICE))
+        gts.append(torch.from_numpy(np.random.default_rng(1 + i).uniform(
+            0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(DEVICE))
+    return cams, gts
+
+
+def _bytes(x):
+    import numpy as np
+
+    a = np.ascontiguousarray(x.detach().cpu().numpy())
+    return str(a.dtype), a.shape, a.tobytes()
+
+
+def _same_bits(label, got, got_m, want, want_m):
+    """Two (state, metrics) results equal bit for bit: every state array,
+    the timestep and every metric with its dtype."""
+    from gaussiansplatting_tpu_torch.train.state import state_to_numpy
+
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    differ = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    mdiff = [f for f in type(got_m)._fields
+             if _bytes(getattr(got_m, f)) != _bytes(getattr(want_m, f))]
+    if differ or mdiff or got.opt.t != want.opt.t:
+        raise AssertionError(f"{label}: the graph and the eager steps differ: state {differ}, "
+                             f"metrics {mdiff}, t {got.opt.t} vs {want.opt.t}")
+    return len(a)
+
+
+def _eager_steps(state, cams, gts, cfg):
+    """K eager steps (trainer.train_step_eager) with the metrics stacked."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.train import trainer
+
+    ms = []
+    for cam, gt in zip(cams, gts):
+        state, m = trainer.train_step_eager(state, cam, gt, cfg, TRAIN_TOTAL_ITERS)
+        ms.append(m)
+    return state, trainer.StepMetrics(*(torch.stack(xs) for xs in zip(*ms)))
+
+
+def _host_ms(fn, k):
+    """Host-clock ms per step of ``fn`` (k steps), synchronized before and
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / k
+
+
+def _stamp_steps(trainer, iters, stamps):
+    """Wrap trainer.train_step and trainer.train_steps so that each outer
+    call appends (host clock, steps done, steps in the call) to ``stamps``,
+    synchronizing after the first call and the one that completes
+    ``iters``.  Returns the originals, to be put back."""
+    import torch
+
+    originals = (trainer.train_step, trainer.train_steps)
+    depth, done = [0], [0]
+
+    def wrap(fn, steps_of):
+        def stamped(*a, **k):
+            depth[0] += 1
+            try:
+                out = fn(*a, **k)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                done[0] += steps_of(a)
+                if not stamps or done[0] == iters:
+                    torch.cuda.synchronize()
+                stamps.append((time.perf_counter(), done[0], steps_of(a)))
+            return out
+        return stamped
+
+    trainer.train_step = wrap(originals[0], lambda a: 1)
+    trainer.train_steps = wrap(originals[1], lambda a: len(a[1]))
+    return originals
+
+
+def _rate(stamps):
+    """Steps per second between the first and the last stamp."""
+    return (stamps[-1][1] - stamps[0][1]) / (stamps[-1][0] - stamps[0][0])
+
+
+def _failing_capture():
+    """Phase 12's child process: a step body that reads the card back to
+    the host (a sync no capture can hold) must fail its capture with an
+    error naming that line, and leave no graph behind (nothing falls back
+    to eager steps).  Prints one JSON line."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config, RasterConfig
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    real = trainer.step_body
+
+    def syncing(state, camera, gt, cfg, scalars):
+        scalars.tolist()                        # the host read
+        return real(state, camera, gt, cfg, scalars)
+
+    trainer.step_body = syncing
+    cfg = Config(raster=RasterConfig(pair_capacity=1 << 14, pair_block=16))
+    try:
+        trainer.train_step(state_mod.create(synthetic.make_scene(300, seed=4, device=DEVICE)),
+                           synthetic.make_canonical_camera(64, 48, device=DEVICE),
+                           torch.zeros((48, 64, 3), device=DEVICE), cfg, 100)
+    except RuntimeError as e:
+        print(json.dumps({"error": str(e).splitlines()[0], "captures": graph.counts["captures"],
+                          "live": len(graph.live())}))
+        return 0
+    raise AssertionError("a step that reads the card back was captured")
+
+
+def phase_graph(params, smi):
+    """The step's CUDA graph (train/graph.py) at full size: K replays
+    against K eager steps bit for bit in the default, T-floor and bf16 +
+    pack_positions modes (and K = 1, and the impact drop with the scatter
+    reduction), the kernels counted and traced inside the replays, the
+    host clock of both in turns, device time and idle share, capture time,
+    pool and copy costs, recapture on a new key within the cache's bound,
+    a failed capture raising, and tools.train --scan-steps K against
+    --scan-steps 1."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config, RasterConfig
+    from gaussiansplatting_tpu_torch.tools import trace
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+
+    k = GRAPH_STEPS
+    cams, gts = _graph_views(k)
+    base = RasterConfig(pair_capacity=PAIR_CAPACITY, pair_block=PAIR_BLOCK)
+    modes = {
+        "default": base,
+        "tfloor": base.replace(t_floor_exact=True),
+        "bf16_pack_pos": base.replace(payload_dtype="bf16", pack_positions=True),
+        "impact_scatter": base.replace(overflow_drop="impact", grad_reduce="scatter"),
+    }
+    state0 = state_mod.create(params)
+    res = {"modes": {}}
+    launches = {}
+
+    def check_cache():
+        if len(graph.live()) > graph.MAX_GRAPHS:
+            raise AssertionError(f"{len(graph.live())} graphs live, bound {graph.MAX_GRAPHS}")
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 before and added to the
+        path's after."""
+        _reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _tf_launches()
+        _check_no_v1("the graph path", got)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        check_cache()
+        return out, got
+
+    for mode, raster in modes.items():
+        cfg = Config(raster=raster)
+        r = res["modes"][mode] = {}
+        # (i) no host sync in the step: one warm eager step, then one under
+        # the sync debug mode, which raises at any op that waits for the card
+        trainer.train_step_eager(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.train_step_eager(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # (ii) K = 1: train_step (captures this key) against the eager step
+        c0 = graph.counts["captures"]
+        (g1, gm1), _ = counted(lambda: trainer.train_step(state0, cams[0], gts[0], cfg,
+                                                          TRAIN_TOTAL_ITERS))
+        e1, em1 = trainer.train_step_eager(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
+        n = _same_bits(f"[graph] {mode} K = 1", g1, gm1, e1, em1)
+        if graph.counts["captures"] != c0 + 1:
+            raise AssertionError(f"{mode}: train_step captured {graph.counts['captures'] - c0}"
+                                 f" graphs")
+        g = graph.live()[-1]
+        if g.key != graph.step_key(state0, cams[0], cfg):
+            raise AssertionError(f"{mode}: the newest graph has another key")
+        r["capture_s"], r["warmup_s"], r["pool_bytes"] = g.capture_s, g.warmup_s, g.pool_bytes
+        if mode == "impact_scatter":
+            log(f"[graph] {mode}: train_step (K = 1) = the eager step, {n} state arrays and "
+                f"every metric bit for bit; {int(gm1.num_pairs)} pairs; capture "
+                f"{g.capture_s:.3f} s after a {g.warmup_s:.3f} s warm-up step, pool "
+                f"{g.pool_bytes / 2**20:.1f} MiB")
+            continue
+        # (iii) K replays against K eager steps from the same state
+        (gk, gmk), got = counted(lambda: trainer.train_steps(state0, cams, gts, cfg,
+                                                             TRAIN_TOTAL_ITERS))
+        if graph.counts["captures"] != c0 + 1:
+            raise AssertionError(f"{mode}: train_steps captured again")
+        ek, emk = _eager_steps(state0, cams, gts, cfg)
+        n = _same_bits(f"[graph] {mode} K = {k}", gk, gmk, ek, emk)
+        per_step = {name: v for name, v in g.launches.items()}
+        want = {name: k * per_step.get(name, 0) for name in got}
+        if got != want or not per_step:
+            raise AssertionError(f"{mode}: {k} replays launched {got}, the capture recorded "
+                                 f"{per_step} per step")
+        r["launches_per_step"] = per_step
+        # (iv) the kernels inside the replays, in a profiler trace of one chunk
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            trainer.train_steps(state0, cams, gts, cfg, TRAIN_TOTAL_ITERS)
+            torch.cuda.synchronize()
+        traced = {e.key: e.count for e in prof.key_averages() if "blend_" in e.key}
+        for d in ("fwd", "bwd"):
+            seen = sum(c for name, c in traced.items() if f"blend_{d}_win" in name)
+            recorded = k * sum(v for name, v in per_step.items() if f"_{d}" in name)
+            if seen != recorded:
+                raise AssertionError(f"{mode}: the trace of {k} replays holds {seen} {d} blend "
+                                     f"kernels, the capture recorded {recorded}: {traced}")
+        # (v) the host clock in turns, the device time and the idle share
+        def eager():
+            return _host_ms(lambda: _eager_steps(state0, cams, gts, cfg), k)
+
+        def replays():
+            return _host_ms(lambda: trainer.train_steps(state0, cams, gts, cfg,
+                                                        TRAIN_TOTAL_ITERS), k)
+
+        turns = [eager(), replays(), replays(), eager()]
+
+        def single_steps():
+            st = state0
+            for cam, gt in zip(cams, gts):
+                st, _ = trainer.train_step(st, cam, gt, cfg, TRAIN_TOTAL_ITERS)
+
+        k1_ms = _host_ms(single_steps, k)
+        dev_graph, _ = trace.device_profile(
+            f"[graph] {mode} {k} replays", lambda: trainer.train_steps(
+                state0, cams, gts, cfg, TRAIN_TOTAL_ITERS), 1, smi, DEVICE, log, 8)
+        dev_eager, _ = trace.device_profile(
+            f"[graph] {mode} {k} eager steps", lambda: _eager_steps(state0, cams, gts, cfg),
+            1, smi, DEVICE, log, 4)
+        graph_ms, eager_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        r.update(host_ms_turns=turns, graph_ms=graph_ms, eager_ms=eager_ms, k1_ms=k1_ms,
+                 device_ms=dev_graph / k, eager_device_ms=dev_eager / k,
+                 idle=1 - dev_graph / k / graph_ms, eager_idle=1 - dev_eager / k / eager_ms)
+        log(f"[graph] {mode}: {k} replays = {k} eager steps, {n} state arrays and every "
+            f"metric bit for bit; K = 1 too; {int(gmk.num_pairs[0])} pairs at step 1; "
+            f"launches per replay {per_step}, in the trace {traced}")
+        log(f"[graph] {mode}: host clock per step, eager / graph / graph / eager "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms; train_step (K = 1) {k1_ms:.3f} ms; "
+            f"device {dev_graph / k:.3f} ms per replay, {dev_eager / k:.3f} per eager step "
+            f"(torch.profiler); the card idles {r['idle']:.3f} of the graph step, "
+            f"{r['eager_idle']:.3f} of the eager one; capture {g.capture_s:.3f} s after a "
+            f"{g.warmup_s:.3f} s warm-up step, pool {g.pool_bytes / 2**20:.1f} MiB, on {smi}")
+        if mode == "default":
+            state_bytes = sum(x.nbytes for x in g.tensors)
+            r["copy_in_ms"] = cuda_time_ms(lambda: g.load(state0), 20)
+            r["clone_out_ms"] = cuda_time_ms(lambda: [x.clone() for x in g.tensors], 20)
+            r["state_bytes"] = state_bytes
+            log(f"[graph] the functional contract: copying the state in "
+                f"{r['copy_in_ms']:.4f} ms, cloning it out {r['clone_out_ms']:.4f} ms per "
+                f"call (CUDA events, 20 calls; {state_bytes / 2**20:.1f} MiB each way) on {smi}")
+
+    # (vi) a new key captures anew, within the cache's bound
+    cfg = Config(raster=base)
+    c0 = graph.counts["captures"]
+    keys = [("pair_capacity 2^22", state0, Config(raster=base.replace(
+                pair_capacity=2 * PAIR_CAPACITY))),
+            ("state.grow to 2^17 slots", state_mod.grow(state0, 1 << 17), cfg),
+            ("the evicted default key", state0, cfg)]
+    for i, (what, st, c) in enumerate(keys):
+        (_, m), _ = counted(lambda: trainer.train_step(st, cams[0], gts[0], c,
+                                                       TRAIN_TOTAL_ITERS))
+        if graph.counts["captures"] != c0 + i + 1 or not bool(torch.isfinite(m.loss)):
+            raise AssertionError(f"{what}: no new capture or a non-finite loss")
+    live = graph.live()
+    res["live"] = [(g.key[0], g.key[3].raster.pair_capacity, g.pool_bytes) for g in live]
+    log(f"[graph] recaptured for {', '.join(w for w, _, _ in keys)}: {len(live)} graphs live "
+        f"(bound {graph.MAX_GRAPHS}): " + "; ".join(
+            f"capacity {c}, pair_capacity {p}: pool {b / 2**20:.1f} MiB" for c, p, b in
+            res["live"]) + f"; {graph.counts['captures']} captures in this process")
+    graph.clear()
+    # a capture that cannot hold the step raises, in a process of its own
+    child = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                            "sys.exit(chip_smoke._failing_capture())"], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    fail = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+    log(f"[graph] a step with a host read: {fail or child.stderr[-2000:]}")
+    if not fail or "capturing the train step failed at" not in fail["error"] or \
+            "chip_smoke.py" not in fail["error"] or fail["captures"] or fail["live"]:
+        raise AssertionError("a failed capture did not raise naming its op, or kept a graph")
+    res["failed_capture"] = fail["error"]
+
+    # (vii) tools.train --scan-steps K against --scan-steps 1
+    root = os.path.join(SCRATCH, "graph")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cli_cfg = Config(density=Config().density.replace(
+        densify_from_iter=GRAPH_CLI_DENSIFY_EVERY // 2,
+        densify_interval=GRAPH_CLI_DENSIFY_EVERY))
+    sparse, image_dir, _ = write_colmap_scene(
+        root, params, GRAPH_CLI_VIEWS, WIDTH, HEIGHT,
+        cli_cfg.raster.replace(pair_capacity=TRAINLOOP_PAIR_CAPACITY))
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cli_cfg.to_json())
+    n_train = GRAPH_CLI_VIEWS - len(range(0, GRAPH_CLI_VIEWS, GRAPH_CLI_EVAL_SPLIT))
+    iters = GRAPH_CLI_EPOCHS * n_train
+    runs = {}
+    for scan in (k, 1):
+        out = os.path.join(root, f"scan{scan}")
+        argv = ["--colmap", sparse, "--images", image_dir, "--config", cfg_path,
+                "--output", os.path.join(out, "out.ply"), "--device", DEVICE,
+                "--pair-capacity", str(TRAINLOOP_PAIR_CAPACITY),
+                "--eval-split", str(GRAPH_CLI_EVAL_SPLIT), "--epochs", str(GRAPH_CLI_EPOCHS),
+                "--checkpoint-dir", os.path.join(out, "ck"),
+                "--checkpoint-interval", str(iters),
+                "--metrics", os.path.join(out, "metrics.jsonl"), "--scan-steps", str(scan)]
+        os.makedirs(out)
+        stamps = []
+        _reset_launches()
+        originals = _stamp_steps(trainer, iters, stamps)
+        try:
+            _cli(argv, os.path.join(out, "console.txt"))
+        finally:
+            trainer.train_step, trainer.train_steps = originals
+        torch.cuda.synchronize()
+        lines = _read_jsonl(os.path.join(out, "metrics.jsonl"))
+        ck = np.load(os.path.join(out, "ck", "latest.npz"))
+        runs[scan] = {"rate": _rate(stamps), "chunks": sum(c == scan for _, _, c in stamps),
+                      "calls": len(stamps), "launches": _tf_launches(),
+                      "steps": [{f: v for f, v in x.items() if f != "t"}   # t: host clock
+                                for x in lines if x["event"] == "step"],
+                      # the events; the epoch lines follow the chunks, as in JAX
+                      "events": [x["msg"] for x in lines
+                                 if x["event"] == "info" and x["msg"].startswith("iter ")],
+                      "ck": {key: ck[key].tobytes() for key in ck.files}}
+    a, b = runs[k], runs[1]
+    differ = sorted(key for key in b["ck"] if a["ck"].get(key) != b["ck"][key])
+    dens = [m for m in a["events"] if "densify" in m]
+    log(f"[graph] tools.train --scan-steps {k}: {iters} iterations ({a['chunks']} chunks of "
+        f"{k} in {a['calls']} calls) at {a['rate']:.3f} it/s; --scan-steps 1: "
+        f"{b['rate']:.3f} it/s ({b['calls']} calls), host clock, synchronized, from the end "
+        f"of the first call; density events {dens}; the final checkpoints "
+        f"{'bit-identical' if not differ else 'DIFFER in ' + str(differ)} "
+        f"({len(b['ck'])} arrays); launches {a['launches']} on {smi}")
+    if differ or a["steps"] != b["steps"] or a["events"] != b["events"]:
+        first = next((x, y) for x, y in zip(a["steps"] + a["events"], b["steps"] + b["events"])
+                     if x != y)
+        raise AssertionError(f"tools.train --scan-steps K and 1 differ: {first}")
+    if a["chunks"] != iters // k or len(a["steps"]) != iters or len(dens) != 3:
+        raise AssertionError(f"tools.train --scan-steps {k}: {a['chunks']} chunks, "
+                             f"{len(a['steps'])} steps, density events {dens}")
+    res["cli"] = {"iters_per_s_scan": a["rate"], "iters_per_s_single": b["rate"],
+                  "chunks": a["chunks"]}
+    for name, n in a["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    shutil.rmtree(root, ignore_errors=True)
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     name, smi, clock_mhz = phase_device()
 
@@ -3081,11 +3510,13 @@ def main() -> int:
     tl = phase_trainloop(params, smi)
     par = phase_parallel(params, camera, cfg, gt, smi)
     md = phase_modes(params, camera, cfg, gt, smi)
+    gr = phase_graph(params, smi)
     del params, camera, gt
     torch.cuda.empty_cache()
     gd = phase_garden(smi)
     tools = phase_tools(work, smi)
-    paths = dict(gd["launches"], tools=tools["launches"], **md["launches"])
+    paths = dict(gd["launches"], tools=tools["launches"], graph=gr["launches"],
+                 **md["launches"])
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
@@ -3116,13 +3547,15 @@ def main() -> int:
                                    "bound_by", "power_tests", "kept_pairs", "culled_share",
                                    "tree_share_v1")}),
         entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "hopper",
-              {"tfloor": tf_launches["windowed_blend_fwd_tf"]},
+              {"tfloor": tf_launches["windowed_blend_fwd_tf"],
+               "graph": gr["launches"]["windowed_blend_fwd_tf"]},
               tf["per_step"]["windowed_blend_fwd_tf"],
               {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
                "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms_v1"], "plain_ms": tf["fwd_plain_ms"],
                **tf["fwd_bound"]}),
         entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "hopper",
-              {"tfloor": tf_launches["windowed_blend_bwd_tf"]},
+              {"tfloor": tf_launches["windowed_blend_bwd_tf"],
+               "graph": gr["launches"]["windowed_blend_bwd_tf"]},
               tf["per_step"]["windowed_blend_bwd_tf"],
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
                "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms_v1"], "plain_ms": tf["bwd_plain_ms"],
@@ -3207,7 +3640,9 @@ def main() -> int:
         "scatter_rel_norm_vs_f64": md["scatter_rel_norm"],
         "scatter_ms": md["scatter_ms"], "scatter_packed_ms": md["scatter_packed_ms"],
         "sortprefix_ms": md["sortprefix_ms"],
-        "bf16_cli": md["cli"]}))
+        "bf16_cli": md["cli"],
+        "graph_modes": gr["modes"], "graph_live": gr["live"], "graph_cli": gr["cli"],
+        "garden_scan_chunks": gd["chunks"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

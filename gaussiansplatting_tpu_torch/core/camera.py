@@ -2,7 +2,10 @@
 
 Counterpart of gaussiansplatting_tpu/core/camera.py.  The builders are numpy
 (as in the JAX package) and ``Camera`` is a small dataclass of float32
-tensors plus the int render resolution.
+tensors plus the int render resolution.  ``Camera.copy_`` writes another
+view into a camera's tensors in place: a captured train step
+(train/graph.py) reads its camera from them, with the resolution part of
+what it was captured for, as JAX compiles for one static W/H.
 """
 
 from __future__ import annotations
@@ -29,10 +32,25 @@ class Camera:
 
     def to(self, device) -> "Camera":
         return dataclasses.replace(
-            self,
-            **{f: getattr(self, f).to(device)
-               for f in ("view", "proj", "viewproj", "cam_pos", "fx", "fy")},
-        )
+            self, **{f: getattr(self, f).to(device) for f in TENSOR_FIELDS})
+
+    def clone(self) -> "Camera":
+        """A camera with its own copies of the tensors."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).clone() for f in TENSOR_FIELDS})
+
+    def copy_(self, other: "Camera") -> "Camera":
+        """Write ``other``'s pose and intrinsics into this camera's tensors,
+        in place; the resolutions must be the same."""
+        if (other.width, other.height) != (self.width, self.height):
+            raise ValueError(f"Camera.copy_: {other.width}x{other.height} into "
+                             f"{self.width}x{self.height}")
+        for f in TENSOR_FIELDS:
+            getattr(self, f).copy_(getattr(other, f))
+        return self
+
+
+TENSOR_FIELDS = ("view", "proj", "viewproj", "cam_pos", "fx", "fy")
 
 
 def quat_to_rotmat_np(q) -> np.ndarray:

@@ -67,11 +67,18 @@ design (the same names with ``_v1``: one thread per pixel, the backward
 replaying the forward), which only ``windowed_blend_{fwd,bwd}[_tf]_v1``
 launch, for chip_smoke.py's A/B.  The packed entries
 (``gs_blend_*_win_packed``) are instances of the Hopper design.
+
+Every launch goes to ``torch.cuda.current_stream``, so a train step captured
+as a CUDA graph (train/graph.py) records it.  The graph's eager warm-up
+step loads the shared libraries before the capture; the
+``cudaFuncSetAttribute`` each launch makes is no stream operation, so the
+capture may make it again.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import NamedTuple
 
 import torch
@@ -289,6 +296,29 @@ def windowed_blend_bwd_tf_v1(table, block_src, block_valid, block_tile, row0,
 
 
 windowed_blend_bwd_tf_v1.launches = 0
+
+
+# the wrappers whose ``.launches`` count their kernel's launches: the six of
+# the main paths and the first design's four
+COUNTED = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
+           "windowed_blend_bwd_tf", "windowed_blend_fwd_packed",
+           "windowed_blend_bwd_packed", "windowed_blend_fwd_v1", "windowed_blend_bwd_v1",
+           "windowed_blend_fwd_tf_v1", "windowed_blend_bwd_tf_v1")
+
+
+def launch_counts() -> dict[str, int]:
+    """Each counted wrapper's ``.launches``, by name."""
+    mod = sys.modules[__name__]
+    return {name: getattr(mod, name).launches for name in COUNTED}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts: a CUDA
+    graph's replay runs the launches its capture recorded without running
+    the wrappers (train/graph.py)."""
+    mod = sys.modules[__name__]
+    for name, n in counts.items():
+        getattr(mod, name).launches += n
 
 
 def _check_payload(name, cfg_consts, packed):

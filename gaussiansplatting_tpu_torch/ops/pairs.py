@@ -348,12 +348,14 @@ def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
     if grad_reduce == "scatter":
         # the padding lanes sort last; they go in segments of at most
         # _SCAN_CHUNK lanes, as one segment's lanes are summed by one CUDA
-        # thread (and their count stays on the device: no sync)
+        # thread (and their count stays on the device: no sync).  The
+        # lengths sum to the lanes by construction, so segment_reduce's
+        # checks, which read them back to the host, are skipped (unsafe)
         chunks = torch.arange(-(-rows.shape[1] // _SCAN_CHUNK), device=counts.device)
         pad = rows.shape[1] - counts.sum()
         fill = (pad - chunks * _SCAN_CHUNK).clamp(0, _SCAN_CHUNK).to(counts.dtype)
         sums = torch.segment_reduce(rows.T.contiguous(), "sum",
-                                    lengths=torch.cat([counts, fill]), axis=0)
+                                    lengths=torch.cat([counts, fill]), axis=0, unsafe=True)
         return sums[:n].contiguous()
     csum = _prefix_sum(torch.nn.functional.pad(rows, (1, 0)).to(torch.float64))
     nz = nonzero_prefix((rows != 0).any(0, keepdim=True))   # [1, a_cap + 1]

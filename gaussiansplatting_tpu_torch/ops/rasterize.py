@@ -14,10 +14,17 @@ depth presort is a ``_PermuteRows`` whose backward gathers by the inverse
 permutation; pair expansion, tile sort and windows run once per frame,
 outside autograd; each blend pass over the windows is an autograd Function
 (``_BlendWindows``, ``_BlendWindowsTF``) whose backward is the blend
-backward followed by the sort-prefix reduction to per-Gaussian sums.  No
+backward followed by the reduction to per-Gaussian sums that
+``RasterConfig.grad_reduce`` picks (ops.pairs.reduce_aligned_cotangents:
+the sort-prefix form, which "autodiff" also takes, or the scatter).  No
 step of the backward uses float atomics.  The blends run as CUDA kernels on
 a CUDA device and as their plain PyTorch versions on the CPU;
-``RasterConfig.blend_impl`` and ``grad_reduce`` pick nothing here.
+``RasterConfig.blend_impl`` picks nothing here.
+
+Nothing here reads a device value back to the host, so a train step can be
+captured as a CUDA graph (train/graph.py): the segment sums run with
+``unsafe=True``, whose checks would read the offsets back (the tile bounds
+are sorted and span every block by construction).
 
 Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
 replaces:
@@ -456,8 +463,8 @@ def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
 
     bounds = _tile_bounds(seg, num_tiles)
     contrib = (t_in[:, None, :] * c_b).reshape(num_blocks, 3 * p2)
-    tile_color = torch.segment_reduce(contrib, "sum", offsets=bounds, axis=0)
-    tile_log_t = torch.segment_reduce(s_b, "sum", offsets=bounds, axis=0)
+    tile_color = torch.segment_reduce(contrib, "sum", offsets=bounds, axis=0, unsafe=True)
+    tile_log_t = torch.segment_reduce(s_b, "sum", offsets=bounds, axis=0, unsafe=True)
     tile_color = tile_color[:num_tiles].reshape(num_tiles, 3, p2)
     tile_log_t = tile_log_t[:num_tiles]
 

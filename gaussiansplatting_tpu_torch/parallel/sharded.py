@@ -140,8 +140,10 @@ def make_sharded_train_step(mesh: Mesh, cfg: Config, total_iters: int,
                                   grad_psum_chunks)
         vs_grad = _all_reduce(vs_grad, mesh)
         pairs, overflow = _sum_counts(mesh, aux.num_pairs, aux.overflow)
+        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters,
+                                         params.means.device)[0]
         return trainer.step_update(state, grad, vs_grad, rep, img, gt_image,
-                                   pairs[0].to(torch.int32), overflow[0], cfg, total_iters)
+                                   pairs[0].to(torch.int32), overflow[0], cfg, scalars)
 
     return step
 

@@ -279,11 +279,10 @@ def _train(args, topo) -> int:
     def flush_metrics():
         if not buf:
             return
-        iters = [it for it, _, _ in buf]
-        lrs = [lr for _, _, lr in buf]
-        vals = torch.stack([v for _, v, _ in buf]).cpu().numpy()
+        iters = [it for it, _ in buf]
+        vals = torch.stack([v for _, v in buf]).cpu().numpy()
         buf.clear()
-        for it, row, lr in zip(iters, vals, lrs):
+        for it, row in zip(iters, vals):
             if not np.isfinite(row[0]):
                 log.log("warning", iter=it,
                         msg="non-finite loss — check LRs / pair capacity")
@@ -291,7 +290,7 @@ def _train(args, topo) -> int:
                 "step", iter=it,
                 loss=float(row[0]), l1=float(row[1]), dssim=float(row[2]),
                 psnr=float(row[3]), n=int(row[4]), pairs=int(row[5]),
-                overflow=bool(row[6] > 0), lr_pos=float(np.float32(lr)),
+                overflow=bool(row[6] > 0), lr_pos=float(row[9]),
                 mean_op=round(float(row[7]), 4),
                 mean_scale=round(float(row[8]), 5),
             )
@@ -303,8 +302,9 @@ def _train(args, topo) -> int:
             m.loss, m.l1, m.dssim, m.psnr,
             m.num_gaussians.to(torch.float32), m.num_pairs.to(torch.float32),
             m.overflow.to(torch.float32), m.mean_opacity, m.mean_world_scale,
+            m.position_lr,
         ])
-        buf.append((iteration, vec, float(m.position_lr)))
+        buf.append((iteration, vec))
         if len(buf) >= flush_every:
             flush_metrics()
 

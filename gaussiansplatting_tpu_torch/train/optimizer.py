@@ -17,7 +17,13 @@ clips.  Per-field semantics:
   * dead (padding) Gaussians are frozen so their m/v stay zero.
 
 ``step`` is functional, like the JAX one: it returns new parameters and a new
-state and leaves its inputs as they were.
+state and leaves its inputs as they were.  The position LR and the bias
+corrections, the values that change every step, may be 0-d float32 tensors
+on the parameters' device: the train step passes them so
+(schedule.step_scalars), and a captured step (train/graph.py) reads them
+from its buffer.  On CUDA a division by a Python float runs as a
+multiplication by its reciprocal and by a device tensor as a division, so
+the tensor form is the one that rounds as the JAX step does.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ def init_state(params: GaussianParams) -> AdamState:
 
 
 class LearningRates(NamedTuple):
-    """Per-group learning rates, float32 values as Python floats."""
+    """Per-group learning rates, float32 values as Python floats (the
+    position LR also as a 0-d float32 tensor)."""
     position: float
     scale: float
     rotation: float
@@ -71,10 +78,13 @@ def step(
     state: AdamState,
     lrs: LearningRates,
     cfg: OptimConfig,
+    bias_correction=None,
 ) -> tuple[GaussianParams, AdamState]:
+    """One Adam step.  ``bias_correction`` = (1 - beta1^t, 1 - beta2^t) at
+    the new timestep t, as floats or 0-d tensors (default: _bc's floats)."""
     t = state.t + 1
-    bc1 = _bc(cfg.beta1, t)
-    bc2 = _bc(cfg.beta2, t)
+    bc1, bc2 = (bias_correction if bias_correction is not None
+                else (_bc(cfg.beta1, t), _bc(cfg.beta2, t)))
     p = {f: getattr(params, f).detach() for f in TRAINABLE}
 
     # per-Gaussian skip mask (shaders.metal:567-576): invalid grads or a

@@ -1,14 +1,20 @@
 """Learning-rate schedule (reference: exponentialLRDecay,
 mtl_engine.mm:1039-1045).  Counterpart of
 gaussiansplatting_tpu/train/schedule.py, evaluated on the host in float32 as
-the JAX package evaluates it on the device."""
+the JAX package evaluates it on the device.
+
+Two values of a step change with the iteration: the position LR and Adam's
+bias corrections.  ``step_scalars`` tabulates them for K steps; the train
+step reads its row as a device tensor (train/trainer.py), so a captured
+step (train/graph.py) reads each replay's values from its buffer instead
+of the numbers it was captured with."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from gaussiansplatting_tpu_torch.config import OptimConfig
-from gaussiansplatting_tpu_torch.train.optimizer import LearningRates
+from gaussiansplatting_tpu_torch.train.optimizer import LearningRates, _bc
 
 
 def exponential_lr_decay(lr_init: float, lr_final: float, current_iter: int,
@@ -24,12 +30,32 @@ def learning_rates(cfg: OptimConfig, current_iter: int,
                    total_iters: int) -> LearningRates:
     """Only the position LR decays; the rest are constant
     (mtl_engine.mm:1059-1068, 1092-1094)."""
+    return rates(cfg, exponential_lr_decay(
+        cfg.position_lr_init, cfg.position_lr_final, current_iter, total_iters))
+
+
+def rates(cfg: OptimConfig, position) -> LearningRates:
+    """The learning rates with ``position`` (a float or a 0-d tensor) as
+    the position LR and the constant ones of ``cfg``."""
     return LearningRates(
-        position=exponential_lr_decay(
-            cfg.position_lr_init, cfg.position_lr_final, current_iter, total_iters
-        ),
+        position=position,
         scale=float(np.float32(cfg.scale_lr)),
         rotation=float(np.float32(cfg.rotation_lr)),
         opacity=float(np.float32(cfg.opacity_lr)),
         sh=float(np.float32(cfg.sh_lr)),
     )
+
+
+def step_scalars(cfg: OptimConfig, t0: int, k: int, total_iters: int) -> np.ndarray:
+    """[k, 3] float32, one row per step of the k that start at Adam
+    timesteps t = t0 .. t0 + k - 1: the position LR at the pre-increment t
+    (learning_rates) and the bias corrections 1 - beta1^(t+1), 1 -
+    beta2^(t+1) (optimizer._bc), each bit for bit the float the scalar
+    forms give."""
+    out = np.empty((k, 3), np.float32)
+    for i in range(k):
+        t = t0 + i
+        out[i] = (exponential_lr_decay(cfg.position_lr_init, cfg.position_lr_final, t,
+                                       total_iters),
+                  _bc(cfg.beta1, t + 1), _bc(cfg.beta2, t + 1))
+    return out

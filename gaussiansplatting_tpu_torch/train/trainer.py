@@ -4,14 +4,21 @@ that runs them on the reference schedule.
 
 Counterpart of gaussiansplatting_tpu/train/trainer.py (reference: trainStep,
 mtl_engine.mm:856-1025, and the epoch loop, mtl_engine.mm:1047-1221).
-PyTorch runs eagerly, so a step is a Python function; the gradients come
+The step's body (``step_body``) is a Python function; the gradients come
 from ``torch.autograd.grad`` over the five trainable parameter groups and a
 zero ``vs_dummy`` whose gradient is the view-space positional gradient.
+``train_step`` and ``train_steps`` dispatch it as the JAX package does: on a
+CUDA device each step replays the body captured as a CUDA graph, once per
+static shape (train/graph.py, the counterpart of ``jax.jit`` and of the
+``lax.scan`` program); on the CPU, which a caller asks for, the body runs op
+by op (``train_step_eager``).  The step's scalars that change with the
+iteration reach the body as a device tensor (schedule.step_scalars).
 Every function is functional: it returns a new state and leaves its input
 as it was, so a step or an event can be replayed from the same state.
 ``train_step_batched`` (``batch_views > 1``) takes one Adam step on the mean
 gradient of K views; ``train_loop(mesh_devices > 1)`` runs the tile-sharded
 steps of ``parallel/sharded.py`` over a ``torch.distributed`` process group.
+Both, and the density events, run op by op on every device.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from gaussiansplatting_tpu_torch.core.camera import Camera
 from gaussiansplatting_tpu_torch.density import control as density
 from gaussiansplatting_tpu_torch.ops.losses import photometric_loss, psnr
 from gaussiansplatting_tpu_torch.ops.rasterize import render
-from gaussiansplatting_tpu_torch.train import optimizer, schedule
+from gaussiansplatting_tpu_torch.train import graph, optimizer, schedule
 from gaussiansplatting_tpu_torch.train import state as state_mod
 from gaussiansplatting_tpu_torch.train.state import TrainState
 
@@ -40,12 +47,49 @@ class StepMetrics(NamedTuple):
     psnr: torch.Tensor
     num_pairs: torch.Tensor
     overflow: torch.Tensor
-    position_lr: float
+    position_lr: torch.Tensor
     num_gaussians: torch.Tensor
     # population statistics (reference: per-200-step opacity/scale sample
     # dump, mtl_engine.mm:1009-1022)
     mean_opacity: torch.Tensor
     mean_world_scale: torch.Tensor
+
+
+def device_scalars(cfg: Config, t0: int, k: int, total_iters: int, device) -> torch.Tensor:
+    """schedule.step_scalars of the k steps from Adam timestep t0, as a
+    [k, 3] float32 tensor on ``device`` (on CUDA, a copy from pinned memory
+    that does not wait for the device)."""
+    x = torch.from_numpy(schedule.step_scalars(cfg.optim, t0, k, total_iters))
+    if torch.device(device).type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+def step_body(state: TrainState, camera: Camera, gt_image: torch.Tensor, cfg: Config,
+              scalars: torch.Tensor) -> tuple[TrainState, StepMetrics]:
+    """One optimization step on one view, given its ``scalars`` [3] float32
+    on the parameters' device (position LR, bias corrections: the row of
+    schedule.step_scalars for ``state.opt.t``).  What train/graph.py
+    captures and train_step_eager runs; it reads no device value back to
+    the host."""
+    params = state.params
+    trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
+    vs_zero = torch.zeros((params.capacity, 2), dtype=torch.float32,
+                          device=params.means.device, requires_grad=True)
+    with torch.enable_grad():
+        img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
+        rep = photometric_loss(img, gt_image, cfg.loss)
+        *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
+    return step_update(state, dict(zip(optimizer.TRAINABLE, grads)), vs_grad, rep, img,
+                       gt_image, aux.num_pairs, aux.overflow, cfg, scalars)
+
+
+def train_step_eager(state: TrainState, camera: Camera, gt_image: torch.Tensor,
+                     cfg: Config, total_iters: int) -> tuple[TrainState, StepMetrics]:
+    """One step run op by op: step_body with the schedule's scalars.  The
+    CPU's train_step, and the yardstick of the captured one on the card."""
+    scalars = device_scalars(cfg, state.opt.t, 1, total_iters, state.params.means.device)
+    return step_body(state, camera, gt_image, cfg, scalars[0])
 
 
 def train_step(
@@ -56,28 +100,24 @@ def train_step(
     total_iters: int,
 ) -> tuple[TrainState, StepMetrics]:
     """One optimization step on one view.  Functional: returns a new state
-    and leaves ``state`` as it was."""
-    params = state.params
-    trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
-    vs_zero = torch.zeros((params.capacity, 2), dtype=torch.float32,
-                          device=params.means.device, requires_grad=True)
-    with torch.enable_grad():
-        img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
-        rep = photometric_loss(img, gt_image, cfg.loss)
-        *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
-    return step_update(state, dict(zip(optimizer.TRAINABLE, grads)), vs_grad, rep, img,
-                       gt_image, aux.num_pairs, aux.overflow, cfg, total_iters)
+    and leaves ``state`` as it was.  On a CUDA device, train_steps with
+    K = 1 (a replay of the captured step); on the CPU, train_step_eager."""
+    if state.params.means.device.type == "cuda":
+        new_state, ms = train_steps(state, [camera], [gt_image], cfg, total_iters)
+        return new_state, _metrics_at(ms, 0)
+    return train_step_eager(state, camera, gt_image, cfg, total_iters)
 
 
 def step_update(state: TrainState, grad: dict, vs_grad, rep, img, gt_image, num_pairs,
-                overflow, cfg: Config, total_iters: int) -> tuple[TrainState, StepMetrics]:
-    """The rest of train_step once the view's gradients exist: Adam, the
+                overflow, cfg: Config, scalars: torch.Tensor) -> tuple[TrainState, StepMetrics]:
+    """The rest of the step once the view's gradients exist: Adam, the
     density statistics and the metrics (parallel/sharded.py calls it with
-    the all-reduced gradients)."""
+    the all-reduced gradients).  ``scalars`` as step_body takes them."""
     params = state.params
     # LR uses the pre-increment iteration count (mtl_engine.mm:1092-1094)
-    lrs = schedule.learning_rates(cfg.optim, state.opt.t, total_iters)
-    new_params, new_opt = optimizer.step(params, grad, state.opt, lrs, cfg.optim)
+    lrs = schedule.rates(cfg.optim, scalars[0])
+    new_params, new_opt = optimizer.step(params, grad, state.opt, lrs, cfg.optim,
+                                         (scalars[1], scalars[2]))
 
     # density statistics (reference: DensityController::accumulateGradients
     # after every backward, mtl_engine.mm:1000-1002)
@@ -108,20 +148,21 @@ def train_steps(
     cfg: Config,
     total_iters: int,
 ) -> tuple[TrainState, StepMetrics]:
-    """K sequential optimization steps (one per view), the semantics of the
-    JAX ``train_steps`` scan as a plain loop.  Returns (state, metrics) with
-    every StepMetrics field stacked [K]."""
+    """K sequential optimization steps (one per view), the JAX
+    ``train_steps`` scan.  On a CUDA device, K replays of the step's CUDA
+    graph (train/graph.py: captured at the first call for this capacity,
+    resolution and Config); on the CPU, K train_step_eager calls.  The views
+    share one resolution.  Returns (state, metrics) with every StepMetrics
+    field stacked [K], and leaves ``state`` as it was."""
+    dev = state.params.means.device
+    if dev.type == "cuda":
+        scalars = device_scalars(cfg, state.opt.t, len(cameras), total_iters, dev)
+        return graph.run_steps(step_body, state, cameras, gt_images, cfg, scalars)
     steps = []
     for cam, gt in zip(cameras, gt_images):
-        state, m = train_step(state, cam, gt, cfg, total_iters)
+        state, m = train_step_eager(state, cam, gt, cfg, total_iters)
         steps.append(m)
-    dev = state.params.means.device
-    stacked = [
-        torch.stack(xs) if isinstance(xs[0], torch.Tensor)
-        else torch.tensor(xs, dtype=torch.float32, device=dev)
-        for xs in zip(*steps)
-    ]
-    return state, StepMetrics(*stacked)
+    return state, StepMetrics(*(torch.stack(xs) for xs in zip(*steps)))
 
 
 class _ParamsView(NamedTuple):
@@ -178,8 +219,10 @@ def batched_update(state: TrainState, grad: dict, vs_grad, pos_grad, reps, imgs,
     gradient (vs_grad * K, pos_grad * K), as K sequential accumulate()
     calls would (trainer.py:190-202)."""
     k = len(reps)
-    lrs = schedule.learning_rates(cfg.optim, state.opt.t, total_iters)
-    new_params, new_opt = optimizer.step(state.params, grad, state.opt, lrs, cfg.optim)
+    scalars = device_scalars(cfg, state.opt.t, 1, total_iters, state.params.means.device)[0]
+    lrs = schedule.rates(cfg.optim, scalars[0])
+    new_params, new_opt = optimizer.step(state.params, grad, state.opt, lrs, cfg.optim,
+                                         (scalars[1], scalars[2]))
     accum = state.accum
     for v in range(k):
         accum = density.accumulate(accum, vs_grad[v] * k, pos_grad[v] * k, cfg.density)
@@ -373,8 +416,8 @@ def train_loop(
     launch.spawn); without one it raises.
 
     ``scan_steps`` > 1 runs chunks of that many steps through
-    ``train_steps`` (a loop here, the same semantics as the JAX scan)
-    wherever no event falls inside the chunk; only the plain single-view
+    ``train_steps`` (on the card, K replays of the captured step; the same
+    semantics as the JAX scan) wherever no event falls inside the chunk; only the plain single-view
     path chunks (batch_views == 1, mesh_devices == 1).  ``adaptive_pairs``
     rebuckets the pair capacity every ``adapt_interval`` iters to the next
     power of two above 1.5x the recent peak (within [min_pair_capacity,
