@@ -154,19 +154,42 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               copy in and clone out; the impact drop with the scatter
               reduction at K = 1; recapture at pair_capacity 2^22, after
               state.grow and for an evicted key, the cache within its bound;
-              in a child process, a step body with a host read must fail
-              its capture with an error naming that line (no fallback);
+              in a child process, a step body and a render with a host
+              read must each fail its capture with an error naming that
+              line (no fallback);
               tools.train --scan-steps 10 against --scan-steps 1 on a
               25-view COLMAP scene of the 100k Gaussians (60 iterations,
               densify at 20, 40, 60): final checkpoints bit-identical, both
               rates (`graph`).
+ 13. graph views  train_step_batched and the inference render as CUDA
+              graphs (train/graph.py; phase_graph_views) at full size:
+              batched replays at K = 1, 2, 4 views (default mode) and K = 2
+              (T-floor, bf16 + pack_positions), each body run eagerly once
+              under the sync debug mode first, two chained replays against
+              two eager batched steps (train_step_batched_eager) from one
+              state, every state array and metric bit for bit, K = 1
+              against a train_step replay too (`batched_graph`);
+              graph.render_frame against eager renders bit for bit in the
+              three modes (`render_graph`); launches exactly what the
+              captures recorded (and one warm-up call per capture); the
+              host clock in turns (eager, graph, graph, eager), device
+              time, idle share, capture seconds, pool bytes and the peak
+              reserved memory; in a child process, a render captured while
+              another thread builds cameras on the card (the viewer's
+              handler threads) in torch's default capture mode and in
+              graph.CAPTURE_MODE, which must hold; tools.render,
+              tools.evaluate and the facade replaying the render graph with
+              exact launch counts (`render_graph`).  Phase 8 serves the viewer's frames through
+              the render graph and, in turns, the eager render: both p50 /
+              p90 and the render's share are printed after phase 8.
 
-Phases 4-12 train through train/trainer.train_step and train_steps, which
-on the card replay the step's CUDA graph: a capture's warm-up step
-launches its mode's kernels once outside any replay, and the exact launch
-checks count them (graph.counts["warmup_steps"]).
+Phases 4-13 train through train/trainer.train_step, train_steps and
+train_step_batched and render through train/graph.render_frame, which on
+the card replay CUDA graphs: a capture's warm-up call launches its mode's
+kernels once per view outside any replay, and the exact launch checks
+count them (graph.counts["warmup_steps"], ["warmup_renders"]).
 
-Every main path (phases 4-12) runs with the launch counts set to 0 before
+Every main path (phases 4-13) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
@@ -372,6 +395,19 @@ GRAPH_CLI_VIEWS = 25
 GRAPH_CLI_EVAL_SPLIT = 5
 GRAPH_CLI_EPOCHS = 3
 GRAPH_CLI_DENSIFY_EVERY = 20
+# phase 13: the batched step's and the inference render's CUDA graphs.
+# train_step_batched at K = 1, 2, 4 views in the default mode and at
+# VIEWS_MODE_K in the T-floor and bf16 + pack_positions modes, VIEWS_STEPS
+# batched steps chained from one state against as many eager ones (the
+# i-th step reads views i K .. (i + 1) K - 1 of _graph_views); VIEWS_TIMED
+# steps and FRAMES frames per timed turn; tools.render, tools.evaluate and
+# the facade over TOOL_VIEWS views
+VIEWS_K = (1, 2, 4)
+VIEWS_MODE_K = 2
+VIEWS_STEPS = 2
+VIEWS_TIMED = 5
+FRAMES = 10
+TOOL_VIEWS = 4
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -1033,7 +1069,7 @@ def _tf_launches():
     return blend.launch_counts()
 
 
-_warm_mark = [0]
+_warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
 
 
 def _reset_launches():
@@ -1045,16 +1081,26 @@ def _reset_launches():
 
     for name in blend.COUNTED:
         getattr(blend, name).launches = 0
-    _warm_mark[0] = graph.counts["warmup_steps"]
+    for name in _warm_mark:
+        _warm_mark[name] = graph.counts[name]
 
 
 def _warmups():
-    """Eager warm-up steps the step graphs' captures ran since the counts
-    were last set to 0: each launches its mode's kernels once, outside any
-    replay (train/graph.py)."""
+    """Views of the eager warm-up steps the step graphs' captures ran since
+    the counts were last set to 0: each launches its mode's kernels once,
+    outside any replay (train/graph.py)."""
     from gaussiansplatting_tpu_torch.train import graph
 
-    return graph.counts["warmup_steps"] - _warm_mark[0]
+    return graph.counts["warmup_steps"] - _warm_mark["warmup_steps"]
+
+
+def _warm_renders():
+    """Eager warm-up renders the render graphs' captures ran since the
+    counts were last set to 0: each launches its mode's forward kernels
+    once, outside any replay (train/graph.render_frame)."""
+    from gaussiansplatting_tpu_torch.train import graph
+
+    return graph.counts["warmup_renders"] - _warm_mark["warmup_renders"]
 
 
 def dense_scene(seed, device=None):
@@ -1787,12 +1833,12 @@ def phase_trainloop(params, smi):
     if len(rises) < 2 or not all(y > x for _, _, x, y in rises):
         raise AssertionError(f"PSNR does not rise between events: {rises}")
     n_eval = TRAINLOOP_VIEWS - n_train
-    warm = _warmups()
-    if launches["windowed_blend_fwd"] != iters + n_eval + warm or \
+    warm, warm_r = _warmups(), _warm_renders()
+    if launches["windowed_blend_fwd"] != iters + n_eval + warm + warm_r or \
             launches["windowed_blend_bwd"] != iters + warm:
         raise AssertionError(f"expected {iters + n_eval} forward and {iters} backward "
-                             f"launches and {warm} of each in the graphs' warm-up steps, "
-                             f"got {launches}")
+                             f"launches, {warm} of each in the graphs' warm-up steps and "
+                             f"{warm_r} forward in their warm-up renders, got {launches}")
     ev = [x for x in lines if x["event"] == "eval"]
     ex = [x for x in lines if x["event"] == "export_ply"]
     state36, saved_cfg = checkpoint.load(os.path.join(ck, "latest.npz"), DEVICE)
@@ -2017,7 +2063,7 @@ def phase_garden(smi):
     from gaussiansplatting_tpu_torch.models import GaussianModel
     from gaussiansplatting_tpu_torch.ops import blend, rasterize
     from gaussiansplatting_tpu_torch.tools import make_dataset, trace, view
-    from gaussiansplatting_tpu_torch.train import checkpoint, trainer
+    from gaussiansplatting_tpu_torch.train import checkpoint, graph, trainer
 
     root = os.path.join(SCRATCH, "garden")
     shutil.rmtree(root, ignore_errors=True)
@@ -2073,6 +2119,7 @@ def phase_garden(smi):
         return st
 
     _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     stepping = _stamp_steps(trainer, iters, stamps)
     trainer.densify_step, trainer.opacity_reset_step = densify_step, opacity_reset_step
     try:
@@ -2082,7 +2129,7 @@ def phase_garden(smi):
         trainer.densify_step, trainer.opacity_reset_step = originals
     torch.cuda.synchronize()
     launches = _tf_launches()
-    warm = _warmups()
+    warm, warm_r = _warmups(), _warm_renders()
     _check_no_v1("the garden trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
@@ -2095,12 +2142,23 @@ def phase_garden(smi):
     if [e[1] for e in events if e[0] == "densify"] != GARDEN_DENSIFY_AT or \
             any(e[0] == "reset" for e in events):
         raise AssertionError(f"garden density events {events}")
-    if launches["windowed_blend_fwd"] != iters + n_eval + warm or \
+    if launches["windowed_blend_fwd"] != iters + n_eval + warm + warm_r or \
             launches["windowed_blend_bwd"] != iters + warm:
         raise AssertionError(f"garden: expected {iters + n_eval} forward and {iters} backward "
-                             f"launches and {warm} of each in the graphs' warm-up steps, "
-                             f"got {launches}")
+                             f"launches, {warm} of each in the graphs' warm-up steps and "
+                             f"{warm_r} forward in their warm-up renders, got {launches}")
     res["launches"]["garden"] = launches
+    res["max_reserved"] = torch.cuda.max_memory_reserved()
+    res["pools"] = {"steps": [(g.key[0], g.key[3].raster.pair_capacity, g.pool_bytes)
+                              for g in graph.live()],
+                    "renders": [(g.key[0], g.key[3].pair_capacity, g.pool_bytes)
+                                for g in graph.live_renders()]}
+    log(f"[garden] graphs live after tools.train (capacity, pair capacity, pool MiB): steps "
+        + "; ".join(f"{c}, {p}: {b / 2**20:.1f}" for c, p, b in res["pools"]["steps"])
+        + "; renders " + "; ".join(f"{c}, {p}: {b / 2**20:.1f}"
+                                   for c, p, b in res["pools"]["renders"])
+        + f"; {warm} warm-up step views, {warm_r} warm-up renders; torch.cuda."
+        f"max_memory_reserved {res['max_reserved'] / 2**30:.2f} GiB")
     wall = stamps[-1][0] - stamps[0][0]
     res["iters_per_s"] = _rate(stamps)
     res["chunks"] = sum(c == GRAPH_STEPS for _, _, c in stamps)
@@ -2171,10 +2229,11 @@ def phase_garden(smi):
         f"launches {launches}")
     if ply_err > FACADE_PLY_ATOL or n0 != GARDEN_POINTS or model.state.opt.t != FACADE_ITERS:
         raise AssertionError("the facade path failed its checks")
-    warm = _warmups()
-    if launches["windowed_blend_fwd"] != 2 + FACADE_ITERS + warm or \
+    warm, warm_r = _warmups(), _warm_renders()
+    if launches["windowed_blend_fwd"] != 2 + FACADE_ITERS + warm + warm_r or \
             launches["windowed_blend_bwd"] != FACADE_ITERS + warm:
-        raise AssertionError(f"facade launches {launches} ({warm} graph warm-up steps)")
+        raise AssertionError(f"facade launches {launches} ({warm} graph warm-up steps, "
+                             f"{warm_r} warm-up renders)")
     del model, cams, gts
     torch.cuda.empty_cache()
 
@@ -2182,49 +2241,81 @@ def phase_garden(smi):
     # trainer's checkpoint
     vw, vh = VIEWER_SIZE
     state = view.build_state(out_ply, vw, vh, 60.0, 0, last_cap, device=DEVICE)
-    overflow = []
-    inner = rasterize.render
+    overflow, render_ms = [], []
+    inner = graph.render_frame
 
     def render(*a, **k):
         img, aux = inner(*a, **k)
         overflow.append(aux.overflow)
         return img, aux
 
+    def eager(params, cam, raster):
+        with torch.no_grad():
+            return rasterize.render(params, cam, raster)
+
+    inner_render = state.render
+
+    def timed_render(cam):
+        t0 = time.perf_counter()
+        arr = inner_render(cam)
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+        return arr
+
+    state.render = timed_render
+
     srv = ThreadingHTTPServer(("127.0.0.1", 0), view.make_handler(state))
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     serving = threading.Thread(target=srv.serve_forever, daemon=True)
     serving.start()
-    frame_ms = []
-    rasterize.render = render
+    # the frames in turns: render graph (the main path, counted), eager
+    # render, eager, graph; host clock from request to response and of the
+    # render with its copy to the host (ViewerState.render, in the handler)
+    frame_ms = {"graph": [], "eager": []}
+    render_of = {"graph": [], "eager": []}
     try:
         page = _http_get(base + "/")
         st = json.loads(_http_get(base + "/state"))
-        _reset_launches()
-        for i in range(VIEWER_FRAMES):
-            q = (f"/frame?az={st['az'] + 2 * np.pi * i / VIEWER_FRAMES:.4f}&el={st['el']:.4f}"
-                 f"&r={st['r']:.4f}&cx={st['cx']:.4f}&cy={st['cy']:.4f}&cz={st['cz']:.4f}")
-            t0 = time.perf_counter()
-            jpg = _http_get(base + q)
-            frame_ms.append(1e3 * (time.perf_counter() - t0))
-            arr = np.asarray(Image.open(io.BytesIO(jpg)))
-            if arr.shape != (vh, vw, 3) or arr.min() == arr.max():
-                raise AssertionError(f"viewer frame {i}: shape {arr.shape} or constant")
-        torch.cuda.synchronize()
-        launches = _tf_launches()
+        for turn, how in enumerate(("graph", "eager", "eager", "graph")):
+            graph.render_frame = render if how == "graph" else eager
+            if turn == 0:
+                _reset_launches()
+            del render_ms[:]
+            for i in range(VIEWER_FRAMES):
+                q = (f"/frame?az={st['az'] + 2 * np.pi * i / VIEWER_FRAMES:.4f}"
+                     f"&el={st['el']:.4f}&r={st['r']:.4f}&cx={st['cx']:.4f}"
+                     f"&cy={st['cy']:.4f}&cz={st['cz']:.4f}")
+                t0 = time.perf_counter()
+                jpg = _http_get(base + q)
+                frame_ms[how].append(1e3 * (time.perf_counter() - t0))
+                arr = np.asarray(Image.open(io.BytesIO(jpg)))
+                if arr.shape != (vh, vw, 3) or arr.min() == arr.max():
+                    raise AssertionError(f"viewer frame {i}: shape {arr.shape} or constant")
+            render_of[how] += render_ms
+            if turn == 0:
+                torch.cuda.synchronize()
+                launches, warm_r = _tf_launches(), _warm_renders()
     finally:
-        rasterize.render = inner
+        graph.render_frame = inner
         srv.shutdown()
         srv.server_close()
         serving.join(timeout=60)
     _check_no_v1("the viewer's frames", launches)
-    res["frame_ms_p50"], res["frame_ms_p90"] = (float(np.percentile(frame_ms, p))
-                                                for p in (50, 90))
+    pct = {how: [float(np.percentile(v, p)) for p in (50, 90)] for how, v in frame_ms.items()}
+    rend = {how: float(np.percentile(v, 50)) for how, v in render_of.items()}
+    res["frame_ms_p50"], res["frame_ms_p90"] = pct["graph"]
+    res["eager_frame_ms_p50"], res["eager_frame_ms_p90"] = pct["eager"]
+    res["frame_render_ms_p50"], res["eager_frame_render_ms_p50"] = rend["graph"], rend["eager"]
     n_over = int(torch.stack(overflow).sum())
     log(f"[garden] tools.view {vw}x{vh}, pair capacity {last_cap}: page {len(page)} bytes, "
-        f"state {st}; {VIEWER_FRAMES} frames along an orbit: p50 {res['frame_ms_p50']:.3f} ms, "
-        f"p90 {res['frame_ms_p90']:.3f} ms per frame (host clock, request to response), "
-        f"{n_over} overflowed; launches {launches} on {smi}")
-    if b"viewer" not in page or n_over or launches["windowed_blend_fwd"] != VIEWER_FRAMES \
+        f"state {st}; {VIEWER_FRAMES} frames along an orbit, 2 turns each (graph, eager, "
+        f"eager, graph): render graph p50 {pct['graph'][0]:.3f} ms, p90 {pct['graph'][1]:.3f}"
+        f" ms; eager render p50 {pct['eager'][0]:.3f} ms, p90 {pct['eager'][1]:.3f} ms per "
+        f"frame (host clock, request to response); of which the render and its copy to the "
+        f"host p50 {rend['graph']:.3f} ms (graph), {rend['eager']:.3f} ms (eager): JPEG, HTTP "
+        f"and the camera {1 - rend['graph'] / pct['graph'][0]:.3f} of the graph frame's p50; "
+        f"{n_over} overflowed; launches {launches} ({warm_r} warm-up render) on {smi}")
+    if b"viewer" not in page or n_over or len(overflow) != 2 * VIEWER_FRAMES or \
+            launches["windowed_blend_fwd"] != VIEWER_FRAMES + warm_r \
             or launches["windowed_blend_bwd"] != 0:
         raise AssertionError("the viewer's frames failed their checks")
     viewer_launches = dict(launches)
@@ -3143,15 +3234,13 @@ def _same_bits(label, got, got_m, want, want_m):
 
 def _eager_steps(state, cams, gts, cfg):
     """K eager steps (trainer.train_step_eager) with the metrics stacked."""
-    import torch
-
     from gaussiansplatting_tpu_torch.train import trainer
 
     ms = []
     for cam, gt in zip(cams, gts):
         state, m = trainer.train_step_eager(state, cam, gt, cfg, TRAIN_TOTAL_ITERS)
         ms.append(m)
-    return state, trainer.StepMetrics(*(torch.stack(xs) for xs in zip(*ms)))
+    return state, _stacked(ms)
 
 
 def _host_ms(fn, k):
@@ -3205,31 +3294,49 @@ def _failing_capture():
     """Phase 12's child process: a step body that reads the card back to
     the host (a sync no capture can hold) must fail its capture with an
     error naming that line, and leave no graph behind (nothing falls back
-    to eager steps).  Prints one JSON line."""
+    to eager steps); so must a render that reads its pair count back
+    (graph.render_frame).  Prints one JSON line."""
     import torch
 
     from gaussiansplatting_tpu_torch.config import Config, RasterConfig
+    from gaussiansplatting_tpu_torch.ops import rasterize
     from gaussiansplatting_tpu_torch.train import graph, trainer
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.utils import synthetic
 
-    real = trainer.step_body
+    real, real_render = trainer.step_body, rasterize.render
 
     def syncing(state, camera, gt, cfg, scalars):
         scalars.tolist()                        # the host read
         return real(state, camera, gt, cfg, scalars)
 
-    trainer.step_body = syncing
+    def syncing_render(params, camera, cfg, **kw):
+        img, aux = real_render(params, camera, cfg, **kw)
+        int(aux.num_pairs)                      # the host read
+        return img, aux
+
+    trainer.step_body, rasterize.render = syncing, syncing_render
     cfg = Config(raster=RasterConfig(pair_capacity=1 << 14, pair_block=16))
+    params = synthetic.make_scene(300, seed=4, device=DEVICE)
+    camera = synthetic.make_canonical_camera(64, 48, device=DEVICE)
+    out = {}
     try:
-        trainer.train_step(state_mod.create(synthetic.make_scene(300, seed=4, device=DEVICE)),
-                           synthetic.make_canonical_camera(64, 48, device=DEVICE),
+        trainer.train_step(state_mod.create(params), camera,
                            torch.zeros((48, 64, 3), device=DEVICE), cfg, 100)
     except RuntimeError as e:
-        print(json.dumps({"error": str(e).splitlines()[0], "captures": graph.counts["captures"],
-                          "live": len(graph.live())}))
-        return 0
-    raise AssertionError("a step that reads the card back was captured")
+        out.update(error=str(e).splitlines()[0], captures=graph.counts["captures"],
+                   live=len(graph.live()))
+    try:
+        graph.render_frame(params, camera, cfg.raster)
+    except RuntimeError as e:
+        out.update(render_error=str(e).splitlines()[0],
+                   render_captures=graph.counts["render_captures"],
+                   live_renders=len(graph.live_renders()))
+    if set(out) != {"error", "captures", "live", "render_error", "render_captures",
+                    "live_renders"}:
+        raise AssertionError(f"a step or a render that reads the card back was captured: {out}")
+    print(json.dumps(out))
+    return 0
 
 
 def phase_graph(params, smi):
@@ -3284,13 +3391,8 @@ def phase_graph(params, smi):
         r = res["modes"][mode] = {}
         # (i) no host sync in the step: one warm eager step, then one under
         # the sync debug mode, which raises at any op that waits for the card
-        trainer.train_step_eager(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            trainer.train_step_eager(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        _sync_free(f"[graph] {mode}", lambda: trainer.train_step_eager(
+            state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS))
         # (ii) K = 1: train_step (captures this key) against the eager step
         c0 = graph.counts["captures"]
         (g1, gm1), _ = counted(lambda: trainer.train_step(state0, cams[0], gts[0], cfg,
@@ -3403,11 +3505,17 @@ def phase_graph(params, smi):
                             "sys.exit(chip_smoke._failing_capture())"], cwd=REPO,
                            capture_output=True, text=True, timeout=600)
     fail = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
-    log(f"[graph] a step with a host read: {fail or child.stderr[-2000:]}")
+    log(f"[graph] a step and a render with a host read: {fail or child.stderr[-2000:]}")
     if not fail or "capturing the train step failed at" not in fail["error"] or \
             "chip_smoke.py" not in fail["error"] or fail["captures"] or fail["live"]:
         raise AssertionError("a failed capture did not raise naming its op, or kept a graph")
+    if "capturing the render failed at" not in fail["render_error"] or \
+            "int(aux.num_pairs)" not in fail["render_error"] or fail["render_captures"] or \
+            fail["live_renders"]:
+        raise AssertionError("a failed render capture did not raise naming its op, or kept a "
+                             "graph")
     res["failed_capture"] = fail["error"]
+    res["failed_render_capture"] = fail["render_error"]
 
     # (vii) tools.train --scan-steps K against --scan-steps 1
     root = os.path.join(SCRATCH, "graph")
@@ -3478,6 +3586,371 @@ def phase_graph(params, smi):
     return res
 
 
+def _capture_beside_a_thread():
+    """Phase 13's child process: render graphs captured (graph.render_frame,
+    each a new key) while another thread builds orbit cameras on the card
+    in a loop, as the viewer's other handler threads do while one of them
+    holds the lock, in the capture modes "global" (torch's default) and
+    graph.CAPTURE_MODE.  Prints one JSON line per mode: the capture's error
+    (or null), the camera thread's errors, the cameras built while the
+    captured render ran, and whether the replay then equals the eager
+    render."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import RasterConfig
+    from gaussiansplatting_tpu_torch.core import camera as camera_mod
+    from gaussiansplatting_tpu_torch.ops import rasterize
+    from gaussiansplatting_tpu_torch.train import graph
+    from gaussiansplatting_tpu_torch.utils import synthetic
+
+    params = synthetic.make_scene(3000, seed=4, device=DEVICE)
+    cam = synthetic.make_canonical_camera(128, 96, device=DEVICE)
+    built, marks, real = [0], [], rasterize.render
+
+    def render(*a, **k):
+        marks.append(built[0])
+        out = real(*a, **k)
+        marks.append(built[0])
+        return out
+
+    rasterize.render = render
+    out = {}
+    for i, mode in enumerate(("global", graph.CAPTURE_MODE)):
+        stop, errors = threading.Event(), []
+
+        def cameras():
+            while not stop.is_set():
+                try:
+                    camera_mod.orbit_camera(np.zeros(3, np.float32), 3.0, azimuth=0.1 * built[0],
+                                            elevation=0.3, fx=100.0, fy=100.0, width=128,
+                                            height=96, device=DEVICE)
+                    built[0] += 1
+                except RuntimeError as e:
+                    errors.append(str(e).splitlines()[0][:160])
+                    stop.wait(0.001)
+
+        worker = threading.Thread(target=cameras)
+        del marks[:]
+        worker.start()
+        graph.CAPTURE_MODE = mode
+        cfg = RasterConfig(pair_capacity=(1 << 16) + 4096 * i, pair_block=16)
+        try:
+            img, _ = graph.render_frame(params, cam, cfg)
+            error = None
+        except RuntimeError as e:
+            error = str(e).splitlines()[0][:300]
+        finally:
+            stop.set()
+            worker.join(timeout=60)
+        same = None
+        if error is None:
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                same = bool(torch.equal(img, real(params, cam, cfg)[0]))
+        out[mode] = {"capture_error": error, "camera_errors": len(errors),
+                     "first_camera_errors": sorted(set(errors))[:2],
+                     "cameras_during_capture": marks[3] - marks[2] if len(marks) >= 4 else None,
+                     "replay_equals_eager": same, "thread_alive": worker.is_alive()}
+    print(json.dumps(out))
+    return 0
+
+
+def _stacked(ms):
+    """StepMetrics with each field of ``ms`` stacked."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.train import trainer
+
+    return trainer.StepMetrics(*(torch.stack(xs) for xs in zip(*ms)))
+
+
+def _batched_chain(step, state, cams, gts, k, cfg, steps):
+    """``steps`` batched steps of ``k`` views chained from ``state`` (step i
+    reads views i k .. (i + 1) k - 1) by ``step`` (trainer.train_step_batched
+    or its eager form); returns (state, metrics stacked [steps])."""
+    ms = []
+    for i in range(steps):
+        state, m = step(state, cams[i * k:(i + 1) * k], gts[i * k:(i + 1) * k], cfg,
+                        TRAIN_TOTAL_ITERS)
+        ms.append(m)
+    return state, _stacked(ms)
+
+
+def _sync_free(label, fn):
+    """fn() warm, then once under torch.cuda.set_sync_debug_mode("error"),
+    which raises at any op that waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{label} reads the card back to the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _exact_replays(label, got, per_call, calls, captured):
+    """The launch counts of ``calls`` replays (and, where the call
+    captured, one eager warm-up call, which launches what one replay does)
+    must be what the capture recorded."""
+    want = {name: (calls + captured) * n for name, n in per_call.items()}
+    have = {name: n for name, n in got.items() if n}
+    if have != want or not per_call:
+        raise AssertionError(f"{label}: launched {have}, the capture recorded {per_call} per "
+                             f"call ({calls} replays, {captured} warm-up call)")
+
+
+def phase_graph_views(params, smi):
+    """train_step_batched and the inference render as CUDA graphs
+    (train/graph.py) at full size: batched replays at K = 1, 2, 4 (and K = 2
+    in the T-floor and bf16 + pack_positions modes) against eager batched
+    steps from one state, bit for bit, K = 1 against a train_step replay;
+    render_frame against eager renders bit for bit in the three modes; each
+    body run eagerly once under the sync debug mode first; launches exact;
+    host clock in turns, device time, idle share, capture seconds, pool
+    bytes and the peak reserved memory; a capture beside a thread that
+    builds cameras on the card, by capture mode; tools.render,
+    tools.evaluate and the facade replaying with exact launch counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config, RasterConfig
+    from gaussiansplatting_tpu_torch.io import ply
+    from gaussiansplatting_tpu_torch.models import GaussianModel
+    from gaussiansplatting_tpu_torch.ops import rasterize
+    from gaussiansplatting_tpu_torch.tools import evaluate, trace
+    from gaussiansplatting_tpu_torch.tools import render as render_cli
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+
+    graph.clear()
+    base = RasterConfig(pair_capacity=PAIR_CAPACITY, pair_block=PAIR_BLOCK)
+    modes = {"default": base, "tfloor": base.replace(t_floor_exact=True),
+             "bf16_pack_pos": base.replace(payload_dtype="bf16", pack_positions=True)}
+    cams, gts = _graph_views(max(max(VIEWS_K) * VIEWS_STEPS, TOOL_VIEWS))
+    state0 = state_mod.create(params)
+    res = {"batched": {}, "render": {}, "tools": {}}
+    paths = {"batched_graph": {}, "render_graph": {}}
+
+    def counted(path, fn):
+        """fn() with the launch counts set to 0 before it; returns (fn's
+        value, its launches, the captures it made), the launches added to
+        the path's."""
+        _reset_launches()
+        c0 = graph.counts["captures"] + graph.counts["render_captures"]
+        out = fn()
+        torch.cuda.synchronize()
+        got = _tf_launches()
+        _check_no_v1(f"the {path} path", got)
+        for name, n in got.items():
+            paths[path][name] = paths[path].get(name, 0) + n
+        return out, got, graph.counts["captures"] + graph.counts["render_captures"] - c0
+
+    # (i) the batched step: replays against eager steps, bit for bit
+    cases = [("default", k) for k in VIEWS_K] + [(m, VIEWS_MODE_K) for m in modes
+                                                  if m != "default"]
+    for mode, k in cases:
+        cfg = Config(raster=modes[mode])
+        label = f"[graph views] batched {mode} K = {k}"
+        _sync_free(label, lambda: trainer.train_step_batched_eager(
+            state0, cams[:k], gts[:k], cfg, TRAIN_TOTAL_ITERS))
+        torch.cuda.reset_peak_memory_stats()
+        (got, gm), launches, captured = counted("batched_graph", lambda: _batched_chain(
+            trainer.train_step_batched, state0, cams, gts, k, cfg, VIEWS_STEPS))
+        max_reserved = torch.cuda.max_memory_reserved()
+        want, wm = _batched_chain(trainer.train_step_batched_eager, state0, cams, gts, k, cfg,
+                                  VIEWS_STEPS)
+        n = _same_bits(label, got, gm, want, wm)
+        g = graph.live()[-1]
+        if captured != 1 or g.views != k or g.key != graph.step_key(state0, cams[0], cfg):
+            raise AssertionError(f"{label}: {captured} captures, newest graph {g.views} views")
+        _exact_replays(label, launches, g.launches, VIEWS_STEPS, 1)
+        if _warmups() != k:
+            raise AssertionError(f"{label}: {_warmups()} warm-up step views, not {k}")
+        r = res["batched"][f"{mode} K={k}"] = {
+            "capture_s": g.capture_s, "warmup_s": g.warmup_s, "pool_bytes": g.pool_bytes,
+            "max_reserved": max_reserved, "launches_per_replay": g.launches}
+        if mode == "default" and k == 1:
+            # a batched K = 1 replay is a train_step replay, bit for bit
+            one, om = trainer.train_step(state0, cams[0], gts[0], cfg, TRAIN_TOTAL_ITERS)
+            b1, bm = trainer.train_step_batched(state0, cams[:1], gts[:1], cfg,
+                                                TRAIN_TOTAL_ITERS)
+            _same_bits(f"{label} against train_step's replay", b1, _stacked([bm]), one,
+                       _stacked([om]))
+        # the host clock in turns (eager, graph, graph, eager), device time
+        timed = VIEWS_TIMED
+
+        def run(step):
+            st = state0
+            for i in range(timed):
+                j = (i % VIEWS_STEPS) * k
+                st, _ = step(st, cams[j:j + k], gts[j:j + k], cfg, TRAIN_TOTAL_ITERS)
+
+        turns = [_host_ms(lambda: run(s), timed) for s in (
+            trainer.train_step_batched_eager, trainer.train_step_batched,
+            trainer.train_step_batched, trainer.train_step_batched_eager)]
+        dev_graph, _ = trace.device_profile(
+            f"{label} replays", lambda: trainer.train_step_batched(
+                state0, cams[:k], gts[:k], cfg, TRAIN_TOTAL_ITERS), 3, smi, DEVICE, log, 6)
+        dev_eager, _ = trace.device_profile(
+            f"{label} eager", lambda: trainer.train_step_batched_eager(
+                state0, cams[:k], gts[:k], cfg, TRAIN_TOTAL_ITERS), 3, smi, DEVICE, log, 0)
+        graph_ms, eager_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        r.update(host_ms_turns=turns, graph_ms=graph_ms, eager_ms=eager_ms,
+                 device_ms=dev_graph, eager_device_ms=dev_eager,
+                 idle=1 - dev_graph / graph_ms, eager_idle=1 - dev_eager / eager_ms,
+                 views_per_s=k * 1e3 / graph_ms)
+        log(f"{label}: {VIEWS_STEPS} replays = {VIEWS_STEPS} eager steps, {n} state arrays "
+            f"and every metric bit for bit{'; = a train_step replay' if k == 1 and mode == 'default' else ''}; "
+            f"launches per replay {g.launches}; host clock per step, eager / graph / graph / "
+            f"eager {', '.join(f'{t:.3f}' for t in turns)} ms ({r['views_per_s']:.1f} views/s); "
+            f"device {dev_graph:.3f} ms per replay, {dev_eager:.3f} per eager step; the card "
+            f"idles {r['idle']:.3f} of the graph step, {r['eager_idle']:.3f} of the eager one; "
+            f"capture {g.capture_s:.3f} s after a {g.warmup_s:.3f} s warm-up step, pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB, max_memory_reserved {max_reserved / 2**30:.2f} "
+            f"GiB, on {smi}")
+
+    # (ii) the render: replays against eager renders, bit for bit
+    def eager_render(cfg, cam):
+        with torch.no_grad():
+            return rasterize.render(params, cam, cfg)
+
+    for mode, cfg in modes.items():
+        label = f"[graph views] render {mode}"
+        _sync_free(label, lambda: eager_render(cfg, cams[0]))
+        (frames, launches, captured) = counted("render_graph", lambda: [
+            graph.render_frame(params, c, cfg) for c in cams[:TOOL_VIEWS]])
+        for i, (img, aux) in enumerate(frames):
+            ref, ref_aux = eager_render(cfg, cams[i])
+            if not torch.equal(img, ref) or not all(torch.equal(x, y)
+                                                    for x, y in zip(aux, ref_aux)):
+                raise AssertionError(f"{label}: view {i}: the replay and the eager render "
+                                     f"differ")
+            if bool(aux.overflow):
+                raise AssertionError(f"{label}: view {i} overflowed")
+        g = graph.live_renders()[-1]
+        if captured != 1 or g.key != graph.render_key(params, cams[0], cfg):
+            raise AssertionError(f"{label}: {captured} captures")
+        _exact_replays(label, launches, g.launches, TOOL_VIEWS, 1)
+        turns = [_host_ms(lambda: [f(cfg, cams[0]) for _ in range(FRAMES)], FRAMES) for f in (
+            eager_render, lambda c, cam: graph.render_frame(params, cam, c),
+            lambda c, cam: graph.render_frame(params, cam, c), eager_render)]
+        dev_graph, _ = trace.device_profile(
+            f"{label} replays", lambda: graph.render_frame(params, cams[0], cfg), FRAMES, smi,
+            DEVICE, log, 6)
+        dev_eager, _ = trace.device_profile(
+            f"{label} eager", lambda: eager_render(cfg, cams[0]), FRAMES, smi, DEVICE, log, 0)
+        graph_ms, eager_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        r = res["render"][mode] = {
+            "host_ms_turns": turns, "graph_ms": graph_ms, "eager_ms": eager_ms,
+            "device_ms": dev_graph, "eager_device_ms": dev_eager,
+            "idle": 1 - dev_graph / graph_ms, "eager_idle": 1 - dev_eager / eager_ms,
+            "capture_s": g.capture_s, "warmup_s": g.warmup_s, "pool_bytes": g.pool_bytes,
+            "launches_per_frame": g.launches, "num_pairs": int(frames[0][1].num_pairs)}
+        log(f"{label}: {TOOL_VIEWS} replays = eager renders bit for bit (image, pair count, "
+            f"overflow); {r['num_pairs']} pairs at view 0; launches per frame {g.launches}; "
+            f"warm frame on the host clock, eager / graph / graph / eager "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms; device {dev_graph:.3f} ms per replay, "
+            f"{dev_eager:.3f} per eager frame; the card idles {r['idle']:.3f} of the graph "
+            f"frame, {r['eager_idle']:.3f} of the eager one; capture {g.capture_s:.3f} s after "
+            f"a {g.warmup_s:.3f} s warm-up render, pool {g.pool_bytes / 2**20:.1f} MiB, on {smi}")
+    res["live"] = {"steps": [(g.key[0], g.views, g.pool_bytes) for g in graph.live()],
+                   "renders": [(g.key[3].pair_capacity, g.key[3].t_floor_exact,
+                                g.key[3].payload_dtype, g.pool_bytes)
+                               for g in graph.live_renders()]}
+    log(f"[graph views] graphs live (bounds {graph.MAX_GRAPHS} steps, "
+        f"{graph.MAX_RENDER_GRAPHS} renders): steps (capacity, views, pool bytes) "
+        f"{res['live']['steps']}, renders (pair capacity, T-floor, payload, pool bytes) "
+        f"{res['live']['renders']}; torch.cuda.memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    if len(graph.live()) > graph.MAX_GRAPHS or \
+            len(graph.live_renders()) > graph.MAX_RENDER_GRAPHS:
+        raise AssertionError("a graph cache outgrew its bound")
+
+    # (iii) the capture mode: a render captured while another thread builds
+    # cameras on the card (the viewer's handler threads), in a child
+    child = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                            "sys.exit(chip_smoke._capture_beside_a_thread())"], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    modes_seen = json.loads(child.stdout.strip().splitlines()[-1]) \
+        if child.returncode == 0 else {}
+    log(f"[graph views] a render captured while another thread builds cameras on the card, "
+        f"by capture mode: {modes_seen or child.stderr[-2000:]}")
+    ours = modes_seen.get(graph.CAPTURE_MODE, {})
+    if ours.get("capture_error") or ours.get("camera_errors") or not ours.get(
+            "cameras_during_capture") or not ours.get("replay_equals_eager"):
+        raise AssertionError(f"the {graph.CAPTURE_MODE} capture beside a thread: {ours}")
+    res["capture_modes"] = modes_seen
+
+    # (iv) the tools and the facade replaying, launches exact
+    root = os.path.join(SCRATCH, "graph_views")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ply_path = os.path.join(root, "scene.ply")
+    ply.export_gaussian_ply(ply_path, ply.cloud_from_params(params))
+    sparse, image_dir, _ = write_colmap_scene(root, params, TOOL_VIEWS, WIDTH, HEIGHT, base)
+
+    def cli(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        if rc not in (0, None):
+            raise AssertionError(f"{main.__module__} exited {rc}")
+        return buf.getvalue().splitlines()
+
+    def tool(name, fn):
+        out, launches, captured = counted("render_graph", fn)
+        warm_r = _warm_renders()
+        fwd = sum(v for k, v in launches.items() if k.startswith("windowed_blend_fwd"))
+        if captured != warm_r or fwd != TOOL_VIEWS + warm_r or \
+                launches["windowed_blend_fwd"] != fwd or any(
+                    v for k, v in launches.items() if "bwd" in k):
+            raise AssertionError(f"{name}: launches {launches} for {TOOL_VIEWS} views and "
+                                 f"{warm_r} warm-up renders ({captured} captures)")
+        res["tools"][name] = {"launches": {k: v for k, v in launches.items() if v},
+                              "captures": captured}
+        return out
+
+    lines = tool("tools.render", lambda: cli(render_cli.main, [
+        "--ply", ply_path, "--output", os.path.join(root, "orbit"), "--orbit", str(TOOL_VIEWS),
+        "--width", str(WIDTH), "--height", str(HEIGHT), "--format", "ppm",
+        "--pair-capacity", str(PAIR_CAPACITY), "--device", DEVICE]))
+    done = [int(x.split("blend_kernel_launches=")[1].split()[0]) for x in lines
+            if x.startswith("[done]")]
+    if done != [res["tools"]["tools.render"]["launches"]["windowed_blend_fwd"]]:
+        raise AssertionError(f"tools.render's launch line {lines[-1:]} against the counters")
+    lines = tool("tools.evaluate", lambda: cli(evaluate.main, [
+        "--ply", ply_path, "--colmap", sparse, "--images", image_dir,
+        "--pair-capacity", str(PAIR_CAPACITY), "--device", DEVICE]))
+    summary = [json.loads(x) for x in lines if x.startswith('{"metric": "eval"')]
+    if not summary or summary[0]["views"] != TOOL_VIEWS or summary[0]["psnr"] < 30:
+        raise AssertionError(f"tools.evaluate on the scene's own renders: {lines[-3:]}")
+    model = GaussianModel.from_params(params, Config(raster=base), device=DEVICE)
+    imgs = tool("facade", lambda: [model.render(c) for c in cams[:TOOL_VIEWS]])
+    for i, img in enumerate(imgs):
+        if not np.array_equal(img, eager_render(base, cams[i])[0].cpu().numpy()):
+            raise AssertionError(f"the facade's view {i} differs from the eager render")
+    log(f"[graph views] tools.render ({TOOL_VIEWS} orbit views; its launch line "
+        f"{done[0]}), tools.evaluate ({TOOL_VIEWS} views, PSNR "
+        f"{summary[0]['psnr']} dB against their PPMs) and GaussianModel.render ({TOOL_VIEWS} "
+        f"views = eager renders bit for bit) replay the render graph: "
+        + "; ".join(f"{k} launches {v['launches']['windowed_blend_fwd']} in "
+                    f"{v['captures']} captures" for k, v in res["tools"].items()))
+    shutil.rmtree(root, ignore_errors=True)
+    graph.clear()
+    res["launches"] = paths
+    return res
+
+
 def main() -> int:
     name, smi, clock_mhz = phase_device()
 
@@ -3511,12 +3984,20 @@ def main() -> int:
     par = phase_parallel(params, camera, cfg, gt, smi)
     md = phase_modes(params, camera, cfg, gt, smi)
     gr = phase_graph(params, smi)
+    gv = phase_graph_views(params, smi)
     del params, camera, gt
     torch.cuda.empty_cache()
     gd = phase_garden(smi)
+    log(f"[graph views] the viewer (phase 8) over the render graph: frame p50 "
+        f"{gd['frame_ms_p50']:.3f} ms, p90 {gd['frame_ms_p90']:.3f} ms against the eager "
+        f"render's {gd['eager_frame_ms_p50']:.3f} / {gd['eager_frame_ms_p90']:.3f} ms in the "
+        f"same turns; the render and its copy to the host p50 {gd['frame_render_ms_p50']:.3f}"
+        f" ms ({gd['eager_frame_render_ms_p50']:.3f} eager), so JPEG, HTTP and the camera "
+        f"take {1 - gd['frame_render_ms_p50'] / gd['frame_ms_p50']:.3f} of the graph frame's "
+        f"p50 on {smi}")
     tools = phase_tools(work, smi)
     paths = dict(gd["launches"], tools=tools["launches"], graph=gr["launches"],
-                 **md["launches"])
+                 **gv["launches"], **md["launches"])
 
     src = "gaussiansplatting_tpu_torch/csrc/"
     tpu = "gaussiansplatting_tpu/ops/pallas_blend.py:"
@@ -3548,14 +4029,16 @@ def main() -> int:
                                    "tree_share_v1")}),
         entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "hopper",
               {"tfloor": tf_launches["windowed_blend_fwd_tf"],
-               "graph": gr["launches"]["windowed_blend_fwd_tf"]},
+               "graph": gr["launches"]["windowed_blend_fwd_tf"],
+               **{k: v["windowed_blend_fwd_tf"] for k, v in gv["launches"].items()}},
               tf["per_step"]["windowed_blend_fwd_tf"],
               {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
                "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms_v1"], "plain_ms": tf["fwd_plain_ms"],
                **tf["fwd_bound"]}),
         entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "hopper",
               {"tfloor": tf_launches["windowed_blend_bwd_tf"],
-               "graph": gr["launches"]["windowed_blend_bwd_tf"]},
+               "graph": gr["launches"]["windowed_blend_bwd_tf"],
+               **{k: v["windowed_blend_bwd_tf"] for k, v in gv["launches"].items()}},
               tf["per_step"]["windowed_blend_bwd_tf"],
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
                "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms_v1"], "plain_ms": tf["bwd_plain_ms"],
@@ -3617,6 +4100,10 @@ def main() -> int:
         "facade_heldout_psnr": gd["facade_psnr"],
         "viewer_frame_ms_p50": gd["frame_ms_p50"],
         "viewer_frame_ms_p90": gd["frame_ms_p90"],
+        "viewer_eager_frame_ms_p50": gd["eager_frame_ms_p50"],
+        "viewer_eager_frame_ms_p90": gd["eager_frame_ms_p90"],
+        "viewer_frame_render_ms_p50": gd["frame_render_ms_p50"],
+        "garden_max_memory_reserved": gd["max_reserved"], "garden_graph_pools": gd["pools"],
         "entry_max_abs_err": gd["entry_err"],
         "profile_stage_ms": tools["stages_ms"],
         "trace_device_ms_per_step": tools["device_ms"],
@@ -3642,6 +4129,9 @@ def main() -> int:
         "sortprefix_ms": md["sortprefix_ms"],
         "bf16_cli": md["cli"],
         "graph_modes": gr["modes"], "graph_live": gr["live"], "graph_cli": gr["cli"],
+        "graph_batched": gv["batched"], "graph_render": gv["render"],
+        "graph_tools": gv["tools"], "graph_views_live": gv["live"],
+        "graph_capture_modes": gv["capture_modes"],
         "garden_scan_chunks": gd["chunks"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

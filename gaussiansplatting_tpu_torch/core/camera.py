@@ -3,7 +3,7 @@
 Counterpart of gaussiansplatting_tpu/core/camera.py.  The builders are numpy
 (as in the JAX package) and ``Camera`` is a small dataclass of float32
 tensors plus the int render resolution.  ``Camera.copy_`` writes another
-view into a camera's tensors in place: a captured train step
+view into a camera's tensors in place: a captured train step or render
 (train/graph.py) reads its camera from them, with the resolution part of
 what it was captured for, as JAX compiles for one static W/H.
 """

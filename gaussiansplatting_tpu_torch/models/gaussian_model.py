@@ -132,11 +132,11 @@ class GaussianModel:
         return int(self.state.params.alive.sum())
 
     def render(self, camera: Camera) -> np.ndarray:
-        """Render one view to a [H, W, 3] float32 host array."""
-        from gaussiansplatting_tpu_torch.ops.rasterize import render as raster
+        """Render one view to a [H, W, 3] float32 host array (on the card a
+        replay of the render's CUDA graph, train/graph.render_frame)."""
+        from gaussiansplatting_tpu_torch.train.graph import render_frame
 
-        with torch.no_grad():
-            img, _ = raster(self.state.params, camera.to(self.device), self.config.raster)
+        img, _ = render_frame(self.state.params, camera.to(self.device), self.config.raster)
         return img.cpu().numpy()
 
     # ------------------------------------------------------------- training

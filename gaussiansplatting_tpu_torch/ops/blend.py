@@ -68,9 +68,9 @@ replaying the forward), which only ``windowed_blend_{fwd,bwd}[_tf]_v1``
 launch, for chip_smoke.py's A/B.  The packed entries
 (``gs_blend_*_win_packed``) are instances of the Hopper design.
 
-Every launch goes to ``torch.cuda.current_stream``, so a train step captured
-as a CUDA graph (train/graph.py) records it.  The graph's eager warm-up
-step loads the shared libraries before the capture; the
+Every launch goes to ``torch.cuda.current_stream``, so a train step or a
+render captured as a CUDA graph (train/graph.py) records it.  The graph's
+eager warm-up call loads the shared libraries before the capture; the
 ``cudaFuncSetAttribute`` each launch makes is no stream operation, so the
 capture may make it again.
 """

@@ -171,9 +171,11 @@ def make_sharded_train_step_batched(mesh: Mesh, cfg: Config, total_iters: int,
         pos_grad = _all_reduce(pos_grad, mesh)
         pairs, overflow = _sum_counts(mesh, torch.stack([a.num_pairs for a in auxs]),
                                       torch.stack([a.overflow for a in auxs]))
+        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters,
+                                         state.params.means.device)[0]
         return trainer.batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
                                       pairs.amax().to(torch.int32), overflow.any(), cfg,
-                                      total_iters)
+                                      scalars)
 
     return step
 

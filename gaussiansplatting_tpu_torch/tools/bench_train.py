@@ -57,9 +57,9 @@ def main(argv=None) -> int:
     from gaussiansplatting_tpu_torch.core import camera as camera_mod
     from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
     from gaussiansplatting_tpu_torch.ops import blend as blend_mod
-    from gaussiansplatting_tpu_torch.ops.rasterize import render
     from gaussiansplatting_tpu_torch.tools.render import _device
     from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.train.graph import render_frame
     from gaussiansplatting_tpu_torch.train.trainer import train_step
     from gaussiansplatting_tpu_torch.utils import synthetic
 
@@ -101,8 +101,7 @@ def main(argv=None) -> int:
     )
 
     def eval_render(params, cam):
-        with torch.no_grad():
-            return render(params, cam, eval_raster)[0]
+        return render_frame(params, cam, eval_raster)[0]
 
     # ALL ground truths render with the full-capacity eval_raster, so in a
     # capacity-constrained overflow A/B the arms train toward one target

@@ -45,9 +45,9 @@ def main(argv=None) -> int:
     from gaussiansplatting_tpu_torch.io import images as images_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
     from gaussiansplatting_tpu_torch.ops.losses import psnr as psnr_fn
-    from gaussiansplatting_tpu_torch.ops.rasterize import render
     from gaussiansplatting_tpu_torch.ops.ssim import dssim_map
     from gaussiansplatting_tpu_torch.tools.render import _device
+    from gaussiansplatting_tpu_torch.train.graph import render_frame
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
     device = _device(args.device)
@@ -76,11 +76,10 @@ def main(argv=None) -> int:
             cam_info.width, cam_info.height,
             render_width=rw, render_height=rh, device=device,
         )
-        with torch.no_grad():
-            img, _ = render(params, cam, raster)
-            view_psnr = float(psnr_fn(img, gt))
-            view_ssim = 1.0 - 2.0 * float(dssim_map(img, gt).mean())
-            view_l1 = float((img - gt).abs().mean())
+        img, _ = render_frame(params, cam, raster)
+        view_psnr = float(psnr_fn(img, gt))
+        view_ssim = 1.0 - 2.0 * float(dssim_map(img, gt).mean())
+        view_l1 = float((img - gt).abs().mean())
         rows.append((im.name, view_psnr, view_ssim, view_l1))
         log.log("view", name=im.name, psnr=round(view_psnr, 3),
                 ssim=round(view_ssim, 4), l1=round(view_l1, 5))

@@ -9,7 +9,10 @@ Usage:
       [--fov 60] [--device cuda]
 
 ``--device cuda`` (the default) raises if CUDA is unavailable; the CPU runs
-only when asked for with ``--device cpu``.
+only when asked for with ``--device cpu``.  On the card every frame replays
+the render's CUDA graph (train/graph.render_frame, the counterpart of the
+JAX tool's ``jax.jit(render)``); the launch count it logs includes the
+capture's eager warm-up frame.
 """
 
 from __future__ import annotations
@@ -64,15 +67,13 @@ def main(argv=None) -> int:
     if args.colmap and not os.path.isdir(args.colmap):
         raise SystemExit(f"error: COLMAP dir not found: {args.colmap}")
 
-    import torch
-
     from gaussiansplatting_tpu_torch.config import Config, RasterConfig
     from gaussiansplatting_tpu_torch.core import camera as camera_mod
     from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
     from gaussiansplatting_tpu_torch.io import images as images_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
     from gaussiansplatting_tpu_torch.ops import blend as blend_mod
-    from gaussiansplatting_tpu_torch.ops.rasterize import render as raster_render
+    from gaussiansplatting_tpu_torch.train.graph import render_frame
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
     device = _device(args.device)
@@ -147,19 +148,18 @@ def main(argv=None) -> int:
     launches0 = blend_mod.windowed_blend_fwd.launches
     t0 = time.time()
     frames = []
-    with torch.no_grad():
-        for cam, name in zip(cameras, names):
-            img, aux = raster_render(params, cam, cfg.raster)
-            img = img.cpu().numpy()
-            path = os.path.join(args.output, f"{name}.{args.format}")
-            if args.format == "png":
-                images_mod.save_png(path, img)
-            else:
-                images_mod.save_ppm(path, img)
-            if args.gif:
-                frames.append(img)
-            log.log("render", view=name, num_pairs=int(aux.num_pairs),
-                    overflow=bool(aux.overflow), path=path)
+    for cam, name in zip(cameras, names):
+        img, aux = render_frame(params, cam, cfg.raster)
+        img = img.cpu().numpy()
+        path = os.path.join(args.output, f"{name}.{args.format}")
+        if args.format == "png":
+            images_mod.save_png(path, img)
+        else:
+            images_mod.save_ppm(path, img)
+        if args.gif:
+            frames.append(img)
+        log.log("render", view=name, num_pairs=int(aux.num_pairs),
+                overflow=bool(aux.overflow), path=path)
     if args.gif and frames:
         from PIL import Image
 

@@ -195,11 +195,11 @@ def _train(args, topo) -> int:
     from gaussiansplatting_tpu_torch.config import Config
     from gaussiansplatting_tpu_torch.io import images as images_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
-    from gaussiansplatting_tpu_torch.ops.rasterize import render as raster_render
     from gaussiansplatting_tpu_torch.parallel import launch
     from gaussiansplatting_tpu_torch.train import checkpoint as ckpt_mod
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train import trainer
+    from gaussiansplatting_tpu_torch.train.graph import render_frame
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
     device = torch.device(topo["device"])
@@ -314,9 +314,7 @@ def _train(args, topo) -> int:
             log.log("checkpoint", iter=iteration, path=latest)
 
     def render_image(st, cam):
-        with torch.no_grad():
-            img, _ = raster_render(st.params, cam, cfg.raster)
-        return img.cpu().numpy()
+        return render_frame(st.params, cam, cfg.raster)[0].cpu().numpy()
 
     def snapshot_fn(iteration, st, cam, gt):
         if not primary:

@@ -22,10 +22,14 @@ between frames:
 
 Then open http://localhost:8000/ (ssh -L 8000:localhost:8000 for remote).
 ``--device cuda`` (the default) exits with an error if CUDA is unavailable.
-Frames are rendered in the HTTP server's handler threads, where a
-``torch.no_grad`` of the main thread does not reach (it is thread-local),
-so ``frame_jpeg`` enters it itself; one lock keeps the card to one render or
-training call at a time.
+Frames are rendered in the HTTP server's handler threads through
+train/graph.render_frame (on the card a replay of the render's CUDA graph,
+the counterpart of the JAX viewer's ``jax.jit(render)``; it enters
+``torch.no_grad`` itself, which a handler thread would not inherit); one
+lock keeps the card to one render, capture or training call at a time, and
+holds the graph caches to one caller.  The other handler threads build
+their cameras on the card meanwhile, which is why the captures run in
+``thread_local`` mode (train/graph.py).
 """
 
 from __future__ import annotations
@@ -193,12 +197,12 @@ class ViewerState:
         )
 
     def render(self, cam) -> np.ndarray:
-        """One frame [H, W, 3] as a host array, under the lock and without
-        autograd (a handler thread does not inherit the caller's no_grad)."""
-        from gaussiansplatting_tpu_torch.ops.rasterize import render as raster_render
+        """One frame [H, W, 3] as a host array, under the lock
+        (graph.render_frame: a graph replay on the card, no autograd)."""
+        from gaussiansplatting_tpu_torch.train import graph
 
-        with self.lock, torch.no_grad():
-            img, _ = raster_render(self.params, cam, self.cfg.raster)
+        with self.lock:
+            img, _ = graph.render_frame(self.params, cam, self.cfg.raster)
             return img.cpu().numpy()
 
     def frame_jpeg(self, az, el, r, cx, cy, cz, quality=85) -> bytes:

@@ -16,9 +16,11 @@ iteration reach the body as a device tensor (schedule.step_scalars).
 Every function is functional: it returns a new state and leaves its input
 as it was, so a step or an event can be replayed from the same state.
 ``train_step_batched`` (``batch_views > 1``) takes one Adam step on the mean
-gradient of K views; ``train_loop(mesh_devices > 1)`` runs the tile-sharded
-steps of ``parallel/sharded.py`` over a ``torch.distributed`` process group.
-Both, and the density events, run op by op on every device.
+gradient of K views, dispatched the same way (``batched_body``, one replay
+of K views; ``train_step_batched_eager``).  ``train_loop(mesh_devices > 1)``
+runs the tile-sharded steps of ``parallel/sharded.py`` over a
+``torch.distributed`` process group; they and the density events run op by
+op on every device.
 """
 
 from __future__ import annotations
@@ -213,13 +215,13 @@ def batched_view_grads(params, cameras, gt_images, cfg: Config, render_view=None
 
 
 def batched_update(state: TrainState, grad: dict, vs_grad, pos_grad, reps, imgs, gt_images,
-                   num_pairs, overflow, cfg: Config, total_iters: int):
+                   num_pairs, overflow, cfg: Config, scalars: torch.Tensor):
     """The rest of train_step_batched: Adam on the mean gradient, then the
     K views' density statistics folded in view order, each at its own
     gradient (vs_grad * K, pos_grad * K), as K sequential accumulate()
-    calls would (trainer.py:190-202)."""
+    calls would (trainer.py:190-202).  ``scalars`` as step_body takes
+    them."""
     k = len(reps)
-    scalars = device_scalars(cfg, state.opt.t, 1, total_iters, state.params.means.device)[0]
     lrs = schedule.rates(cfg.optim, scalars[0])
     new_params, new_opt = optimizer.step(state.params, grad, state.opt, lrs, cfg.optim,
                                          (scalars[1], scalars[2]))
@@ -246,6 +248,29 @@ def batched_update(state: TrainState, grad: dict, vs_grad, pos_grad, reps, imgs,
     return new_state, metrics
 
 
+def batched_body(state: TrainState, cameras: Sequence[Camera], gt_images, cfg: Config,
+                 scalars: torch.Tensor) -> tuple[TrainState, StepMetrics]:
+    """One Adam step on the mean loss of K views, given its ``scalars`` as
+    step_body takes them.  What train/graph.py captures (K views per
+    replay) and train_step_batched_eager runs; it reads no device value
+    back to the host."""
+    grad, vs_grad, pos_grad, reps, auxs, imgs = batched_view_grads(
+        state.params, cameras, gt_images, cfg)
+    num_pairs = torch.stack([a.num_pairs for a in auxs]).amax()
+    overflow = torch.stack([a.overflow for a in auxs]).any()
+    return batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
+                          num_pairs, overflow, cfg, scalars)
+
+
+def train_step_batched_eager(state: TrainState, cameras: Sequence[Camera], gt_images,
+                             cfg: Config, total_iters: int) -> tuple[TrainState, StepMetrics]:
+    """One batched step run op by op: batched_body with the schedule's
+    scalars.  The CPU's train_step_batched, and the yardstick of the
+    captured one on the card."""
+    scalars = device_scalars(cfg, state.opt.t, 1, total_iters, state.params.means.device)
+    return batched_body(state, cameras, gt_images, cfg, scalars[0])
+
+
 def train_step_batched(
     state: TrainState,
     cameras: Sequence[Camera],
@@ -259,13 +284,18 @@ def train_step_batched(
     Per-view density statistics come from a per-view zero ``pos_dummy``
     added to the means and a per-view ``vs_dummy``.  ``metrics.num_pairs``
     is the MAX per-view pair count (what pair capacity must cover),
-    ``overflow`` any view's.  With K = 1 it is train_step, bit for bit."""
-    grad, vs_grad, pos_grad, reps, auxs, imgs = batched_view_grads(
-        state.params, cameras, gt_images, cfg)
-    num_pairs = torch.stack([a.num_pairs for a in auxs]).amax()
-    overflow = torch.stack([a.overflow for a in auxs]).any()
-    return batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
-                          num_pairs, overflow, cfg, total_iters)
+    ``overflow`` any view's.  With K = 1 it is train_step, bit for bit.
+    Functional, as train_step.  On a CUDA device one replay of the batched
+    body's CUDA graph (train/graph.py: captured at the first call for this
+    K, capacity, resolution and Config); on the CPU,
+    train_step_batched_eager."""
+    dev = state.params.means.device
+    if dev.type == "cuda":
+        scalars = device_scalars(cfg, state.opt.t, 1, total_iters, dev)
+        new_state, ms = graph.run_steps(batched_body, state, cameras, gt_images, cfg, scalars,
+                                        views=len(cameras))
+        return new_state, _metrics_at(ms, 0)
+    return train_step_batched_eager(state, cameras, gt_images, cfg, total_iters)
 
 
 def _mean_opacity(params) -> torch.Tensor:

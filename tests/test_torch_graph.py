@@ -1,18 +1,20 @@
-"""The compiled dispatch of the port's train step (train/graph.py, the
-counterpart of jax.jit and of the lax.scan program of train_steps) and what
-it rests on, on the CPU: the per-step scalars as a table and as device
-tensors, the graph's key, Camera.copy_, the naming of a failed capture's
-op, the launch counters a replay adds to, train_steps against JAX's
-scanned train_steps and train_loop's chunks across a density event.  On
-the CPU the eager body runs (the caller asked for the CPU); the capture and
-the replays run on the card (the cuda-marked tests here, and chip_smoke.py
-phase 12 at full size).
+"""The compiled dispatch of the port's train step and batched train step
+(train/graph.py, the counterpart of jax.jit, of the lax.scan program of
+train_steps and of jax.jit(train_step_batched)) and what it rests on, on
+the CPU: the per-step scalars as a table and as device tensors, the
+graphs' keys, Camera.copy_, the naming of a failed capture's op, the launch
+counters a replay adds to, train_steps against JAX's scanned train_steps,
+train_loop's chunks across a density event, and the batched step with its
+scalars as a device tensor.  On the CPU the eager bodies run (the caller
+asked for the CPU); the capture and the replays run on the card (the
+cuda-marked tests here, and chip_smoke.py phases 12 and 13 at full size).
 
-Tolerances: the scalar table and the tensor-scalar step equal the float
-forms bit for bit (the CPU divides a float32 tensor by a 0-d tensor and by
-a Python float alike); train_steps against JAX at
-tests/test_torch_train.py's bars; chunked against single steps bit for
-bit."""
+Tolerances: the scalar table and the tensor-scalar steps (single and
+batched) equal the float forms bit for bit (the CPU divides a float32
+tensor by a 0-d tensor and by a Python float alike); train_steps and
+consecutive batched steps against JAX at tests/test_torch_train.py's bars
+(tests/test_torch_batched.py's for the batched metrics: rtol 1e-5);
+chunked against single steps bit for bit."""
 
 import numpy as np
 import pytest
@@ -120,11 +122,11 @@ def _moved(cam, dx):
 
 
 @pytest.mark.parametrize("change", ["capacity", "pair_capacity", "resolution", "config",
-                                    "inputs"])
+                                    "sh_width", "inputs"])
 def test_step_key(change):
-    """The key changes with the capacity, the pair capacity, W/H and the
-    Config, not with the pose, the ground truth, t or total_iters (none of
-    which it reads)."""
+    """The key changes with the capacity, the pair capacity, W/H, the
+    Config and the SH width, not with the pose, the ground truth, t or
+    total_iters (none of which it reads)."""
     _, tp = scene_params(21, n=48)
     _, tc = cameras()
     cfg = Config(raster=configs()[1])
@@ -139,11 +141,23 @@ def test_step_key(change):
         other = tgraph.step_key(st, cameras(64, 32)[1], cfg)
     elif change == "config":
         other = tgraph.step_key(st, tc, cfg.replace(optim=OptimConfig(**OPTIM)))
+    elif change == "sh_width":
+        other = tgraph.step_key(tstate.create(_sh0(tp)), tc, cfg)
     else:
         stepped, _ = ttrainer.train_step(st, tc, torch.rand(48, 64, 3), cfg, 100)
         assert stepped.opt.t == 1
         other = tgraph.step_key(stepped, _moved(tc, 0.05), cfg)
     assert (other == key) == (change == "inputs")
+
+
+def _sh0(params):
+    """``params`` with only the SH DC band: another SH width at the same
+    capacity."""
+    from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
+
+    return GaussianParams(params.means.detach(), params.log_scales.detach(),
+                          params.quats.detach(), params.raw_opacities.detach(),
+                          params.sh.detach()[:, :1].clone(), params.alive)
 
 
 def test_camera_copy_round_trips():
@@ -298,4 +312,145 @@ def test_graph_capture_failure_raises_cuda(monkeypatch):
     monkeypatch.setattr(ttrainer, "step_body", syncing)
     with pytest.raises(RuntimeError, match="capturing the train step failed at"):
         ttrainer.train_steps(st0, cams, gts, cfg, 100)
+    tgraph.clear()
+
+
+# ------------------------------------------------------------ batched step
+
+
+def _float_scalar_batched_step(state, cams, gts, cfg, total_iters):
+    """train_step_batched with its changing scalars as Python floats
+    (learning_rates and _bc), the form before they became a device tensor
+    read by the body."""
+    k = len(cams)
+    grad, vs_grad, pos_grad, reps, _, _ = ttrainer.batched_view_grads(
+        state.params, cams, gts, cfg)
+    lrs = tsched.learning_rates(cfg.optim, state.opt.t, total_iters)
+    new_params, new_opt = topt.step(state.params, grad, state.opt, lrs, cfg.optim)
+    accum = state.accum
+    for v in range(k):
+        accum = tdensity.accumulate(accum, vs_grad[v] * k, pos_grad[v] * k, cfg.density)
+    loss = torch.stack([r.combined_mean for r in reps]).detach().mean()
+    return tstate.TrainState(new_params, new_opt, accum, state.generator), loss, lrs.position
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_batched_tensor_scalar_steps_equal_float_scalar_steps(k):
+    """Three CPU batched steps of K views with a decaying position LR:
+    train_step_batched (batched_update given device_scalars' row as 0-d
+    tensors) against the float-scalar form, every state array, loss and LR
+    bit for bit; no graph is captured on the CPU."""
+    _, tp = scene_params(21, n=48)
+    cams = [_moved(cameras()[1], 0.02 * v) for v in range(k)]
+    cfg = Config(raster=configs()[1], optim=OptimConfig(**OPTIM))
+    gts = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 1, (3, k, 48, 64, 3)).astype(np.float32))
+    captures = tgraph.counts["captures"]
+    got, want = tstate.create(tp), tstate.create(tp)
+    lrs = []
+    for gt in gts:
+        got, gm = ttrainer.train_step_batched(got, cams, gt, cfg, 3)
+        want, loss, lr = _float_scalar_batched_step(want, cams, gt, cfg, 3)
+        np.testing.assert_array_equal(_bits(t2n(gm.loss)), _bits(t2n(loss)))
+        np.testing.assert_array_equal(_bits(t2n(gm.position_lr)), _bits(np.float32(lr)))
+        lrs.append(lr)
+    assert got.opt.t == want.opt.t == 3 and len(set(lrs)) == 3
+    a, b = tstate.state_to_numpy(got), tstate.state_to_numpy(want)
+    for key in b:
+        np.testing.assert_array_equal(_bits(a[key]), _bits(b[key]), err_msg=key)
+    assert tgraph.counts["captures"] == captures and not tgraph.live()
+
+
+def test_consecutive_batched_steps_match_jax():
+    """Two batched steps of two views on the CPU (the second reads the
+    scalars at t = 1) against JAX's jitted train_step_batched, at
+    tests/test_torch_batched.py's bars."""
+    from gaussiansplatting_tpu.config import OptimConfig as JOptimConfig
+    from test_torch_batched import _two_views
+
+    jp, _ = scene_params(21, n=48)
+    jcs, tcs, gts = _two_views()
+    jr, tr = configs()
+    jcfg = JConfig(raster=jr, optim=JOptimConfig(**OPTIM))
+    tcfg = Config(raster=tr, optim=OptimConfig(**OPTIM))
+    js = jstate.create(jp)
+    ts = tstate.state_from_numpy(_jax_state_arrays(js))
+    jcams = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jcs)
+    for step in range(2):
+        g = gts[::-1] if step else gts
+        js, jm = jtrainer.train_step_batched(js, jcams, jnp.asarray(g), jcfg, 4)
+        ts, tm = ttrainer.train_step_batched(ts, tcs, torch.from_numpy(g.copy()), tcfg, 4)
+        for f in ("loss", "l1", "dssim", "psnr", "position_lr"):
+            np.testing.assert_allclose(float(getattr(tm, f)), float(getattr(jm, f)),
+                                       rtol=1e-5, err_msg=f"step {step} {f}")
+        assert int(tm.num_pairs) == int(jm.num_pairs) > 0 and not bool(tm.overflow)
+    assert ts.opt.t == int(js.opt.t) == 2
+    lr0 = tsched.learning_rates(tcfg.optim, 0, 4)
+    _compare_states(tstate.state_to_numpy(ts), _jax_state_arrays(js), 2,
+                    dict(zip(TRAINABLE, lr0)))
+
+
+@pytest.mark.parametrize("change", ["views", "body", "capacity", "resolution", "config",
+                                    "inputs"])
+def test_batched_key(change):
+    """The batched step's cache key changes with K, the body (the
+    single-view step at K = 1 is another graph), the capacity, W/H and the
+    Config, not with the poses, ground truths, t or total_iters."""
+    _, tp = scene_params(21, n=48)
+    _, tc = cameras()
+    cfg = Config(raster=configs()[1])
+    st = tstate.create(tp)
+    body = ttrainer.batched_body
+    key = tgraph.graph_key(body, 2, st, tc, cfg)
+    if change == "views":
+        others = [tgraph.graph_key(body, k, st, tc, cfg) for k in (1, 4)]
+    elif change == "body":
+        others = [tgraph.graph_key(ttrainer.step_body, None, st, tc, cfg),
+                  tgraph.graph_key(ttrainer.step_body, 2, st, tc, cfg)]
+        assert tgraph.graph_key(body, 1, st, tc, cfg) != others[0]
+    elif change == "capacity":
+        others = [tgraph.graph_key(body, 2, tstate.grow(st, 64), tc, cfg)]
+    elif change == "resolution":
+        others = [tgraph.graph_key(body, 2, st, cameras(64, 32)[1], cfg)]
+    elif change == "config":
+        others = [tgraph.graph_key(body, 2, st, tc, cfg.replace(optim=OptimConfig(**OPTIM))),
+                  tgraph.graph_key(body, 2, st, tc, cfg.replace(
+                      raster=cfg.raster.replace(pair_capacity=4096)))]
+    else:
+        stepped, _ = ttrainer.train_step_batched(st, [tc, tc], torch.rand(2, 48, 64, 3),
+                                                 cfg, 100)
+        assert stepped.opt.t == 1
+        others = [tgraph.graph_key(body, 2, stepped, _moved(tc, 0.05), cfg)]
+    assert all((other == key) == (change == "inputs") for other in others)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_batched_replays_equal_eager_steps_cuda(k):
+    """On the card: two replays of the captured batched step (K views
+    each) against two eager batched steps from one state, bit for bit,
+    each kernel launched K times per replay; at K = 1 the replay equals a
+    train_step replay too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the batched step graph is captured on the card")
+    st0, cams, gts, cfg = _cuda_case(k=k)
+    captures = tgraph.counts["captures"]
+    got, want = st0, st0
+    for _ in range(2):
+        before = tblend.launch_counts()
+        got, gm = ttrainer.train_step_batched(got, cams, gts, cfg, 100)
+        torch.cuda.synchronize()
+        after = tblend.launch_counts()
+        want, wm = ttrainer.train_step_batched_eager(want, cams, gts, cfg, 100)
+        assert all(torch.equal(x, y) for x, y in zip(gm, wm))
+    assert tgraph.counts["captures"] == captures + 1
+    assert after["windowed_blend_fwd"] - before["windowed_blend_fwd"] == k
+    assert after["windowed_blend_bwd"] - before["windowed_blend_bwd"] == k
+    assert all(torch.equal(x, y) for x, y in zip(tgraph.state_tensors(got),
+                                                 tgraph.state_tensors(want)))
+    if k == 1:
+        one, _ = ttrainer.train_step(st0, cams[0], gts[0], cfg, 100)
+        batched, _ = ttrainer.train_step_batched(st0, cams, gts, cfg, 100)
+        assert all(torch.equal(x, y) for x, y in zip(tgraph.state_tensors(one),
+                                                     tgraph.state_tensors(batched)))
     tgraph.clear()
