@@ -81,11 +81,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               the CPU (integers exact); the step's time at two pair
               capacities and its device-time breakdown (torch.profiler) at
               iterations 0 and 36; the density event, opacity reset,
-              checkpoint and CLI iteration times.
+              checkpoint and CLI iteration times.  The CLI's density
+              events replay their own graphs: one step capture, one
+              densify and one reset capture in the run (graph.counts).
   8. garden    the garden main path at full width: utils/scenegen's procedural
               scene through tools.make_dataset at its defaults (200 views,
               800x608, 150,000 SfM points, seed 0; the ray tracer's ms per
-              view, the PNG writing and the total time); render_view and the
+              view, replaying one captured graph, the PNG writing and the
+              total time); render_view and the
               SfM colours on the card against the CPU (64x48, tests/
               test_torch_scenegen.py's bars); the config-4 flags but bf16
               through tools.train, --scan-steps 10 included (GARDEN_* below;
@@ -154,9 +157,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               copy in and clone out; the impact drop with the scatter
               reduction at K = 1; recapture at pair_capacity 2^22, after
               state.grow and for an evicted key, the cache within its bound;
-              in a child process, a step body and a render with a host
-              read must each fail its capture with an error naming that
-              line (no fallback);
+              in a child process, a step body, a render and a density
+              event with a host read must each fail its capture with an
+              error naming that line (no fallback);
               tools.train --scan-steps 10 against --scan-steps 1 on a
               25-view COLMAP scene of the 100k Gaussians (60 iterations,
               densify at 20, 40, 60): final checkpoints bit-identical, both
@@ -182,14 +185,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               exact launch counts (`render_graph`).  Phase 8 serves the viewer's frames through
               the render graph and, in turns, the eager render: both p50 /
               p90 and the render's share are printed after phase 8.
+ 14. last dispatches  the last jax.jit sites as CUDA graphs (train/graph.py;
+              phase_last_dispatches): (i) in phase 10's NCCL child, the
+              sharded step (5 chained), batched step (K = 2) and render
+              through parallel/sharded.make_sharded_*, which replay their
+              graphs, against the bodies run eagerly, bit for bit, launches
+              exact (`sharded_graph`); the gloo ranks capture nothing;
+              (ii) densify_step at 2^19 slots of the 100k scene, at
+              iterations 1000 and 3500 (one capture), against
+              densify_step_eager, state, stats and generator bit for bit,
+              the caller's state untouched; the draw and the event given
+              its draw timed apart; opacity_reset_step against its eager
+              form; (iii) the garden's tracer over 8 ring views at 800x608
+              against render_view_tensor_eager bit for bit (one capture).
+              Each graph: the host clock in turns (graph, eager, eager,
+              graph), device time and idle share of both, capture seconds
+              and pool bytes.  Phases 7 and 8 run their density events and
+              the dataset through these graphs (their warm-up calls launch
+              no blend kernel, so the exact launch checks add none).
 
-Phases 4-13 train through train/trainer.train_step, train_steps and
+Phases 4-14 train through train/trainer.train_step, train_steps and
 train_step_batched and render through train/graph.render_frame, which on
 the card replay CUDA graphs: a capture's warm-up call launches its mode's
 kernels once per view outside any replay, and the exact launch checks
 count them (graph.counts["warmup_steps"], ["warmup_renders"]).
 
-Every main path (phases 4-13) runs with the launch counts set to 0 before
+Every main path (phases 4-14) runs with the launch counts set to 0 before
 it and read after it: each kernel of the path must have launched, and the
 first design's entries never.
 
@@ -408,6 +429,16 @@ VIEWS_STEPS = 2
 VIEWS_TIMED = 5
 FRAMES = 10
 TOOL_VIEWS = 4
+# phase 14: the last dispatches.  The density events on the 100k scene in
+# phase 7's COLMAP capacity (2^19 slots), accumulators set as density_case
+# sets them (three opacities at -6 prune), at LAST_DENSITY_ITERS (before
+# and past the opacity reset interval: screen pruning off and on),
+# LAST_TIMED events per timed turn; the garden's tracer over
+# LAST_TRACE_VIEWS ring views at the dataset's 800x608
+LAST_DENSITY_CAPACITY = 1 << 19
+LAST_DENSITY_ITERS = (1000, 3500)
+LAST_TIMED = 5
+LAST_TRACE_VIEWS = 8
 SCRATCH = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 
@@ -1703,7 +1734,7 @@ def phase_trainloop(params, smi):
     from gaussiansplatting_tpu_torch.density import control
     from gaussiansplatting_tpu_torch.io.dataset import load_colmap_scene
     from gaussiansplatting_tpu_torch.tools import trace
-    from gaussiansplatting_tpu_torch.train import checkpoint, trainer
+    from gaussiansplatting_tpu_torch.train import checkpoint, graph, trainer
     from gaussiansplatting_tpu_torch.train import state as state_mod
 
     root = os.path.join(SCRATCH, "trainloop")
@@ -1771,6 +1802,8 @@ def phase_trainloop(params, smi):
         return st
 
     _reset_launches()
+    counted = ("captures", "density_captures", "warmup_events")
+    c0 = {k: graph.counts[k] for k in counted}
     trainer.train_step, trainer.densify_step, trainer.opacity_reset_step = (
         train_step, densify_step, opacity_reset_step)
     checkpoint.save = lambda *a, **k: timed("checkpoint", originals[3], *a, **k)
@@ -1781,6 +1814,16 @@ def phase_trainloop(params, smi):
          checkpoint.save) = originals
     torch.cuda.synchronize()
     launches = _tf_launches()
+    # the density events replay their own graphs (one densify, one reset
+    # capture) and never evict or recapture the step's
+    res["captures"] = {k: graph.counts[k] - c0[k] for k in counted}
+    log(f"[trainloop] graph captures in the CLI run: {res['captures']} (step graphs, density "
+        f"event graphs, density warm-up events); density graphs live (pool bytes, warm-up s, "
+        f"capture s) {[(g.pool_bytes, g.warmup_s, g.capture_s) for g in graph.live_events()]}; "
+        f"each event's s (host clock, synchronized) "
+        f"{[(w, round(x, 4)) for _, x, w in spans if w == 'density']}")
+    if res["captures"] != {"captures": 1, "density_captures": 2, "warmup_events": 2}:
+        raise AssertionError(f"the CLI's density events recaptured a graph: {res['captures']}")
     _check_no_v1("the COLMAP trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
@@ -2070,10 +2113,16 @@ def phase_garden(smi):
     sparse, image_dir = os.path.join(root, "sparse", "0"), os.path.join(root, "images")
     res = {"launches": {}}
 
-    # (i) the dataset through its CLI, at its defaults
+    # (i) the dataset through its CLI, at its defaults (its views replay
+    # the tracer's graph: one capture)
+    counted = ("trace_captures", "captures", "density_captures")
+    c0 = {k: graph.counts[k] for k in counted}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = make_dataset.main(["--out", root, "--device", DEVICE])
+    res["captures"] = {"dataset": {k: graph.counts[k] - c0[k] for k in counted}}
+    if res["captures"]["dataset"]["trace_captures"] != 1:
+        raise AssertionError(f"tools.make_dataset: {res['captures']['dataset']} captures")
     ds = json.loads(buf.getvalue().strip().splitlines()[-1])
     n_images = len(os.listdir(image_dir))
     n_points = len(colmap.load_colmap(sparse).points)
@@ -2120,6 +2169,7 @@ def phase_garden(smi):
 
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    c0 = {k: graph.counts[k] for k in counted}
     stepping = _stamp_steps(trainer, iters, stamps)
     trainer.densify_step, trainer.opacity_reset_step = densify_step, opacity_reset_step
     try:
@@ -2129,6 +2179,7 @@ def phase_garden(smi):
         trainer.densify_step, trainer.opacity_reset_step = originals
     torch.cuda.synchronize()
     launches = _tf_launches()
+    res["captures"]["train"] = {k: graph.counts[k] - c0[k] for k in counted}
     warm, warm_r = _warmups(), _warm_renders()
     _check_no_v1("the garden trainer", launches)
     lines = _read_jsonl(metrics_path)
@@ -2158,7 +2209,10 @@ def phase_garden(smi):
         + "; renders " + "; ".join(f"{c}, {p}: {b / 2**20:.1f}"
                                    for c, p, b in res["pools"]["renders"])
         + f"; {warm} warm-up step views, {warm_r} warm-up renders; torch.cuda."
-        f"max_memory_reserved {res['max_reserved'] / 2**30:.2f} GiB")
+        f"max_memory_reserved {res['max_reserved'] / 2**30:.2f} GiB; captures (the dataset, "
+        f"tools.train) {res['captures']}; density graphs (capacity, pool MiB) "
+        + "; ".join(f"{g.buffers[0].shape[0]}: {g.pool_bytes / 2**20:.1f}"
+                    for g in graph.live_events()))
     wall = stamps[-1][0] - stamps[0][0]
     res["iters_per_s"] = _rate(stamps)
     res["chunks"] = sum(c == GRAPH_STEPS for _, _, c in stamps)
@@ -2489,7 +2543,7 @@ def _sharded_rank(topo, size):
     from gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
     from gaussiansplatting_tpu_torch.parallel import sharded
     from gaussiansplatting_tpu_torch.tools.trace import device_profile
-    from gaussiansplatting_tpu_torch.train import schedule
+    from gaussiansplatting_tpu_torch.train import graph, schedule
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train.trainer import train_step, train_step_batched
     from gaussiansplatting_tpu_torch.utils import synthetic
@@ -2568,7 +2622,86 @@ def _sharded_rank(topo, size):
     res.update(profile_host_ms=host, collectives_ms=coll,
                collectives_share=sum(coll.values()) / host, device_ms=device_ms,
                device_comm_ms=sum(comm.values()), device_comm_kernels=comm)
+    # phase 14 (i): an NCCL rank replays the sharded graphs; a gloo rank
+    # captures none
+    res["sharded_captures"] = graph.counts["sharded_captures"]
+    if sharded.replays(topo["backend"], dev):
+        res["graph"], res["graph_launches"] = _sharded_graphs(
+            mesh, params, cams, gts, cfg, size["smi"], dev, reps)
     return res
+
+
+def _sharded_graphs(mesh, params, cams, gts, cfg, smi, dev, reps):
+    """Phase 14 (i), on phase 10's NCCL rank: the sharded step (``reps``
+    chained), batched step (K = 2, two chained) and render (two views)
+    through make_sharded_*, which replay their CUDA graphs, against the
+    bodies run eagerly (parallel/sharded.step_body, batched_body,
+    render_body) from one state, every state array and output bit for bit;
+    launches exactly what each capture recorded, with its warm-up call;
+    the host clock in turns (graph, eager, eager, graph), device time and
+    idle share of both, capture seconds and pool bytes.  Returns (per kind
+    its numbers, the launches of the path `sharded_graph`)."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.parallel import sharded
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+
+    graph.clear()
+    st0 = state_mod.create(params)
+    step = sharded.make_sharded_train_step(mesh, cfg, TRAIN_TOTAL_ITERS)
+    batched = sharded.make_sharded_train_step_batched(mesh, cfg, TRAIN_TOTAL_ITERS, 2)
+    render = sharded.make_sharded_render(mesh, cfg)
+
+    def eager(body, st, views):
+        scalars = trainer.device_scalars(cfg, st.opt.t, 1, TRAIN_TOTAL_ITERS, dev)[0]
+        return body(st, *views, cfg, scalars, mesh)
+
+    def chain(kind, use_graph, calls):
+        """``calls`` steps (or frames) of ``kind`` from st0: (state or
+        None, every output stacked)."""
+        st, outs = st0, []
+        for i in range(calls):
+            if kind == "step":
+                views = (cams[i % 2], gts[i % 2])
+                st, m = step(st, *views) if use_graph else eager(sharded.step_body, st, views)
+            elif kind == "batched":
+                views = (cams[i % 2:] + cams[:i % 2], gts[i % 2:] + gts[:i % 2])
+                st, m = batched(st, *views) if use_graph else eager(sharded.batched_body, st,
+                                                                       views)
+            else:
+                m = render(params, cams[i % 2]) if use_graph else sharded.render_body(
+                    params, cams[i % 2], cfg.raster, mesh)
+            outs.append(m)
+        return (st if kind != "render" else None), type(outs[0])(
+            *(torch.stack(xs) for xs in zip(*outs)))
+
+    out, paths = {}, {}
+    for kind, calls in (("step", reps), ("batched", 2), ("render", 2)):
+        label = f"[last dispatches] sharded {kind}, 1 NCCL rank"
+        _reset_launches()
+        c0 = graph.counts["sharded_captures"]
+        got, gm = chain(kind, True, calls)
+        torch.cuda.synchronize(dev)
+        launches = _tf_launches()
+        captured = graph.counts["sharded_captures"] - c0
+        want, wm = chain(kind, False, calls)
+        if got is not None:
+            _same_bits(label, got, gm, want, wm)
+        elif any(_bytes(x) != _bytes(y) for x, y in zip(gm, wm)):
+            raise AssertionError(f"{label}: the replays and the eager renders differ")
+        g = graph.live_sharded()[-1]
+        if captured != 1:
+            raise AssertionError(f"{label}: {captured} captures")
+        _exact_replays(label, launches, g.launches, calls, 1)
+        for name, n in launches.items():
+            paths[name] = paths.get(name, 0) + n
+        out[kind] = _graph_turns(label, lambda i: chain(kind, True, 1),
+                                 lambda i: chain(kind, False, 1), calls, smi)
+        out[kind].update(capture_s=g.capture_s, warmup_s=g.warmup_s, pool_bytes=g.pool_bytes,
+                         launches_per_call=g.launches, calls_compared=calls)
+    graph.clear()
+    return out, paths
 
 
 def phase_parallel(params, camera, cfg, gt, smi):
@@ -2775,9 +2908,18 @@ def phase_parallel(params, camera, cfg, gt, smi):
             f"step: step {r0['step']}, batched "
             f"{r0['batched']}; render max|err| {r0['render_err']:.3e}; ranks' states "
             f"bit-identical; chunked all-reduce bit-identical; launches rank 0 {r0['launches']}")
+        if backend == "gloo" and any(x["sharded_captures"] for x in ranks):
+            raise AssertionError(f"a gloo rank captured a sharded graph: "
+                                 f"{[x['sharded_captures'] for x in ranks]}")
+        if backend == "nccl":
+            res["sharded_graph"] = r0["graph"]
+            paths["sharded_graph"] = r0["graph_launches"]
     _check_no_v1("the sharded steps", paths["sharded"])
     if min(paths["sharded"][k] for k in ("windowed_blend_fwd", "windowed_blend_bwd")) < 1:
         raise AssertionError(f"the sharded steps launched no kernel: {paths['sharded']}")
+    _check_no_v1("the sharded graphs", paths["sharded_graph"])
+    if min(paths["sharded_graph"][k] for k in ("windowed_blend_fwd", "windowed_blend_bwd")) < 1:
+        raise AssertionError(f"the sharded graphs launched no kernel: {paths['sharded_graph']}")
 
     # (iv) tools.train --batch-views 2 and --devices 2 on phase 7's scene
     root = os.path.join(SCRATCH, "parallel")
@@ -3295,7 +3437,8 @@ def _failing_capture():
     the host (a sync no capture can hold) must fail its capture with an
     error naming that line, and leave no graph behind (nothing falls back
     to eager steps); so must a render that reads its pair count back
-    (graph.render_frame).  Prints one JSON line."""
+    (graph.render_frame) and a density event that reads its iteration back
+    (graph.run_event).  Prints one JSON line."""
     import torch
 
     from gaussiansplatting_tpu_torch.config import Config, RasterConfig
@@ -3315,7 +3458,13 @@ def _failing_capture():
         int(aux.num_pairs)                      # the host read
         return img, aux
 
+    def syncing_event(state, iteration, r, focal, cfg, scene_extent):
+        int(iteration)                          # the host read
+        return real_event(state, iteration, r, focal, cfg, scene_extent)
+
+    real_event = trainer.densify_body
     trainer.step_body, rasterize.render = syncing, syncing_render
+    trainer.densify_body = syncing_event
     cfg = Config(raster=RasterConfig(pair_capacity=1 << 14, pair_block=16))
     params = synthetic.make_scene(300, seed=4, device=DEVICE)
     camera = synthetic.make_canonical_camera(64, 48, device=DEVICE)
@@ -3332,8 +3481,14 @@ def _failing_capture():
         out.update(render_error=str(e).splitlines()[0],
                    render_captures=graph.counts["render_captures"],
                    live_renders=len(graph.live_renders()))
+    try:
+        trainer.densify_step(state_mod.create(params), 1.0, camera.fx, cfg)
+    except RuntimeError as e:
+        out.update(event_error=str(e).splitlines()[0],
+                   event_captures=graph.counts["density_captures"],
+                   live_events=len(graph.live_events()))
     if set(out) != {"error", "captures", "live", "render_error", "render_captures",
-                    "live_renders"}:
+                    "live_renders", "event_error", "event_captures", "live_events"}:
         raise AssertionError(f"a step or a render that reads the card back was captured: {out}")
     print(json.dumps(out))
     return 0
@@ -3505,7 +3660,8 @@ def phase_graph(params, smi):
                             "sys.exit(chip_smoke._failing_capture())"], cwd=REPO,
                            capture_output=True, text=True, timeout=600)
     fail = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
-    log(f"[graph] a step and a render with a host read: {fail or child.stderr[-2000:]}")
+    log(f"[graph] a step, a render and a density event with a host read: "
+        f"{fail or child.stderr[-2000:]}")
     if not fail or "capturing the train step failed at" not in fail["error"] or \
             "chip_smoke.py" not in fail["error"] or fail["captures"] or fail["live"]:
         raise AssertionError("a failed capture did not raise naming its op, or kept a graph")
@@ -3514,8 +3670,14 @@ def phase_graph(params, smi):
             fail["live_renders"]:
         raise AssertionError("a failed render capture did not raise naming its op, or kept a "
                              "graph")
+    if "capturing the density event" not in fail["event_error"] or \
+            "int(iteration)" not in fail["event_error"] or fail["event_captures"] or \
+            fail["live_events"]:
+        raise AssertionError("a failed density event capture did not raise naming its op, or "
+                             "kept a graph")
     res["failed_capture"] = fail["error"]
     res["failed_render_capture"] = fail["render_error"]
+    res["failed_event_capture"] = fail["event_error"]
 
     # (vii) tools.train --scan-steps K against --scan-steps 1
     root = os.path.join(SCRATCH, "graph")
@@ -3951,6 +4113,186 @@ def phase_graph_views(params, smi):
     return res
 
 
+def _event_state(params, iteration):
+    """The 100k scene in LAST_DENSITY_CAPACITY slots at ``iteration``, its
+    accumulators set so that an event clones and splits and three
+    opacities at -6 so that it prunes; generator seeded DENSITY_SEED."""
+    import numpy as np
+
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+
+    host = state_mod.state_to_numpy(state_mod.grow(state_mod.create(params),
+                                                   LAST_DENSITY_CAPACITY))
+    n = params.capacity
+    rng = np.random.default_rng(DENSITY_SEED)
+    host["params/raw_opacities"][[3, 17, 40]] = -6.0
+    host["accum/grad_accum"][:n] = rng.uniform(0.0, 8e-4, n).astype(np.float32)
+    host["accum/grad_count"][:n] = rng.integers(1, 4, n).astype(np.int32)
+    host["opt/m/means"][:n] = rng.normal(0, 1e-3, (n, 3)).astype(np.float32)
+    host["opt/t"] = np.asarray(iteration, np.int32)
+    return state_mod.state_from_numpy(host, DEVICE, seed=DENSITY_SEED)
+
+
+def _graph_turns(label, graph_fn, eager_fn, calls, smi):
+    """``fn(i)`` for i < ``calls`` on the host clock in turns (graph,
+    eager, eager, graph), ms per call, and the device time of ``fn(0)``
+    (tools.trace.device_profile, 3 calls) of both: the numbers phase 14
+    prints for one graph."""
+    from gaussiansplatting_tpu_torch.tools import trace
+
+    turns = [_host_ms(lambda: [f(i) for i in range(calls)], calls)
+             for f in (graph_fn, eager_fn, eager_fn, graph_fn)]
+    dev_graph, _ = trace.device_profile(f"{label} replays", lambda: graph_fn(0), 3, smi, DEVICE,
+                                        log, 6)
+    dev_eager, _ = trace.device_profile(f"{label} eager", lambda: eager_fn(0), 3, smi, DEVICE,
+                                        log, 0)
+    graph_ms, eager_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return {"host_ms_turns": turns, "graph_ms": graph_ms, "eager_ms": eager_ms,
+            "device_ms": dev_graph, "eager_device_ms": dev_eager,
+            "idle": 1 - dev_graph / graph_ms, "eager_idle": 1 - dev_eager / eager_ms}
+
+
+def _same_state(label, got, want):
+    """Two states equal bit for bit (every array, the timestep and the
+    generator's state); returns the arrays compared."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.train.state import state_to_numpy
+
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    differ = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    if differ or not torch.equal(got.generator.get_state(), want.generator.get_state()):
+        raise AssertionError(f"{label}: the replay and the eager call differ in {differ} "
+                             f"or the generator")
+    return len(a)
+
+
+def _log_turns(label, r, what, smi):
+    log(f"{label}: {what}; host clock per call, graph / eager / eager / graph "
+        f"{', '.join(f'{t:.3f}' for t in r['host_ms_turns'])} ms; device {r['device_ms']:.3f} ms "
+        f"per replay, {r['eager_device_ms']:.3f} per eager call; the card idles "
+        f"{r['idle']:.3f} of the replay, {r['eager_idle']:.3f} of the eager call; capture "
+        f"{r['capture_s']:.3f} s after a {r['warmup_s']:.3f} s warm-up call, pool "
+        f"{r['pool_bytes'] / 2**20:.1f} MiB, on {smi}")
+
+
+def phase_last_dispatches(params, smi, sharded_graph):
+    """The last jax.jit sites as CUDA graphs (train/graph.py): (i) the
+    sharded step, batched step and render on one NCCL rank, measured in
+    phase 10's child (_sharded_graphs); (ii) densify_step and
+    opacity_reset_step at 2^19 slots: replays against the eager events
+    (densify_step_eager, opacity_reset_step_eager) from one state, every
+    state array, the stats and the generator bit for bit, the caller's
+    state and generator untouched, one capture per event for both
+    iterations; the event, the draw and the event without its draw timed
+    apart, in turns; (iii) the garden's tracer over LAST_TRACE_VIEWS ring
+    views at 800x608, replays against render_view_tensor_eager bit for
+    bit, one capture; host clock in turns, device time, idle share,
+    capture seconds and pool bytes of each graph."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.core.camera import quat_to_rotmat_np
+    from gaussiansplatting_tpu_torch.density import control
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as state_mod
+    from gaussiansplatting_tpu_torch.utils import scenegen
+
+    res = {"sharded": sharded_graph, "density": {}}
+    for kind, r in sharded_graph.items():
+        _log_turns(f"[last dispatches] sharded {kind}, 1 NCCL rank (phase 10's child)", r,
+                   f"{r['calls_compared']} replays = eager calls bit for bit, launches per "
+                   f"replay {r['launches_per_call']}", smi)
+
+    # (ii) the density events
+    graph.clear()
+    cfg = Config()
+    fx = torch.tensor(WIDTH * 1.2, dtype=torch.float32, device=DEVICE)
+    c0 = graph.counts["density_captures"]
+    for it in LAST_DENSITY_ITERS:
+        st = _event_state(params, it)
+        before, gen = _digest(st), st.generator.get_state().clone()
+        got, gs = trainer.densify_step(st, DENSITY_EXTENT, fx, cfg)
+        want, ws = trainer.densify_step_eager(st, DENSITY_EXTENT, fx, cfg)
+        n = _same_state(f"[last dispatches] densify_step at {it}", got, want)
+        if any(_bytes(x) != _bytes(y) for x, y in zip(gs, ws)):
+            raise AssertionError(f"densify_step at {it}: the stats differ")
+        if _digest(st) != before or not torch.equal(st.generator.get_state(), gen):
+            raise AssertionError(f"densify_step at {it}: the caller's state changed")
+        res["density"][it] = {"stats": tuple(map(int, gs)), "arrays": n}
+    stats = [r["stats"] for r in res["density"].values()]
+    if graph.counts["density_captures"] - c0 != 1 or min(min(x[:3]) for x in stats) <= 0:
+        raise AssertionError(f"densify_step: {graph.counts['density_captures'] - c0} captures, "
+                             f"stats {stats}")
+    g = graph.live_events()[-1]
+    r = res["density"]["event"] = _graph_turns(
+        "[last dispatches] densify_step",
+        lambda i: trainer.densify_step(st, DENSITY_EXTENT, fx, cfg),
+        lambda i: trainer.densify_step_eager(st, DENSITY_EXTENT, fx, cfg), LAST_TIMED, smi)
+    r.update(capture_s=g.capture_s, warmup_s=g.warmup_s, pool_bytes=g.pool_bytes)
+    _log_turns(f"[last dispatches] densify_step at {LAST_DENSITY_CAPACITY} slots", r,
+               f"replays = eager events bit for bit (state, stats, generator; the caller's "
+               f"state untouched) at iterations {LAST_DENSITY_ITERS}, (pruned, cloned, split, "
+               f"alive) {stats}", smi)
+    # the event's two halves: the draw on the CPU generator with its copy to
+    # the card, and the event given the draw
+    r["draw_ms"] = _host_ms(lambda: [control.draw_split_offsets(
+        state_mod.clone_generator(st.generator), st.params.capacity, DEVICE)
+        for _ in range(LAST_TIMED)], LAST_TIMED)
+    draw = control.draw_split_offsets(state_mod.clone_generator(st.generator),
+                                      st.params.capacity, DEVICE)
+    inputs = (torch.tensor(st.opt.t, dtype=torch.int32), draw, fx)
+    a = res["density"]["apply"] = _graph_turns(
+        "[last dispatches] the event given its draw",
+        lambda i: graph.run_event(trainer.densify_body, st, inputs, cfg, DENSITY_EXTENT),
+        lambda i: trainer.densify_body(st, st.opt.t, draw, fx, cfg, DENSITY_EXTENT),
+        LAST_TIMED, smi)
+    log(f"[last dispatches] densify_step's halves: the draw and its copy {r['draw_ms']:.3f} ms "
+        f"(host clock, {LAST_TIMED} draws); the event given its draw, graph / eager / eager / "
+        f"graph {', '.join(f'{t:.3f}' for t in a['host_ms_turns'])} ms, device "
+        f"{a['device_ms']:.3f} / {a['eager_device_ms']:.3f} ms, idle {a['idle']:.3f} / "
+        f"{a['eager_idle']:.3f}, on {smi}")
+    got = trainer.opacity_reset_step(st, cfg)
+    n = _same_state("[last dispatches] opacity_reset_step", got,
+                    trainer.opacity_reset_step_eager(st, cfg))
+    if graph.counts["density_captures"] - c0 != 2 or got.generator is not st.generator:
+        raise AssertionError("opacity_reset_step: not one capture, or another generator")
+    g = graph.live_events()[-1]
+    r = res["density"]["reset"] = _graph_turns(
+        "[last dispatches] opacity_reset_step", lambda i: trainer.opacity_reset_step(st, cfg),
+        lambda i: trainer.opacity_reset_step_eager(st, cfg), LAST_TIMED, smi)
+    r.update(capture_s=g.capture_s, warmup_s=g.warmup_s, pool_bytes=g.pool_bytes)
+    _log_turns(f"[last dispatches] opacity_reset_step at {LAST_DENSITY_CAPACITY} slots", r,
+               f"replay = eager reset bit for bit ({n} state arrays)", smi)
+    graph.clear()
+
+    # (iii) the garden's tracer
+    w, h = GARDEN_WIDTH, GARDEN_HEIGHT
+    f = 0.5 * w / np.tan(0.5 * np.deg2rad(60.0))
+    views = [(quat_to_rotmat_np(q), t, f, f, w / 2.0, h / 2.0, w, h)
+             for q, t, _ in scenegen.camera_ring_poses(GARDEN_VIEWS, seed=0)[:LAST_TRACE_VIEWS]]
+    c0 = graph.counts["trace_captures"]
+    for i, v in enumerate(views):
+        got = scenegen.render_view_tensor(*v, DEVICE)
+        if not torch.equal(got, scenegen.render_view_tensor_eager(*v, DEVICE)):
+            raise AssertionError(f"the garden tracer's replay of view {i} differs from the "
+                                 f"eager trace")
+    if graph.counts["trace_captures"] - c0 != 1:
+        raise AssertionError(f"the tracer: {graph.counts['trace_captures'] - c0} captures")
+    g = graph.live_traces()[-1]
+    r = res["trace"] = _graph_turns(
+        "[last dispatches] the garden tracer",
+        lambda i: scenegen.render_view_tensor(*views[i], DEVICE),
+        lambda i: scenegen.render_view_tensor_eager(*views[i], DEVICE), len(views), smi)
+    r.update(capture_s=g.capture_s, warmup_s=g.warmup_s, pool_bytes=g.pool_bytes,
+             views=len(views))
+    _log_turns(f"[last dispatches] the garden tracer at {w}x{h}, per view", r,
+               f"{len(views)} replays = eager views bit for bit, one capture", smi)
+    graph.clear()
+    return res
+
+
 def main() -> int:
     name, smi, clock_mhz = phase_device()
 
@@ -3985,6 +4327,7 @@ def main() -> int:
     md = phase_modes(params, camera, cfg, gt, smi)
     gr = phase_graph(params, smi)
     gv = phase_graph_views(params, smi)
+    last = phase_last_dispatches(params, smi, par["sharded_graph"])
     del params, camera, gt
     torch.cuda.empty_cache()
     gd = phase_garden(smi)
@@ -4132,7 +4475,9 @@ def main() -> int:
         "graph_batched": gv["batched"], "graph_render": gv["render"],
         "graph_tools": gv["tools"], "graph_views_live": gv["live"],
         "graph_capture_modes": gv["capture_modes"],
-        "garden_scan_chunks": gd["chunks"]}))
+        "garden_scan_chunks": gd["chunks"],
+        "last_dispatches": last, "trainloop_graph_captures": tl["captures"],
+        "garden_graph_captures": gd["captures"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

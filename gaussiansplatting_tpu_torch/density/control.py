@@ -13,7 +13,11 @@ their moments, clone copies and split children start from zero.
 
 The randomness of a split is an argument: ``apply`` takes the [C, 3]
 uniform(-1, 1) draw ``r``, which ``draw_split_offsets`` makes on the state's
-CPU generator, so a card and the CPU split with the same offsets.
+CPU generator, so a card and the CPU split with the same offsets.  The
+iteration is an int or, as in JAX where it is a traced value
+(control.py:113, 121-124), a 0-d integer tensor: the decisions are tensor
+ops on it, so an event captured as a CUDA graph (train/graph.py) reads it
+from its buffer; the booleans are the same either way.
 """
 
 from __future__ import annotations
@@ -92,10 +96,12 @@ def _max_scale(log_scales, max_scale_log):
 
 
 def _approx_screen_radius_px(log_scales, focal, avg_depth, max_scale_log):
-    """focal * maxScale * 3 / depth in pixels (density_control.mm:56-76)."""
+    """focal * maxScale * 3 / depth in pixels (density_control.mm:56-76).
+    The depth is a 0-d tensor made by a fill (a captured event copies
+    nothing from the host)."""
     max_scale = _max_scale(log_scales, max_scale_log)
-    depth = torch.clamp(torch.as_tensor(avg_depth, dtype=torch.float32,
-                                        device=log_scales.device), min=0.1)
+    depth = torch.clamp(torch.full((), avg_depth, dtype=torch.float32,
+                                   device=log_scales.device), min=0.1)
     return focal * max_scale * 3.0 / depth
 
 
@@ -110,23 +116,26 @@ def _cumsum32(x):
 def draw_split_offsets(generator: torch.Generator, capacity: int, device) -> torch.Tensor:
     """The [C, 3] uniform(-1, 1) draw of one density event, made on the CPU
     generator and copied to ``device``: every device splits with the same
-    offsets (a copy of at most 18 MB at the 1.5M cap, once per event)."""
-    r = torch.empty((capacity, 3), dtype=torch.float32).uniform_(-1.0, 1.0, generator=generator)
-    return r.to(device)
+    offsets (a copy of at most 18 MB at the 1.5M cap, once per event; to a
+    CUDA device from pinned memory, without waiting for the device)."""
+    cuda = torch.device(device).type == "cuda"
+    r = torch.empty((capacity, 3), dtype=torch.float32, pin_memory=cuda)
+    return r.uniform_(-1.0, 1.0, generator=generator).to(device, non_blocking=cuda)
 
 
 @torch.no_grad()
 def decide(
     params: GaussianParams,
     accum: DensityAccum,
-    iteration: int,
+    iteration: int | torch.Tensor,
     scene_extent: float,
     focal: torch.Tensor,
     avg_depth: float,
     cfg: DensityConfig,
 ) -> DensityPlan:
     """Decisions, capacity clamp and destinations of one density event
-    (JAX control.py:95-175)."""
+    (JAX control.py:95-175).  ``iteration``: an int, or a 0-d integer
+    tensor on the parameters' device."""
     C = params.capacity
     alive = params.alive
     opacity = sigmoid(params.raw_opacities.detach())
@@ -139,15 +148,16 @@ def decide(
     max_scale = _max_scale(log_scales, cfg.max_scale_log)
 
     # ---- decisions (density_control.mm:262-348) ----
+    # the iteration's tests are tensor ops where it is a tensor (a bool or
+    # a 0-d bool tensor), as JAX's are, never a branch on the host
     prune = opacity < cfg.opacity_prune_threshold
     screen_pruning = iteration > cfg.opacity_reset_interval
-    if screen_pruning:
-        world_prune = max_scale > cfg.world_prune_factor * scene_extent
-        screen_px = _approx_screen_radius_px(log_scales, focal, avg_depth, cfg.max_scale_log)
-        prune = prune | world_prune | (screen_px > cfg.screen_prune_pixels)
+    world_prune = max_scale > cfg.world_prune_factor * scene_extent
+    screen_px = _approx_screen_radius_px(log_scales, focal, avg_depth, cfg.max_scale_log)
+    prune = prune | (screen_pruning & (world_prune | (screen_px > cfg.screen_prune_pixels)))
     prune = prune & alive
 
-    can_densify = cfg.densify_from_iter < iteration < cfg.densify_until_iter
+    can_densify = (iteration > cfg.densify_from_iter) & (iteration < cfg.densify_until_iter)
     wants = alive & ~prune & (avg_grad > cfg.grad_threshold) & can_densify
     split = wants & (max_scale > cfg.percent_dense * scene_extent)
     clone = wants & ~split
@@ -186,7 +196,7 @@ def apply(
     params: GaussianParams,
     opt: AdamState,
     accum: DensityAccum,
-    iteration: int,
+    iteration: int | torch.Tensor,
     r: torch.Tensor,
     scene_extent: float,
     focal: torch.Tensor,
@@ -198,7 +208,9 @@ def apply(
     Thresholds and ordering match DensityController::apply
     (density_control.mm:188-500) with the engine's call-site arguments
     (mtl_engine.mm:1117-1147: avg_depth = 2*extent, focal at texture scale);
-    ``r`` is the event's [C, 3] uniform(-1, 1) draw (draw_split_offsets).
+    ``r`` is the event's [C, 3] uniform(-1, 1) draw (draw_split_offsets);
+    ``iteration`` as decide takes it.  Reads no device value back to the
+    host.
     """
     C = params.capacity
     plan = decide(params, accum, iteration, scene_extent, focal, avg_depth, cfg)

@@ -21,6 +21,19 @@ strips.  No float atomics: the reductions are the backend's collectives.
 
 Every collective runs inside a ``torch.profiler.record_function`` span
 (COLLECTIVE_SPANS), so a profile of a step reads the time spent in them.
+
+Dispatch (the counterpart of JAX's ``jax.jit`` of each sharded function,
+sharded.py:166, 283, 316): the step, the batched step and the render are
+module-level bodies (``step_body``, ``batched_body``, ``render_body``) that
+take the mesh and the chunks as arguments and the step's scalars
+(schedule.step_scalars) as a device tensor.  On a CUDA rank of an NCCL
+group (``replays``) the functions that ``make_sharded_*`` return replay the
+bodies captured as CUDA graphs (train/graph.py: once per key, which holds
+the body, the mesh's size and rank, the backend and the chunks; NCCL's
+kernels are captured with the rest).  A gloo rank, on the CPU or sharing a
+card (parallel/launch.BACKEND_RULE), runs the bodies op by op: gloo's
+collectives run on the host, where no capture can hold them.  A failed
+NCCL capture raises; nothing falls back to eager calls.
 """
 
 from __future__ import annotations
@@ -35,7 +48,7 @@ from gaussiansplatting_tpu_torch.ops import projection as proj_mod
 from gaussiansplatting_tpu_torch.ops.losses import photometric_loss
 from gaussiansplatting_tpu_torch.ops.rasterize import render
 from gaussiansplatting_tpu_torch.parallel.mesh import Mesh, require_process_group
-from gaussiansplatting_tpu_torch.train import optimizer
+from gaussiansplatting_tpu_torch.train import graph, optimizer
 from gaussiansplatting_tpu_torch.train import trainer
 
 
@@ -119,65 +132,54 @@ def _sum_counts(mesh: Mesh, num_pairs, overflow):
     return counts[0], counts[1] > 0
 
 
-def make_sharded_train_step(mesh: Mesh, cfg: Config, total_iters: int,
-                            grad_psum_chunks: int = 1):
-    """The sharded step (state, camera, gt [H, W, 3]) -> (state,
-    StepMetrics), which every rank of ``mesh`` calls with the same
-    arguments (sharded.py:74-166).  ``grad_psum_chunks`` > 1 splits each
-    gradient all-reduce into that many slices (chunked_all_reduce)."""
-
-    def step(state, camera, gt_image):
-        _check_member(mesh)
-        params = state.params
-        trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
-        vs_zero = torch.zeros((params.capacity, 2), dtype=torch.float32,
-                              device=params.means.device, requires_grad=True)
-        with torch.enable_grad():
-            img, aux = _full_image(params, camera, cfg.raster, mesh, vs_zero)
-            rep = photometric_loss(img, gt_image, cfg.loss)
-            *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
-        grad = chunked_all_reduce(dict(zip(optimizer.TRAINABLE, grads)), mesh,
-                                  grad_psum_chunks)
-        vs_grad = _all_reduce(vs_grad, mesh)
-        pairs, overflow = _sum_counts(mesh, aux.num_pairs, aux.overflow)
-        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters,
-                                         params.means.device)[0]
-        return trainer.step_update(state, grad, vs_grad, rep, img, gt_image,
-                                   pairs[0].to(torch.int32), overflow[0], cfg, scalars)
-
-    return step
+def replays(backend: str, device) -> bool:
+    """True where the sharded functions replay CUDA graphs: a rank on a
+    CUDA device of an NCCL group.  Elsewhere (gloo) they run the bodies op
+    by op."""
+    return torch.device(device).type == "cuda" and backend == "nccl"
 
 
-def make_sharded_train_step_batched(mesh: Mesh, cfg: Config, total_iters: int,
-                                    batch_views: int, grad_psum_chunks: int = 1):
-    """The sharded step over K views (sharded.py:169-283): every view's
-    strip is gathered into its full image, one all-reduce per parameter
-    group completes the mean gradient, and the per-view vs_grad / pos_grad
-    are all-reduced for the per-view density statistics (train_step_batched).
-    ``num_pairs`` sums each view's strips first, then takes the max over
-    views."""
+def step_body(state, camera, gt_image, cfg: Config, scalars: torch.Tensor, mesh: Mesh,
+              grad_psum_chunks: int = 1):
+    """The sharded step on one view (sharded.py:74-166), given its
+    ``scalars`` as trainer.step_body takes them.  What train/graph.py
+    captures on an NCCL rank and a gloo rank runs; it reads no device value
+    back to the host."""
+    params = state.params
+    trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
+    vs_zero = torch.zeros((params.capacity, 2), dtype=torch.float32,
+                          device=params.means.device, requires_grad=True)
+    with torch.enable_grad():
+        img, aux = _full_image(params, camera, cfg.raster, mesh, vs_zero)
+        rep = photometric_loss(img, gt_image, cfg.loss)
+        *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
+    grad = chunked_all_reduce(dict(zip(optimizer.TRAINABLE, grads)), mesh, grad_psum_chunks)
+    vs_grad = _all_reduce(vs_grad, mesh)
+    pairs, overflow = _sum_counts(mesh, aux.num_pairs, aux.overflow)
+    return trainer.step_update(state, grad, vs_grad, rep, img, gt_image,
+                               pairs[0].to(torch.int32), overflow[0], cfg, scalars)
 
+
+def batched_body(state, cameras, gt_images, cfg: Config, scalars: torch.Tensor, mesh: Mesh,
+                 grad_psum_chunks: int = 1):
+    """The sharded step over K views (sharded.py:169-283), given its
+    ``scalars``: every view's strip is gathered into its full image, one
+    all-reduce per parameter group completes the mean gradient, and the
+    per-view vs_grad / pos_grad are all-reduced for the per-view density
+    statistics (train_step_batched).  ``num_pairs`` sums each view's strips
+    first, then takes the max over views.  Captured as step_body is."""
     def render_view(p, cam, vs):
         return _full_image(p, cam, cfg.raster, mesh, vs)
 
-    def step(state, cameras, gt_images):
-        _check_member(mesh)
-        if len(cameras) != batch_views:
-            raise ValueError(f"sharded batched step of {batch_views} views given {len(cameras)}")
-        grad, vs_grad, pos_grad, reps, auxs, imgs = trainer.batched_view_grads(
-            state.params, cameras, gt_images, cfg, render_view)
-        grad = chunked_all_reduce(grad, mesh, grad_psum_chunks)
-        vs_grad = _all_reduce(vs_grad, mesh)
-        pos_grad = _all_reduce(pos_grad, mesh)
-        pairs, overflow = _sum_counts(mesh, torch.stack([a.num_pairs for a in auxs]),
-                                      torch.stack([a.overflow for a in auxs]))
-        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters,
-                                         state.params.means.device)[0]
-        return trainer.batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
-                                      pairs.amax().to(torch.int32), overflow.any(), cfg,
-                                      scalars)
-
-    return step
+    grad, vs_grad, pos_grad, reps, auxs, imgs = trainer.batched_view_grads(
+        state.params, cameras, gt_images, cfg, render_view)
+    grad = chunked_all_reduce(grad, mesh, grad_psum_chunks)
+    vs_grad = _all_reduce(vs_grad, mesh)
+    pos_grad = _all_reduce(pos_grad, mesh)
+    pairs, overflow = _sum_counts(mesh, torch.stack([a.num_pairs for a in auxs]),
+                                  torch.stack([a.overflow for a in auxs]))
+    return trainer.batched_update(state, grad, vs_grad, pos_grad, reps, imgs, gt_images,
+                                  pairs.amax().to(torch.int32), overflow.any(), cfg, scalars)
 
 
 class ShardedRender(NamedTuple):
@@ -185,15 +187,74 @@ class ShardedRender(NamedTuple):
     num_pairs: torch.Tensor
 
 
+def render_body(params, camera, raster, mesh: Mesh) -> ShardedRender:
+    """The inference-only sharded render (sharded.py:286-316) under
+    ``torch.no_grad``: strips gathered, pair counts summed.  Captured as
+    step_body is."""
+    with torch.no_grad():
+        img, aux = _full_image(params, camera, raster, mesh)
+        pairs, _ = _sum_counts(mesh, aux.num_pairs, aux.overflow)
+    return ShardedRender(image=img, num_pairs=pairs[0].to(torch.int32))
+
+
+def make_sharded_train_step(mesh: Mesh, cfg: Config, total_iters: int,
+                            grad_psum_chunks: int = 1):
+    """The sharded step (state, camera, gt [H, W, 3]) -> (state,
+    StepMetrics), which every rank of ``mesh`` calls with the same
+    arguments (sharded.py:74-166).  ``grad_psum_chunks`` > 1 splits each
+    gradient all-reduce into that many slices (chunked_all_reduce).  A
+    replay of step_body's graph where ``replays``, step_body op by op
+    elsewhere; functional, as trainer.train_step."""
+
+    def step(state, camera, gt_image):
+        _check_member(mesh)
+        dev = state.params.means.device
+        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters, dev)
+        backend = dist.get_backend(mesh.group)
+        if replays(backend, dev):
+            new_state, ms = graph.run_sharded_steps(step_body, state, [camera], [gt_image], cfg,
+                                                    scalars, mesh, backend, grad_psum_chunks)
+            return new_state, trainer._metrics_at(ms, 0)
+        return step_body(state, camera, gt_image, cfg, scalars[0], mesh, grad_psum_chunks)
+
+    return step
+
+
+def make_sharded_train_step_batched(mesh: Mesh, cfg: Config, total_iters: int,
+                                    batch_views: int, grad_psum_chunks: int = 1):
+    """The sharded batched step (state, K cameras, K ground truths) ->
+    (state, StepMetrics) (sharded.py:169-283): batched_body, dispatched as
+    make_sharded_train_step dispatches step_body (one replay of K
+    views)."""
+
+    def step(state, cameras, gt_images):
+        _check_member(mesh)
+        if len(cameras) != batch_views:
+            raise ValueError(f"sharded batched step of {batch_views} views given {len(cameras)}")
+        dev = state.params.means.device
+        scalars = trainer.device_scalars(cfg, state.opt.t, 1, total_iters, dev)
+        backend = dist.get_backend(mesh.group)
+        if replays(backend, dev):
+            new_state, ms = graph.run_sharded_steps(batched_body, state, cameras, gt_images, cfg,
+                                                    scalars, mesh, backend, grad_psum_chunks,
+                                                    views=batch_views)
+            return new_state, trainer._metrics_at(ms, 0)
+        return batched_body(state, cameras, gt_images, cfg, scalars[0], mesh, grad_psum_chunks)
+
+    return step
+
+
 def make_sharded_render(mesh: Mesh, cfg: Config):
     """Inference-only sharded render (params, camera) -> ShardedRender
-    (sharded.py:286-316): strips gathered, pair counts summed."""
+    (sharded.py:286-316): render_body, a replay of its graph where
+    ``replays``, op by op elsewhere."""
 
     def run(params, camera) -> ShardedRender:
         _check_member(mesh)
-        with torch.no_grad():
-            img, aux = _full_image(params, camera, cfg.raster, mesh)
-            pairs, _ = _sum_counts(mesh, aux.num_pairs, aux.overflow)
-        return ShardedRender(image=img, num_pairs=pairs[0].to(torch.int32))
+        backend = dist.get_backend(mesh.group)
+        if replays(backend, params.means.device):
+            return graph.run_sharded_render(render_body, params, camera, cfg.raster, mesh,
+                                            backend)
+        return render_body(params, camera, cfg.raster, mesh)
 
     return run

@@ -1,7 +1,8 @@
-"""The compiled dispatch of the port: the train step, the batched train step
-and the inference render, each captured once per static key as a CUDA
-graph, then replayed.  This module is the port's counterpart of every
-``jax.jit`` of the JAX package:
+"""The compiled dispatch of the port: the train step, the batched train step,
+the inference render, the sharded steps and render, the density events and
+the garden's ray tracer, each captured once per static key as a CUDA graph,
+then replayed.  This module is the port's counterpart of every ``jax.jit``
+of the JAX package:
 
 - ``train_step = jax.jit(_train_step_impl)`` and the ``lax.scan`` program
   of ``train_steps`` (gaussiansplatting_tpu/train/trainer.py:93-123):
@@ -11,7 +12,19 @@ graph, then replayed.  This module is the port's counterpart of every
 - ``jax.jit(render, static_argnums=2)`` of the tools and the facade
   (tools/render.py:78, tools/view.py:132, tools/evaluate.py:61,
   tools/train.py:295, 336, 362, tools/bench_train.py:92,
-  models/gaussian_model.py:126): ``render_frame``.
+  models/gaussian_model.py:126): ``render_frame``;
+- ``jax.jit`` of the sharded step, batched step and render
+  (parallel/sharded.py:166, 283, 316): ``run_sharded_steps`` and
+  ``run_sharded_render`` with parallel/sharded.py's module-level bodies, on
+  a CUDA rank of an NCCL group (gloo's collectives run on the host, where
+  no capture can hold them: its ranks run the bodies op by op);
+- ``jax.jit(densify_step)`` and ``jax.jit(opacity_reset_step)``
+  (train/trainer.py:219, 243): ``run_event`` (``event_key``: the capacity,
+  the device, the SH width, the DensityConfig and the scene extent; the
+  iteration, the split draw and the focal length are inputs);
+- ``_render_view_jit`` (utils/scenegen.py:228-250): ``run_trace``
+  (``trace_key``: the resolution, the intrinsics and the device; the pose
+  is an input).
 
 JAX compiles once per static argument set and runs K steps as one program.
 Here a step is captured once per key (``step_key``: the Gaussian capacity,
@@ -43,12 +56,19 @@ invalidates the capture (chip_smoke.py phase 13 runs both modes beside such
 a thread); the capturing thread itself is still held to the capture's
 rules.
 
-Step graphs and render graphs are kept in two bounded caches (MAX_GRAPHS,
-MAX_RENDER_GRAPHS): the least recently used is freed with its pool before
-a new key is captured (another pair capacity, a grown state, another
-resolution or mode), and a tool that renders between steps keeps its step
-graph.  The caches are not locked: callers that share them across threads
-(tools/view.py) hold one lock around every call.
+Each kind of graph has a bounded cache of its own (MAX_GRAPHS steps,
+MAX_RENDER_GRAPHS renders, MAX_SHARDED_GRAPHS sharded calls,
+MAX_DENSITY_GRAPHS density events, MAX_TRACE_GRAPHS tracer views): the
+least recently used is freed with its pool before a new key is captured
+(another pair capacity, a grown state, another resolution or mode), so a
+tool that renders between steps, or a loop that densifies between steps,
+keeps its step graph.  The sharded cache holds only graphs whose
+collectives every rank of a mesh runs: each rank of the mesh makes the same
+sharded calls in the same order, so every rank captures, replays and evicts
+alike (a rank that captured alone would wait in its warm-up's first
+collective for ranks that replay).  The caches are not locked: callers
+that share them across threads (tools/view.py) hold one lock around every
+call.
 """
 
 from __future__ import annotations
@@ -68,6 +88,9 @@ from gaussiansplatting_tpu_torch.train.state import TrainState
 
 MAX_GRAPHS = 2          # two are enough for steps that alternate between two modes
 MAX_RENDER_GRAPHS = 2   # tools.train renders its snapshots and its held-out views
+MAX_SHARDED_GRAPHS = 3  # a mesh's sharded step, batched step and render
+MAX_DENSITY_GRAPHS = 2  # densify_step and opacity_reset_step
+MAX_TRACE_GRAPHS = 2    # the dataset's resolution and one other
 WARMUP_STEPS = 1
 CAPTURE_MODE = "thread_local"
 _ACCUM = ("grad_accum", "grad_count", "pos_grad_accum")
@@ -75,7 +98,11 @@ _ACCUM = ("grad_accum", "grad_count", "pos_grad_accum")
 # captures and warm-up calls run in this process: "captures" and
 # "warmup_steps" (views a step's warm-up renders: each launches its mode's
 # forward and backward kernels once), "render_captures" and
-# "warmup_renders" (each launches its mode's forward kernels once)
+# "warmup_renders" (each launches its mode's forward kernels once),
+# "sharded_captures" (sharded steps and renders; their warm-up calls count
+# in "warmup_steps" and "warmup_renders"), "density_captures" and
+# "warmup_events", "trace_captures" and "warmup_traces" (these two warm-ups
+# launch no blend kernel)
 counts: collections.Counter = collections.Counter()
 
 
@@ -99,6 +126,39 @@ def render_key(params: GaussianParams, camera, raster_cfg) -> tuple:
     RasterConfig (pair capacity, t_floor_exact, payload_dtype, ...)."""
     return (params.capacity, (camera.width, camera.height), params.means.device, raster_cfg,
             params.sh.shape[1])
+
+
+def sharded_key(body, views, mesh, backend: str, chunks, state: TrainState, camera,
+                cfg) -> tuple:
+    """The sharded cache's key of a sharded step: the body, its views per
+    replay, the mesh's size and this rank, the group's backend, the
+    gradient all-reduce's chunks and step_key (not the group object: a
+    mesh of one size holds the first ``size`` ranks, parallel/mesh.py)."""
+    return (body, views, mesh.size, mesh.rank, backend, chunks) + step_key(state, camera, cfg)
+
+
+def sharded_render_key(body, mesh, backend: str, params: GaussianParams, camera,
+                       raster_cfg) -> tuple:
+    """The sharded cache's key of a sharded render: as sharded_key, with
+    render_key."""
+    return (body, None, mesh.size, mesh.rank, backend, None) + render_key(params, camera,
+                                                                          raster_cfg)
+
+
+def event_key(body, state: TrainState, cfg, scene_extent=None) -> tuple:
+    """What a captured density event is specific to: its body, the
+    capacity, the device, the SH width, the DensityConfig and the scene
+    extent (densify's thresholds scale with it; None for the opacity
+    reset).  The iteration, the split draw and the focal length are
+    inputs."""
+    p = state.params
+    return (body, p.capacity, p.means.device, p.sh.shape[1], cfg.density, scene_extent)
+
+
+def trace_key(fx, fy, cx, cy, width: int, height: int, device) -> tuple:
+    """What a captured garden view is specific to: the intrinsics, the
+    resolution and the device (the pose is an input)."""
+    return (fx, fy, cx, cy, width, height, torch.device(device))
 
 
 def state_tensors(state: TrainState) -> list[torch.Tensor]:
@@ -133,14 +193,35 @@ def _where(exc: BaseException) -> str:
     return "an op of the backward (no Python frame of the step)"
 
 
+def _clones(out):
+    """Clones of every tensor of ``out``: a tensor, or a (named) tuple of
+    them, nested."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    parts = (_clones(x) for x in out)
+    return type(out)(*parts) if hasattr(out, "_fields") else type(out)(parts)
+
+
+def _pool_bytes(graph, dev) -> int:
+    """The bytes of the segments of ``graph``'s private memory pool on
+    ``dev`` (torch.cuda.memory_snapshot)."""
+    pool, index = tuple(graph.pool()), torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
+
+
 class _Capture:
     """``warm()`` run once eagerly on a side stream, then one call of
     ``fn()`` captured on that stream into a new CUDA graph (see the module
     docstring).  Holds the graph, fn's output (static tensors the replays
     rewrite), the launches the capture recorded, the warm-up and capture
-    seconds and the pool's bytes."""
+    seconds and the pool's bytes.  ``free_cache``: return the allocator's
+    cached blocks to the device before the capture (a step's or a frame's
+    pool is gigabytes); a density event or a traced view captures a small
+    pool mid-run, where emptying a trainer's cache cost 0.3 s on an H100."""
 
-    def __init__(self, warm, fn, dev, what: str):
+    def __init__(self, warm, fn, dev, what: str, free_cache: bool = True):
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
@@ -149,8 +230,8 @@ class _Capture:
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
+        if free_cache:
+            torch.cuda.empty_cache()
         before = blend.launch_counts()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -164,19 +245,22 @@ class _Capture:
             blend.add_launches({k: before[k] - after[k] for k in before})
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.pool_bytes = _pool_bytes(self.graph, dev)
         self.launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
 
 
 class StepGraph:
     """One captured step of ``body`` for one key.  ``views`` None: the
-    body is ``body(state, camera, gt [H, W, 3], cfg, scalars)`` and a
-    replay reads one view (trainer.step_body); ``views`` K: the body is
-    ``body(state, K cameras, gts [K, H, W, 3], cfg, scalars)`` and a replay
-    reads K views (trainer.batched_body).  Either returns (state, metrics
-    NamedTuple of 0-d tensors)."""
+    body is ``body(state, camera, gt [H, W, 3], cfg, scalars, *extra)`` and
+    a replay reads one view (trainer.step_body, sharded.step_body);
+    ``views`` K: the body is ``body(state, K cameras, gts [K, H, W, 3], cfg,
+    scalars, *extra)`` and a replay reads K views (trainer.batched_body,
+    sharded.batched_body).  Either returns (state, metrics NamedTuple of 0-d
+    tensors).  ``extra``: the sharded bodies' mesh and chunks; ``counter``:
+    the entry of ``counts`` the capture adds one to."""
 
-    def __init__(self, body, state: TrainState, cameras, gts, cfg, views: int | None = None):
+    def __init__(self, body, state: TrainState, cameras, gts, cfg, views: int | None = None,
+                 extra: tuple = (), what: str | None = None, counter: str = "captures"):
         dev = state.params.means.device
         n = views or 1
         self.key = step_key(state, cameras[0], cfg)
@@ -191,17 +275,18 @@ class StepGraph:
         inputs = (self.cameras[0], self.gt[0]) if views is None else (self.cameras, self.gt)
 
         def warm():
-            body(static, *inputs, cfg, self.scalars)
+            body(static, *inputs, cfg, self.scalars, *extra)
 
         def step():
-            new_state, metrics = body(static, *inputs, cfg, self.scalars)
+            new_state, metrics = body(static, *inputs, cfg, self.scalars, *extra)
             with torch.no_grad():
                 packed = torch.stack([x.to(torch.float64) for x in metrics])
                 for dst, src in zip(self.tensors, state_tensors(new_state)):
                     dst.copy_(src)
             return packed, metrics
 
-        what = "the train step" if views is None else "the batched train step"
+        if what is None:
+            what = "the train step" if views is None else "the batched train step"
         c = _Capture(warm, step, dev, what)
         counts["warmup_steps"] += WARMUP_STEPS * n
         self.graph, self.launches = c.graph, c.launches
@@ -209,7 +294,7 @@ class StepGraph:
         self.metrics, metrics = c.out
         self.metrics_type = type(metrics)
         self.metrics_dtypes = [x.dtype for x in metrics]
-        counts["captures"] += 1
+        counts[counter] += 1
 
     def load(self, state: TrainState) -> None:
         """Copy ``state`` into the state buffers."""
@@ -254,11 +339,15 @@ class StepGraph:
 
 
 class RenderGraph:
-    """One captured ``ops.rasterize.render(params, camera, raster_cfg)``
-    under ``torch.no_grad`` for one render_key."""
+    """One captured ``body(params, camera, raster_cfg, *extra)`` under
+    ``torch.no_grad`` for one render_key: ``ops.rasterize.render`` (image,
+    RenderAux), or the sharded render's body with its mesh in ``extra``.
+    ``counter``: the entry of ``counts`` the capture adds one to."""
 
-    def __init__(self, params: GaussianParams, camera, raster_cfg):
+    def __init__(self, params: GaussianParams, camera, raster_cfg, body=None, extra: tuple = (),
+                 what: str = "the render", counter: str = "render_captures"):
         dev = params.means.device
+        body = rasterize.render if body is None else body
         self.key = render_key(params, camera, raster_cfg)
         with torch.no_grad():
             self.params = GaussianParams(*(getattr(params, f).detach().clone() for f in FIELDS))
@@ -266,31 +355,75 @@ class RenderGraph:
 
         def frame():
             with torch.no_grad():
-                return rasterize.render(self.params, self.camera, raster_cfg)
+                return body(self.params, self.camera, raster_cfg, *extra)
 
-        c = _Capture(frame, frame, dev, "the render")
+        c = _Capture(frame, frame, dev, what)
         counts["warmup_renders"] += 1
         self.graph, self.launches = c.graph, c.launches
         self.warmup_s, self.capture_s, self.pool_bytes = c.warmup_s, c.capture_s, c.pool_bytes
-        self.image, self.aux = c.out
-        counts["render_captures"] += 1
+        self.out = c.out
+        counts[counter] += 1
 
     def run(self, params: GaussianParams, camera):
-        """Copy ``params`` and ``camera`` in, replay, return (image,
-        RenderAux) as clones."""
+        """Copy ``params`` and ``camera`` in, replay, return the body's
+        output as clones."""
         with torch.no_grad():
             for f in FIELDS:
                 getattr(self.params, f).copy_(getattr(params, f))
             self.camera.copy_(camera)
             self.graph.replay()
-            out = self.image.clone(), type(self.aux)(*(x.clone() for x in self.aux))
+            out = _clones(self.out)
         blend.add_launches(self.launches)
         return out
 
     def free(self) -> None:
         """Release the graph and its memory pool."""
         self.graph.reset()
-        self.graph = self.params = self.image = self.aux = None
+        self.graph = self.params = self.out = None
+
+
+class CallGraph:
+    """One captured ``fn(*buffers)`` over static buffers of ``inputs``'
+    shapes on ``dev``: a replay reads the buffers, into which ``run``
+    copies its inputs, and ``run`` returns fn's output (a tensor or a
+    nested (named) tuple of them) as clones.  The density events and the
+    garden's tracer, which launch no blend kernel.  ``counter`` and
+    ``warm_counter``: the entries of ``counts`` the capture and its warm-up
+    call add one to.  The graph keeps ``fn``: the tensors it holds (the
+    tracer's constants) lie outside the graph's pool, and every replay
+    reads them."""
+
+    def __init__(self, fn, inputs, dev, what: str, counter: str, warm_counter: str):
+        self.fn = fn
+        with torch.no_grad():
+            self.buffers = [x.to(dev, copy=True) for x in inputs]
+
+        def call():
+            with torch.no_grad():
+                return fn(*self.buffers)
+
+        c = _Capture(call, call, dev, what, free_cache=False)
+        counts[warm_counter] += 1
+        self.graph, self.launches = c.graph, c.launches
+        self.warmup_s, self.capture_s, self.pool_bytes = c.warmup_s, c.capture_s, c.pool_bytes
+        self.out = c.out
+        counts[counter] += 1
+
+    def run(self, inputs):
+        """Copy ``inputs`` into the buffers, replay, return clones of the
+        output."""
+        with torch.no_grad():
+            for dst, src in zip(self.buffers, inputs, strict=True):
+                dst.copy_(src)
+            self.graph.replay()
+            out = _clones(self.out)
+        blend.add_launches(self.launches)
+        return out
+
+    def free(self) -> None:
+        """Release the graph and its memory pool."""
+        self.graph.reset()
+        self.graph = self.fn = self.buffers = self.out = None
 
 
 class _LRU:
@@ -318,6 +451,9 @@ class _LRU:
 
 _steps = _LRU(MAX_GRAPHS)
 _renders = _LRU(MAX_RENDER_GRAPHS)
+_sharded = _LRU(MAX_SHARDED_GRAPHS)
+_events = _LRU(MAX_DENSITY_GRAPHS)
+_traces = _LRU(MAX_TRACE_GRAPHS)
 
 
 def run_steps(body, state: TrainState, cameras, gts, cfg, scalars: torch.Tensor,
@@ -344,6 +480,68 @@ def render_frame(params: GaussianParams, camera, raster_cfg):
     return graph.run(params, camera)
 
 
+def run_sharded_steps(body, state: TrainState, cameras, gts, cfg, scalars: torch.Tensor, mesh,
+                      backend: str, chunks: int, views: int | None = None):
+    """run_steps for parallel/sharded.py's step bodies, ``body(state,
+    camera(s), gt(s), cfg, scalars, mesh, chunks)``, through the sharded
+    cache (sharded_key).  Every rank of ``mesh`` calls it alike."""
+    key = sharded_key(body, views, mesh, backend, chunks, state, cameras[0], cfg)
+    what = f"the sharded {'batched ' if views else ''}train step"
+    graph = _sharded.get(key, lambda: StepGraph(body, state, cameras, gts, cfg, views,
+                                                (mesh, chunks), what, "sharded_captures"))
+    return graph.run(state, cameras, gts, scalars)
+
+
+def run_sharded_render(body, params: GaussianParams, camera, raster_cfg, mesh, backend: str):
+    """One replay of the sharded render's body, ``body(params, camera,
+    raster_cfg, mesh)``, through the sharded cache (sharded_render_key);
+    returns its output as clones.  Every rank of ``mesh`` calls it
+    alike."""
+    key = sharded_render_key(body, mesh, backend, params, camera, raster_cfg)
+    graph = _sharded.get(key, lambda: RenderGraph(params, camera, raster_cfg, body, (mesh,),
+                                                  "the sharded render", "sharded_captures"))
+    return graph.run(params, camera)
+
+
+def run_event(body, state: TrainState, inputs, cfg, scene_extent=None):
+    """One density event, ``body(state, *inputs, cfg[, scene_extent])`` ->
+    (state, extra), replayed through the density cache (event_key): the
+    state and ``inputs`` (tensors: densify's iteration, split draw and
+    focal length; none for the opacity reset) are copied into the graph's
+    buffers.  Returns (the new state, with ``state``'s timestep and
+    generator, and extra as clones); ``state`` is left as it was."""
+    args = (cfg,) if scene_extent is None else (cfg, scene_extent)
+    t, generator = state.opt.t, state.generator
+    tensors = state_tensors(state)
+    n = len(tensors)
+
+    def event(*buffers):
+        new, extra = body(_state_of(buffers[:n], t, generator), *buffers[n:], *args)
+        return state_tensors(new), extra
+
+    graph = _events.get(event_key(body, state, cfg, scene_extent), lambda: CallGraph(
+        event, tensors + list(inputs), state.params.means.device,
+        f"the density event {body.__name__}", "density_captures", "warmup_events"))
+    new, extra = graph.run(tensors + list(inputs))
+    return _state_of(new, t, generator), extra
+
+
+def run_trace(trace, rows: torch.Tensor, eye: torch.Tensor, fx, fy, cx, cy, width: int,
+              height: int, device, constants):
+    """One garden view, ``trace(rows, eye, fx, fy, cx, cy, width, height,
+    constants(device))`` [H, W, 3], replayed on ``device`` through the
+    tracer cache (trace_key): the pose (R's rows [3, 3], eye [3]) is copied
+    in.  ``constants(device)`` makes the scene's tensors once, before the
+    capture."""
+    def make():
+        consts = constants(device)
+        return CallGraph(lambda r, e: trace(r, e, fx, fy, cx, cy, width, height, consts),
+                         [rows, eye], device, "the garden's ray tracer", "trace_captures",
+                         "warmup_traces")
+
+    return _traces.get(trace_key(fx, fy, cx, cy, width, height, device), make).run([rows, eye])
+
+
 def live() -> list[StepGraph]:
     """The cached step graphs, least recently used first."""
     return list(_steps.graphs.values())
@@ -354,9 +552,25 @@ def live_renders() -> list[RenderGraph]:
     return list(_renders.graphs.values())
 
 
+def live_sharded() -> list:
+    """The cached sharded graphs (StepGraph, RenderGraph), least recently
+    used first."""
+    return list(_sharded.graphs.values())
+
+
+def live_events() -> list[CallGraph]:
+    """The cached density-event graphs, least recently used first."""
+    return list(_events.graphs.values())
+
+
+def live_traces() -> list[CallGraph]:
+    """The cached tracer graphs, least recently used first."""
+    return list(_traces.graphs.values())
+
+
 def clear() -> None:
     """Free every cached graph and return the pools' memory to the device."""
-    _steps.clear()
-    _renders.clear()
+    for cache in (_steps, _renders, _sharded, _events, _traces):
+        cache.clear()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

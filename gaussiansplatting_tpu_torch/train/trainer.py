@@ -19,8 +19,12 @@ as it was, so a step or an event can be replayed from the same state.
 gradient of K views, dispatched the same way (``batched_body``, one replay
 of K views; ``train_step_batched_eager``).  ``train_loop(mesh_devices > 1)``
 runs the tile-sharded steps of ``parallel/sharded.py`` over a
-``torch.distributed`` process group; they and the density events run op by
-op on every device.
+``torch.distributed`` process group (replays on an NCCL group, op by op on
+gloo).  The density events (``densify_step``, ``opacity_reset_step``)
+replay their bodies captured as CUDA graphs on a CUDA device, in a cache
+of their own (a density event never evicts the step the loop replays), and
+run op by op on the CPU (``densify_step_eager``,
+``opacity_reset_step_eager``).
 """
 
 from __future__ import annotations
@@ -311,6 +315,43 @@ def _mean_world_scale(params) -> torch.Tensor:
     return (max_scale * alive).sum() / n
 
 
+def densify_body(state: TrainState, iteration, r: torch.Tensor, focal: torch.Tensor,
+                 cfg: Config, scene_extent: float) -> tuple[TrainState, density.DensityStats]:
+    """One density event on ``state`` given its iteration (an int, or a 0-d
+    int32 tensor on the parameters' device), the split draw ``r`` and the
+    focal length.  What train/graph.py captures and densify_step_eager
+    runs; it reads no device value back to the host.  The new state keeps
+    ``state``'s generator."""
+    avg_depth = 2.0 * scene_extent  # conservative (mtl_engine.mm:1128)
+    params, opt, accum, stats = density.apply(
+        state.params, state.opt, state.accum, iteration, r,
+        scene_extent, focal, avg_depth, cfg.density,
+    )
+    return TrainState(params=params, opt=opt, accum=accum, generator=state.generator), stats
+
+
+def _draw(state: TrainState):
+    """(an advanced clone of the state's generator, the split draw it
+    made on the parameters' device)."""
+    generator = state_mod.clone_generator(state.generator)
+    return generator, density.draw_split_offsets(generator, state.params.capacity,
+                                                 state.params.means.device)
+
+
+def densify_step_eager(
+    state: TrainState,
+    scene_extent: float,
+    focal: torch.Tensor,
+    cfg: Config,
+) -> tuple[TrainState, density.DensityStats]:
+    """densify_step run op by op: densify_body at the state's iteration.
+    The CPU's densify_step, and the yardstick of the captured one on the
+    card."""
+    generator, r = _draw(state)
+    new_state, stats = densify_body(state, state.opt.t, r, focal, cfg, scene_extent)
+    return dataclasses.replace(new_state, generator=generator), stats
+
+
 def densify_step(
     state: TrainState,
     scene_extent: float,
@@ -318,23 +359,28 @@ def densify_step(
     cfg: Config,
 ) -> tuple[TrainState, density.DensityStats]:
     """One density-control event (mtl_engine.mm:1105-1168).  Draws the
-    split offsets on a clone of the state's generator and returns the
-    advanced clone in the new state."""
-    generator = state_mod.clone_generator(state.generator)
-    r = density.draw_split_offsets(generator, state.params.capacity,
-                                   state.params.means.device)
-    avg_depth = 2.0 * scene_extent  # conservative (mtl_engine.mm:1128)
-    params, opt, accum, stats = density.apply(
-        state.params, state.opt, state.accum, state.opt.t, r,
-        scene_extent, focal, avg_depth, cfg.density,
-    )
-    return TrainState(params=params, opt=opt, accum=accum, generator=generator), stats
+    split offsets on a clone of the state's generator (on the host, once
+    per event) and returns the advanced clone in the new state.  On a CUDA
+    device a replay of densify_body's CUDA graph (graph.run_event: captured
+    once per capacity, SH width, DensityConfig and scene extent; the
+    iteration, the draw and ``focal`` copied in, the state and the stats
+    cloned out); on the CPU, densify_step_eager."""
+    dev = state.params.means.device
+    if dev.type != "cuda":
+        return densify_step_eager(state, scene_extent, focal, cfg)
+    generator, r = _draw(state)
+    inputs = (torch.tensor(state.opt.t, dtype=torch.int32), r,
+              torch.as_tensor(focal, dtype=torch.float32))
+    new_state, stats = graph.run_event(densify_body, state, inputs, cfg, scene_extent)
+    return dataclasses.replace(new_state, generator=generator), stats
 
 
 @torch.no_grad()
-def opacity_reset_step(state: TrainState, cfg: Config) -> TrainState:
+def opacity_reset_body(state: TrainState, cfg: Config) -> tuple[TrainState, tuple]:
     """Clamp raw opacities to min(op, reset_value), zero opacity+scale
-    momentum, reset density accumulators (mtl_engine.mm:1170-1193)."""
+    momentum, reset density accumulators (mtl_engine.mm:1170-1193).  What
+    train/graph.py captures and opacity_reset_step_eager runs; returns
+    (state, ())."""
     p = state.params
     raw = p.raw_opacities.detach()
     new_op = torch.where(p.alive, torch.clamp(raw, max=cfg.density.opacity_reset_value), raw)
@@ -348,7 +394,22 @@ def opacity_reset_step(state: TrainState, cfg: Config) -> TrainState:
         params=params,
         opt=optimizer.reset_opacity_and_scale_momentum(state.opt),
         accum=density.init_accum(p.capacity, device=raw.device),
-    )
+    ), ()
+
+
+def opacity_reset_step_eager(state: TrainState, cfg: Config) -> TrainState:
+    """opacity_reset_step run op by op: the CPU's, and the yardstick of the
+    captured one on the card."""
+    return opacity_reset_body(state, cfg)[0]
+
+
+def opacity_reset_step(state: TrainState, cfg: Config) -> TrainState:
+    """The opacity reset (opacity_reset_body).  On a CUDA device a replay
+    of its CUDA graph (graph.run_event: captured once per capacity, SH
+    width and DensityConfig); on the CPU, opacity_reset_step_eager."""
+    if state.params.means.device.type != "cuda":
+        return opacity_reset_step_eager(state, cfg)
+    return graph.run_event(opacity_reset_body, state, (), cfg)[0]
 
 
 def should_densify(iteration: int, cfg: Config) -> bool:

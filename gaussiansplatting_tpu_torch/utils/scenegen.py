@@ -20,6 +20,14 @@ terms, times the light, at most 1.2), not bit for bit; where ``sin(h) *
 (a few in 1e5 lattice points).  The surface positions, drawn with numpy
 alone, match exactly.  The JAX renderer runs under jax.jit, whose rounding
 of ``h`` is XLA's (see ``_hash3``).
+
+The tracer (``trace``) takes the pose as tensors, as JAX's
+``_render_view_jit`` takes it as arguments: on a CUDA device
+``render_view_tensor`` replays it captured as a CUDA graph, once per
+resolution, intrinsics and device (train/graph.run_trace), with the scene's
+constants made before the capture; on the CPU it runs op by op
+(``render_view_tensor_eager``).  A graph fuses no ops, so a replay rounds
+``h`` as the eager ops do, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from gaussiansplatting_tpu_torch.train import graph
 
 # ---------------------------------------------------------------------------
 # scene description (world units ~metres, y up)
@@ -85,10 +95,20 @@ _PALETTES = np.array(
 )
 
 
+# the sky's horizon, zenith and sun colours
+_SKY = np.array([[0.82, 0.86, 0.92], [0.35, 0.52, 0.82], [1.2, 1.1, 0.9]], np.float32)
+
+
 def _scene_arrays(device=None):
     """(spheres, boxes, palettes, sun_dir) as float32 tensors on ``device``."""
     return tuple(torch.as_tensor(a, device=device)
                  for a in (SPHERES, BOXES, _PALETTES, SUN_DIR))
+
+
+def scene_constants(device=None):
+    """The tracer's constants on ``device``: _scene_arrays and the sky's
+    colours [3, 3]."""
+    return _scene_arrays(device) + (torch.as_tensor(_SKY, device=device),)
 
 
 def _hash3(ix, iy, iz):
@@ -220,11 +240,10 @@ def _intersect(spheres, boxes, origins, dirs, t_max=1e9):
     return best_t, hit, best_n, best_pal
 
 
-def _sky(dirs, sun_dir):
+def _sky(dirs, sun_dir, colours):
+    """The sky's colour along ``dirs``; ``colours``: _SKY on their device."""
     up = torch.clamp(dirs[..., 1], -1.0, 1.0)
-    horizon = torch.tensor([0.82, 0.86, 0.92], dtype=torch.float32, device=dirs.device)
-    zenith = torch.tensor([0.35, 0.52, 0.82], dtype=torch.float32, device=dirs.device)
-    sun_rgb = torch.tensor([1.2, 1.1, 0.9], dtype=torch.float32, device=dirs.device)
+    horizon, zenith, sun_rgb = colours
     t = torch.clamp(up * 0.5 + 0.5, 0.0, 1.0)[..., None]
     sky = horizon * (1 - t) + zenith * t
     sun = torch.clamp((dirs * sun_dir).sum(-1), 0.0, 1.0) ** 256
@@ -243,20 +262,32 @@ def shade(points, normals, pal_id, spheres, boxes, palettes, sun_dir):
     return torch.clamp(alb * (ambient + 0.85 * lit)[..., None], 0.0, 1.0)
 
 
-def camera_rays(R, t, fx, fy, cx, cy, width, height, device=None):
-    """(origins, unit directions) [H, W, 3] of the pixel centres of a
-    COLMAP-posed pinhole view (x_cam = R x + t) on ``device``.  The rotation
-    d_cam @ R is written out as three products, so no matmul (and no TF32)
-    touches it."""
+def pose_tensors(R, t, device=None):
+    """(R's rows [3, 3], the eye -R^T t [3]) of a COLMAP pose (x_cam = R x +
+    t) as float32 tensors on ``device``; the eye is computed on the host in
+    float32."""
     R = np.asarray(R, np.float32)
-    eye = torch.as_tensor(-R.T @ np.asarray(t, np.float32), device=device)
-    rows = torch.as_tensor(R, device=device)
+    return (torch.as_tensor(R, device=device),
+            torch.as_tensor(-R.T @ np.asarray(t, np.float32), device=device))
+
+
+def _rays(rows, eye, fx, fy, cx, cy, width, height):
+    """(origins, unit directions) [H, W, 3] of the pixel centres on the
+    pose tensors' device.  The rotation d_cam @ R is written out as three
+    products, so no matmul (and no TF32) touches it."""
+    device = rows.device
     xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5 - cx) / fx
     ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5 - cy) / fy
     gx, gy = torch.meshgrid(xs, ys, indexing="xy")
     d_world = gx[..., None] * rows[0] + gy[..., None] * rows[1] + rows[2]
     d_world = d_world / torch.linalg.vector_norm(d_world, dim=-1, keepdim=True)
     return eye.expand(d_world.shape), d_world
+
+
+def camera_rays(R, t, fx, fy, cx, cy, width, height, device=None):
+    """(origins, unit directions) [H, W, 3] of the pixel centres of a
+    COLMAP-posed pinhole view (x_cam = R x + t) on ``device``."""
+    return _rays(*pose_tensors(R, t, device), fx, fy, cx, cy, width, height)
 
 
 def texture_lattice(points, pal_id):
@@ -287,16 +318,41 @@ def shading_flags(points, normals, pal_id):
     return s_hit, _hash3(*texture_lattice(points, pal_id).unbind(-1))
 
 
-def render_view_tensor(R, t, fx, fy, cx, cy, width, height, device=None) -> torch.Tensor:
-    """Ray-trace one COLMAP-posed view (x_cam = R x + t) on ``device``;
-    returns [H, W, 3] float32 in [0, 1] there."""
-    spheres, boxes, palettes, sun_dir = _scene_arrays(device)
-    origins, d_world = camera_rays(R, t, fx, fy, cx, cy, width, height, device)
+def trace(rows, eye, fx, fy, cx, cy, width, height, constants) -> torch.Tensor:
+    """Ray-trace one view from its pose tensors (pose_tensors) with the
+    scene's ``constants`` (scene_constants), all on one device; returns
+    [H, W, 3] float32 in [0, 1] there.  The body of JAX's
+    ``_render_view_jit``: what train/graph.run_trace captures and
+    render_view_tensor_eager runs; it makes no tensor from host data."""
+    spheres, boxes, palettes, sun_dir, sky_colours = constants
+    origins, d_world = _rays(rows, eye, fx, fy, cx, cy, width, height)
     t_hit, hit, n, pal = _intersect(spheres, boxes, origins, d_world)
     p = origins + t_hit[..., None] * d_world
     col = shade(p, n, pal, spheres, boxes, palettes, sun_dir)
-    sky = _sky(d_world, sun_dir)
+    sky = _sky(d_world, sun_dir, sky_colours)
     return torch.where(hit[..., None], col, sky)
+
+
+def render_view_tensor_eager(R, t, fx, fy, cx, cy, width, height,
+                             device=None) -> torch.Tensor:
+    """render_view_tensor run op by op: the CPU's, and the yardstick of the
+    captured one on the card."""
+    return trace(*pose_tensors(R, t, device), fx, fy, cx, cy, width, height,
+                 scene_constants(device))
+
+
+def render_view_tensor(R, t, fx, fy, cx, cy, width, height, device=None) -> torch.Tensor:
+    """Ray-trace one COLMAP-posed view (x_cam = R x + t) on ``device``;
+    returns [H, W, 3] float32 in [0, 1] there.  On a CUDA device a replay
+    of ``trace``'s CUDA graph (captured at the first view of this
+    resolution and intrinsics; the pose copied in, the image cloned out);
+    on the CPU, render_view_tensor_eager."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return render_view_tensor_eager(R, t, fx, fy, cx, cy, width, height, device)
+    rows, eye = pose_tensors(R, t)
+    return graph.run_trace(trace, rows, eye, fx, fy, cx, cy, width, height, device,
+                           scene_constants)
 
 
 def render_view(R: np.ndarray, t: np.ndarray, fx: float, fy: float,

@@ -3,7 +3,8 @@ started by ``parallel.launch.spawn`` against JAX's make_sharded_* over
 make_mesh(2) on the suite's virtual 8-CPU mesh (JAX on its windowed Pallas
 path) and against the port's single-process steps; the chunked gradient
 all-reduce; the ranks' states; a sharded train_loop across density events;
-launch.initialize without a group; tools.train --devices 2;
+the sharded bodies (scalars passed in) against their float-scalar forms and
+the gloo ranks' graph counts (none); launch.initialize without a group; tools.train --devices 2;
 graft_entry.dryrun_multichip(2); and the refusals.
 
 One spawn (the module fixture) runs every rank-side check of
@@ -191,6 +192,26 @@ def test_sharded_train_loop_across_density(case):
     assert n > 24 and got["params/alive"][:n].all()
     np.testing.assert_array_equal(got["params/alive"], want["params/alive"])
     _compare(got, want, "loop vs single process")
+
+
+@pytest.mark.parametrize("kind", ["step", "batched"])
+def test_sharded_bodies_equal_float_scalar_forms(case, kind):
+    """The sharded step and batched step, the bodies given their scalars
+    as a device tensor by make_sharded_*, against the form with Python
+    float scalars (learning_rates, _bc), three steps with a decaying
+    position LR on both gloo ranks: every state array and the loss bit for
+    bit."""
+    _, _, out = case
+    for o in out:
+        assert o["float_forms"][kind] == [[]] * ranks.FLOAT_FORM_STEPS
+
+
+def test_gloo_ranks_run_eagerly(case):
+    """A gloo rank replays no graph: the predicate says so and no capture
+    of any kind ran."""
+    _, _, out = case
+    for o in out:
+        assert o["replays"] is False and o["captures"] == {}
 
 
 def test_initialize_is_a_single_process_noop(monkeypatch):
