@@ -105,7 +105,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               overflow, p50 / p90 ms request to response) and on its
               checkpoint (/train?n=10 advances the iteration and changes the
               next frame); the graft entry (graft_entry.entry, #1 at B = 64)
-              against the plain blend.
+              against the plain blend.  Then the same tools.train run in
+              config 4's own bf16 mode (--payload-dtype bf16, 760
+              iterations): every step finite, the packed kernels once per
+              step, its rate and held-out PSNR beside the float32 run's.
   9. tools     the measuring tools at the full-size scene: tools.profile's
               stage times, tools.trace's 5-step capture (top groups, device
               ms per step, the card's idle share), utils.sol.step_model's
@@ -130,12 +133,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  11. modes     the bf16 payload mode (payload_dtype="bf16", with and without
               pack_positions), the impact drop and the scatter reduction at
               full size (phase_modes): the packed kernels
-              (gs_blend_{fwd,bwd}_win_packed) against their plain versions
-              on edge windows and the canonical view's packed windows with
-              the real loss cotangent (the backward twice, bit-identical),
-              timed in turns against the float32 Hopper kernels, their work
-              and bounds; the bf16 render (`modes_render`) and train step
-              (`modes_train`, timed, replayed bit for bit, its device time
+              (gs_blend_{fwd,bwd}_win_packed, T carried by multiplication)
+              against their plain versions on edge windows and the
+              canonical view's packed windows with the real loss cotangent
+              (each twice, bit-identical), the first packed design
+              (gs_blend_*_win_packed_v1, which nothing else calls) against
+              them too and with the same gid, S and q_b bits; each timed in
+              turns against its first design and the float32 Hopper kernel
+              (first, carried, float32, float32, carried, first), their
+              work, bounds and shares; the bf16 render (`modes_render`)
+              and train step (`modes_train`, timed, replayed bit for bit, its device time
               profiled) against the float32 ones at JAX's bars, only the
               packed kernels launching; a 64x48 bf16 + pack_pos step card
               against CPU;
@@ -216,9 +223,9 @@ first design's entries never.
 
 Prints one JSON line describing the kernels (per kernel: launches on the
 main paths and per step, max_abs_err against the plain version, ms, ms_v1
-(the first design's time in the same turns; for the packed entries ms_f32,
-the float32 Hopper kernel's, and their pack_pos instances' times and
-bounds), plain_ms, bound_ms with
+(the first design's time in the same turns; for the packed entries the
+first packed design's, v1_entry, and ms_f32, the float32 Hopper kernel's,
+and their pack_pos instances' times and bounds), plain_ms, bound_ms with
 bound_by (the larger of
 this run's bytes over the HBM rate and its instructions over the f32
 instruction rate), the work behind it (power_tests, kept_pairs,
@@ -338,8 +345,8 @@ DENSITY_SEED = 7
 DENSITY_EXTENT = 4.0
 # phase 8: the garden, utils/scenegen's procedural scene at the size of
 # BASELINE.md config #4 (tools.make_dataset's defaults), trained with the
-# flags of scripts/run_config4.sh:11-27 but --payload-dtype bf16 (phase 11
-# trains that mode; --scan-steps 10 is GRAPH_STEPS), one cut: GARDEN_EPOCHS of the
+# flags of scripts/run_config4.sh:11-27 in float32, then again with its
+# --payload-dtype bf16 (--scan-steps 10 is GRAPH_STEPS), one cut: GARDEN_EPOCHS of the
 # schedule's 150 (760 of 28,500 iterations; the default density schedule
 # densifies at 600 and 700, its first opacity reset at 3,000 lies beyond)
 GARDEN_VIEWS = 200
@@ -595,12 +602,13 @@ def _compare(label, got, want, quiet=False):
     return max_err
 
 
-def _turns(first, second, reps=KERNEL_REPS):
-    """CUDA-event times of two launchers in turns (first, second, second,
-    first), so a drift of the card's clock falls on both: returns (mean of
-    first's two, mean of second's two, the four times)."""
-    t = [cuda_time_ms(f, reps) for f in (first, second, second, first)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+def _turns(*fns, reps=KERNEL_REPS):
+    """CUDA-event times of launchers in turns (a, b, ..., b, a), so a drift
+    of the card's clock falls on all: returns each one's mean of its two
+    times, and the times in the order taken."""
+    order = list(range(len(fns))) + list(range(len(fns)))[::-1]
+    t = [cuda_time_ms(fns[i], reps) for i in order]
+    return [sum(x for i, x in zip(order, t) if i == k) / 2 for k in range(len(fns))], t
 
 
 def _edge_args(block, row0, cfg):
@@ -644,8 +652,8 @@ def phase_kernel(params, camera, cfg, smi):
     if not torch.equal(got[0][:, 3], first[0][:, 3]):
         raise AssertionError("S_b of the Hopper forward differs from the first design's")
     log("[kernel] full size: S_b of the Hopper design = the first design's, bit for bit")
-    res["ms_v1"], res["ms"], turns = _turns(lambda: blend.windowed_blend_fwd_v1(*args),
-                                            lambda: blend.windowed_blend_fwd(*args))
+    (res["ms_v1"], res["ms"]), turns = _turns(lambda: blend.windowed_blend_fwd_v1(*args),
+                                              lambda: blend.windowed_blend_fwd(*args))
     log(f"[kernel] A/B in turns (first, Hopper, Hopper, first): "
         f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
         f"each) on {smi}")
@@ -740,8 +748,8 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     res = {"max_abs_err": _compare_bwd("full size (loss cotangent)", got, want)}
     v1_args = args[:6] + (g, args[6])
     _compare_bwd("full size, first design", blend.windowed_blend_bwd_v1(*v1_args), want)
-    res["ms_v1"], res["ms"], turns = _turns(lambda: blend.windowed_blend_bwd_v1(*v1_args),
-                                            lambda: blend.windowed_blend_bwd(*bargs))
+    (res["ms_v1"], res["ms"]), turns = _turns(lambda: blend.windowed_blend_bwd_v1(*v1_args),
+                                              lambda: blend.windowed_blend_bwd(*bargs))
     log(f"[kernel bwd] A/B in turns (first, Hopper, Hopper, first): "
         f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
         f"each) on {smi}")
@@ -1105,8 +1113,8 @@ _warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
 
 def _reset_launches():
     """Set every kernel entry's launch count to 0 (ops.blend.COUNTED: the
-    six of the main paths and the first design's four, which only the A/Bs
-    of phases 3 and 6 call)."""
+    six of the main paths and the first designs' six, which only the A/Bs
+    of phases 3, 6 and 11 call)."""
     from gaussiansplatting_tpu_torch.ops import blend
     from gaussiansplatting_tpu_torch.train import graph
 
@@ -1240,7 +1248,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         first = blend.windowed_blend_fwd_tf_v1(*fargs)
         _compare_tf("full size, first design", first[0], want, margin)
         _same_as_first_design("full size", (out_tf, stop), first)
-        res["fwd_ms_v1"], res["fwd_ms"], turns = _turns(
+        (res["fwd_ms_v1"], res["fwd_ms"]), turns = _turns(
             lambda: blend.windowed_blend_fwd_tf_v1(*fargs),
             lambda: blend.windowed_blend_fwd_tf(*fargs))
         log(f"[tfloor] forward A/B in turns (first, Hopper, Hopper, first): "
@@ -1261,7 +1269,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         v1_args = args[:6] + (g2, args[6], logti, log_thr)
         _compare_tf_bwd("full size, first design", blend.windowed_blend_bwd_tf_v1(*v1_args),
                         d_want, margin)
-        res["bwd_ms_v1"], res["bwd_ms"], turns = _turns(
+        (res["bwd_ms_v1"], res["bwd_ms"]), turns = _turns(
             lambda: blend.windowed_blend_bwd_tf_v1(*v1_args),
             lambda: blend.windowed_blend_bwd_tf(*bargs))
         log(f"[tfloor bwd] A/B in turns (first, Hopper, Hopper, first): "
@@ -2436,8 +2444,66 @@ def phase_garden(smi):
         f"{bool(aux.overflow)}; image vs the plain blend's max|err| {img_err:.3e}")
     if bool(((img - plain).abs() > KERNEL_ATOL + KERNEL_RTOL * plain.abs()).any()):
         raise AssertionError("graft entry: the image disagrees with the plain blend's")
+
+    # (vi) the same schedule in config 4's own bf16 mode
+    res["bf16"], res["launches"]["garden_bf16"] = _garden_bf16(argv, root, n_eval, res, smi)
     shutil.rmtree(root)
     return res
+
+
+def _garden_bf16(argv, root, n_eval, f32, smi):
+    """Phase 8's tools.train run again in config 4's own payload mode
+    (scripts/run_config4.sh:22, --payload-dtype bf16) for the same
+    GARDEN_EPOCHS, into its own outputs: every step finite, the packed kernels
+    once per step (and per graph warm-up step and render), no float32 or
+    first-design entry; the rate and the held-out PSNR beside the float32
+    run's (``f32``).  Returns (numbers, launches)."""
+    import numpy as np
+    import torch
+
+    from gaussiansplatting_tpu_torch.train import trainer
+
+    sub = os.path.join(root, "bf16")
+    os.makedirs(sub)
+    own = {"--output": os.path.join(sub, "out.ply"), "--checkpoint-dir": os.path.join(sub, "ck"),
+           "--metrics": os.path.join(sub, "metrics.jsonl")}
+    argv = [own.get(argv[i - 1], a) if i else a for i, a in enumerate(argv)]
+    argv += ["--payload-dtype", "bf16"]
+    iters = GARDEN_EPOCHS * (GARDEN_VIEWS - n_eval)
+    stamps = []
+    _reset_launches()
+    stepping = _stamp_steps(trainer, iters, stamps)
+    try:
+        _cli(argv, os.path.join(sub, "console.txt"))
+    finally:
+        trainer.train_step, trainer.train_steps = stepping
+    torch.cuda.synchronize()
+    launches = _packed_launches("the garden trainer in the bf16 mode", True)
+    warm, warm_r = _warmups(), _warm_renders()
+    if launches["windowed_blend_fwd_packed"] != iters + n_eval + warm + warm_r or \
+            launches["windowed_blend_bwd_packed"] != iters + warm:
+        raise AssertionError(f"garden bf16: expected {iters + n_eval} packed forward and "
+                             f"{iters} packed backward launches, {warm} of each in the graphs' "
+                             f"warm-up steps and {warm_r} forward in their warm-up renders, "
+                             f"got {launches}")
+    lines = _read_jsonl(own["--metrics"])
+    steps = [x for x in lines if x["event"] == "step"]
+    ev = [x for x in lines if x["event"] == "eval"]
+    if [x["iter"] for x in steps] != list(range(1, iters + 1)) or not ev or not all(
+            np.isfinite(x[f]) for x in steps for f in ("loss", "l1", "dssim", "psnr")):
+        raise AssertionError("garden bf16: missing or non-finite step lines, or no eval line")
+    res = {"iters": iters, "iters_per_s": _rate(stamps), "heldout_psnr": ev[0]["psnr"],
+           "peak_pairs": max(x["pairs"] for x in steps),
+           "overflow_steps": sum(bool(x["overflow"]) for x in steps),
+           "final_alive": steps[-1]["n"]}
+    log(f"[garden] tools.train in the bf16 mode (--payload-dtype bf16, {GARDEN_EPOCHS} "
+        f"epochs, {iters} iterations): {res['iters_per_s']:.3f} iterations/s over iterations "
+        f"{stamps[0][1] + 1}-{iters} (host clock, synchronized), held out "
+        f"{res['heldout_psnr']:.3f} dB, against the float32 run's {f32['iters_per_s']:.3f} "
+        f"it/s and {f32['heldout_psnr']:.3f} dB; {steps[-1]['n']} alive, peak pairs "
+        f"{res['peak_pairs']}, {res['overflow_steps']} overflow steps; launches {launches} "
+        f"on {smi}")
+    return res, launches
 
 
 def phase_tools(work, smi):
@@ -3043,17 +3109,18 @@ def phase_modes(params, camera, cfg, gt, smi):
     """The bf16 payload mode, the impact drop and the scatter reduction at
     full size: (i) the packed kernels (plain and pack_pos) against their
     plain versions on edge windows and on the canonical view's packed
-    windows with the real loss cotangent (the backward launched twice,
-    bit-identical), timed against the float32 Hopper kernels in turns,
-    their work and bounds; (ii) the bf16 render (`modes_render`) and train
-    step (`modes_train`, timed, replayed bit for bit, profiled) against
-    the float32 ones at JAX's bars, only the packed kernels launching; a
-    64x48 bf16 + pack_pos step on the card against the CPU; (iii) the
-    impact drop's
-    capacity plan on the card against the CPU (integer-exact) and a capped
-    render; the scatter reduction twice bit for bit and against a float64
-    sum, a scatter step; (iv) tools.train --payload-dtype bf16
-    --pack-positions 1 (`modes_cli`)."""
+    windows with the real loss cotangent (each launched twice,
+    bit-identical), the first packed design (``_packed_v1``) too, with the
+    same gid, S and q_b bits; each timed in turns against its first design
+    and the float32 Hopper kernel, their work, bounds and shares; (ii) the
+    bf16 render (`modes_render`) and train step (`modes_train`, timed,
+    replayed bit for bit, profiled) against the float32 ones at JAX's bars,
+    only the packed kernels launching; a 64x48 bf16 + pack_pos step on the
+    card against the CPU; (iii) the impact drop's capacity plan on the card
+    against the CPU (integer-exact) and a capped render; the scatter
+    reduction twice bit for bit and against a float64 sum, a scatter step;
+    (iv) tools.train --payload-dtype bf16 --pack-positions 1
+    (`modes_cli`)."""
     import dataclasses
 
     import numpy as np
@@ -3109,20 +3176,41 @@ def phase_modes(params, camera, cfg, gt, smi):
             if not torch.equal(bt, block_tile):
                 raise AssertionError(f"{name}: the packed windows tile differently")
             got = blend.windowed_blend_fwd_packed(*args)
+            second = blend.windowed_blend_fwd_packed(*args)
             want = blend.windowed_blend_fwd_packed_plain(*args)
             fe = _compare_packed_fwd(f"full size {name}", got, want)
             bargs = args[:6] + (g, got[2], args[6])
             once = blend.windowed_blend_bwd_packed(*bargs)
             again = blend.windowed_blend_bwd_packed(*bargs)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, second)):
+                raise AssertionError(f"{name}: two packed forward launches differ")
             if not all(torch.equal(x, y) for x, y in zip(once, again)):
                 raise AssertionError(f"{name}: two packed backward launches differ")
-            be, br = _compare_packed_bwd(f"full size {name} (loss cotangent)", once,
-                                         blend.windowed_blend_bwd_packed_plain(*bargs))
-            fwd_ms, f32_fwd_ms, t_fwd = _turns(lambda: blend.windowed_blend_fwd_packed(*args),
-                                               lambda: blend.windowed_blend_fwd(*f32_args))
-            bwd_ms, f32_bwd_ms, t_bwd = _turns(lambda: blend.windowed_blend_bwd_packed(*bargs),
-                                               lambda: blend.windowed_blend_bwd(*f32_bargs))
+            bwant = blend.windowed_blend_bwd_packed_plain(*bargs)
+            be, br = _compare_packed_bwd(f"full size {name} (loss cotangent)", once, bwant)
+            # the first packed design: the same bars, and the same gid, S
+            # and q_b bits (only the carry of T differs)
+            first = blend.windowed_blend_fwd_packed_v1(*args)
+            fe1 = _compare_packed_fwd(f"full size {name}, first packed design", first, want)
+            if not (torch.equal(first[1], got[1]) and torch.equal(first[2], got[2])
+                    and torch.equal(first[0][:, 3], got[0][:, 3])):
+                raise AssertionError(f"{name}: gid, S or q_b differ from the first packed design")
+            be1, br1 = _compare_packed_bwd(f"full size {name}, first packed design",
+                                           blend.windowed_blend_bwd_packed_v1(*bargs), bwant)
+            log(f"[modes] {name}: both packed launches twice bit-identical; gid, S_b and q_b "
+                f"equal to the first packed design's bit for bit; out rows 0-2 max|carried - "
+                f"first| {float((got[0][:, :3] - first[0][:, :3]).abs().max()):.3e}; the first "
+                f"design against plain {fe1:.3e} (forward), {be1:.3e} beyond a bf16 ulp "
+                f"{br1:.2e} (backward)")
+            (fwd_v1_ms, fwd_ms, f32_fwd_ms), t_fwd = _turns(
+                lambda: blend.windowed_blend_fwd_packed_v1(*args),
+                lambda: blend.windowed_blend_fwd_packed(*args),
+                lambda: blend.windowed_blend_fwd(*f32_args))
+            (bwd_v1_ms, bwd_ms, f32_bwd_ms), t_bwd = _turns(
+                lambda: blend.windowed_blend_bwd_packed_v1(*bargs),
+                lambda: blend.windowed_blend_bwd_packed(*bargs),
+                lambda: blend.windowed_blend_bwd(*f32_bargs))
             w = sol.blend_work(args)
             nb, p2, block = args[1].shape[0], 256, args[5]
             rows = 6 if "pack_pos" in name else 7
@@ -3132,29 +3220,34 @@ def phase_modes(params, camera, cfg, gt, smi):
             bwd_bound, bline = sol.work_bound(
                 w, "bwd", 4 * rows * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
                 + 20 * w["bwd_pixels"] + 20 * nb * block, sol.BWD_PACKED_OPS_PER_KEPT)
-            log(f"[modes] {name}: {nb} blocks, {int(aux.num_pairs)} pairs; two backward "
-                f"launches bit-identical; in turns (packed, float32, float32, packed) forward "
+            log(f"[modes] {name}: {nb} blocks, {int(aux.num_pairs)} pairs; in turns (first "
+                f"packed design, carried, float32, float32, carried, first) forward "
                 f"{', '.join(f'{t:.4f}' for t in t_fwd)} ms, backward "
                 f"{', '.join(f'{t:.4f}' for t in t_bwd)} ms (CUDA events, {KERNEL_REPS} "
                 f"launches each) on {smi}")
             log(f"[modes] {name} forward work: {fline}")
             log(f"[modes] {name} backward work: {bline}")
             key = "pack_pos" if "pack_pos" in name else "bf16"
-            res["fwd"][key] = {"max_abs_err": max(fwd_err, fe), "ms": fwd_ms,
-                               "ms_f32": f32_fwd_ms, **fwd_bound}
+            res["fwd"][key] = {"max_abs_err": max(fwd_err, fe), "ms": fwd_ms, "ms_v1": fwd_v1_ms,
+                               "ms_f32": f32_fwd_ms, **fwd_bound,
+                               "share": fwd_bound["bound_ms"] / fwd_ms}
             res["bwd"][key] = {"max_abs_err": max(bwd_err, be), "beyond_ulp_rel": max(bwd_rel, br),
-                               "ms": bwd_ms, "ms_f32": f32_bwd_ms, **bwd_bound}
+                               "ms": bwd_ms, "ms_v1": bwd_v1_ms, "ms_f32": f32_bwd_ms,
+                               **bwd_bound, "share": bwd_bound["bound_ms"] / bwd_ms}
             if key == "bf16":
                 res["fwd"][key]["plain_ms"] = cuda_time_ms(
                     lambda: blend.windowed_blend_fwd_packed_plain(*args), reps=3)
                 res["bwd"][key]["plain_ms"] = cuda_time_ms(
                     lambda: blend.windowed_blend_bwd_packed_plain(*bargs), reps=3)
-        del f32_args, f32_out, f32_bargs, args, bargs, got, want, once, again
+        del f32_args, f32_out, f32_bargs, args, bargs, got, second, want, bwant, once, again
+        del first
     for k in ("fwd", "bwd"):
-        r = res[k]["bf16"]
-        log(f"[modes] full size packed {k}: {r['ms']:.4f} ms (pack_pos "
-            f"{res[k]['pack_pos']['ms']:.4f}) vs float32 Hopper {r['ms_f32']:.4f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {smi}")
+        r, rp = res[k]["bf16"], res[k]["pack_pos"]
+        log(f"[modes] full size packed {k}: {r['ms']:.4f} ms (pack_pos {rp['ms']:.4f}) vs the "
+            f"first packed design {r['ms_v1']:.4f} ms ({rp['ms_v1']:.4f}) and float32 Hopper "
+            f"{r['ms_f32']:.4f} ms in the same turns, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}): {r['share']:.1%} of it "
+            f"({rp['share']:.1%}) on {smi}")
 
     # (ii) the bf16 render and train step: main paths modes_render, modes_train
     with torch.no_grad():
@@ -4390,7 +4483,9 @@ def main() -> int:
                 f"{tpu}{line} (packed branch)", "hopper",
                 {p: v[f"windowed_blend_{k}_packed"] for p, v in paths.items()},
                 md["per_step"][f"windowed_blend_{k}_packed"],
-                {**md[k]["bf16"], "ms_pack_pos": md[k]["pack_pos"]["ms"],
+                {**md[k]["bf16"], "v1_entry": f"gs_blend_{k}_win_packed_v1",
+                 "ms_pack_pos": md[k]["pack_pos"]["ms"],
+                 "ms_v1_pack_pos": md[k]["pack_pos"]["ms_v1"],
                  "ms_f32_pack_pos": md[k]["pack_pos"]["ms_f32"],
                  "bound_ms_pack_pos": md[k]["pack_pos"]["bound_ms"],
                  "max_abs_err": max(md[k]["bf16"]["max_abs_err"],
@@ -4439,6 +4534,9 @@ def main() -> int:
         "garden_rebuckets": gd["rebuckets"],
         "garden_final_alive": gd["final_alive"],
         "garden_heldout_psnr": gd["heldout_psnr"],
+        "garden_bf16_iters_per_s": gd["bf16"]["iters_per_s"],
+        "garden_bf16_heldout_psnr": gd["bf16"]["heldout_psnr"],
+        "garden_bf16_iters": gd["bf16"]["iters"],
         "garden_step_device_ms": gd["step_device_ms"],
         "facade_heldout_psnr": gd["facade_psnr"],
         "viewer_frame_ms_p50": gd["frame_ms_p50"],

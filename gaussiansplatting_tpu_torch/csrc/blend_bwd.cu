@@ -76,19 +76,30 @@
 // stages nothing.
 //
 // gs_blend_bwd_win_packed, the bf16 payload mode (kPack 1, or 2 with
-// tile-relative positions): the Hopper design over the packed table, lanes
+// tile-relative positions; _bwd_kernel_win's packed branch, pallas_blend.py
+// :721, 751, 807-818): the Hopper design over the packed table, lanes
 // unpacked when staged.  The TPU kernel takes T from the bf16 prefix of l
 // (T_k = exp(Q_k - l_k), as the packed forward) and the suffix as a bf16
-// matmul of e w (_tri_dot(..., low_precision), pallas_blend.py:721, 751):
-// dl_k = g_S + sum_{j>k} bf16(e_j w_j).  The reciprocal walk of the
-// float32 instance does not invert that prefix, so this instance starts
-// each pixel from the packed forward's q_b (its Q over the block) and per
-// kept pair takes l = log1pf(-alpha), T = expf(Q - l), then steps Q back
-// by round_bf16(l); it adds round_bf16(e w) to the suffix and divides dl
-// by 1 - alpha.  Per lane it writes the nine cotangents as five bf16-pair
-// rows (dmx, dmy), (da, db), (dc, dop), (dr, dg), (db, 0) (pallas_blend.py:
-// 807-818), round to nearest even.  A log1pf and an expf per kept pair
-// more than the float32 instance; 5 output rows in place of 9.
+// matmul of e w (_tri_dot(..., low_precision), :721, 751): dl_k = g_S +
+// sum_{j>k} bf16(e_j w_j).  What bounds it on the H100 is instruction
+// issue on the kept path, which runs for the whole warp if any thread keeps
+// the pair.  So it carries T back by multiplication: each pixel starts from
+// the packed forward's q_b (its Q over the block) and E = exp(q_b); per kept
+// pair one __frcp_rn(1 - alpha) gives both T_k = E / (1 - alpha_k) =
+// exp(Q_k - l_k) and dl / (1 - alpha), then E = T_k exp(d_k) = exp(Q_{k-1}),
+// d = l - bf16(l) from blend_common.cuh's log1m_bf16 (the forward's l and
+// rounding) and exp(d) its cubic: no expf and no IEEE division per kept
+// pair.  Where Q < -60 (kLogWalk), as #2 below S_b, the pixel walks back in
+// log space, T = expf(Q - l), Q -= bf16(l), until Q rises above it, and E
+// is carried from its last T.  It adds round_bf16(e w) to the suffix and
+// writes the nine cotangents per lane as five bf16-pair rows (dmx, dmy),
+// (da, db), (dc, dop), (dr, dg), (db, 0) (:807-818), round to nearest
+// even.  kPixels = 2 as the float32 instance (1 and 4 timed slower here
+// too).  log1pf, the plain version's bits, which the rounding of l needs,
+// is now most of what the kept path costs beyond the float32 instance's; 5
+// output rows in place of 9.  gs_blend_bwd_win_packed_v1 (kExpQ) is the
+// first packed design, T = expf(Q - l) and an IEEE division per kept pair,
+// kept for chip_smoke.py's A/B.
 //
 // gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1, the first design: one
 // thread per pixel, the window's nine columns in shared memory.  Each
@@ -347,8 +358,10 @@ __global__ void blend_bwd_win_kernel(
 }
 
 // kPack: the table's payload layout (blend_common.cuh); a packed instance
-// takes the packed forward's q_b in s_b and writes 5 packed rows.
-template <bool kTFloor, int kPack = 0>
+// takes the packed forward's q_b in s_b and writes 5 packed rows.  kExpQ: a
+// packed instance of the first packed design (T by an expf of Q - l and an
+// IEEE division per kept pair), kept as the yardstick of the carried one.
+template <bool kTFloor, int kPack = 0, bool kExpQ = false>
 __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -409,7 +422,8 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
   // per pixel: the cotangent, the suffix sum_{j > k} e_j w_j and the
   // transmittance behind the current lane, Tn = exp(S_b) at the start
   // (while S < kLogWalk, S walks back instead and Tn is unused); packed, S
-  // is Q, from q_b, and Tn is unused
+  // is Q, from q_b, and Tn is exp(Q) over the lanes up to the current one
+  // (unused by the first packed design)
   float g0[P], g1[P], g2[P], gS[P], S[P], Tn[P], suffix[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -422,7 +436,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       g2[j] = g_b[2 * p2];
       gS[j] = g_b[3 * p2];
       S[j] = s_b[(size_t)b * p2 + p];
-      Tn[j] = (kPack || S[j] < kLogWalk) ? 0.f : expf(S[j]);
+      Tn[j] = ((kPack && kExpQ) || S[j] < kLogWalk) ? 0.f : expf(S[j]);
     }
   }
   __syncthreads();
@@ -458,13 +472,27 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
         kept = true;
         const float alpha = fminf(a_raw, alpha_cap);
         if (kPack) {
-          const float l = log1pf(-alpha);
-          const float T = expf(__fsub_rn(S[j], l));  // Q_k inclusive
-          S[j] = __fsub_rn(S[j], blend::round_bf16(l));
+          const blend::Log1m lm = blend::log1m_bf16(alpha);
+          const float dl = suffix[j] + gS[j];
+          float T, dl_1ma;  // T_k = exp(Q_k - l_k), dl / (1 - alpha)
+          if (kExpQ) {
+            T = expf(__fsub_rn(S[j], lm.l));  // Q_k inclusive
+            S[j] = __fsub_rn(S[j], lm.lb);
+            dl_1ma = __fdiv_rn(dl, 1.f - alpha);
+          } else {
+            const float inv = __frcp_rn(1.f - alpha);
+            if (S[j] < kLogWalk) {  // Q_k inclusive, walked back in log space
+              T = expf(__fsub_rn(S[j], lm.l));
+              S[j] = __fsub_rn(S[j], lm.lb);
+            } else {
+              T = Tn[j] * inv;  // exp(Q_k) / (1 - alpha_k)
+            }
+            Tn[j] = T * blend::exp_small(lm.d);  // exp(Q_{k-1})
+            dl_1ma = dl * inv;
+          }
           const float w = alpha * T;
           const float e = g0[j] * q2.x + g1[j] * q2.y + g2[j] * q2.z;
-          const float dl = suffix[j] + gS[j];
-          const float dpow = (e * T - __fdiv_rn(dl, 1.f - alpha)) * a_raw;
+          const float dpow = (e * T - dl_1ma) * a_raw;
           const float pdx = dpow * dx;
           const float pdy = dpow * dy;
           v[i][0] += pdx;
@@ -567,16 +595,19 @@ int launch_v1(const float* table, long long ep, const int* block_src,
   return (int)cudaGetLastError();
 }
 
-// tfloor: the T-floor instance; pack: the payload layout (kPack)
-int launch_hopper(bool tfloor, int pack, const float* table, long long ep,
+// tfloor: the T-floor instance; pack: the payload layout (kPack); exp_q: the
+// first packed design (kExpQ)
+int launch_hopper(bool tfloor, int pack, bool exp_q, const float* table, long long ep,
                   const int* block_src, const int* block_valid,
                   const int* block_tile, const float* g, const float* s_b,
                   const int* stop, int nb, int block, int ts, int tiles_x,
                   int row0, float power_floor, float alpha_cap,
                   float alpha_floor, float* dcols, void* stream) {
   const auto kernel = tfloor      ? blend_bwd_win_hopper<true>
-                      : pack == 1 ? blend_bwd_win_hopper<false, 1>
-                      : pack == 2 ? blend_bwd_win_hopper<false, 2>
+                      : pack == 1 ? (exp_q ? blend_bwd_win_hopper<false, 1, true>
+                                           : blend_bwd_win_hopper<false, 1>)
+                      : pack == 2 ? (exp_q ? blend_bwd_win_hopper<false, 2, true>
+                                           : blend_bwd_win_hopper<false, 2>)
                                   : blend_bwd_win_hopper<false>;
   const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
   const size_t smem = (size_t)block * sizeof(blend::Lane) +
@@ -608,8 +639,8 @@ extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 int tiles_x, int row0, float power_floor,
                                 float alpha_cap, float alpha_floor,
                                 float* dcols, void* stream) {
-  return launch_hopper(false, 0, table, ep, block_src, block_valid, block_tile, g,
-                       s_b, nullptr, nb, block, ts, tiles_x, row0, power_floor,
+  return launch_hopper(false, 0, false, table, ep, block_src, block_valid, block_tile,
+                       g, s_b, nullptr, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
 }
 
@@ -625,8 +656,8 @@ extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
                                    float power_floor, float alpha_cap,
                                    float alpha_floor, float* dcols,
                                    void* stream) {
-  return launch_hopper(true, 0, table, ep, block_src, block_valid, block_tile, g,
-                       s_b, stop, nb, block, ts, tiles_x, row0, power_floor,
+  return launch_hopper(true, 0, false, table, ep, block_src, block_valid, block_tile,
+                       g, s_b, stop, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
 }
 
@@ -644,9 +675,26 @@ extern "C" int gs_blend_bwd_win_packed(const float* table, long long ep,
                                        float power_floor, float alpha_cap,
                                        float alpha_floor, float* dcols,
                                        void* stream) {
-  return launch_hopper(false, pack_pos ? 2 : 1, table, ep, block_src, block_valid,
-                       block_tile, g, q_b, nullptr, nb, block, ts, tiles_x, row0,
-                       power_floor, alpha_cap, alpha_floor, dcols, stream);
+  return launch_hopper(false, pack_pos ? 2 : 1, false, table, ep, block_src,
+                       block_valid, block_tile, g, q_b, nullptr, nb, block, ts, tiles_x,
+                       row0, power_floor, alpha_cap, alpha_floor, dcols, stream);
+}
+
+// The first packed design, with the same arguments as
+// gs_blend_bwd_win_packed: T by an expf of Q - l and dl / (1 - alpha) by an
+// IEEE division per kept pair.
+extern "C" int gs_blend_bwd_win_packed_v1(const float* table, long long ep,
+                                          const int* block_src,
+                                          const int* block_valid,
+                                          const int* block_tile, const float* g,
+                                          const float* q_b, int nb, int block, int ts,
+                                          int tiles_x, int row0, int pack_pos,
+                                          float power_floor, float alpha_cap,
+                                          float alpha_floor, float* dcols,
+                                          void* stream) {
+  return launch_hopper(false, pack_pos ? 2 : 1, true, table, ep, block_src,
+                       block_valid, block_tile, g, q_b, nullptr, nb, block, ts, tiles_x,
+                       row0, power_floor, alpha_cap, alpha_floor, dcols, stream);
 }
 
 // The first design, as gs_blend_bwd_win without s_b: one

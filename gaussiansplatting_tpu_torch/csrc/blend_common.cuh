@@ -2,7 +2,8 @@
 // (blend_fwd.cu, gs_blend_fwd_win) and backward (blend_bwd.cu,
 // gs_blend_bwd_win): the staged lane record, the explicitly rounded power,
 // the thread's pixels, the conservative per-warp cull and the bf16 payload
-// mode's packing (ops/packing.py).
+// mode's packing (ops/packing.py), log1p(-alpha) with its bf16 rounding and
+// the cubic exp that carries T across that rounding.
 //
 // Pixel layout: thread t owns the P pixels (x, y0 + j), j < P, of one column
 // strip, x = t % ts, y0 = (t / ts) * P, p = y * ts + x.  A warp of 32
@@ -80,6 +81,28 @@ __device__ __forceinline__ float pack2(float a, float b) {
 __device__ __forceinline__ float2 unpack2(float p) {
   const unsigned u = __float_as_uint(p);
   return make_float2(__uint_as_float(u & 0xffff0000u), __uint_as_float(u << 16));
+}
+
+// A kept pair's log transmittance in the bf16 payload mode, one function for
+// both packed kernels: l = log1p(-alpha) as the plain version takes it (S
+// sums it), lb = bf16(l), the term of the in-block prefix Q (the TPU
+// kernel's bf16 matmul, _tri_dot(..., low_precision)), and d = l - lb, which
+// is exact (the bits of l below bf16's) and |d| <= 2^-8 |l| <= 0.018 for
+// alpha <= 0.99.  A cheaper l could round to the other bf16 neighbour and
+// move q_b by a bf16 ulp of l.
+struct Log1m {
+  float l, lb, d;
+};
+__device__ __forceinline__ Log1m log1m_bf16(float alpha) {
+  const float l = log1pf(-alpha);
+  const float lb = round_bf16(l);
+  return {l, lb, __fsub_rn(l, lb)};
+}
+
+// exp(d) for |d| <= 0.018 as the cubic 1 + d + d^2/2 + d^3/6 (Horner, three
+// FMAs): the remainder d^4/24 < 5e-9 lies below half a float32 ulp of 1.
+__device__ __forceinline__ float exp_small(float d) {
+  return __fmaf_rn(d, __fmaf_rn(d, __fmaf_rn(d, 1.f / 6.f, 0.5f), 1.f), 1.f);
 }
 
 // Payload layouts of the table (kPack): 0, float32 rows gid, sx, sy, conic

@@ -66,18 +66,30 @@
 // survives), which the backward starts its walk from.
 //
 // gs_blend_fwd_win_packed, the bf16 payload mode (kPack 1, or 2 with
-// tile-relative positions): the Hopper design over the 8-row packed table,
-// each lane unpacked once when it is staged (blend_common.cuh), so the
-// power tests cost what they cost unpacked.  The TPU kernel takes the
-// in-block log T prefix as a bf16 matmul (_tri_dot(..., low_precision),
-// pallas_blend.py:647): T_k = exp(Q_k - l_k), Q_k the float32 sum of the
-// bf16-rounded l_j over j <= k.  Here each kept pair adds round_bf16(l) to
-// Q and takes T by an expf, in place of the multiplication that carries T
-// in the float32 instance; S (row 3) stays the unrounded log1pf sum, as in
-// the TPU kernel (:661).  It also writes each pixel's Q over the block,
-// q_b [nb, ts*ts], from which the packed backward walks back.  An expf
-// per kept pair more than the float32 instance, and 7 (6) table rows read
-// per lane instead of 10.
+// tile-relative positions; _fwd_kernel_win's packed branch, pallas_blend.py
+// :605-606, 647, 661): the Hopper design over the 8-row packed table, each
+// lane unpacked once when it is staged (blend_common.cuh), so the power
+// tests cost what they cost unpacked.  The TPU kernel takes the in-block
+// log T prefix as a bf16 matmul (_tri_dot(..., low_precision), :647): T_k =
+// exp(Q_k - l_k), Q_k the float32 sum of the bf16-rounded l_j over j <= k.
+// What bounds it on the H100 is the float32 instance's instruction issue
+// plus, per kept pair, l and its rounding; a kept path runs for the whole
+// warp if any thread keeps the pair, so each instruction on it counts
+// several times.  So T is carried by multiplication, as in the float32
+// instance, and keeps the TPU kernel's numbers: E = exp(Q_{k-1}) starts at
+// 1, T_k = E exp(-d_k) with d = l - bf16(l) (exact, |d| <= 0.018) and exp(-d)
+// the cubic of blend_common.cuh (within an ulp), then E = T_k (1 - alpha_k)
+// = exp(Q_k): no expf per kept pair.  l = log1pf(-alpha) and its rounding
+// come from blend_common.cuh's log1m_bf16, the plain version's bits, which
+// the backward shares: Q still adds bf16(l), so q_b [nb, ts*ts], each
+// pixel's Q over the block, which the packed backward walks back from, and
+// S (row 3, the unrounded log1pf sum, :661) keep their bits.  E runs into
+// the denormals only where T does (Q < -87).  kPixels = 4 as the float32
+// instance: 1 and 2 timed slower here too.  The log1pf, which the float32
+// instance pays for S as well, is most of what the kept path costs; 7 (6)
+// table rows are read per lane instead of 10.  gs_blend_fwd_win_packed_v1
+// (kExpQ) is the first packed design, T = expf(Q - l) per kept pair, kept
+// for chip_smoke.py's A/B.
 //
 // gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1, the first design: one
 // thread per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2,
@@ -207,8 +219,10 @@ __global__ void blend_fwd_win_kernel(
 // No __launch_bounds__: with (256) ptxas fits the plain instance in 48
 // registers and spills 12 bytes; without, it takes 56 and spills nothing.
 // kPack: the table's payload layout (blend_common.cuh); packed instances
-// write q_out, the float32 instance none.
-template <bool kTFloor, int kPack = 0>
+// write q_out, the float32 instance none.  kExpQ: a packed instance of the
+// first packed design (T by an expf of Q - l per kept pair), kept as the
+// yardstick of the carried one.
+template <bool kTFloor, int kPack = 0, bool kExpQ = false>
 __global__ void blend_fwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -270,7 +284,8 @@ __global__ void blend_fwd_win_hopper(
   __syncthreads();
 
   const float4 rect = blend::warp_rect<P>(st, ts, half);
-  // T carries the transmittance (float32 instance); Q the float32 sum of
+  // T carries the transmittance (float32 instance) or exp(Q) over the
+  // lanes before the current one (packed instances); Q the float32 sum of
   // the bf16-rounded log1p(-alpha) (packed instances)
   float T[P], Q[P], S[P], c0[P], c1[P], c2[P];
   int stop[P];
@@ -305,13 +320,16 @@ __global__ void blend_fwd_win_hopper(
       }
       const float alpha = fminf(a_raw, alpha_cap);
       if (kPack) {
-        const float l = log1pf(-alpha);
-        Q[j] = __fadd_rn(Q[j], blend::round_bf16(l));
-        const float w = alpha * expf(__fsub_rn(Q[j], l));
+        const blend::Log1m lm = blend::log1m_bf16(alpha);
+        Q[j] = __fadd_rn(Q[j], lm.lb);
+        // T_k = exp(Q_k - l_k) = exp(Q_{k-1}) exp(-d_k)
+        const float t = kExpQ ? expf(__fsub_rn(Q[j], lm.l)) : T[j] * blend::exp_small(-lm.d);
+        const float w = alpha * t;
         c0[j] += w * q2.x;
         c1[j] += w * q2.y;
         c2[j] += w * q2.z;
-        S[j] += l;
+        if (!kExpQ) T[j] = t * (1.f - alpha);  // exp(Q_k)
+        S[j] += lm.l;
         continue;
       }
       const float w = alpha * T[j];
@@ -393,6 +411,25 @@ extern "C" int gs_blend_fwd_win_packed(const float* table, long long ep,
                                        float* q_b, void* stream) {
   const size_t smem = (size_t)block * sizeof(blend::Lane);
   const auto kernel = pack_pos ? blend_fwd_win_hopper<false, 2> : blend_fwd_win_hopper<false, 1>;
+  kernel<<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
+      table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
+      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, q_b);
+  return (int)cudaGetLastError();
+}
+
+// The first packed design, with the same arguments as
+// gs_blend_fwd_win_packed: T by an expf of Q - l per kept pair.
+extern "C" int gs_blend_fwd_win_packed_v1(const float* table, long long ep,
+                                          const int* block_src,
+                                          const int* block_valid,
+                                          const int* block_tile, int nb, int block,
+                                          int ts, int tiles_x, int row0, int pack_pos,
+                                          float power_floor, float alpha_cap,
+                                          float alpha_floor, float* out, float* gid,
+                                          float* q_b, void* stream) {
+  const size_t smem = (size_t)block * sizeof(blend::Lane);
+  const auto kernel = pack_pos ? blend_fwd_win_hopper<false, 2, true>
+                               : blend_fwd_win_hopper<false, 1, true>;
   kernel<<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
       row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, q_b);

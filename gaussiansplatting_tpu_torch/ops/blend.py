@@ -52,6 +52,8 @@ tile_size**2 pixels:
            of s_b; the backward returns five bf16-pair rows (dmx, dmy),
            (da, db), (dc, dop), (dr, dg), (db, 0).  The float32 entries
            refuse packed constants and the packed ones float32 constants.
+           The kernels carry T by multiplication, exp(Q) times a cubic in
+           the bf16 rounding error l - bf16(l) (csrc/blend_common.cuh).
 
 On a CUDA tensor each wrapper launches its kernel (csrc/blend_fwd.cu,
 csrc/blend_bwd.cu); on a CPU tensor it runs the plain version.  Nothing falls
@@ -66,7 +68,11 @@ with a batched warp exchange), which the wrappers launch, and the first
 design (the same names with ``_v1``: one thread per pixel, the backward
 replaying the forward), which only ``windowed_blend_{fwd,bwd}[_tf]_v1``
 launch, for chip_smoke.py's A/B.  The packed entries
-(``gs_blend_*_win_packed``) are instances of the Hopper design.
+(``gs_blend_*_win_packed``) are instances of the Hopper design that carry
+T by multiplication; ``gs_blend_*_win_packed_v1``, which only
+``windowed_blend_{fwd,bwd}_packed_v1`` launch, are the first packed design
+(an expf of Q - l per kept pair, and in the backward an IEEE division),
+the yardstick of chip_smoke.py's A/B.
 
 Every launch goes to ``torch.cuda.current_stream``, so a train step or a
 render captured as a CUDA graph (train/graph.py) records it.  The graph's
@@ -211,6 +217,37 @@ def windowed_blend_bwd_packed(table, block_src, block_valid, block_tile, row0,
 windowed_blend_bwd_packed.launches = 0
 
 
+def windowed_blend_fwd_packed_v1(table, block_src, block_valid, block_tile, row0,
+                                 block, cfg_consts):
+    """windowed_blend_fwd_packed through the first packed design
+    (``gs_blend_fwd_win_packed_v1``, an expf per kept pair), CUDA tensors
+    only: chip_smoke.py's A/B against the carried design.  ``.launches``
+    counts its launches."""
+    _check_no_grad(table)
+    _check_payload("windowed_blend_fwd_packed_v1", cfg_consts, True)
+    _check_cuda_only("windowed_blend_fwd_packed_v1", table, "windowed_blend_fwd_packed_plain")
+    return _launch_fwd_cuda(windowed_blend_fwd_packed_v1, table, block_src, block_valid,
+                            block_tile, row0, block, cfg_consts, v1=True)
+
+
+windowed_blend_fwd_packed_v1.launches = 0
+
+
+def windowed_blend_bwd_packed_v1(table, block_src, block_valid, block_tile, row0,
+                                 block, g, q_b, cfg_consts):
+    """windowed_blend_bwd_packed through the first packed design
+    (``gs_blend_bwd_win_packed_v1``, an expf and an IEEE division per kept
+    pair), CUDA tensors only: chip_smoke.py's A/B against the carried
+    design.  ``.launches`` counts its launches."""
+    _check_payload("windowed_blend_bwd_packed_v1", cfg_consts, True)
+    _check_cuda_only("windowed_blend_bwd_packed_v1", table, "windowed_blend_bwd_packed_plain")
+    return _launch_bwd_cuda(windowed_blend_bwd_packed_v1, table, block_src, block_valid,
+                            block_tile, row0, block, g, cfg_consts, s_b=q_b, v1=True)
+
+
+windowed_blend_bwd_packed_v1.launches = 0
+
+
 def windowed_blend_fwd_v1(table, block_src, block_valid, block_tile, row0,
                           block, cfg_consts):
     """windowed_blend_fwd through the first kernel design
@@ -299,11 +336,12 @@ windowed_blend_bwd_tf_v1.launches = 0
 
 
 # the wrappers whose ``.launches`` count their kernel's launches: the six of
-# the main paths and the first design's four
+# the main paths and the first designs' six
 COUNTED = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
            "windowed_blend_bwd_tf", "windowed_blend_fwd_packed",
            "windowed_blend_bwd_packed", "windowed_blend_fwd_v1", "windowed_blend_bwd_v1",
-           "windowed_blend_fwd_tf_v1", "windowed_blend_bwd_tf_v1")
+           "windowed_blend_fwd_tf_v1", "windowed_blend_bwd_tf_v1",
+           "windowed_blend_fwd_packed_v1", "windowed_blend_bwd_packed_v1")
 
 
 def launch_counts() -> dict[str, int]:
@@ -378,7 +416,8 @@ def launch_geometry(ts, block, backward, v1=False, tfloor=False):
     size ``ts`` and ``block`` lanes, as csrc/blend_fwd.cu and blend_bwd.cu
     launch it.  The Hopper design: ts * ceil(ts / P) threads (P = 4 pixels
     each in the forward, 2 in the backward; 2 in both T-floor instances,
-    ``tfloor``) rounded up to whole warps, 48 bytes per staged lane and, in
+    ``tfloor``; the packed instances as the float32 ones) rounded up to
+    whole warps, 48 bytes per staged lane and, in
     the backward, 9 floats per (warp, lane) of partial sums (plus, in the
     T-floor instance, the static warp_stop array).  The first design
     (``v1``): one thread per pixel, 9 floats per lane, and in the backward 9
@@ -419,9 +458,9 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
                      block, cfg_consts, logti=None, log_thr=None, v1=False):
     """gs_blend_fwd_win, which returns (out, gid), or, when ``logti`` is
     given, gs_blend_fwd_win_tf, which returns (out, stop); with ``v1``
-    their first design; with packed constants gs_blend_fwd_win_packed,
-    which returns (out, gid, q_b).  ``counter`` is the wrapper whose count
-    a launch adds to."""
+    their first design; with packed constants gs_blend_fwd_win_packed
+    (``v1``: gs_blend_fwd_win_packed_v1), which returns (out, gid, q_b).
+    ``counter`` is the wrapper whose count a launch adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -431,7 +470,8 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     dev = table.device
     tf = logti is not None
     packed, pack_pos = payload_flags(cfg_consts)
-    launch_geometry(ts, block, False, v1, tf)
+    # the first packed design is an instance of the Hopper design
+    launch_geometry(ts, block, False, v1 and not packed, tf)
     out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
     if packed:
         second = torch.empty((nb, block), dtype=torch.float32, device=dev)
@@ -446,8 +486,8 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     if nb == 0:
         return out, second
     lib = build.load_library("blend_fwd")
-    name = ("gs_blend_fwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
-            + ("_packed" if packed else ""))
+    name = ("gs_blend_fwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
+            + ("_v1" if v1 else ""))
     stream = torch.cuda.current_stream(dev).cuda_stream
     windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                block_valid.data_ptr(), block_tile.data_ptr())
@@ -477,9 +517,9 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     given the T-floor forward's ``s_b`` and ``stop``; with ``v1`` their
     first design, gs_blend_bwd_win_v1 (no s_b) or, given ``logti`` and
     ``log_thr``, gs_blend_bwd_win_tf_v1; with packed constants
-    gs_blend_bwd_win_packed, given the packed forward's q_b as ``s_b``,
-    which returns five packed rows.  ``counter`` is the wrapper whose count
-    a launch adds to."""
+    gs_blend_bwd_win_packed (``v1``: gs_blend_bwd_win_packed_v1), given the
+    packed forward's q_b as ``s_b``, which returns five packed rows.
+    ``counter`` is the wrapper whose count a launch adds to."""
     from gaussiansplatting_tpu_torch.kernels import build
 
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
@@ -493,7 +533,7 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     tf = stop is not None or logti is not None
     packed, pack_pos = payload_flags(cfg_consts)
-    launch_geometry(ts, block, True, v1, tf)
+    launch_geometry(ts, block, True, v1 and not packed, tf)
     g = g.contiguous()
     # the pointers each entry takes after g, its ints and float constants
     ints = (nb, block, ts, tiles_x, int(row0))
@@ -510,8 +550,8 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     dcols = torch.empty((5 if packed else 9, nb, block), dtype=torch.float32, device=dev)
     if nb > 0:
         lib = build.load_library("blend_bwd")
-        name = ("gs_blend_bwd_win" + ("_tf" if tf else "") + ("_v1" if v1 else "")
-                + ("_packed" if packed else ""))
+        name = ("gs_blend_bwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
+                + ("_v1" if v1 else ""))
         windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
                    block_valid.data_ptr(), block_tile.data_ptr(), g.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream

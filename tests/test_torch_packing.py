@@ -211,7 +211,9 @@ def test_packed_kernels_match_plain_cuda(pack_pos):
     gid exact, out and q_b within 1e-4 + 1e-5 relative, the five backward
     rows unpacked within a bf16 ulp + 1e-4 of the column's largest (the
     suffix's bf16 terms may round a last-bit difference either way;
-    chip_smoke.py's PACKED_BWD_REL)."""
+    chip_smoke.py's PACKED_BWD_REL); and against the first packed design
+    (``_packed_v1``): gid, S and q_b bit for bit, out at the same bar, the
+    rows within twice the plain bar."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     consts = (16, -4.5, 0.99, 1.0 / 255.0, 50, 1, int(pack_pos))
@@ -228,6 +230,133 @@ def test_packed_kernels_match_plain_cuda(pack_pos):
         *args, 0, 128, g, q_b, consts)), 9))
     bar = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().amax((1, 2), keepdim=True)
     assert bool(((got - want).abs() <= bar).all())
+    # the first packed design (T by an expf of Q - l): the same S, q_b and
+    # gid bits (only T's carry differs), the same bars for out and the rows
+    v1_out, v1_gid, v1_q = tblend.windowed_blend_fwd_packed_v1(*args, 0, 128, consts)
+    assert torch.equal(v1_gid, gid) and torch.equal(v1_q, q_b)
+    assert torch.equal(v1_out[:, 3], out[:, 3])
+    torch.testing.assert_close(out, v1_out, atol=1e-4, rtol=1e-5)
+    v1 = torch.stack(packing.unpack_cols(list(tblend.windowed_blend_bwd_packed_v1(
+        *args, 0, 128, g, q_b, consts)), 9))
+    assert bool(((got - v1).abs() <= 2 * bar).all())
+
+
+# ------------------------------------------- the packed kernels' T carry
+#
+# The packed kernels (csrc/blend_{fwd,bwd}.cu) take T_k = exp(Q_k - l_k),
+# Q_k the float32 sum of the bf16-rounded l_j = log1p(-alpha_j) over j <= k,
+# by multiplication: the forward carries E = exp(Q_{k-1}) and takes T_k =
+# E exp(-d_k), d = l - bf16(l), then E = T_k (1 - alpha_k); the backward
+# starts from the forward's q_b, walks back in log space (T = exp(Q - l),
+# Q -= bf16(l)) while Q < -60, and above it takes T_k = E / (1 - alpha_k)
+# by a rounded reciprocal, then E = T_k exp(d_k).  exp(+-d) is the cubic
+# 1 + d + d^2/2 + d^3/6 (|d| <= 2^-8 |l| <= 0.018).  The model below is
+# float32 in the kernels' order of operations (an FMA as one rounding),
+# held against float64 exp(Q - l) over the same bf16 terms.
+
+ALPHA_FLOOR, ALPHA_CAP = 1.0 / 255.0, 0.99
+LOG_WALK = np.float32(-60.0)    # blend_bwd.cu kLogWalk
+# Each kept lane costs the carry a few float32 roundings (the cubic, two
+# products, 1 - alpha and l's own rounding, which exp turns into up to
+# |l| ulp(1)): a random walk over 128 lanes, measured at most 4e-6 over
+# these pixels; 1e-5 is ~170 ulps.  Where float64 T lies below the normal
+# range (Q < -87) the float32 carry runs through denormals: each lane may
+# add one denormal ulp, 2^-149.
+CARRY_REL = 1e-5
+# (alpha range, pixels' q_b: all above the log-space walk, all below it)
+CARRY_CASES = [((ALPHA_FLOOR, 0.2), "above"), ((ALPHA_FLOOR, ALPHA_CAP), "below"),
+               ((0.5, ALPHA_CAP), "below")]
+
+
+def _bf16_np(x):
+    u = x.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _fma_np(a, b, c):
+    """fmaf: the float32 product is exact in float64, one rounding after."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _exp_small_np(d):
+    f = np.float32
+    return _fma_np(d, _fma_np(d, _fma_np(d, f(1.0 / 6.0), f(0.5)), f(1.0)), f(1.0))
+
+
+def _log1m_np(alpha):
+    """blend_common.cuh log1m_bf16: l, bf16(l), d = l - bf16(l) (exact)."""
+    l = np.log1p(-alpha)
+    lb = _bf16_np(l)
+    return l, lb, l - lb
+
+
+def _carry_fwd_np(alpha):
+    """T [N, K] of the packed forward's carry and each pixel's q_b [N]."""
+    n, k = alpha.shape
+    e, q, t = np.ones(n, np.float32), np.zeros(n, np.float32), np.empty_like(alpha)
+    for j in range(k):
+        l, lb, d = _log1m_np(alpha[:, j])
+        q = q + lb
+        t[:, j] = e * _exp_small_np(-d)
+        e = t[:, j] * (np.float32(1.0) - alpha[:, j])
+    return t, q
+
+
+def _carry_bwd_np(alpha, q_b):
+    """T [N, K] of the packed backward's walk from q_b, back to front."""
+    q = q_b.copy()
+    e = np.where(q < LOG_WALK, np.float32(0.0), np.exp(q)).astype(np.float32)
+    t = np.empty_like(alpha)
+    for j in range(alpha.shape[1] - 1, -1, -1):
+        l, lb, d = _log1m_np(alpha[:, j])
+        inv = np.float32(1.0) / (np.float32(1.0) - alpha[:, j])
+        walk = q < LOG_WALK
+        t[:, j] = np.where(walk, np.exp(q - l), e * inv)
+        q = np.where(walk, q - lb, q)
+        e = t[:, j] * _exp_small_np(d)
+    return t
+
+
+def _exp_q_minus_l64(alpha, q_end=None):
+    """float64 exp(Q_k - l_k) over the float32 l and its bf16 terms: Q_k
+    summed from 0 (the forward) or walked back from q_end (the backward,
+    Q_k = q_end - sum_{j > k} bf16(l_j))."""
+    l, lb, _ = _log1m_np(alpha)
+    lb = lb.astype(np.float64)
+    if q_end is None:
+        q = np.cumsum(lb, 1)
+    else:
+        q = q_end.astype(np.float64)[:, None] - (np.cumsum(lb[:, ::-1], 1)[:, ::-1] - lb)
+    return np.exp(q - l)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("alphas,q_b_side", CARRY_CASES)
+def test_packed_t_carry_within_float64(direction, alphas, q_b_side):
+    """The float32 model of the packed kernels' T carry, 2048 pixels of 128
+    kept lanes with seeded alpha, within CARRY_REL of float64 exp(Q - l)
+    (plus 2^-149 per lane where T is denormal), and within the same bar as
+    the first packed design's float32 exp(Q - l); the backward starts from
+    the modelled forward's q_b, on both sides of the log-space walk."""
+    rng = np.random.default_rng(int(alphas[0] * 1000) + 7)
+    alpha = rng.uniform(*alphas, (2048, 128)).astype(np.float32)
+    t_fwd, q_b = _carry_fwd_np(alpha)
+    assert bool((q_b < LOG_WALK).all() if q_b_side == "below" else (q_b >= LOG_WALK).all())
+    if direction == "fwd":
+        got, want = t_fwd, _exp_q_minus_l64(alpha)
+        l, lb, _ = _log1m_np(alpha)
+        first = np.exp(np.cumsum(lb, 1, dtype=np.float32) - l)    # the first packed design
+    else:
+        got, want = _carry_bwd_np(alpha, q_b), _exp_q_minus_l64(alpha, q_b)
+        first = None
+    bar = CARRY_REL * want + 2.0 ** -149 * alpha.shape[1]
+    assert np.isfinite(got).all() and (got >= 0).all()
+    worst = np.abs(got - want) / bar
+    assert worst.max() <= 1.0, (worst.max(), np.unravel_index(worst.argmax(), worst.shape))
+    if first is not None:
+        assert (np.abs(first - want) / bar).max() <= 1.0
+    if q_b_side == "below":     # the walk crosses -60: both regimes ran
+        assert (np.log(np.maximum(want, 1e-300)) >= LOG_WALK).any()
 
 
 # ---------------------------------------------------- renders, gradients
