@@ -26,6 +26,12 @@ captured as a CUDA graph (train/graph.py): the segment sums run with
 ``unsafe=True``, whose checks would read the offsets back (the tile bounds
 are sorted and span every block by construction).
 
+The frame launches the stage marks ``projection``, ``pairs``, ``blend`` and
+``compose`` (utils/tracing.py; the T-floor pass is a second ``blend`` then
+``compose``), the image's cotangent ``compose_bwd``, and each blend backward
+``blend_bwd``, ``reduction`` and ``projection_bwd``: a replayed graph shows
+its stages on the device trace.
+
 Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
 replaces:
   default path      windowed_blend_fwd    _fwd_kernel_win (:601)
@@ -55,6 +61,7 @@ from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
 from gaussiansplatting_tpu_torch.ops import blend as blend_mod
 from gaussiansplatting_tpu_torch.ops import pairs as pairs_mod
 from gaussiansplatting_tpu_torch.ops import projection as proj_mod
+from gaussiansplatting_tpu_torch.utils import tracing
 
 
 class RenderAux(NamedTuple):
@@ -121,6 +128,7 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     """Projection, the dead-zone colour, the stable depth presort and the
     capacity plan (rasterize.py:287-363) of tile rows [row0, row0 +
     tiles_y) (default: the whole image)."""
+    tracing.mark("projection", params.means)
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
     if tiles_y is None:
@@ -166,6 +174,7 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
         valid=n_tiles > 0,
     )
 
+    tracing.mark("pairs", data)
     (counts, ccounts, coffsets, ty_lo, span_x, total,
      overflow) = pairs_mod.capacity_plan(
         proj_p, tiles_x, tiles_y, cfg.pair_capacity, row0, cfg.overflow_drop,
@@ -211,11 +220,14 @@ def _reduce_to_data(dcols, gid, counts, n, grad_reduce):
     """The nine aligned-order column cotangents [NB, B] (five packed rows
     in the bf16 payload mode) -> per-Gaussian [N, 9] sums, by
     ``grad_reduce``."""
+    tracing.mark("reduction", gid)
     d_rows = torch.stack([c.reshape(-1) for c in dcols])           # [9 or 5, a_cap]
-    return pairs_mod.reduce_aligned_cotangents(
+    out = pairs_mod.reduce_aligned_cotangents(
         d_rows, gid.reshape(-1).to(torch.int32), counts, n, grad_reduce,
         packed_out=9 if len(dcols) == 5 else 0,
     )
+    tracing.mark("projection_bwd", out)
+    return out
 
 
 class _BlendWindows(torch.autograd.Function):
@@ -247,6 +259,7 @@ class _BlendWindows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out, _d_gid):
+        tracing.mark("blend_bwd", d_out)
         gid, counts, keep = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         bwd = (blend_mod.windowed_blend_bwd_packed if blend_mod.payload_flags(ctx.bconsts)[0]
@@ -282,6 +295,7 @@ class _BlendWindowsTF(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
+        tracing.mark("blend_bwd", d_out)
         gid, counts, logti, s_b, stop = ctx.saved_tensors
         win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
         dcols = blend_mod.windowed_blend_bwd_tf(
@@ -317,6 +331,7 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     plan = _plan(params, camera, cfg, vs_dummy, row0, n_rows)
     win = _windows(plan.data.detach(), plan.ints, plan.pcfg, row0)
     counts = plan.ints[0]
+    tracing.mark("blend", counts)
     out, gid = _BlendWindows.apply(plan.data, win, counts, plan.pcfg,
                                    plan.bconsts, cfg.grad_reduce)
     blend_tfloor = None
@@ -324,13 +339,16 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
         log_thr = math.log(cfg.transmittance_floor)
 
         def blend_tfloor(logti):
+            tracing.mark("blend", logti)
             out_tf = _BlendWindowsTF.apply(plan.data, win, gid, counts, logti,
                                            plan.pcfg, plan.bconsts, log_thr,
                                            cfg.grad_reduce)
+            tracing.mark("compose", logti)
             return out_tf[:, :3, :], out_tf[:, 3, :]
 
+    tracing.mark("compose", out)
     img = compose(out, win.block_tile, camera, cfg, blend_tfloor, tile_rows)
-    return img, plan.aux
+    return tracing.mark_grad("compose_bwd", img), plan.aux
 
 
 def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig,

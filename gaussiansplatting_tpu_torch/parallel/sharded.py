@@ -19,8 +19,9 @@ psum_scatter of N identical cotangents of loss / N).
 Gradients, vs_grad and pos_grad are all-reduced, pair counts summed over
 strips.  No float atomics: the reductions are the backend's collectives.
 
-Every collective runs inside a ``torch.profiler.record_function`` span
-(COLLECTIVE_SPANS), so a profile of a step reads the time spent in them.
+Every collective runs inside a host span (COLLECTIVE_SPANS,
+utils/tracing.py), which under a profiler is also a profiler range of the
+same name, so a profile of a step reads the time spent in them.
 
 Dispatch (the counterpart of JAX's ``jax.jit`` of each sharded function,
 sharded.py:166, 283, 316): the step, the batched step and the render are
@@ -50,9 +51,10 @@ from gaussiansplatting_tpu_torch.ops.rasterize import render
 from gaussiansplatting_tpu_torch.parallel.mesh import Mesh, require_process_group
 from gaussiansplatting_tpu_torch.train import graph, optimizer
 from gaussiansplatting_tpu_torch.train import trainer
+from gaussiansplatting_tpu_torch.utils import tracing
 
 
-# the profiler spans around the collectives: the strip gather, and the
+# the host spans around the collectives: the strip gather, and the
 # all-reduces of the gradients and of the density statistics and counts
 COLLECTIVE_SPANS = ("sharded.gather_strips", "sharded.all_reduce")
 
@@ -74,7 +76,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     view: autograd hands vs_grad back as a column slice, which a collective
     must not take)."""
     x = x.contiguous()
-    with torch.profiler.record_function(COLLECTIVE_SPANS[1]):
+    with tracing.span(COLLECTIVE_SPANS[1]):
         dist.all_reduce(x, group=mesh.group)
     return x
 
@@ -87,7 +89,7 @@ def chunked_all_reduce(grads: dict, mesh: Mesh, chunks: int = 1) -> dict:
     it).  The sum is elementwise, so the slices change no value: with two
     ranks each element is one addition, bit-identical either way."""
     out = {}
-    with torch.profiler.record_function(COLLECTIVE_SPANS[1]):
+    with tracing.span(COLLECTIVE_SPANS[1]):
         for f in sorted(grads):
             g = grads[f].contiguous()
             n = g.shape[0]
@@ -106,7 +108,7 @@ class _GatherStrips(torch.autograd.Function):
     def forward(ctx, strip, mesh):
         rows = strip.shape[0]
         full = strip.new_empty((mesh.size * rows,) + tuple(strip.shape[1:]))
-        with torch.profiler.record_function(COLLECTIVE_SPANS[0]):
+        with tracing.span(COLLECTIVE_SPANS[0]):
             dist.all_gather_into_tensor(full, strip.contiguous(), group=mesh.group)
         ctx.lo, ctx.rows = mesh.rank * rows, rows
         return full
@@ -151,7 +153,9 @@ def step_body(state, camera, gt_image, cfg: Config, scalars: torch.Tensor, mesh:
                           device=params.means.device, requires_grad=True)
     with torch.enable_grad():
         img, aux = _full_image(params, camera, cfg.raster, mesh, vs_zero)
+        tracing.mark("loss", img)
         rep = photometric_loss(img, gt_image, cfg.loss)
+        tracing.mark("loss_bwd", img)
         *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
     grad = chunked_all_reduce(dict(zip(optimizer.TRAINABLE, grads)), mesh, grad_psum_chunks)
     vs_grad = _all_reduce(vs_grad, mesh)

@@ -1,21 +1,35 @@
-"""Device-time capture and aggregation for the train step.
+"""Device-time capture and aggregation for the train step: the operator's
+reader of the port's tracing (utils/tracing.py).
 
 Counterpart of gaussiansplatting_tpu/tools/trace.py: a ``torch.profiler``
 capture around N already-warm train steps on the synthetic scene, the
-device time grouped by kernel name, the top groups in ms per step, and the
-card's idle share, 1 - device time / host clock (the host clock of N
-synchronized steps taken just before the capture, without the profiler).
+device time grouped by kernel name, the top groups in ms per step, the
+device ms per step of each stage of the port's stage marks
+(``gs_mark_<stage>`` kernels: a stage runs from its mark to the next), the
+device's idle ms per step charged to the innermost of the port's host spans
+open when each gap began (named by its path from its request's root span)
+and rolled up by request, and the card's idle share: 1 - the union of the
+device operations' intervals over the traced window (overlapping kernels
+count once).  The host clock of N synchronized steps, taken just before the
+capture without the profiler, is printed beside it.  ``--loop`` traces the
+training loop instead: ``train_loop`` for N iterations from a fresh state,
+with a pair read and a densify event every LOOP_EVENTS iterations, an
+opacity reset every second one, capacity growth and chunks of LOOP_CHUNK
+replays, so the window holds the loop's spans, its captures and its events.
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
-      [--payload-dtype f32|bf16] [--pack-positions 0|1]
+      [--payload-dtype f32|bf16] [--pack-positions 0|1] [--loop]
       [--out build/trace] [--parse-only] [--device cuda]
 
-The chrome trace goes to ``<out>/trace.json``; ``--parse-only`` aggregates
-an existing one.  On the card the groups are the CUDA kernels (and memory
+The chrome trace goes to ``<out>/trace.json`` (the port's host spans in it
+as profiler ranges), the device operations and the port's spans on
+``time.time_ns()`` to ``<out>/timeline.json``; ``--parse-only`` reads an
+existing pair.  On the card the groups are the CUDA kernels (and memory
 copies and sets); a CPU capture (``--device cpu``) groups the operators'
-self time instead.  ``--payload-dtype bf16`` (with ``--pack-positions 1``)
-traces the bf16 payload mode, as the JAX tool does.
+self time instead, and there are no stages, idle gaps or idle share.
+``--payload-dtype bf16`` (with ``--pack-positions 1``) traces the bf16
+payload mode, as the JAX tool does.
 
 ``device_profile`` and ``step_breakdown`` are the kernels-only profiles
 chip_smoke.py prints for its paths.
@@ -32,6 +46,11 @@ import time
 
 # chrome-trace categories of work on the card
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TIMELINE = "timeline.json"
+# --loop: a pair read and a densify event every LOOP_EVENTS iterations, an
+# opacity reset every second one, chunks of LOOP_CHUNK replays
+LOOP_EVENTS = 10
+LOOP_CHUNK = 5
 
 
 def _setup(n, width, height, pair_capacity, device, payload_dtype="f32",
@@ -65,34 +84,65 @@ def _sync(device):
 
 
 def capture(steps, n, width, height, pair_capacity, out, device="cuda",
-            payload_dtype="f32", pack_positions=False):
+            payload_dtype="f32", pack_positions=False, loop=False):
     """Warm one step, time ``steps`` synchronized steps on the host clock,
-    then profile ``steps`` more and write ``<out>/trace.json``.  Returns the
-    host ms per step."""
+    then profile ``steps`` more; ``loop``: profile one ``train_loop`` of
+    ``steps`` iterations from a fresh state instead (see the module
+    docstring), untimed.  Writes ``<out>/trace.json`` and
+    ``<out>/timeline.json``.  Returns the host ms per step (None for a
+    loop)."""
     import torch
 
-    from gaussiansplatting_tpu_torch.train.trainer import train_step
+    from gaussiansplatting_tpu_torch.train import trainer
+    from gaussiansplatting_tpu_torch.utils import tracing
 
     device = torch.device(device)
     st, camera, gt, cfg = _setup(n, width, height, pair_capacity, device, payload_dtype,
                                  pack_positions)
-    st, _ = train_step(st, camera, gt, cfg, 30_000)   # warm
-    _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        st, _ = train_step(st, camera, gt, cfg, 30_000)
-    _sync(device)
-    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    if loop:
+        cfg = cfg.replace(density=cfg.density.replace(
+            densify_from_iter=0, densify_interval=LOOP_EVENTS,
+            opacity_reset_interval=2 * LOOP_EVENTS))
+
+        def run(st):
+            return trainer.train_loop(st, [camera] * steps, [gt] * steps, cfg, scene_extent=1.0,
+                                      num_epochs=1, adaptive_pairs=True,
+                                      adapt_interval=LOOP_EVENTS, adaptive_capacity=True,
+                                      scan_steps=LOOP_CHUNK)
+    else:
+        def run(st):
+            for _ in range(steps):
+                st, _ = trainer.train_step(st, camera, gt, cfg, 30_000)
+            return st
+
+    host_ms = None
+    if not loop:
+        st, _ = trainer.train_step(st, camera, gt, cfg, 30_000)   # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        st = run(st)
+        _sync(device)
+        host_ms = 1e3 * (time.perf_counter() - t0) / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    tracing.clear()
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            st, _ = train_step(st, camera, gt, cfg, 30_000)
+        lo = time.time_ns()
+        run(st)
         _sync(device)
+        hi = time.time_ns()
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    ops = []
+    for e in prof.profiler.kineto_results.events():
+        start = int(e.start_ns())
+        if not str(e.device_type()).endswith("CPU") and e.duration_ns() > 0:
+            ops.append((e.name(), start, start + int(e.duration_ns())))
+    with open(os.path.join(out, TIMELINE), "w") as f:
+        json.dump({"window": [lo, hi], "device": ops, "spans": tracing.spans(),
+                   "dropped": tracing.dropped()}, f)
     return host_ms
 
 
@@ -128,12 +178,13 @@ def _self_times(events):
     return out
 
 
-def aggregate(trace_path: str, steps: int, top: int = 25) -> list[tuple[str, float]]:
+def aggregate(trace_path: str, steps: int, top: int = 25,
+              skip=frozenset()) -> list[tuple[str, float]]:
     """Parse a chrome trace (a file, or a directory holding trace.json);
     return [(group, ms per step)] sorted descending, the ``top`` largest,
     then ("TOTAL(device)", the sum of all groups).  Device events (kernels,
-    memory copies and sets) where the trace has any, else the operators'
-    self time."""
+    memory copies and sets) where the trace has any, else the self time of
+    the operators not named in ``skip`` (the port's host spans)."""
     if os.path.isdir(trace_path):
         trace_path = os.path.join(trace_path, "trace.json")
     with open(trace_path) as f:
@@ -142,7 +193,8 @@ def aggregate(trace_path: str, steps: int, top: int = 25) -> list[tuple[str, flo
     if dev:
         timed = [(e.get("name", "?"), e.get("dur", 0)) for e in dev]
     else:
-        timed = _self_times([e for e in events if e.get("cat") == "cpu_op"])
+        timed = _self_times([e for e in events
+                             if e.get("cat") == "cpu_op" and e.get("name") not in skip])
     groups = collections.Counter()
     for name, us in timed:
         groups[_group_name(name)] += us
@@ -150,6 +202,99 @@ def aggregate(trace_path: str, steps: int, top: int = 25) -> list[tuple[str, flo
     out = [(name, us / 1e3 / steps) for name, us in groups.most_common(top)]
     out.append(("TOTAL(device)", total / 1e3 / steps))
     return out
+
+
+def timeline(out: str):
+    """(device operations [(name, start, end)], the port's host spans
+    [tracing.Span], the traced window (start, end), spans the buffer
+    dropped) of a capture's ``<out>/timeline.json``, all in ns on
+    ``time.time_ns()``."""
+    from gaussiansplatting_tpu_torch.utils.tracing import Span
+
+    with open(os.path.join(out, TIMELINE)) as f:
+        t = json.load(f)
+    return ([tuple(d) for d in t["device"]], [Span(*s) for s in t["spans"]],
+            tuple(t["window"]), t["dropped"])
+
+
+def merged(intervals, lo, hi) -> list:
+    """The union of (start, end) ``intervals`` clipped to [lo, hi], as
+    sorted disjoint pairs."""
+    out = []
+    for s, e in sorted((max(i[0], lo), min(i[1], hi)) for i in intervals):
+        if e <= s:
+            continue
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def idle_share(device, window) -> float | None:
+    """1 - the union of the device operations' intervals over the window;
+    None without device operations."""
+    if not device or window[1] <= window[0]:
+        return None
+    busy = sum(e - s for s, e in merged([d[1:] for d in device], *window))
+    return 1.0 - busy / (window[1] - window[0])
+
+
+def stage_ms(device, window, steps: int) -> dict:
+    """{stage: device ms per step} of the port's stage marks: each non-mark
+    operation counts in the stage of the last ``gs_mark_<stage>`` begun
+    before it (None before the first), a union per stage over the window."""
+    from gaussiansplatting_tpu_torch.utils.tracing import MARK_PREFIX
+
+    if not any(d[0].startswith(MARK_PREFIX) for d in device):
+        return {}
+    by_stage, stage = collections.defaultdict(list), None
+    for name, s, e in sorted(device, key=lambda d: d[1]):
+        if name.startswith(MARK_PREFIX):
+            stage = name[len(MARK_PREFIX):]
+        else:
+            by_stage[stage].append((s, e))
+    return {k: sum(e - s for s, e in merged(v, *window)) / 1e6 / steps
+            for k, v in by_stage.items()}
+
+
+def _path(spans, i: int) -> str:
+    """The names from span ``i``'s request root down to it."""
+    names = []
+    while i >= 0:
+        names.append(spans[i].name)
+        i = spans[i].parent
+    return " > ".join(reversed(names))
+
+
+def idle_ms(device, spans, window, steps: int) -> tuple[dict, dict]:
+    """({span path: device idle ms per step}, {request: idle ms per step}):
+    each gap in the union of the device operations over the window charged
+    to the innermost span (the latest begun) open when it began, named by
+    its path (``graph.run_steps > graph.replay``), and to the root span of
+    its request; "host" where none is open."""
+    if not device:
+        return {}, {}
+    gaps, t = [], window[0]
+    for s, e in merged([d[1:] for d in device], *window):
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if window[1] > t:
+        gaps.append((t, window[1]))
+    roots = {s.request: s.name for s in spans if s.parent == -1}
+    by_path, by_request = collections.Counter(), collections.Counter()
+    for g0, g1 in gaps:
+        ms = (g1 - g0) / 1e6 / steps
+        open_spans = [i for i, s in enumerate(spans) if s.start_ns <= g0 < s.end_ns]
+        if not open_spans:
+            by_path["host"] += ms
+            by_request["host"] += ms
+            continue
+        i = max(open_spans, key=lambda i: (spans[i].start_ns, -spans[i].end_ns))
+        by_path[_path(spans, i)] += ms
+        by_request[roots.get(spans[i].request, spans[i].name)] += ms
+    return dict(by_path), dict(by_request)
 
 
 def device_profile(label, fn, reps, smi, device="cuda", log=print, top=12):
@@ -226,6 +371,9 @@ def main(argv=None) -> int:
     p.add_argument("--pack-positions", type=int, choices=(0, 1), default=0,
                    help="with --payload-dtype bf16: tile-relative bf16 positions")
     p.add_argument("--top", type=int, default=25)
+    p.add_argument("--loop", action="store_true",
+                   help="trace train_loop for --steps iterations from a fresh state, its "
+                        "events every %d iterations" % LOOP_EVENTS)
     p.add_argument("--out", default=os.path.join("build", "trace"))
     p.add_argument("--parse-only", action="store_true",
                    help="skip capture; aggregate an existing --out dir")
@@ -239,14 +387,28 @@ def main(argv=None) -> int:
 
         host_ms = capture(args.steps, args.n, args.width, args.height, args.pair_capacity,
                           args.out, _device(args.device), args.payload_dtype,
-                          bool(args.pack_positions))
-    rows = aggregate(args.out, args.steps, args.top)
+                          bool(args.pack_positions), args.loop)
+    device, spans, window, dropped = timeline(args.out)
+    for stage, ms in sorted(stage_ms(device, window, args.steps).items(),
+                            key=lambda x: -x[1]):
+        print(f"{ms:9.3f} ms/step  stage {stage}")
+    by_path, by_request = idle_ms(device, spans, window, args.steps)
+    for path, ms in sorted(by_path.items(), key=lambda x: -x[1]):
+        print(f"{ms:9.3f} ms/step  idle in {path}")
+    for root, ms in sorted(by_request.items(), key=lambda x: -x[1]):
+        print(f"{ms:9.3f} ms/step  idle under {root}")
+    if dropped:
+        print(f"{dropped} spans dropped (the buffer was full): the idle charges are partial")
+    rows = aggregate(args.out, args.steps, args.top, {s.name for s in spans})
     for name, ms in rows:
         print(f"{ms:9.3f} ms/step  {name}")
+    idle = idle_share(device, window)
+    said = (f"the card idles {idle:.3f} of the traced window" if idle is not None
+            else "no device operation traced")
     if host_ms is not None:
-        device_ms = rows[-1][1]
-        print(f"{host_ms:9.3f} ms/step  host clock ({args.steps} synchronized steps); "
-              f"the card idles {1 - device_ms / host_ms:.3f} of it")
+        print(f"{host_ms:9.3f} ms/step  host clock ({args.steps} synchronized steps); {said}")
+    else:
+        print(said)
     return 0
 
 

@@ -69,6 +69,15 @@ alike (a rank that captured alone would wait in its warm-up's first
 collective for ranks that replay).  The caches are not locked: callers
 that share them across threads (tools/view.py) hold one lock around every
 call.
+
+Tracing (utils/tracing.py): every captured body ends with the ``end`` stage
+mark, the last node of its graph, so a device trace counts replays.  Each
+call is a request span (``graph.run_steps``, ``graph.render_frame``,
+``graph.event``) over ``graph.copy_in``, one
+``graph.replay`` a replay (with that replay's view copies) and
+``graph.clone_out``, and a capture is ``graph.capture`` over its
+``graph.warmup``; the spans record only under a profiler or after
+``tracing.enable()``.
 """
 
 from __future__ import annotations
@@ -85,6 +94,7 @@ from gaussiansplatting_tpu_torch.density.control import DensityAccum
 from gaussiansplatting_tpu_torch.ops import blend, rasterize
 from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE, AdamState
 from gaussiansplatting_tpu_torch.train.state import TrainState
+from gaussiansplatting_tpu_torch.utils import tracing
 
 MAX_GRAPHS = 2          # two are enough for steps that alternate between two modes
 MAX_RENDER_GRAPHS = 2   # tools.train renders its snapshots and its held-out views
@@ -202,10 +212,10 @@ def _clones(out):
     return type(out)(*parts) if hasattr(out, "_fields") else type(out)(parts)
 
 
-def _pool_bytes(graph, dev) -> int:
-    """The bytes of the segments of ``graph``'s private memory pool on
+def _pool_bytes(pool, dev) -> int:
+    """The bytes of the segments of the private memory pool ``pool`` on
     ``dev`` (torch.cuda.memory_snapshot)."""
-    pool, index = tuple(graph.pool()), torch.device(dev).index
+    index = torch.device(dev).index
     index = torch.cuda.current_device() if index is None else index
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
@@ -214,42 +224,69 @@ def _pool_bytes(graph, dev) -> int:
 class _Capture:
     """``warm()`` run once eagerly on a side stream, then one call of
     ``fn()`` captured on that stream into a new CUDA graph (see the module
-    docstring).  Holds the graph, fn's output (static tensors the replays
-    rewrite), the launches the capture recorded, the warm-up and capture
-    seconds and the pool's bytes.  ``free_cache``: return the allocator's
-    cached blocks to the device before the capture (a step's or a frame's
-    pool is gigabytes); a density event or a traced view captures a small
-    pool mid-run, where emptying a trainer's cache cost 0.3 s on an H100."""
+    docstring), each ended by the ``end`` stage mark (utils/tracing.py),
+    under the spans ``graph.capture`` and its child ``graph.warmup``.  Holds
+    the graph, fn's output (static tensors the replays rewrite), the
+    launches the capture recorded, the graph's memory pool and device,
+    ``warmup_s`` (the warm-up call, synchronized, from its span's clock
+    reads) and ``capture_s`` (the capture, synchronized: from after
+    ``empty_cache`` to the end of ``graph.capture``).  ``free_cache``:
+    return the allocator's cached blocks to the device before the capture
+    (a step's or a frame's pool is gigabytes); a density event or a traced
+    view captures a small pool mid-run, where emptying a trainer's cache
+    cost 0.3 s on an H100."""
 
     def __init__(self, warm, fn, dev, what: str, free_cache: bool = True):
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            warm()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t0
-        if free_cache:
-            torch.cuda.empty_cache()
-        before = blend.launch_counts()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode=CAPTURE_MODE):
-                self.out = fn()
-        except Exception as e:
-            raise RuntimeError(f"capturing {what} failed at {_where(e)}: {e}") from e
-        finally:
-            after = blend.launch_counts()
-            blend.add_launches({k: before[k] - after[k] for k in before})
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = _pool_bytes(self.graph, dev)
+        with tracing.span("graph.capture", timed=True) as whole:
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with tracing.span("graph.warmup", timed=True) as warmup:
+                with torch.cuda.stream(stream):
+                    warm()
+                    tracing.mark("end", dev)
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                torch.cuda.synchronize(dev)
+            if free_cache:
+                torch.cuda.empty_cache()
+            start = time.time_ns()
+            before = blend.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode=CAPTURE_MODE):
+                    self.out = fn()
+                    tracing.mark("end", dev)
+            except Exception as e:
+                raise RuntimeError(f"capturing {what} failed at {_where(e)}: {e}") from e
+            finally:
+                after = blend.launch_counts()
+                blend.add_launches({k: before[k] - after[k] for k in before})
+            torch.cuda.synchronize(dev)
+        self.warmup_s = warmup.seconds
+        self.capture_s = (whole.end - start) * 1e-9
         self.launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
+        self.pool, self.dev = tuple(self.graph.pool()), dev
 
 
-class StepGraph:
+class _Graph:
+    """What every kind of graph keeps of its capture: the graph, the
+    launches it recorded, warmup_s and capture_s, and ``pool_bytes``, the
+    bytes of its memory pool, read at first use (it walks every segment of
+    the device)."""
+
+    def _keep(self, c: _Capture) -> None:
+        self.graph, self.launches = c.graph, c.launches
+        self.warmup_s, self.capture_s = c.warmup_s, c.capture_s
+        self._pool, self._dev, self._pool_bytes = c.pool, c.dev, None
+
+    @property
+    def pool_bytes(self) -> int:
+        if self._pool_bytes is None:
+            self._pool_bytes = _pool_bytes(self._pool, self._dev)
+        return self._pool_bytes
+
+
+class StepGraph(_Graph):
     """One captured step of ``body`` for one key.  ``views`` None: the
     body is ``body(state, camera, gt [H, W, 3], cfg, scalars, *extra)`` and
     a replay reads one view (trainer.step_body, sharded.step_body);
@@ -289,8 +326,7 @@ class StepGraph:
             what = "the train step" if views is None else "the batched train step"
         c = _Capture(warm, step, dev, what)
         counts["warmup_steps"] += WARMUP_STEPS * n
-        self.graph, self.launches = c.graph, c.launches
-        self.warmup_s, self.capture_s, self.pool_bytes = c.warmup_s, c.capture_s, c.pool_bytes
+        self._keep(c)
         self.metrics, metrics = c.out
         self.metrics_type = type(metrics)
         self.metrics_dtypes = [x.dtype for x in metrics]
@@ -312,22 +348,25 @@ class StepGraph:
         if rest or len(gts) != len(cameras):
             raise ValueError(f"{len(cameras)} cameras and {len(gts)} ground truths for "
                              f"replays of {n} views")
-        out = torch.empty((k, self.metrics.shape[0]), dtype=torch.float64,
-                          device=self.metrics.device)
-        self.load(state)
+        with tracing.span("graph.copy_in"):
+            out = torch.empty((k, self.metrics.shape[0]), dtype=torch.float64,
+                              device=self.metrics.device)
+            self.load(state)
         with torch.no_grad():
             for i in range(k):
-                for j in range(n):
-                    gt = gts[i * n + j]
-                    if gt.shape != self.gt.shape[1:]:
-                        raise ValueError(f"ground truth {tuple(gt.shape)}, the step was "
-                                         f"captured for {tuple(self.gt.shape[1:])}")
-                    self.cameras[j].copy_(cameras[i * n + j])
-                    self.gt[j].copy_(gt)
-                self.scalars.copy_(scalars[i])
-                self.graph.replay()
-                out[i].copy_(self.metrics)
-            new = [x.clone() for x in self.tensors]
+                with tracing.span("graph.replay"):
+                    for j in range(n):
+                        gt = gts[i * n + j]
+                        if gt.shape != self.gt.shape[1:]:
+                            raise ValueError(f"ground truth {tuple(gt.shape)}, the step was "
+                                             f"captured for {tuple(self.gt.shape[1:])}")
+                        self.cameras[j].copy_(cameras[i * n + j])
+                        self.gt[j].copy_(gt)
+                    self.scalars.copy_(scalars[i])
+                    self.graph.replay()
+                    out[i].copy_(self.metrics)
+            with tracing.span("graph.clone_out"):
+                new = [x.clone() for x in self.tensors]
         blend.add_launches({name: c * k for name, c in self.launches.items()})
         metrics = self.metrics_type(*(out[:, j].to(dt) for j, dt in enumerate(self.metrics_dtypes)))
         return _state_of(new, state.opt.t + k, state.generator), metrics
@@ -338,7 +377,7 @@ class StepGraph:
         self.graph = self.metrics = self.tensors = None
 
 
-class RenderGraph:
+class RenderGraph(_Graph):
     """One captured ``body(params, camera, raster_cfg, *extra)`` under
     ``torch.no_grad`` for one render_key: ``ops.rasterize.render`` (image,
     RenderAux), or the sharded render's body with its mesh in ``extra``.
@@ -359,8 +398,7 @@ class RenderGraph:
 
         c = _Capture(frame, frame, dev, what)
         counts["warmup_renders"] += 1
-        self.graph, self.launches = c.graph, c.launches
-        self.warmup_s, self.capture_s, self.pool_bytes = c.warmup_s, c.capture_s, c.pool_bytes
+        self._keep(c)
         self.out = c.out
         counts[counter] += 1
 
@@ -368,11 +406,14 @@ class RenderGraph:
         """Copy ``params`` and ``camera`` in, replay, return the body's
         output as clones."""
         with torch.no_grad():
-            for f in FIELDS:
-                getattr(self.params, f).copy_(getattr(params, f))
-            self.camera.copy_(camera)
-            self.graph.replay()
-            out = _clones(self.out)
+            with tracing.span("graph.copy_in"):
+                for f in FIELDS:
+                    getattr(self.params, f).copy_(getattr(params, f))
+                self.camera.copy_(camera)
+            with tracing.span("graph.replay"):
+                self.graph.replay()
+            with tracing.span("graph.clone_out"):
+                out = _clones(self.out)
         blend.add_launches(self.launches)
         return out
 
@@ -382,7 +423,7 @@ class RenderGraph:
         self.graph = self.params = self.out = None
 
 
-class CallGraph:
+class CallGraph(_Graph):
     """One captured ``fn(*buffers)`` over static buffers of ``inputs``'
     shapes on ``dev``: a replay reads the buffers, into which ``run``
     copies its inputs, and ``run`` returns fn's output (a tensor or a
@@ -404,8 +445,7 @@ class CallGraph:
 
         c = _Capture(call, call, dev, what, free_cache=False)
         counts[warm_counter] += 1
-        self.graph, self.launches = c.graph, c.launches
-        self.warmup_s, self.capture_s, self.pool_bytes = c.warmup_s, c.capture_s, c.pool_bytes
+        self._keep(c)
         self.out = c.out
         counts[counter] += 1
 
@@ -413,10 +453,13 @@ class CallGraph:
         """Copy ``inputs`` into the buffers, replay, return clones of the
         output."""
         with torch.no_grad():
-            for dst, src in zip(self.buffers, inputs, strict=True):
-                dst.copy_(src)
-            self.graph.replay()
-            out = _clones(self.out)
+            with tracing.span("graph.copy_in"):
+                for dst, src in zip(self.buffers, inputs, strict=True):
+                    dst.copy_(src)
+            with tracing.span("graph.replay"):
+                self.graph.replay()
+            with tracing.span("graph.clone_out"):
+                out = _clones(self.out)
         blend.add_launches(self.launches)
         return out
 
@@ -461,9 +504,10 @@ def run_steps(body, state: TrainState, cameras, gts, cfg, scalars: torch.Tensor,
     """StepGraph.run through the step cache: the graph of ``body`` with
     ``views`` per replay for this state's, camera's and Config's key,
     captured first if it is not there."""
-    key = graph_key(body, views, state, cameras[0], cfg)
-    graph = _steps.get(key, lambda: StepGraph(body, state, cameras, gts, cfg, views))
-    return graph.run(state, cameras, gts, scalars)
+    with tracing.span("graph.run_steps"):
+        key = graph_key(body, views, state, cameras[0], cfg)
+        graph = _steps.get(key, lambda: StepGraph(body, state, cameras, gts, cfg, views))
+        return graph.run(state, cameras, gts, scalars)
 
 
 def render_frame(params: GaussianParams, camera, raster_cfg):
@@ -475,9 +519,10 @@ def render_frame(params: GaussianParams, camera, raster_cfg):
     if params.means.device.type != "cuda":
         with torch.no_grad():
             return rasterize.render(params, camera, raster_cfg)
-    graph = _renders.get(render_key(params, camera, raster_cfg),
-                         lambda: RenderGraph(params, camera, raster_cfg))
-    return graph.run(params, camera)
+    with tracing.span("graph.render_frame"):
+        graph = _renders.get(render_key(params, camera, raster_cfg),
+                             lambda: RenderGraph(params, camera, raster_cfg))
+        return graph.run(params, camera)
 
 
 def run_sharded_steps(body, state: TrainState, cameras, gts, cfg, scalars: torch.Tensor, mesh,
@@ -485,11 +530,12 @@ def run_sharded_steps(body, state: TrainState, cameras, gts, cfg, scalars: torch
     """run_steps for parallel/sharded.py's step bodies, ``body(state,
     camera(s), gt(s), cfg, scalars, mesh, chunks)``, through the sharded
     cache (sharded_key).  Every rank of ``mesh`` calls it alike."""
-    key = sharded_key(body, views, mesh, backend, chunks, state, cameras[0], cfg)
-    what = f"the sharded {'batched ' if views else ''}train step"
-    graph = _sharded.get(key, lambda: StepGraph(body, state, cameras, gts, cfg, views,
-                                                (mesh, chunks), what, "sharded_captures"))
-    return graph.run(state, cameras, gts, scalars)
+    with tracing.span("graph.run_steps"):
+        key = sharded_key(body, views, mesh, backend, chunks, state, cameras[0], cfg)
+        what = f"the sharded {'batched ' if views else ''}train step"
+        graph = _sharded.get(key, lambda: StepGraph(body, state, cameras, gts, cfg, views,
+                                                    (mesh, chunks), what, "sharded_captures"))
+        return graph.run(state, cameras, gts, scalars)
 
 
 def run_sharded_render(body, params: GaussianParams, camera, raster_cfg, mesh, backend: str):
@@ -497,10 +543,11 @@ def run_sharded_render(body, params: GaussianParams, camera, raster_cfg, mesh, b
     raster_cfg, mesh)``, through the sharded cache (sharded_render_key);
     returns its output as clones.  Every rank of ``mesh`` calls it
     alike."""
-    key = sharded_render_key(body, mesh, backend, params, camera, raster_cfg)
-    graph = _sharded.get(key, lambda: RenderGraph(params, camera, raster_cfg, body, (mesh,),
-                                                  "the sharded render", "sharded_captures"))
-    return graph.run(params, camera)
+    with tracing.span("graph.render_frame"):
+        key = sharded_render_key(body, mesh, backend, params, camera, raster_cfg)
+        graph = _sharded.get(key, lambda: RenderGraph(params, camera, raster_cfg, body, (mesh,),
+                                                      "the sharded render", "sharded_captures"))
+        return graph.run(params, camera)
 
 
 def run_event(body, state: TrainState, inputs, cfg, scene_extent=None):
@@ -519,10 +566,11 @@ def run_event(body, state: TrainState, inputs, cfg, scene_extent=None):
         new, extra = body(_state_of(buffers[:n], t, generator), *buffers[n:], *args)
         return state_tensors(new), extra
 
-    graph = _events.get(event_key(body, state, cfg, scene_extent), lambda: CallGraph(
-        event, tensors + list(inputs), state.params.means.device,
-        f"the density event {body.__name__}", "density_captures", "warmup_events"))
-    new, extra = graph.run(tensors + list(inputs))
+    with tracing.span("graph.event"):
+        graph = _events.get(event_key(body, state, cfg, scene_extent), lambda: CallGraph(
+            event, tensors + list(inputs), state.params.means.device,
+            f"the density event {body.__name__}", "density_captures", "warmup_events"))
+        new, extra = graph.run(tensors + list(inputs))
     return _state_of(new, t, generator), extra
 
 

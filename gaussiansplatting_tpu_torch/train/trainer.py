@@ -44,6 +44,7 @@ from gaussiansplatting_tpu_torch.ops.rasterize import render
 from gaussiansplatting_tpu_torch.train import graph, optimizer, schedule
 from gaussiansplatting_tpu_torch.train import state as state_mod
 from gaussiansplatting_tpu_torch.train.state import TrainState
+from gaussiansplatting_tpu_torch.utils import tracing
 
 
 class StepMetrics(NamedTuple):
@@ -84,7 +85,9 @@ def step_body(state: TrainState, camera: Camera, gt_image: torch.Tensor, cfg: Co
                           device=params.means.device, requires_grad=True)
     with torch.enable_grad():
         img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
+        tracing.mark("loss", img)
         rep = photometric_loss(img, gt_image, cfg.loss)
+        tracing.mark("loss_bwd", img)
         *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
     return step_update(state, dict(zip(optimizer.TRAINABLE, grads)), vs_grad, rep, img,
                        gt_image, aux.num_pairs, aux.overflow, cfg, scalars)
@@ -120,6 +123,7 @@ def step_update(state: TrainState, grad: dict, vs_grad, rep, img, gt_image, num_
     density statistics and the metrics (parallel/sharded.py calls it with
     the all-reduced gradients).  ``scalars`` as step_body takes them."""
     params = state.params
+    tracing.mark("adam", params.means)
     # LR uses the pre-increment iteration count (mtl_engine.mm:1092-1094)
     lrs = schedule.rates(cfg.optim, scalars[0])
     new_params, new_opt = optimizer.step(params, grad, state.opt, lrs, cfg.optim,
@@ -210,10 +214,12 @@ def batched_view_grads(params, cameras, gt_images, cfg: Config, render_view=None
             view = _ParamsView(params.means + pos_zero[v], params.log_scales, params.quats,
                                params.raw_opacities, params.sh, params.alive)
             img, aux = render_view(view, cam, vs_zero[v])
+            tracing.mark("loss", img)
             reps.append(photometric_loss(img, gt, cfg.loss))
             auxs.append(aux)
             imgs.append(img)
         loss = torch.stack([r.grad_loss for r in reps]).mean()
+        tracing.mark("loss_bwd", loss)
         *grads, vs_grad, pos_grad = torch.autograd.grad(loss, trainable + [vs_zero, pos_zero])
     return dict(zip(optimizer.TRAINABLE, grads)), vs_grad, pos_grad, reps, auxs, imgs
 
@@ -226,6 +232,7 @@ def batched_update(state: TrainState, grad: dict, vs_grad, pos_grad, reps, imgs,
     calls would (trainer.py:190-202).  ``scalars`` as step_body takes
     them."""
     k = len(reps)
+    tracing.mark("adam", state.params.means)
     lrs = schedule.rates(cfg.optim, scalars[0])
     new_params, new_opt = optimizer.step(state.params, grad, state.opt, lrs, cfg.optim,
                                          (scalars[1], scalars[2]))
@@ -322,6 +329,7 @@ def densify_body(state: TrainState, iteration, r: torch.Tensor, focal: torch.Ten
     focal length.  What train/graph.py captures and densify_step_eager
     runs; it reads no device value back to the host.  The new state keeps
     ``state``'s generator."""
+    tracing.mark("densify", state.params.means)
     avg_depth = 2.0 * scene_extent  # conservative (mtl_engine.mm:1128)
     params, opt, accum, stats = density.apply(
         state.params, state.opt, state.accum, iteration, r,
@@ -333,9 +341,10 @@ def densify_body(state: TrainState, iteration, r: torch.Tensor, focal: torch.Ten
 def _draw(state: TrainState):
     """(an advanced clone of the state's generator, the split draw it
     made on the parameters' device)."""
-    generator = state_mod.clone_generator(state.generator)
-    return generator, density.draw_split_offsets(generator, state.params.capacity,
-                                                 state.params.means.device)
+    with tracing.span("density.draw"):
+        generator = state_mod.clone_generator(state.generator)
+        return generator, density.draw_split_offsets(generator, state.params.capacity,
+                                                     state.params.means.device)
 
 
 def densify_step_eager(
@@ -382,6 +391,7 @@ def opacity_reset_body(state: TrainState, cfg: Config) -> tuple[TrainState, tupl
     train/graph.py captures and opacity_reset_step_eager runs; returns
     (state, ())."""
     p = state.params
+    tracing.mark("opacity_reset", p.means)
     raw = p.raw_opacities.detach()
     new_op = torch.where(p.alive, torch.clamp(raw, max=cfg.density.opacity_reset_value), raw)
     params = type(p)(
@@ -580,8 +590,9 @@ def train_loop(
                     k = scan_steps
             if k > 1:
                 chunk = views[idx:idx + k]
-                state, ms = train_steps(state, [c[0] for c in chunk],
-                                        [c[1] for c in chunk], cfg, total_iters)
+                with tracing.span("loop.chunk"):
+                    state, ms = train_steps(state, [c[0] for c in chunk],
+                                            [c[1] for c in chunk], cfg, total_iters)
                 for i in range(k):
                     iteration += 1
                     if metrics_fn:
@@ -589,7 +600,8 @@ def train_loop(
                 metrics = _metrics_at(ms, k - 1)
             else:
                 cam, gt, _, _ = views[idx]
-                state, metrics = step_fn(state, cam, gt)
+                with tracing.span("loop.chunk"):
+                    state, metrics = step_fn(state, cam, gt)
                 iteration += 1
                 if metrics_fn:
                     metrics_fn(iteration, metrics)
@@ -597,10 +609,12 @@ def train_loop(
             idx += k
 
             if adaptive_pairs and iteration % adapt_interval == 0:
-                pairs_now = int(metrics.num_pairs)
+                with tracing.span("loop.pair_read"):
+                    pairs_now = int(metrics.num_pairs)
+                    overflowed = bool(metrics.overflow)
                 recent_peak = max(recent_peak, pairs_now)
                 cur = cfg.raster.pair_capacity
-                if bool(metrics.overflow):
+                if overflowed:
                     want = min(cur * 2, max_pair_capacity)
                 else:
                     want = 1 << max(int(recent_peak * 1.5) - 1, 1).bit_length()
@@ -624,23 +638,27 @@ def train_loop(
                 snapshot_fn(iteration, state, cam0, gt0)
 
             if should_densify(iteration, cfg):
-                state, stats = densify_step(state, scene_extent, cam0.fx, cfg)
+                with tracing.span("loop.densify"):
+                    state, stats = densify_step(state, scene_extent, cam0.fx, cfg)
+                    cap = state.params.capacity
+                    limit = int(max_capacity or cfg.density.max_gaussians)
+                    grow = (adaptive_capacity and int(stats.count) >= int(0.85 * cap)
+                            and cap < limit)
                 if log_fn:
                     log_fn(
                         f"iter {iteration}: densify pruned={int(stats.pruned)} "
                         f"cloned={int(stats.cloned)} split={int(stats.split)} "
                         f"total={int(stats.count)}"
                     )
-                if adaptive_capacity:
-                    cap = state.params.capacity
-                    limit = int(max_capacity or cfg.density.max_gaussians)
-                    if int(stats.count) >= int(0.85 * cap) and cap < limit:
-                        new_cap = min(cap * 2, limit)
+                if grow:
+                    new_cap = min(cap * 2, limit)
+                    with tracing.span("loop.grow"):
                         state = state_mod.grow(state, new_cap)
-                        if log_fn:
-                            log_fn(f"iter {iteration}: capacity {cap} -> {new_cap}")
+                    if log_fn:
+                        log_fn(f"iter {iteration}: capacity {cap} -> {new_cap}")
             if should_reset_opacity(iteration, cfg):
-                state = opacity_reset_step(state, cfg)
+                with tracing.span("loop.opacity_reset"):
+                    state = opacity_reset_step(state, cfg)
                 if log_fn:
                     log_fn(f"iter {iteration}: opacity reset")
 
