@@ -27,7 +27,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               the work the inputs need (utils.sol.blend_work: power tests on the
               (warp, lane) pairs the box cull keeps, kept pairs) and from it
               each kernel's bound; the share of (warp, lane) pairs that
-              entered the first design's backward shuffle tree.
+              entered the first design's backward shuffle tree.  Then
+              compose at full size (phase_compose): the forward and backward
+              kernels (gs_compose_fwd, gs_compose_bwd) on the canonical
+              view's summaries, tile ids and real loss cotangent, without
+              and with the T-floor pass, against their plain versions in
+              float64 (COMPOSE_* below; the backward launched twice for the
+              same bits), each timed beside its plain version and a byte
+              bound from the live blocks.
   4. render   the render main path: the synthetic scene written to a PLY,
               rendered through tools.render (4 orbit views at 800x608), then
               the canonical view through ops.rasterize.render: no overflow,
@@ -57,11 +64,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               first design's (gs_blend_*_win_tf_v1) bit for bit, and the A/B
               of both designs in turns; the work the inputs need and each
               T-floor kernel's bound; compose's incoming log T
-              (ops.rasterize.incoming_log_t) within one float32 ulp of a
-              float64 per-tile prefix at full size, no (block, pixel)
-              stopping at another lane beyond the flip rule, and its
-              forward and backward timed; the full-size T-floor frame
-              (0 < max|img_tf - img| <= 1.5e-4) and train step (timed,
+              (ops.compose.compose_logti, the forward kernel's logti mode)
+              within one float32 ulp of a float64 per-tile prefix at full
+              size on the live blocks, no (block, pixel) stopping at another
+              lane beyond the flip rule, the kernel and its plain version
+              (incoming_log_t) timed, the plain backward's suffix
+              (tile_suffix) exactly 0 behind planted zero tails; the full-size
+              T-floor frame (0 < max|img_tf - img| <= 1.5e-4) and train step (timed,
               replayed bit for bit); a 64x48 T-floor step on a dense scene
               on the card against the CPU, grad_count exact.  All four
               kernel entries must launch on this path.
@@ -281,6 +290,15 @@ EDGE_BLOCKS = (16, 64, 128)
 # on an NVIDIA H100 80GB HBM3 at 700 W (edge windows and the full-size loss
 # cotangent); the bar leaves a factor of 15 for sums that cancel harder.
 BWD_REL = 1e-5
+# compose kernels (phase 3) against their plain versions in float64 on the
+# same card tensors, tests/test_torch_compose.py's bars: the image within
+# COMPOSE_IMG_ATOL, each pass's cotangent on the live blocks within
+# COMPOSE_REL_NORM in relative norm.  The kernels round the incoming log T
+# to float32 once a block and sum in float32 in block order: the plain
+# float32 version reads 2.2e-7 to 9.6e-7 from float64 on the test file's
+# frames (a tile of 1,200 blocks the largest)
+COMPOSE_IMG_ATOL = 2e-6
+COMPOSE_REL_NORM = 1e-6
 # small render on the card vs on the CPU (plain blend, CPU projection)
 RENDER_ATOL = 1e-4
 # tools.bench_train at its default size (20k Gaussians, 400x304, 8 views)
@@ -487,7 +505,7 @@ def phase_device():
     return name, smi, clock_mhz
 
 
-KERNELS = ("blend_fwd", "blend_bwd")
+KERNELS = ("blend_fwd", "blend_bwd", "compose")
 
 
 def phase_build():
@@ -777,6 +795,107 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     return res
 
 
+def _rel_norm(got, want):
+    """|got - want| / |want| in float64 norms."""
+    import torch
+
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def phase_compose(params, camera, cfg, gt, smi):
+    """Compose at full size: the forward kernel (gs_compose_fwd) and the
+    backward kernel (gs_compose_bwd) on the canonical view's real summaries,
+    tile ids and loss cotangent, without and with the T-floor pass, against
+    their plain versions in float64 on the same card tensors (the image
+    within COMPOSE_IMG_ATOL, the cotangents on the live blocks within
+    COMPOSE_REL_NORM; the backward launched twice for the same bits); each
+    kernel and its plain float32 version timed, and a byte bound from the
+    live blocks.  Returns the kernels-line numbers {"fwd": ..., "bwd":
+    ...}."""
+    import math
+
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import LossConfig
+    from gaussiansplatting_tpu_torch.ops import blend
+    from gaussiansplatting_tpu_torch.ops import compose as cmp
+    from gaussiansplatting_tpu_torch.ops.losses import photometric_loss
+    from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows, compose_consts
+    from gaussiansplatting_tpu_torch.utils import sol
+
+    res = {"fwd": {"max_abs_err": 0.0, "max_abs_err_vs_f32": 0.0},
+           "bwd": {"max_abs_err": 0.0, "max_rel_norm": 0.0}}
+    for tf in (False, True):
+        sfx = "_tf" if tf else ""
+        rcfg = cfg.replace(t_floor_exact=tf)
+        args, seg, _ = blend_windows(params, camera, rcfg)
+        consts = compose_consts(camera, rcfg)
+        with torch.no_grad():
+            out, _ = blend.windowed_blend_fwd(*args)
+            out_tf = None
+            if tf:
+                logti = cmp.compose_logti(out, seg, consts)
+                out_tf, _ = blend.windowed_blend_fwd_tf(
+                    *args, logti, math.log(rcfg.transmittance_floor))
+            img = cmp.compose_fwd(out, out_tf, seg, consts)
+        with torch.enable_grad():
+            leaf = img.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(photometric_loss(leaf, gt, LossConfig()).grad_loss, leaf)
+        with torch.no_grad():
+            d = cmp.compose_bwd(g, out, out_tf, seg, consts)
+            again = cmp.compose_bwd(g, out, out_tf, seg, consts)
+            tf64 = None if out_tf is None else out_tf.double()
+            img64 = cmp.compose_fwd_plain(out.double(), tf64, seg, consts)
+            img32 = cmp.compose_fwd_plain(out, out_tf, seg, consts)
+            d64 = cmp.compose_bwd_plain(g.double(), out.double(), tf64, seg, consts)
+        torch.cuda.synchronize()
+        live = seg < consts[1] * consts[2]
+        n_live, nb = int(live.sum()), int(seg.numel())
+        err, err32 = float((img - img64).abs().max()), float((img - img32).abs().max())
+        pairs = [(x[live], y[live]) for x, y in zip(d, d64) if y is not None]
+        rel = max(_rel_norm(x, y) for x, y in pairs)
+        d_err = max(float((x - y).abs().max()) for x, y in pairs)
+        if not all(torch.equal(x[live], y[live]) for x, y in zip(d, again) if x is not None):
+            raise AssertionError(f"compose_bwd{sfx}: two launches on the same inputs differ")
+        fwd, bwd = res["fwd"], res["bwd"]
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        fwd["max_abs_err_vs_f32"] = max(fwd["max_abs_err_vs_f32"], err32)
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], d_err)
+        bwd["max_rel_norm"] = max(bwd["max_rel_norm"], rel)
+        # bytes any compose needs: each live block's summaries read once
+        # (4 x P2 floats; the T-floor's first pass only its S_b row), the
+        # image written (forward) or its cotangent read and each pass's
+        # cotangent written (backward)
+        p2, img_bytes = consts[0] ** 2, 12 * consts[3] * consts[4]
+        read = 4 * p2 * 4 * n_live + (4 * p2 * n_live if tf else 0)
+        fwd["bound_ms" + sfx], _ = sol.bound(read + img_bytes, 0)
+        bwd["bound_ms" + sfx], _ = sol.bound(
+            read + img_bytes + 4 * p2 * 4 * n_live * (2 if tf else 1), 0)
+        fwd["ms" + sfx] = cuda_time_ms(lambda: cmp.compose_fwd(out, out_tf, seg, consts),
+                                       reps=KERNEL_REPS)
+        bwd["ms" + sfx] = cuda_time_ms(lambda: cmp.compose_bwd(g, out, out_tf, seg, consts),
+                                       reps=KERNEL_REPS)
+        fwd["plain_ms" + sfx] = cuda_time_ms(
+            lambda: cmp.compose_fwd_plain(out, out_tf, seg, consts), reps=3)
+        bwd["plain_ms" + sfx] = cuda_time_ms(
+            lambda: cmp.compose_bwd_plain(g, out, out_tf, seg, consts), reps=3)
+        fwd["blocks"], fwd["live_blocks"] = nb, n_live
+        label = "T-floor" if tf else "default"
+        log(f"[compose] {label}, full size ({nb} blocks, {n_live} live): image max|err| "
+            f"{err:.3e} vs float64 ({err32:.3e} vs the plain float32 version); cotangents on "
+            f"the live blocks max|err| {d_err:.3e}, relative norm {rel:.3e} vs float64; "
+            f"backward launched twice, bit-identical")
+        log(f"[compose] {label}: gs_compose_fwd {fwd['ms' + sfx]:.4f} ms (plain "
+            f"{fwd['plain_ms' + sfx]:.3f}, bound {fwd['bound_ms' + sfx]:.4f}), gs_compose_bwd "
+            f"{bwd['ms' + sfx]:.4f} ms (plain {bwd['plain_ms' + sfx]:.3f}, bound "
+            f"{bwd['bound_ms' + sfx]:.4f}) (CUDA events, {KERNEL_REPS} launches) on {smi}")
+        if max(err, err32) > COMPOSE_IMG_ATOL or rel > COMPOSE_REL_NORM:
+            raise AssertionError(f"compose kernels{sfx} disagree with their plain versions")
+    res["bwd"].update(blocks=res["fwd"]["blocks"], live_blocks=res["fwd"]["live_blocks"])
+    return res
+
+
 def _check_finite_state(label, state):
     import numpy as np
 
@@ -868,8 +987,9 @@ def phase_train(params, camera, gt, smi):
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
-    launches = (blend.windowed_blend_fwd.launches, blend.windowed_blend_bwd.launches)
-    _check_no_v1("the training path", _tf_launches())
+    counts = _tf_launches()
+    launches = (counts["windowed_blend_fwd"], counts["windowed_blend_bwd"])
+    _check_no_v1("the training path", counts)
     losses = torch.stack(losses).cpu().numpy()
     log(f"[train] full size {N_GAUSSIANS} Gaussians {WIDTH}x{HEIGHT}: "
         f"{step_ms:.3f} ms/step warm (CUDA events, {TRAIN_TIMED_STEPS} steps) "
@@ -885,10 +1005,11 @@ def phase_train(params, camera, gt, smi):
     step_device_ms, _ = trace.device_profile(
         "[train] full-size step", lambda: train_step(st, camera, gt, cfg, TRAIN_TOTAL_ITERS),
         STEP_PROFILE_STEPS, smi, DEVICE, log, STEP_PROFILE_TOP)
-    log(f"[train] main path: {launches[0]} windowed_blend_fwd and {launches[1]} "
-        f"windowed_blend_bwd kernel launches")
-    if min(launches) <= 0:
-        raise AssertionError("the training path did not launch both kernels")
+    log(f"[train] main path: {launches[0]} windowed_blend_fwd, {launches[1]} "
+        f"windowed_blend_bwd, {counts['compose_fwd']} compose_fwd and "
+        f"{counts['compose_bwd']} compose_bwd kernel launches")
+    if min(launches) <= 0 or min(counts["compose_fwd"], counts["compose_bwd"]) <= 0:
+        raise AssertionError("the training path did not launch every kernel")
 
     # (iii) one step replayed from the same state gives the same bits; its
     # launches are the kernels' launches per step
@@ -921,7 +1042,7 @@ def phase_train(params, camera, gt, smi):
 
     # (v) the per-Gaussian reduction at full size against float64
     red = _check_reduction(params, camera, cfg.raster, gt, smi)
-    return launches, step_ms, step_device_ms, per_step, red
+    return counts, step_ms, step_device_ms, per_step, red
 
 
 def _check_reduction(params, camera, raster, gt, smi):
@@ -1044,7 +1165,7 @@ def _same_as_first_design(label, got, first):
 def per_tile_log_t64(s_b, seg):
     """Each block's exclusive prefix of S_b [NB, P2] over its own tile's run
     of blocks (``seg`` [NB], sorted tile ids), tile by tile in float64
-    (NumPy): the reference of ops.rasterize.incoming_log_t."""
+    (NumPy): the reference of ops.compose.compose_logti."""
     import numpy as np
 
     x = s_b.astype(np.float64)
@@ -1103,9 +1224,10 @@ def _check_no_v1(label, launches):
 
 
 def _tf_launches():
-    from gaussiansplatting_tpu_torch.ops import blend
+    """Every counted kernel wrapper's launches: the blends' and compose's."""
+    from gaussiansplatting_tpu_torch.train import graph
 
-    return blend.launch_counts()
+    return graph.launch_counts()
 
 
 _warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
@@ -1114,12 +1236,13 @@ _warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
 def _reset_launches():
     """Set every kernel entry's launch count to 0 (ops.blend.COUNTED: the
     six of the main paths and the first designs' six, which only the A/Bs
-    of phases 3, 6 and 11 call)."""
-    from gaussiansplatting_tpu_torch.ops import blend
+    of phases 3, 6 and 11 call; ops.compose.COUNTED)."""
+    from gaussiansplatting_tpu_torch.ops import blend, compose
     from gaussiansplatting_tpu_torch.train import graph
 
-    for name in blend.COUNTED:
-        getattr(blend, name).launches = 0
+    for mod in (blend, compose):
+        for name in mod.COUNTED:
+            getattr(mod, name).launches = 0
     for name in _warm_mark:
         _warm_mark[name] = graph.counts[name]
 
@@ -1173,14 +1296,16 @@ def _tf_pass_cotangents(args, out, block_tile, camera, cfg_tf, gt, log_thr, tile
         held["logti"] = logti
         out_tf, held["stop"] = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
         held["out_tf"] = out_tf.requires_grad_(True)
-        return held["out_tf"][:, :3, :], held["out_tf"][:, 3, :]
+        return held["out_tf"]
 
     with torch.enable_grad():
         out1 = out.detach().requires_grad_(True)
         img = compose(out1, block_tile, camera, cfg_tf, blend_tfloor, tile_rows)[:gt.shape[0]]
         rep = photometric_loss(img, gt, LossConfig())
         g1, g2 = torch.autograd.grad(rep.grad_loss, [out1, held["out_tf"]])
-    if float(g1[:, :3].abs().max()) != 0.0:
+    # the live blocks' rows: the compose kernel leaves padding blocks' rows
+    # unwritten, and no blend reads them
+    if float(g1[args[2] > 0][:, :3].abs().max()) != 0.0:
         raise AssertionError("first-pass cotangent has nonzero colour rows")
     return held["logti"], held["out_tf"].detach(), held["stop"], g1, g2
 
@@ -1194,9 +1319,10 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     from gaussiansplatting_tpu_torch.config import Config
     from gaussiansplatting_tpu_torch.core import gaussians
     from gaussiansplatting_tpu_torch.ops import blend, pairs
+    from gaussiansplatting_tpu_torch.ops.compose import (compose_logti, incoming_log_t,
+                                                          tile_suffix)
     from gaussiansplatting_tpu_torch.ops.projection import num_tiles
-    from gaussiansplatting_tpu_torch.ops.rasterize import (
-        blend_windows, incoming_log_t, render)
+    from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows, compose_consts, render
     from gaussiansplatting_tpu_torch.tools import trace
     from gaussiansplatting_tpu_torch.train import schedule
     from gaussiansplatting_tpu_torch.train import state as state_mod
@@ -1304,15 +1430,18 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         f"first design {res['bwd_ms_v1']:.4f} ms, plain {res['bwd_plain_ms']:.3f} ms, "
         f"bound {res['bwd_bound']['bound_ms']:.4f} ms (CUDA events) on {smi}")
 
-    # (iii) compose's incoming log T against a float64 per-tile prefix: within
-    # one float32 ulp of max(|ref|, 1), and no pixel stopping at another lane
-    # beyond the flip rule; its forward and backward timed
+    # (iii) compose's incoming log T (the kernel's logti mode) against a
+    # float64 per-tile prefix: within one float32 ulp of max(|ref|, 1) on the
+    # live blocks (the kernel leaves padding blocks' rows unwritten), and no
+    # pixel stopping at another lane beyond the flip rule; the kernel and its
+    # plain version timed
     with torch.no_grad():
         ts = cfg.tile_size
         nt = num_tiles(camera.width, ts) * num_tiles(camera.height, ts)
         ref = per_tile_log_t64(out[:, 3].cpu().numpy(), block_tile.cpu().numpy())
         unit = np.spacing(np.maximum(np.abs(ref), 1.0).astype(np.float32)).astype(np.float64)
-        ulps = float((np.abs(logti.cpu().numpy().astype(np.float64) - ref) / unit).max())
+        live = (block_tile < nt).cpu().numpy()
+        ulps = float((np.abs(logti.cpu().numpy().astype(np.float64) - ref) / unit)[live].max())
         ref32 = torch.from_numpy(ref.astype(np.float32)).to(DEVICE)
         moved = blend.windowed_blend_fwd_tf(*args, ref32, log_thr)[1] != stop
         res["logti_ulps"], res["logti_moved"] = ulps, int(moved.sum())
@@ -1321,29 +1450,31 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         f"max(|ref|, 1); {res['logti_moved']} (block, pixel) entries stop at another lane "
         f"with the float64 prefix rounded once, {flips} of them at a margin < {FLIP_MARGIN}")
     if ulps > 1.0:
-        raise AssertionError(f"incoming_log_t is {ulps} ulps off float64")
+        raise AssertionError(f"compose_logti is {ulps} ulps off float64")
     if res["logti_moved"] != flips or flips > FLIP_MAX_SHARE * moved.numel():
         raise AssertionError("logti's rounding moves a pixel's stop beyond the flip rule")
-    s_b = out[:, 3].contiguous().requires_grad_(True)
-    g_lt = g2[:, 3].contiguous()                # any [NB, P2] cotangent times it
-    res["logti_ms"] = cuda_time_ms(lambda: incoming_log_t(s_b.detach(), block_tile, nt), reps=20)
-    res["logti_fwd_bwd_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
-        incoming_log_t(s_b, block_tile, nt), s_b, g_lt), reps=20)
-    log(f"[tfloor] incoming_log_t at {tuple(s_b.shape)}: forward {res['logti_ms']:.4f} ms, "
-        f"forward + backward {res['logti_fwd_bwd_ms']:.4f} ms (CUDA events, 20 calls) on {smi}")
-    # its backward behind zero tails planted at every offset: each (tile,
-    # pixel) gets zero cotangent from a random block of the tile on, and
-    # every block before only zeros in its tile must get exactly 0
+    s_b = out[:, 3].contiguous()
+    consts = compose_consts(camera, cfg_tf)
+    res["compose_logti_ms"] = cuda_time_ms(
+        lambda: compose_logti(out, block_tile, consts), reps=20)
+    res["logti_ms"] = cuda_time_ms(lambda: incoming_log_t(s_b, block_tile, nt), reps=20)
+    log(f"[tfloor] compose_logti (kernel) {res['compose_logti_ms']:.4f} ms; plain "
+        f"incoming_log_t at {tuple(s_b.shape)}: {res['logti_ms']:.4f} ms (CUDA events, 20 "
+        f"calls) on {smi}")
+    # its transpose, the plain backward's suffix (tile_suffix), behind zero
+    # tails planted at every offset: each (tile, pixel) gets zero cotangent
+    # from a random block of the tile on, and every block before only zeros
+    # in its tile must get exactly 0
     gen = torch.Generator(DEVICE).manual_seed(2)
     seg = block_tile.long().clamp(max=nt)
     bounds = torch.searchsorted(seg, torch.arange(nt + 2, device=DEVICE))
     first, size = bounds[seg], bounds[seg + 1] - bounds[seg]                 # [NB]
-    u = torch.rand((nt + 1, g_lt.shape[1]), device=DEVICE, generator=gen)[seg]  # [NB, P2]
+    u = torch.rand((nt + 1, s_b.shape[1]), device=DEVICE, generator=gen)[seg]   # [NB, P2]
     cut = first[:, None] + (u * (size[:, None] + 1)).long()      # in [first, last + 1]
     idx = torch.arange(seg.numel(), device=DEVICE)[:, None]
-    g_zero = torch.where(idx >= cut, 0.0, torch.randn(g_lt.shape, device=DEVICE, generator=gen))
+    g_zero = torch.where(idx >= cut, 0.0, torch.randn(s_b.shape, device=DEVICE, generator=gen))
     behind = idx >= cut - 1
-    d_zero = torch.autograd.grad(incoming_log_t(s_b, block_tile, nt), s_b, g_zero)[0]
+    d_zero = tile_suffix(g_zero, block_tile, nt)
     with torch.no_grad():
         incl = pairs._prefix_sum(g_zero.t().double().contiguous())
         last = (bounds[seg + 1] - 1)
@@ -1351,11 +1482,11 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     res["logti_zero_tails"] = int(behind.sum())
     res["logti_zero_tails_nonzero"] = int((d_zero[behind] != 0).sum())
     unmasked = int((raw[behind] != 0).sum())
-    log(f"[tfloor] incoming_log_t backward, {res['logti_zero_tails']} (block, pixel) entries "
+    log(f"[tfloor] tile_suffix, {res['logti_zero_tails']} (block, pixel) entries "
         f"behind planted zero tails: {res['logti_zero_tails_nonzero']} nonzero ({unmasked} "
         f"in the float64 prefix difference alone, without the count of nonzeros)")
     if res["logti_zero_tails_nonzero"]:
-        raise AssertionError("incoming_log_t: nonzero gradient behind a zero cotangent tail")
+        raise AssertionError("tile_suffix: nonzero sum behind a zero cotangent tail")
 
     # (iv) the T-floor render main path at full size
     with torch.no_grad():
@@ -1510,12 +1641,14 @@ def phase_render(params, camera, cfg, smi):
     with torch.no_grad():
         img, aux = render(params, camera, cfg)
     torch.cuda.synchronize()
-    launches = blend.windowed_blend_fwd.launches
-    _check_no_v1("the render path", _tf_launches())
+    counts = _tf_launches()
+    launches = counts["windowed_blend_fwd"]
+    _check_no_v1("the render path", counts)
     log(f"[render] main path: 4 orbit views + canonical view, "
-        f"{launches} windowed_blend_fwd kernel launches")
-    if launches < 5:
-        raise AssertionError(f"expected >= 5 kernel launches, got {launches}")
+        f"{launches} windowed_blend_fwd and {counts['compose_fwd']} compose_fwd kernel launches")
+    if launches < 5 or counts["compose_fwd"] != launches:
+        raise AssertionError(f"expected >= 5 kernel launches, one compose_fwd with each "
+                             f"blend, got {counts}")
 
     for i in range(4):
         _check_image(f"orbit_{i:03d}", _read_ppm(os.path.join(out_dir, f"orbit_{i:03d}.ppm")))
@@ -1556,7 +1689,7 @@ def phase_render(params, camera, cfg, smi):
     if int(got_aux.num_pairs) != int(ref_aux.num_pairs) or err > RENDER_ATOL:
         raise AssertionError("small render on the card disagrees with the CPU render")
     shutil.rmtree(SCRATCH)
-    return launches, frame_ms, frame_device_ms
+    return counts, frame_ms, frame_device_ms
 
 
 def orbit_poses(means, n_views, width, height):
@@ -3678,12 +3811,22 @@ def phase_graph(params, smi):
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             trainer.train_steps(state0, cams, gts, cfg, TRAIN_TOTAL_ITERS)
             torch.cuda.synchronize()
-        traced = {e.key: e.count for e in prof.key_averages() if "blend_" in e.key}
+        traced = {e.key: e.count for e in prof.key_averages()
+                  if "blend_" in e.key or "compose_" in e.key}
         for d in ("fwd", "bwd"):
             seen = sum(c for name, c in traced.items() if f"blend_{d}_win" in name)
-            recorded = k * sum(v for name, v in per_step.items() if f"_{d}" in name)
+            recorded = k * sum(v for name, v in per_step.items()
+                               if name.startswith(f"windowed_blend_{d}"))
             if seen != recorded:
                 raise AssertionError(f"{mode}: the trace of {k} replays holds {seen} {d} blend "
+                                     f"kernels, the capture recorded {recorded}: {traced}")
+            # compose: the forward kernel serves compose_fwd and compose_logti
+            seen = sum(c for name, c in traced.items() if f"compose_{d}_kernel" in name)
+            recorded = k * sum(v for name, v in per_step.items()
+                               if name in ((f"compose_{d}", "compose_logti") if d == "fwd"
+                                           else (f"compose_{d}",)))
+            if seen != recorded or not seen:
+                raise AssertionError(f"{mode}: the trace of {k} replays holds {seen} {d} compose "
                                      f"kernels, the capture recorded {recorded}: {traced}")
         # (v) the host clock in turns, the device time and the idle share
         def eager():
@@ -4411,8 +4554,9 @@ def main() -> int:
             f"{bwd['ms_v1']:.4f} ms, plain {bwd['plain_ms']:.3f} ms, bound "
             f"{bwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
     del args, block_tile
+    cmp = phase_compose(params, camera, cfg, gt, smi)
     render_launches, frame_ms, frame_device_ms = phase_render(params, camera, cfg, smi)
-    (train_fwd, train_bwd), step_ms, step_device_ms, per_step, red = phase_train(
+    train_launches, step_ms, step_device_ms, per_step, red = phase_train(
         params, camera, gt, smi)
     tf_launches, tf = phase_tfloor(params, camera, cfg, gt, smi)
     tl = phase_trainloop(params, smi)
@@ -4447,7 +4591,8 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("windowed_blend_fwd", "blend_fwd.cu", f"{tpu}601, {tpu}161", "hopper",
-              {"render": render_launches, "train": train_fwd,
+              {"render": render_launches["windowed_blend_fwd"],
+               "train": train_launches["windowed_blend_fwd"],
                "tfloor": tf_launches["windowed_blend_fwd"],
                "trainloop": tl["launches"]["windowed_blend_fwd"],
                **{k: v["windowed_blend_fwd"] for k, v in paths.items()}},
@@ -4456,7 +4601,8 @@ def main() -> int:
                                    "bound_by", "power_tests", "kept_pairs",
                                    "culled_share")}),
         entry("windowed_blend_bwd", "blend_bwd.cu", f"{tpu}671, {tpu}188", "hopper",
-              {"train": train_bwd, "tfloor": tf_launches["windowed_blend_bwd"],
+              {"train": train_launches["windowed_blend_bwd"],
+               "tfloor": tf_launches["windowed_blend_bwd"],
                "trainloop": tl["launches"]["windowed_blend_bwd"],
                **{k: v["windowed_blend_bwd"] for k, v in paths.items()}},
               per_step["windowed_blend_bwd"],
@@ -4491,6 +4637,15 @@ def main() -> int:
                  "max_abs_err": max(md[k]["bf16"]["max_abs_err"],
                                     md[k]["pack_pos"]["max_abs_err"])})
           for k, line in (("fwd", 601), ("bwd", 671))),
+        *(entry(f"compose_{k}", "compose.cu",
+                "gaussiansplatting_tpu/ops/rasterize.py:503 _compose_tiles (XLA ops)", "per_tile",
+                {"render": render_launches[f"compose_{k}"],
+                 "train": train_launches[f"compose_{k}"],
+                 "tfloor": tf_launches[f"compose_{k}"],
+                 "trainloop": tl["launches"].get(f"compose_{k}", 0),
+                 **{p: v.get(f"compose_{k}", 0) for p, v in paths.items()}},
+                per_step[f"compose_{k}"], cmp[k])
+          for k in ("fwd", "bwd")),
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],
@@ -4501,7 +4656,6 @@ def main() -> int:
         "logti_moved_stops_vs_f64": tf["logti_moved"],
         "logti_zero_tail_entries": tf["logti_zero_tails"],
         "incoming_log_t_ms": tf["logti_ms"],
-        "incoming_log_t_fwd_bwd_ms": tf["logti_fwd_bwd_ms"],
         "reduce_max_col_rel_norm_vs_f64": red["rel_norm"],
         "reduce_f32_max_col_rel_norm_vs_f64": red["rel_norm_f32"],
         "reduce_zero_runs": red["zero_runs"],

@@ -25,7 +25,7 @@ tile_size**2 pixels:
            the cotangent of the screen x position (mx = sx - tile centre).
   T-floor  the ``_tf`` variants take two more arguments, logti [NB, P2] f32
            (each block's incoming log-transmittance within its tile, from
-           the unmasked first pass, ops.rasterize.incoming_log_t) and
+           the unmasked first pass, ops.compose.compose_logti) and
            log_thr = log(transmittance_floor).  A kept lane survives iff
            its exclusive in-block log T plus logti is > log_thr
            (tiled_shaders.metal:334); termination is monotone, so the

@@ -7,24 +7,23 @@ aligned branch, rasterize.py:391-501) and ``_compose_tiles``.  Alpha
 compositing is associative in (colour, transmittance) space, so each block
 of B pairs of one 16x16 tile blends independently (ops/blend.py) into a
 summary (C_b, S_b = sum log(1 - alpha)), and the blocks of a tile compose
-with a segmented exclusive prefix over their S_b.
+with an exclusive prefix over their S_b (ops/compose.py).
 
-Gradients: autograd runs through projection and compose as they are; the
-depth presort is a ``_PermuteRows`` whose backward gathers by the inverse
-permutation; pair expansion, tile sort and windows run once per frame,
-outside autograd; each blend pass over the windows is an autograd Function
-(``_BlendWindows``, ``_BlendWindowsTF``) whose backward is the blend
-backward followed by the reduction to per-Gaussian sums that
-``RasterConfig.grad_reduce`` picks (ops.pairs.reduce_aligned_cotangents:
-the sort-prefix form, which "autodiff" also takes, or the scatter).  No
-step of the backward uses float atomics.  The blends run as CUDA kernels on
-a CUDA device and as their plain PyTorch versions on the CPU;
+Gradients: autograd runs through projection as it is; the depth presort is
+a ``_PermuteRows`` whose backward gathers by the inverse permutation; pair
+expansion, tile sort and windows run once per frame, outside autograd;
+each blend pass over the windows is an autograd Function (``_BlendWindows``,
+``_BlendWindowsTF``) whose backward is the blend backward followed by the
+reduction to per-Gaussian sums that ``RasterConfig.grad_reduce`` picks
+(ops.pairs.reduce_aligned_cotangents: the sort-prefix form, which
+"autodiff" also takes, or the scatter); compose is one more (``_Compose``),
+whose backward writes each blend pass's cotangent.  No step of the backward
+uses float atomics.  The blends and compose run as CUDA kernels on a CUDA
+device and as their plain PyTorch versions on the CPU;
 ``RasterConfig.blend_impl`` picks nothing here.
 
 Nothing here reads a device value back to the host, so a train step can be
-captured as a CUDA graph (train/graph.py): the segment sums run with
-``unsafe=True``, whose checks would read the offsets back (the tile bounds
-are sorted and span every block by construction).
+captured as a CUDA graph (train/graph.py).
 
 The frame launches the stage marks ``projection``, ``pairs``, ``blend`` and
 ``compose`` (utils/tracing.py; the T-floor pass is a second ``blend`` then
@@ -46,6 +45,8 @@ replaces:
                     windowed_blend_bwd_tf _bwd_kernel_tf (:281)
                     windowed_blend_bwd    _bwd_kernel (:188), through the
                                           first pass's S_b (t_in)
+and compose (compose_fwd, compose_bwd; compose_logti before the T-floor
+pass) replaces XLA's ops, no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from gaussiansplatting_tpu_torch.config import RasterConfig
 from gaussiansplatting_tpu_torch.core.camera import Camera
 from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
 from gaussiansplatting_tpu_torch.ops import blend as blend_mod
+from gaussiansplatting_tpu_torch.ops import compose as compose_mod
 from gaussiansplatting_tpu_torch.ops import pairs as pairs_mod
 from gaussiansplatting_tpu_torch.ops import projection as proj_mod
 from gaussiansplatting_tpu_torch.utils import tracing
@@ -344,7 +346,7 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
                                            plan.pcfg, plan.bconsts, log_thr,
                                            cfg.grad_reduce)
             tracing.mark("compose", logti)
-            return out_tf[:, :3, :], out_tf[:, 3, :]
+            return out_tf
 
     tracing.mark("compose", out)
     img = compose(out, win.block_tile, camera, cfg, blend_tfloor, tile_rows)
@@ -375,120 +377,63 @@ def blend_windows(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     return blend_args, win.block_tile, plan.aux
 
 
+def compose_consts(camera: Camera, cfg: RasterConfig, tile_rows: tuple | None = None) -> tuple:
+    """ops.compose's constants (ts, tiles_x, tiles_y, width, rows, bg) of
+    the image, or of the strip ``tile_rows`` with its padded rows."""
+    ts = cfg.tile_size
+    _, tiles_y = _tile_rows(camera, cfg, tile_rows)
+    rows = camera.height if tile_rows is None else tiles_y * ts
+    return (ts, proj_mod.num_tiles(camera.width, ts), tiles_y, camera.width, rows,
+            1.0 if cfg.white_background else 0.0)
+
+
+class _Compose(torch.autograd.Function):
+    """The image from the blend's summaries, differentiable in both passes'
+    ``out`` (ops/compose.py has the contract): the forward kernel
+    (``compose_fwd``) and, on the image's cotangent, the backward kernel
+    (``compose_bwd``), which writes each pass's cotangent in the blend
+    backward's own [NB, 4, P2] layout; on CPU tensors their plain
+    versions.
+
+    Part of the contract: on CUDA tensors the rows of the padding blocks
+    (``seg`` == the tile count) of both cotangents are undefined (never
+    written, so whatever the allocator held), where the CPU's plain
+    backward writes zeros.  Every blend backward returns before it reads
+    the cotangent of a block with no live lane, so the parameters'
+    gradients are the same either way
+    (tests/test_torch_compose.py::test_padding_rows_are_never_read_cuda)."""
+
+    @staticmethod
+    def forward(ctx, out, out_tf, seg, consts):
+        ctx.consts = consts
+        ctx.save_for_backward(out, out_tf, seg)
+        return compose_mod.compose_fwd(out, out_tf, seg, consts)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, out_tf, seg = ctx.saved_tensors
+        d_out, d_tf = compose_mod.compose_bwd(g, out, out_tf, seg, ctx.consts)
+        return d_out, d_tf, None, None
+
+
 def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
             cfg: RasterConfig, blend_tfloor=None,
             tile_rows: tuple | None = None) -> torch.Tensor:
     """The image [H, W, 3] (the strip [n_rows * tile_size, W, 3] with
-    ``tile_rows``) from the blend's per-block summaries ``out`` [NB, 4, P2]
-    and each block's tile id, relative to the strip's first row.
+    ``tile_rows``, padded rows kept, as the JAX strip keeps them,
+    rasterize.py:548-551) from the blend's per-block summaries ``out`` [NB,
+    4, P2] and each block's tile id, relative to the strip's first row
+    (non-decreasing; padding blocks carry the tile count).
 
     blend_tfloor: with ``cfg.t_floor_exact``, a function of each block's
-    incoming log T ``logti`` [NB, P2] (detached) that returns the T-floor
-    pass's (C_b [NB, 3, P2], S_b [NB, P2]); the image takes those, with the
-    incoming T from ``out``."""
-    ts = cfg.tile_size
-    tiles_x = proj_mod.num_tiles(camera.width, ts)
-    _, tiles_y = _tile_rows(camera, cfg, tile_rows)
-    if cfg.t_floor_exact and blend_tfloor is None:
+    incoming log T ``logti`` [NB, P2] (ops.compose.compose_logti of ``out``,
+    detached) that returns the T-floor pass's out_tf [NB, 4, P2]; the image
+    takes its C_b and S_b, with the incoming T from ``out``, which stays
+    differentiable (rasterize.py:520-530)."""
+    consts = compose_consts(camera, cfg, tile_rows)
+    if not cfg.t_floor_exact:
+        return _Compose.apply(out, None, block_tile, consts)
+    if blend_tfloor is None:
         raise ValueError("compose: t_floor_exact needs blend_tfloor")
-    return _compose_tiles(
-        out[:, :3, :], out[:, 3, :], block_tile, tiles_x * tiles_y, tiles_x,
-        tiles_y, ts, camera.width, camera.height, cfg,
-        blend_tfloor if cfg.t_floor_exact else None, tile_rows,
-    )
-
-
-def _tile_bounds(seg, num_tiles):
-    """[T + 2] start of each tile's run of blocks in ``seg`` (sorted)."""
-    q = torch.arange(num_tiles + 2, dtype=seg.dtype, device=seg.device)
-    return torch.searchsorted(seg, q, right=False)
-
-
-def _transposed64(x: torch.Tensor) -> torch.Tensor:
-    """[NB, P2] -> contiguous float64 [P2, NB], so the scans run along the
-    innermost dimension (pairs._prefix_sum)."""
-    return x.t().to(torch.float64, memory_format=torch.contiguous_format)
-
-
-class _IncomingLogT(torch.autograd.Function):
-    """Each block's exclusive prefix of S_b over its own tile's run of
-    blocks (see incoming_log_t)."""
-
-    @staticmethod
-    def forward(ctx, s_b, seg, num_tiles):
-        bounds = _tile_bounds(seg, num_tiles)
-        tile = torch.clamp(seg, max=num_tiles).long()
-        ctx.save_for_backward(bounds[tile + 1] - 1)             # tile's last block
-        incl = pairs_mod._prefix_sum(_transposed64(s_b))        # [P2, NB]
-        excl = torch.nn.functional.pad(incl[:, :-1], (1, 0))
-        out = excl - excl[:, bounds[tile]]                      # minus the tile's first
-        return out.t().to(s_b.dtype, memory_format=torch.contiguous_format)
-
-    @staticmethod
-    def backward(ctx, g):
-        (last,) = ctx.saved_tensors
-        incl = pairs_mod._prefix_sum(_transposed64(g))          # [P2, NB]
-        nz = pairs_mod.nonzero_prefix(g.t())[:, 1:]
-        # the sum of g over the tile's later blocks; exactly 0 where all are 0
-        d = torch.where(nz[:, last] == nz, 0.0, incl[:, last] - incl)
-        return d.t().to(g.dtype, memory_format=torch.contiguous_format), None, None
-
-
-def incoming_log_t(s_b: torch.Tensor, seg: torch.Tensor, num_tiles: int):
-    """Each block's incoming log-transmittance [NB, P2] from the blocks'
-    S_b [NB, P2] and their tile ids ``seg`` [NB] (non-decreasing; padding
-    blocks carry num_tiles): the sum of S_b over the blocks before it in
-    its tile.  Differentiable in ``s_b``; returns ``s_b``'s dtype.
-
-    The prefix runs in float64 over the transposed [P2, NB] layout and is
-    rounded once, so logti is within a rounding of the exact per-tile sum.
-    The JAX package (rasterize.py:509-518) takes a float32 cumsum over all
-    blocks of the frame and subtracts its value at the tile's first block:
-    at 18,284 blocks that difference of two large sums is up to ~1e-2 off,
-    enough to move a pixel's termination under the T-floor.  The backward
-    is each block's exclusive suffix sum of the cotangent over its tile,
-    the same way; a block whose later blocks get zero cotangent gets exactly
-    0 (a count of nonzeros, pairs.nonzero_prefix, zeroes it), where the JAX
-    form leaves the other tiles' cancellation residue.  Both devices run
-    this code; the scans are fixed-order, so a replay gives the same
-    bits."""
-    return _IncomingLogT.apply(s_b, seg, num_tiles)
-
-
-def _compose_tiles(c_b, s_b, seg, num_tiles, tiles_x, tiles_y, ts, width,
-                   height, cfg: RasterConfig, blend_tfloor=None, tile_rows=None):
-    """Segmented exclusive-prefix composition of per-block summaries into
-    the image (the associative (C, T) combine across a tile's blocks),
-    cropped to [height, width]; a strip (``tile_rows``) keeps its padded
-    rows, as the JAX strip does (rasterize.py:548-551).
-
-    ``seg`` [NB] is each block's tile id, non-decreasing (blocks of a tile
-    are contiguous; padding blocks carry num_tiles at the end).  A block's
-    incoming log T is the float64 per-tile prefix of incoming_log_t (the
-    JAX package takes a float32 global cumsum minus its value at the tile's
-    first block); segment sums are sequential per segment
-    (torch.segment_reduce), so the result is deterministic.
-
-    With ``blend_tfloor`` (rasterize.py:520-530) the incoming log T, detached,
-    drives the T-floor pass; its C_b and S_b make the image, and t_in from
-    the first pass stays differentiable."""
-    num_blocks = seg.shape[0]
-    p2 = ts * ts
-    log_t_in = incoming_log_t(s_b, seg, num_tiles)
-    t_in = torch.exp(log_t_in)
-    if blend_tfloor is not None:
-        c_b, s_b = blend_tfloor(log_t_in.detach())
-
-    bounds = _tile_bounds(seg, num_tiles)
-    contrib = (t_in[:, None, :] * c_b).reshape(num_blocks, 3 * p2)
-    tile_color = torch.segment_reduce(contrib, "sum", offsets=bounds, axis=0, unsafe=True)
-    tile_log_t = torch.segment_reduce(s_b, "sum", offsets=bounds, axis=0, unsafe=True)
-    tile_color = tile_color[:num_tiles].reshape(num_tiles, 3, p2)
-    tile_log_t = tile_log_t[:num_tiles]
-
-    bg = 1.0 if cfg.white_background else 0.0
-    tile_img = tile_color + torch.exp(tile_log_t)[:, None, :] * bg  # [T, 3, P2]
-
-    img = tile_img.reshape(tiles_y, tiles_x, 3, ts, ts)
-    img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * ts, tiles_x * ts, 3)
-    return img[:height, :width] if tile_rows is None else img[:, :width]
+    out_tf = blend_tfloor(compose_mod.compose_logti(out.detach(), block_tile, consts))
+    return _Compose.apply(out, out_tf, block_tile, consts)

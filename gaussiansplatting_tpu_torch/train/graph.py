@@ -47,8 +47,9 @@ libraries, creates cuBLAS's handle for the stream and fills the cached SSIM
 band matrices), then the capture of one call on that stream, into the
 graph's own memory pool.  A capture that fails raises, naming the op where
 it failed; nothing falls back to eager calls.  The capture records the
-blend kernels' launches without running them: ops.blend's counters are set
-back after it, and every replay adds what the capture recorded.  The
+blend and compose kernels' launches without running them: the counters of
+ops.blend and ops.compose (``launch_counts``) are set back after it, and
+every replay adds what the capture recorded (``add_launches``).  The
 capture mode is ``thread_local``: the viewer captures in an HTTP handler
 thread while other handler threads build their cameras on the card, and in
 torch's default ``global`` mode such a copy fails in the other thread and
@@ -91,7 +92,7 @@ import torch
 
 from gaussiansplatting_tpu_torch.core.gaussians import FIELDS, GaussianParams
 from gaussiansplatting_tpu_torch.density.control import DensityAccum
-from gaussiansplatting_tpu_torch.ops import blend, rasterize
+from gaussiansplatting_tpu_torch.ops import blend, compose, rasterize
 from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE, AdamState
 from gaussiansplatting_tpu_torch.train.state import TrainState
 from gaussiansplatting_tpu_torch.utils import tracing
@@ -114,6 +115,22 @@ _ACCUM = ("grad_accum", "grad_count", "pos_grad_accum")
 # "warmup_events", "trace_captures" and "warmup_traces" (these two warm-ups
 # launch no blend kernel)
 counts: collections.Counter = collections.Counter()
+
+
+# the modules whose wrappers count their kernels' launches
+_COUNTERS = (blend, compose)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counted kernel wrapper's launches, by name: ops.blend's and
+    ops.compose's."""
+    return {k: n for mod in _COUNTERS for k, n in mod.launch_counts().items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the wrappers' counts."""
+    for mod in _COUNTERS:
+        mod.add_launches({k: n for k, n in counts.items() if k in mod.COUNTED})
 
 
 def step_key(state: TrainState, camera, cfg) -> tuple:
@@ -249,7 +266,7 @@ class _Capture:
             if free_cache:
                 torch.cuda.empty_cache()
             start = time.time_ns()
-            before = blend.launch_counts()
+            before = launch_counts()
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph, stream=stream,
@@ -259,8 +276,8 @@ class _Capture:
             except Exception as e:
                 raise RuntimeError(f"capturing {what} failed at {_where(e)}: {e}") from e
             finally:
-                after = blend.launch_counts()
-                blend.add_launches({k: before[k] - after[k] for k in before})
+                after = launch_counts()
+                add_launches({k: before[k] - after[k] for k in before})
             torch.cuda.synchronize(dev)
         self.warmup_s = warmup.seconds
         self.capture_s = (whole.end - start) * 1e-9
@@ -367,7 +384,7 @@ class StepGraph(_Graph):
                     out[i].copy_(self.metrics)
             with tracing.span("graph.clone_out"):
                 new = [x.clone() for x in self.tensors]
-        blend.add_launches({name: c * k for name, c in self.launches.items()})
+        add_launches({name: c * k for name, c in self.launches.items()})
         metrics = self.metrics_type(*(out[:, j].to(dt) for j, dt in enumerate(self.metrics_dtypes)))
         return _state_of(new, state.opt.t + k, state.generator), metrics
 
@@ -414,7 +431,7 @@ class RenderGraph(_Graph):
                 self.graph.replay()
             with tracing.span("graph.clone_out"):
                 out = _clones(self.out)
-        blend.add_launches(self.launches)
+        add_launches(self.launches)
         return out
 
     def free(self) -> None:
@@ -460,7 +477,7 @@ class CallGraph(_Graph):
                 self.graph.replay()
             with tracing.span("graph.clone_out"):
                 out = _clones(self.out)
-        blend.add_launches(self.launches)
+        add_launches(self.launches)
         return out
 
     def free(self) -> None:

@@ -271,10 +271,10 @@ def step_model(
     # (packed: q_b) in (no replay), n_out columns out
     b["blend_bwd"] = (nb * block * lane_rows * F32 + nb * 3 * I32 + nb * 5 * p2 * F32
                       + nb * n_out * block * F32)
-    # compose's incoming log T: a float64 per-tile prefix of S_b over the
-    # transposed [P2, NB], forward and backward (JAX: a float32 global
-    # cumsum, inside image_loss)
-    b["compose_log_t"] = 2 * 2 * nb * p2 * F64
+    # compose's backward (csrc/compose.cu: the incoming log T recomputed
+    # per tile): out read again, its cotangent [NB, 4, P2] written (JAX:
+    # inside image_loss)
+    b["compose_bwd"] = 2 * nb * 4 * p2 * F32
     # per-Gaussian sums: a stable int32 key sort with its permutation, the
     # n_out rows gathered (packed: then unpacked to nine), their float64
     # prefix and the int32 count of nonzero lanes, the run ends read,

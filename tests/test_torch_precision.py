@@ -1,7 +1,8 @@
 """The port's two prefix-sum differences against float64 on the CPU, at the
 size of the full 800x608 frame, where the JAX package's float32 forms lose
-digits: compose's incoming log T (ops.rasterize.incoming_log_t, its forward
-and backward) and the backward's per-Gaussian sums
+digits: compose's incoming log T (ops.compose.incoming_log_t) and its
+transpose, the backward's per-tile suffix (ops.compose.tile_suffix), and
+the backward's per-Gaussian sums
 (ops.pairs.reduce_aligned_cotangents); and compose against the JAX
 package's _compose_tiles at the render tests' bars.
 
@@ -18,7 +19,7 @@ import jax.numpy as jnp
 from gaussiansplatting_tpu.config import RasterConfig as JRasterConfig
 from gaussiansplatting_tpu.ops import rasterize as jrast
 
-from gaussiansplatting_tpu_torch.config import RasterConfig
+from gaussiansplatting_tpu_torch.ops import compose as tcompose
 from gaussiansplatting_tpu_torch.ops import pairs as tpairs
 from gaussiansplatting_tpu_torch.ops import rasterize as trast
 
@@ -77,7 +78,7 @@ def test_incoming_log_t_within_one_ulp_of_float64():
     s_b, seg = _frame_blocks(0)
     ref = _per_tile_f64(s_b, seg)
     with torch.no_grad():
-        got = trast.incoming_log_t(torch.from_numpy(s_b), torch.from_numpy(seg), NT_FULL)
+        got = tcompose.incoming_log_t(torch.from_numpy(s_b), torch.from_numpy(seg), NT_FULL)
     assert got.dtype == torch.float32 and got.shape == (NB_FULL, P2)
     assert _ulps_off(got.numpy(), ref).max() <= 1.0
     # the fault: JAX's float32 global form on the same input
@@ -94,15 +95,17 @@ def _per_tile_f64_torch(s_b, seg, num_tiles):
 
 
 def test_incoming_log_t_backward_matches_float64_autograd():
+    """The incoming log T's vector-Jacobian product, which compose's plain
+    backward takes as tile_suffix, against float64 autograd of the per-tile
+    prefix."""
     s_b, seg = _frame_blocks(1, nb=4_000, num_tiles=300, pad=100)
     g = np.random.default_rng(2).normal(size=s_b.shape).astype(np.float32)
     x = torch.from_numpy(s_b).requires_grad_(True)
     ref = torch.autograd.grad(
         (_per_tile_f64_torch(x, torch.from_numpy(seg), 300) * torch.from_numpy(g).double()).sum(),
         x)[0]
-    got, again = (torch.autograd.grad(
-        trast.incoming_log_t(x, torch.from_numpy(seg), 300), x, torch.from_numpy(g))[0]
-        for _ in range(2))
+    got, again = (tcompose.tile_suffix(torch.from_numpy(g), torch.from_numpy(seg), 300)
+                  for _ in range(2))
     assert got.dtype == torch.float32 and torch.equal(got, again)
     # the reference's cotangent is rounded to float32 as the port rounds it
     assert _ulps_off(got.numpy(), ref.numpy()).max() <= 1.0
@@ -119,8 +122,7 @@ def test_incoming_log_t_gives_zero_gradient_behind_a_zero_tail():
         tail[a + 1:b] = True
     g[tail] = 0.0
     x = torch.from_numpy(s_b).requires_grad_(True)
-    got = torch.autograd.grad(trast.incoming_log_t(x, torch.from_numpy(seg), 300), x,
-                              torch.from_numpy(g))[0].numpy()
+    got = tcompose.tile_suffix(torch.from_numpy(g), torch.from_numpy(seg), 300).numpy()
     assert tail.sum() > 500 and (got[tail] == 0).all()
     cum_excl = torch.cumsum(x, 0) - x                                 # the JAX form
     bounds = torch.searchsorted(torch.from_numpy(seg), torch.arange(301, dtype=torch.int32))
@@ -131,8 +133,9 @@ def test_incoming_log_t_gives_zero_gradient_behind_a_zero_tail():
 
 @pytest.mark.parametrize("white", [True, False])
 def test_compose_matches_jax(white):
-    """Compose of random per-block summaries over 6 x 4 tiles (padding
-    blocks included) against JAX's _compose_tiles: the image within 2e-5,
+    """Compose (rasterize._Compose: on the CPU the plain forward and the
+    plain per-tile backward) of random per-block summaries over 6 x 4 tiles
+    (padding blocks included) against JAX's _compose_tiles: the image within 2e-5,
     the gradients of sum(img * w) in C_b and S_b within 1e-4 relative
     norm.  The frame is small, so JAX's global float32 prefix stays well
     inside those bars."""
@@ -157,8 +160,9 @@ def test_compose_matches_jax(white):
         jnp.asarray(c_b), jnp.asarray(s_b))
     c = torch.from_numpy(c_b).requires_grad_(True)
     s = torch.from_numpy(s_b).requires_grad_(True)
-    img = trast._compose_tiles(c, s, torch.from_numpy(seg), nt, tx, ty, ts, width, height,
-                               RasterConfig(white_background=white))
+    consts = (ts, tx, ty, width, height, 1.0 if white else 0.0)
+    img = trast._Compose.apply(torch.cat([c, s[:, None]], dim=1), None, torch.from_numpy(seg),
+                               consts)
     got_c, got_s = torch.autograd.grad((img * torch.from_numpy(w)).sum(), [c, s])
     np.testing.assert_allclose(img.detach().numpy(), np.asarray(want), atol=IMG_ATOL)
     for a, b in ((got_c, jc), (got_s, js)):
@@ -268,8 +272,7 @@ def test_zero_runs_stay_exact_under_a_position_dependent_scan(fn, monkeypatch):
         behind = tail | np.roll(tail, -1, axis=0) & (np.roll(seg, -1) == seg)[:, None]
         monkeypatch.setattr(tpairs, "_prefix_sum", scan)
         x = torch.from_numpy(s_b).requires_grad_(True)
-        got = torch.autograd.grad(trast.incoming_log_t(x, torch.from_numpy(seg), 150), x,
-                                  torch.from_numpy(g))[0].numpy()
+        got = tcompose.tile_suffix(torch.from_numpy(g), torch.from_numpy(seg), 150).numpy()
         ref = torch.autograd.grad(
             (_per_tile_f64_torch(x, torch.from_numpy(seg), 150)
              * torch.from_numpy(g).double()).sum(), x)[0].numpy()

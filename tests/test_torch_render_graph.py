@@ -174,7 +174,8 @@ def test_tools_and_facade_render_through_render_frame(tmp_path, monkeypatch):
 def test_render_replays_equal_eager_renders_cuda(mode):
     """On the card: replays of the captured render against eager renders,
     bit for bit, for two poses and two parameter sets; the forward kernels
-    counted once per replay as the capture recorded; one capture."""
+    (blends and compose) counted once per replay as the capture recorded;
+    one capture."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the render graph is captured on the card")
     from gaussiansplatting_tpu_torch.utils import synthetic
@@ -185,17 +186,19 @@ def test_render_replays_equal_eager_renders_cuda(mode):
     for seed in (4, 5):
         params = synthetic.make_scene(300, seed=seed, device="cuda")
         for c in (cam, _moved(cam, 0.02).to("cuda")):
-            before = tblend.launch_counts()
+            before = tgraph.launch_counts()
             img, aux = tgraph.render_frame(params, c, cfg)
             torch.cuda.synchronize()
-            after = tblend.launch_counts()
+            after = tgraph.launch_counts()
             with torch.no_grad():
                 ref, ref_aux = traster.render(params, c, cfg)
             assert torch.equal(img, ref) and all(torch.equal(x, y) for x, y in zip(aux, ref_aux))
     graph = tgraph.live_renders()[-1]
     assert tgraph.counts["render_captures"] == captures + 1
     assert {k: after[k] - before[k] for k in graph.launches} == graph.launches
-    assert sum(graph.launches.values()) == (2 if mode == "tfloor" else 1)
+    blends = {k: n for k, n in graph.launches.items() if k in tblend.COUNTED}
+    assert sum(blends.values()) == (2 if mode == "tfloor" else 1)
+    assert graph.launches["compose_fwd"] == 1
     tgraph.clear()
 
 

@@ -362,7 +362,7 @@ def test_tfloor_train_step_matches_jax():
     tiles' terms: a residue of ~2e-8 (of a largest view-space gradient ~1)
     survives, so density's grad_count (|grad| > 0) may count such a
     Gaussian in JAX alone.  The port sums each tile's blocks on their own
-    (ops.rasterize.incoming_log_t), so its gradient there is exactly 0.
+    (ops.compose), so its gradient there is exactly 0.
     Those entries must be noise in JAX (<= VS_NOISE_REL of the largest) and
     exactly 0 in the port; every other grad_count entry must match
     exactly."""
