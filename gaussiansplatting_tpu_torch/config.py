@@ -50,7 +50,10 @@ class RasterConfig(_Replaceable):
     pair_block: int = 128          # pairs per render block (MXU K dimension granularity)
     pair_capacity: int = 1 << 20   # MAX padded (tile,depth) pairs per device per frame
     # SH evaluation degree: 0 = reference parity (evalSH uses DC only,
-    # shaders.metal:58-61); 1 = view-dependent band-1 color, trainable.
+    # shaders.metal:58-61); 1 = view-dependent band-1 color, trainable;
+    # 2, 3 = Kerbl et al. 2023's bands 2 and 3 (a [C, 16, 3] row at 3), which
+    # the training loop ramps in one degree per 1,000 iterations
+    # (train/schedule.sh_degree_at).
     sh_degree: int = 0
     # Block-blend implementation: "auto" = Pallas kernels on TPU, XLA
     # elsewhere; "pallas" forces the kernels (interpret mode off-TPU);
@@ -116,6 +119,10 @@ class OptimConfig(_Replaceable):
     log_scale_clamp: float = 4.0     # MAX_SCALE_TRAIN (shaders.metal adamStep scale clamp)
     raw_opacity_clamp: float = 8.0   # opacity param clamp (shaders.metal:693)
     sh_clamp: float = 2.0            # SH coefficient clamp (shaders.metal:709-711)
+    # learning rate of the SH bands above the DC (None: sh_lr); Kerbl et
+    # al. 2023 train them at sh_lr / 20.  Left out of to_json while None, so
+    # the JSON stays the JAX package's.
+    sh_rest_lr: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +197,10 @@ class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        if d["optim"]["sh_rest_lr"] is None:
+            del d["optim"]["sh_rest_lr"]
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(text: str) -> "Config":

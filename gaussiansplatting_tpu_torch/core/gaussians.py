@@ -5,8 +5,10 @@ groups are ``nn.Parameter``s of one ``nn.Module`` and ``alive`` is a buffer,
 so the module moves between devices with ``.to`` and an optimizer can take
 ``.parameters()`` as they are.
 
-SH layout: [capacity, 4, 3] = (coefficient, channel), coeff 0 the DC term;
-``from_arrays`` also takes the reference's flat [N, 12] channel-major layout.
+SH layout: [capacity, K, 3] = (coefficient, channel), coeff 0 the DC term,
+K = max(4, (degree + 1)^2) (core/transforms.sh_coeffs): [C, 4, 3] for
+degrees 0 and 1, [C, 16, 3] for degree 3; ``from_arrays`` also takes the
+reference's flat [N, 12] channel-major layout.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ FIELDS = ("means", "log_scales", "quats", "raw_opacities", "sh", "alive")
 
 class GaussianParams(nn.Module):
     """means [C, 3], log_scales [C, 3], quats [C, 4] (w, x, y, z, not
-    necessarily normalized), raw_opacities [C] (pre-sigmoid), sh [C, 4, 3]
-    and the bool buffer alive [C]."""
+    necessarily normalized), raw_opacities [C] (pre-sigmoid), sh [C, K, 3]
+    (K = 4 for SH degrees 0-1, 9 for 2, 16 for 3) and the bool buffer alive
+    [C]."""
 
     def __init__(self, means, log_scales, quats, raw_opacities, sh, alive):
         super().__init__()
@@ -41,7 +44,7 @@ class GaussianParams(nn.Module):
         return self.alive.sum()
 
 
-def zeros(capacity: int, device=None) -> GaussianParams:
+def zeros(capacity: int, device=None, sh_coeffs: int = 4) -> GaussianParams:
     quats = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
     quats[:, 0] = 1.0
     return GaussianParams(
@@ -49,7 +52,7 @@ def zeros(capacity: int, device=None) -> GaussianParams:
         log_scales=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
         quats=quats,
         raw_opacities=torch.zeros((capacity,), dtype=torch.float32, device=device),
-        sh=torch.zeros((capacity, 4, 3), dtype=torch.float32, device=device),
+        sh=torch.zeros((capacity, sh_coeffs, 3), dtype=torch.float32, device=device),
         alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
     )
 
@@ -65,8 +68,9 @@ def from_arrays(
 ) -> GaussianParams:
     """Pack host arrays into a padded GaussianParams on ``device``.
 
-    ``sh`` may be [N, 4, 3] or the reference's flat [N, 12] channel-major
-    layout (R0..R3, G0..G3, B0..B3)."""
+    ``sh`` may be [N, K, 3] (K = 4, 9 or 16; the row keeps K) or the
+    reference's flat [N, 12] channel-major layout (R0..R3, G0..G3,
+    B0..B3)."""
     n = means.shape[0]
     cap = int(capacity if capacity is not None else n)
     if cap < n:
@@ -74,7 +78,9 @@ def from_arrays(
     sh = np.asarray(sh, np.float32)
     if sh.ndim == 2 and sh.shape[1] == 12:
         sh = sh.reshape(n, 3, 4).transpose(0, 2, 1)  # [N,3ch,4coef] -> [N,4,3]
-    out = zeros(cap, device=device)
+    if sh.ndim != 3 or sh.shape[1:] not in ((4, 3), (9, 3), (16, 3)):
+        raise ValueError(f"sh must be [N, 4|9|16, 3] or [N, 12], got {sh.shape}")
+    out = zeros(cap, device=device, sh_coeffs=sh.shape[1])
     with torch.no_grad():
         for name, arr in (
             ("means", means), ("log_scales", log_scales), ("quats", quats),

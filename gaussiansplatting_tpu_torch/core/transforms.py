@@ -133,14 +133,52 @@ def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
 
 
 SH_C1 = 0.4886025119029199
+# bands 2 and 3 (Kerbl et al. 2023's utils/sh_utils.py, the CUDA
+# rasterizer's computeColorFromSH)
+SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+         -1.0925484305920792, 0.5462742152960396)
+SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+         0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+         -0.5900435899266435)
+MAX_SH_DEGREE = 3
+
+
+def sh_coeffs(degree: int) -> int:
+    """Coefficients an SH row of ``degree`` holds: max(4, (degree + 1)^2), so
+    degrees 0 and 1 share the [C, 4, 3] row."""
+    if not 0 <= degree <= MAX_SH_DEGREE:
+        raise ValueError(f"SH degree {degree} is not supported (0 to {MAX_SH_DEGREE})")
+    return max(4, (degree + 1) ** 2)
 
 
 def sh_eval(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
-    """SH color up to ``degree`` (0 or 1) along unit view directions.
-    sh: [N, 4, 3] (coeff, channel); dirs: [N, 3].  Degree 1 is the standard
-    3DGS band-1 basis (-y, +z, -x)."""
+    """SH color up to ``degree`` (0 to 3) along unit view directions,
+    clamp(sum + 0.5, 0, 1).  sh: [N, K, 3] (coeff, channel) with K >=
+    (degree + 1)^2 (coefficients past the degree are not read); dirs: [N,
+    3].  The basis is 3DGS's (band 1: -y, +z, -x; bands 2 and 3 as
+    SH_C2 and SH_C3 weigh them).  Raises on a degree above 3 or a row too
+    narrow for the degree."""
+    if not 0 <= degree <= MAX_SH_DEGREE:
+        raise ValueError(f"SH degree {degree} is not supported (0 to {MAX_SH_DEGREE})")
+    if sh.shape[-2] < (degree + 1) ** 2:
+        raise ValueError(f"SH degree {degree} needs {(degree + 1) ** 2} coefficients, "
+                         f"the row holds {sh.shape[-2]}")
     rgb = SH_C0 * sh[..., 0, :] + 0.5
     if degree >= 1:
         x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
         rgb = rgb + SH_C1 * (-y * sh[..., 1, :] + z * sh[..., 2, :] - x * sh[..., 3, :])
+    if degree >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        rgb = (rgb + SH_C2[0] * xy * sh[..., 4, :] + SH_C2[1] * yz * sh[..., 5, :]
+               + SH_C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+               + SH_C2[3] * xz * sh[..., 7, :] + SH_C2[4] * (xx - yy) * sh[..., 8, :])
+    if degree >= 3:
+        rgb = (rgb + SH_C3[0] * y * (3.0 * xx - yy) * sh[..., 9, :]
+               + SH_C3[1] * xy * z * sh[..., 10, :]
+               + SH_C3[2] * y * (4.0 * zz - xx - yy) * sh[..., 11, :]
+               + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * sh[..., 12, :]
+               + SH_C3[4] * x * (4.0 * zz - xx - yy) * sh[..., 13, :]
+               + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
+               + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :])
     return torch.clamp(rgb, 0.0, 1.0)

@@ -88,7 +88,8 @@ def load_colmap_scene(
         )
 
     cloud = init_mod.gaussians_from_points(
-        data.points, data.point_colors, extent, cfg.init, knn_mode=knn_mode
+        data.points, data.point_colors, extent, cfg.init, knn_mode=knn_mode,
+        sh_degree=cfg.raster.sh_degree,
     )
     n = cloud.means.shape[0]
     cap = capacity or min(

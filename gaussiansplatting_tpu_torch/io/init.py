@@ -4,7 +4,9 @@ Counterpart of gaussiansplatting_tpu/io/init.py (reference:
 gaussiansFromColmap, main.mm:59-187): isotropic log scales from mean 3-NN
 distances (point clouds >10k: a 1000-point sample, its median assigned to
 all, main.mm:87-123), clamped to [1e-4, 0.1] * scene extent, identity
-quaternions, raw opacity 0 (sigmoid = 0.5), SH DC = (rgb - 0.5)/SH_C0.
+quaternions, raw opacity 0 (sigmoid = 0.5), SH DC = (rgb - 0.5)/SH_C0, the
+higher bands zero in a row of core/transforms.sh_coeffs(sh_degree)
+coefficients.
 
 The kNN is scipy's KD-tree (``cKDTree``), the JAX package's fallback path;
 the optional native kNN of ``native/`` is not carried.  ``knn_mode='exact'``
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from gaussiansplatting_tpu_torch.config import InitConfig
-from gaussiansplatting_tpu_torch.core.transforms import SH_C0
+from gaussiansplatting_tpu_torch.core.transforms import SH_C0, sh_coeffs
 from gaussiansplatting_tpu_torch.io.ply import GaussianCloud
 
 
@@ -55,6 +57,7 @@ def gaussians_from_points(
     scene_extent: float,
     cfg: InitConfig = InitConfig(),
     knn_mode: str = "reference",
+    sh_degree: int = 0,
 ) -> GaussianCloud:
     n = points.shape[0]
     scales = initial_scales(points, cfg, knn_mode)
@@ -67,7 +70,7 @@ def gaussians_from_points(
 
     quats = np.zeros((n, 4), np.float32)
     quats[:, 0] = 1.0
-    sh = np.zeros((n, 4, 3), np.float32)
+    sh = np.zeros((n, sh_coeffs(sh_degree), 3), np.float32)
     sh[:, 0, :] = (np.asarray(colors, np.float32) - 0.5) / SH_C0
 
     return GaussianCloud(

@@ -1,15 +1,22 @@
 """3DGS PLY interchange — binary little-endian, reference-compatible schema.
 
-Export writes exactly the reference's field set and ordering
-(ply_exporter.hpp:39-77): x y z, nx ny nz (zeros), f_dc_0-2, f_rest_0-8
-interleaved per-coefficient RGB (ply_exporter.hpp:112-123 — note this differs
-from the official 3DGS channel-planar layout), raw opacity, log scales,
-rot_0-3 = (w, x, y, z).  Invalid positions are skipped
+Export of an SH row of degree 0 or 1 ([N, 4, 3]) writes exactly the
+reference's field set and ordering (ply_exporter.hpp:39-77): x y z, nx ny nz
+(zeros), f_dc_0-2, f_rest_0-8 interleaved per-coefficient RGB
+(ply_exporter.hpp:112-123 — note this differs from the official 3DGS
+channel-planar layout), raw opacity, log scales, rot_0-3 = (w, x, y, z).  A
+row of degree 2 or 3 ([N, 9, 3], [N, 16, 3]) is written in the official
+3DGS layout: f_rest_{ch * (K - 1) + (c - 1)} for coefficient c = 1..K-1,
+channel-major (f_rest_0-23, f_rest_0-44).  Invalid positions are skipped
 (ply_exporter.hpp:29-36).
 
 Load accepts any binary-LE PLY carrying the required fields, applies the
 reference's linear-vs-log scale auto-detection (ply_loader.cpp:17-58), clamps
-log scales to +/-8, normalizes quaternions, and skips invalid positions.
+log scales to +/-8, normalizes quaternions, and skips invalid positions.  Its
+SH row follows the file's f_rest fields: none -> [N, 4, 3] of the DC; 9 ->
+the reference's interleave, [N, 4, 3]; 24 or 45 -> 3DGS's channel-major
+layout of degree 2 or 3, [N, 9, 3] or [N, 16, 3], every band kept; any other
+count raises.
 
 Copied from gaussiansplatting_tpu/io/ply.py (numpy only); ``cloud_from_params``
 takes the port's ``GaussianParams`` module.
@@ -38,7 +45,7 @@ class GaussianCloud:
     log_scales: np.ndarray     # [N, 3]
     quats: np.ndarray          # [N, 4] (w, x, y, z), normalized
     raw_opacities: np.ndarray  # [N]
-    sh: np.ndarray             # [N, 4, 3] (coefficient, channel), [:,0]=DC
+    sh: np.ndarray             # [N, K, 3] (coefficient, channel), [:,0]=DC; K = 4, 9, 16
 
 
 def _parse_header(f):
@@ -94,22 +101,17 @@ def load_gaussian_ply(path: str, max_log_scale: float = 8.0) -> GaussianCloud:
     scales = np.stack([col("scale_0"), col("scale_1"), col("scale_2")], axis=1)
     quats = np.stack([col(f"rot_{i}") for i in range(4)], axis=1)
     opac = col("opacity")
-    sh = np.zeros((count, 4, 3), np.float32)
+    rest = len([n for n in names if n.startswith("f_rest_")])
+    if rest not in (0, 9, 24, 45) or any(f"f_rest_{i}" not in names for i in range(rest)):
+        raise ValueError(f"PLY has {rest} f_rest fields: expected f_rest_0 .. f_rest_<n-1> "
+                         f"with n = 0, 9 (the reference's interleave), 24 or 45 (3DGS's "
+                         f"degree 2 or 3)")
+    sh = np.zeros((count, 4 if rest <= 9 else rest // 3 + 1, 3), np.float32)
     sh[:, 0, 0] = col("f_dc_0")
     sh[:, 0, 1] = col("f_dc_1")
     sh[:, 0, 2] = col("f_dc_2")
-    if "f_rest_44" in names:
-        # official-3DGS degree-3 export: 45 channel-major coefficients
-        # (all 15 of R, then G, then B); keep the band-1 triple per channel
-        for c in range(1, 4):
-            for ch in range(3):
-                sh[:, c, ch] = col(f"f_rest_{ch * 15 + (c - 1)}")
-    elif "f_rest_8" in names:
-        # reference interleave: f_rest_[3*(c-1) + ch] = coeff c, channel ch
-        # (ply_exporter.hpp:112-123 writes per-coefficient RGB groups)
-        for c in range(1, 4):
-            for ch in range(3):
-                sh[:, c, ch] = col(f"f_rest_{3 * (c - 1) + ch}")
+    for c, ch, i in _rest_fields(rest):
+        sh[:, c, ch] = col(f"f_rest_{i}")
 
     # linear-vs-log auto-detection (ply_loader.cpp:17-58): sample 1000, any
     # negative -> log; all in (0, 1] -> linear; else log.
@@ -138,8 +140,21 @@ def load_gaussian_ply(path: str, max_log_scale: float = 8.0) -> GaussianCloud:
     )
 
 
+def _rest_fields(rest: int):
+    """(coefficient, channel, f_rest index) of each of a file's ``rest``
+    f_rest fields: 9 in the reference's interleave, f_rest_[3 (c - 1) + ch]
+    (ply_exporter.hpp:112-123 writes per-coefficient RGB groups); 24 or 45
+    in 3DGS's channel-major layout, f_rest_[ch (K - 1) + (c - 1)] (all of R,
+    then G, then B)."""
+    if rest == 9:
+        return [(c, ch, 3 * (c - 1) + ch) for c in range(1, 4) for ch in range(3)]
+    per = rest // 3
+    return [(c, ch, ch * per + (c - 1)) for c in range(1, per + 1) for ch in range(3)]
+
+
 def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
-    """Write the reference's exact schema; returns the number of Gaussians
+    """Write the reference's exact schema (an SH row of 4 coefficients) or
+    3DGS's (9 or 16: f_rest channel-major); returns the number of Gaussians
     written (invalid positions skipped, ply_exporter.hpp:29-36)."""
     means = np.asarray(cloud.means, np.float32)
     ok = (
@@ -147,10 +162,14 @@ def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
         & (np.abs(means[:, 0]) < 1e6)
     )
     n = int(ok.sum())
+    k = np.asarray(cloud.sh).shape[1]
+    if k not in (4, 9, 16):
+        raise ValueError(f"an SH row of {k} coefficients has no PLY layout (4, 9 or 16)")
+    rest = 9 if k == 4 else 3 * (k - 1)
 
     fields = (
         ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
-        + [f"f_rest_{i}" for i in range(9)]
+        + [f"f_rest_{i}" for i in range(rest)]
         + ["opacity", "scale_0", "scale_1", "scale_2",
            "rot_0", "rot_1", "rot_2", "rot_3"]
     )
@@ -159,11 +178,10 @@ def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
 
     m = sel(cloud.means)
     rec["x"], rec["y"], rec["z"] = m[:, 0], m[:, 1], m[:, 2]
-    sh = sel(cloud.sh)  # [n, 4, 3]
+    sh = sel(cloud.sh)  # [n, K, 3]
     rec["f_dc_0"], rec["f_dc_1"], rec["f_dc_2"] = sh[:, 0, 0], sh[:, 0, 1], sh[:, 0, 2]
-    for c in range(1, 4):
-        for ch in range(3):
-            rec[f"f_rest_{3 * (c - 1) + ch}"] = sh[:, c, ch]
+    for c, ch, i in _rest_fields(rest):
+        rec[f"f_rest_{i}"] = sh[:, c, ch]
     rec["opacity"] = sel(cloud.raw_opacities)
     s = sel(cloud.log_scales)
     rec["scale_0"], rec["scale_1"], rec["scale_2"] = s[:, 0], s[:, 1], s[:, 2]

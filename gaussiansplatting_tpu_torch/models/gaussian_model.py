@@ -85,7 +85,8 @@ class GaussianModel:
         data = colmap_mod.load_colmap(colmap_dir)
         extent = colmap_mod.compute_scene_extent(data, cfg.init.extent_multiplier)
         cloud = init_mod.gaussians_from_points(
-            data.points, data.point_colors, extent, cfg.init, knn_mode=knn_mode
+            data.points, data.point_colors, extent, cfg.init, knn_mode=knn_mode,
+            sh_degree=cfg.raster.sh_degree,
         )
         params = from_arrays(
             cloud.means, cloud.log_scales, cloud.quats,

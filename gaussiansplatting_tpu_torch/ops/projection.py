@@ -38,8 +38,43 @@ def num_tiles(size: int, tile: int) -> int:
     return -(-size // tile)
 
 
-def project(params: GaussianParams, camera: Camera, cfg: RasterConfig) -> Projected:
-    """Project all Gaussians; everything masked, no data-dependent shapes."""
+# frames rendered from an SH row wider than band 1 (a configured degree of
+# 2 or 3), by the degree they rendered at: "sh.degree_<d>".  Counted where
+# the frame is built, so a CUDA graph's capture records it and each replay
+# adds it as it adds the blend kernels' launches (train/graph.py).
+COUNTED = tuple(f"sh.degree_{d}" for d in range(T.MAX_SH_DEGREE + 1))
+_frames = dict.fromkeys(COUNTED, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Frames by SH degree (``COUNTED``), the counter ``sh.degree_counts``."""
+    return dict(_frames)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> frames) to the counts."""
+    for name, n in counts.items():
+        _frames[name] += n
+
+
+def count_sh_frame(degree: int) -> None:
+    _frames[f"sh.degree_{degree}"] += 1
+
+
+def sh_color(params: GaussianParams, camera: Camera, cfg: RasterConfig) -> torch.Tensor:
+    """The clamped colour [N, 3] of SH degree ``cfg.sh_degree`` (>= 1) along
+    the unit direction from the camera's centre to each mean."""
+    rel = params.means - camera.cam_pos[None, :]
+    norm = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
+    dirs = rel / torch.clamp(norm, min=1e-8)
+    return T.sh_eval(params.sh, dirs, cfg.sh_degree)
+
+
+def project(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+            color: torch.Tensor | None = None) -> Projected:
+    """Project all Gaussians; everything masked, no data-dependent shapes.
+    ``color``: the Gaussians' colour [N, 3] where the caller evaluated it
+    (default: here, from the SH row at ``cfg.sh_degree``)."""
     width, height = camera.width, camera.height
     tiles_x = num_tiles(width, cfg.tile_size)
     tiles_y = num_tiles(height, cfg.tile_size)
@@ -107,13 +142,9 @@ def project(params: GaussianParams, camera: Camera, cfg: RasterConfig) -> Projec
     # pair-gen opacity floor: Gaussians below it produce no pairs at all
     emit = ok & (opacity >= cfg.pair_min_opacity)
 
-    if cfg.sh_degree >= 1:
-        rel = means - camera.cam_pos[None, :]
-        norm = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
-        dirs = rel / torch.clamp(norm, min=1e-8)
-        color = T.sh_eval(params.sh, dirs, cfg.sh_degree)
-    else:
-        color = T.sh_dc_to_rgb(params.sh[:, 0, :])
+    if color is None:
+        color = (sh_color(params, camera, cfg) if cfg.sh_degree >= 1
+                 else T.sh_dc_to_rgb(params.sh[:, 0, :]))
 
     zero_i = torch.zeros_like(tmin_x)
     okc = ok[:, None]

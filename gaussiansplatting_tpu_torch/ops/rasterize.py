@@ -29,7 +29,8 @@ The frame launches the stage marks ``projection``, ``pairs``, ``blend`` and
 ``compose`` (utils/tracing.py; the T-floor pass is a second ``blend`` then
 ``compose``), the image's cotangent ``compose_bwd``, and each blend backward
 ``blend_bwd``, ``reduction`` and ``projection_bwd``: a replayed graph shows
-its stages on the device trace.
+its stages on the device trace.  A frame of SH degree 2 or 3 adds ``sh``
+before ``projection`` and ``sh_bwd`` after ``projection_bwd``.
 
 Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
 replaces:
@@ -129,14 +130,25 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
           tiles_y: int | None = None) -> _Plan:
     """Projection, the dead-zone colour, the stable depth presort and the
     capacity plan (rasterize.py:287-363) of tile rows [row0, row0 +
-    tiles_y) (default: the whole image)."""
+    tiles_y) (default: the whole image).  An SH row wider than band 1
+    (degree 2 or 3) counts the frame by its degree
+    (projection.COUNTED) and, at a degree of 1 or more, evaluates the
+    colour first, between the marks ``sh`` and ``projection``, its
+    cotangent marked ``sh_bwd`` (the last of the backward, after
+    ``projection_bwd``)."""
+    color = None
+    if params.sh.shape[1] > 4:
+        proj_mod.count_sh_frame(cfg.sh_degree)
+        if cfg.sh_degree >= 1:
+            tracing.mark("sh", params.means)
+            color = tracing.mark_grad("sh_bwd", proj_mod.sh_color(params, camera, cfg))
     tracing.mark("projection", params.means)
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
     if tiles_y is None:
         tiles_y = proj_mod.num_tiles(camera.height, ts)
 
-    proj = proj_mod.project(params, camera, cfg)
+    proj = proj_mod.project(params, camera, cfg, color)
     screen_pos = proj.screen_pos
     if vs_dummy is not None:
         screen_pos = screen_pos + vs_dummy

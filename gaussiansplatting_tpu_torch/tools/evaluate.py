@@ -26,7 +26,8 @@ def main(argv=None) -> int:
     p.add_argument("--images", required=True)
     p.add_argument("--downscale", type=int, default=1)
     p.add_argument("--pair-capacity", type=int, default=1 << 21)
-    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1))
+    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1, 2, 3),
+                   help="SH degree to render at (the PLY must hold its bands)")
     p.add_argument("--metrics", default=None, help="JSONL output path")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; no fallback)")

@@ -41,8 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gif", default=None,
                    help="additionally write all views as an animated GIF")
     p.add_argument("--pair-capacity", type=int, default=1 << 21)
-    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1),
-                   help="0 = reference parity (DC only); 1 = view-dependent color")
+    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1, 2, 3),
+                   help="0 = reference parity (DC only); 1-3 = view-dependent color "
+                        "(3: a 3DGS .ply's 16 coefficients)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; no fallback)")
     return p

@@ -16,11 +16,15 @@ training loop instead: ``train_loop`` for N iterations from a fresh state,
 with a pair read and a densify event every LOOP_EVENTS iterations, an
 opacity reset every second one, capacity growth and chunks of LOOP_CHUNK
 replays, so the window holds the loop's spans, its captures and its events.
+``--sh-degree`` 2 or 3 gives the scene an SH row of that degree (the rest
+bands drawn N(0, 0.1^2)), so the stages hold ``sh`` and ``sh_bwd``; the
+traced frames by SH degree (ops/projection.py's counter,
+``sh.degree_counts``) are printed.
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
-      [--payload-dtype f32|bf16] [--pack-positions 0|1] [--loop]
-      [--out build/trace] [--parse-only] [--device cuda]
+      [--payload-dtype f32|bf16] [--pack-positions 0|1] [--sh-degree 0-3]
+      [--loop] [--out build/trace] [--parse-only] [--device cuda]
 
 The chrome trace goes to ``<out>/trace.json`` (the port's host spans in it
 as profiler ranges), the device operations and the port's spans on
@@ -54,10 +58,11 @@ LOOP_CHUNK = 5
 
 
 def _setup(n, width, height, pair_capacity, device, payload_dtype="f32",
-           pack_positions=False):
+           pack_positions=False, sh_degree=0):
     """The JAX tool's workload: the synthetic scene (seed 0), its canonical
     camera, random ground truth, L1-only loss gradient, B = 128, the
-    payload mode given."""
+    payload mode given; at ``sh_degree`` 2 or 3 the SH row of that degree,
+    its rest bands drawn N(0, 0.1^2)."""
     import numpy as np
     import torch
 
@@ -67,9 +72,14 @@ def _setup(n, width, height, pair_capacity, device, payload_dtype="f32",
 
     cfg = Config(raster=RasterConfig(pair_capacity=pair_capacity, pair_block=128,
                                      payload_dtype=payload_dtype,
-                                     pack_positions=bool(pack_positions)),
+                                     pack_positions=bool(pack_positions),
+                                     sh_degree=sh_degree),
                  loss=LossConfig(dssim_in_grad=False))
-    params = synthetic.make_scene(n=n, seed=0, device=device)
+    params = synthetic.make_scene(n=n, seed=0, device=device, sh_degree=sh_degree)
+    if sh_degree >= 2:
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(0)
+            params.sh[:, 1:] = 0.1 * torch.randn(params.sh[:, 1:].shape, generator=g).to(device)
     camera = synthetic.make_canonical_camera(width=width, height=height, device=device)
     gt = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (height, width, 3)).astype(np.float32)).to(device)
@@ -84,21 +94,22 @@ def _sync(device):
 
 
 def capture(steps, n, width, height, pair_capacity, out, device="cuda",
-            payload_dtype="f32", pack_positions=False, loop=False):
+            payload_dtype="f32", pack_positions=False, loop=False, sh_degree=0):
     """Warm one step, time ``steps`` synchronized steps on the host clock,
     then profile ``steps`` more; ``loop``: profile one ``train_loop`` of
     ``steps`` iterations from a fresh state instead (see the module
     docstring), untimed.  Writes ``<out>/trace.json`` and
-    ``<out>/timeline.json``.  Returns the host ms per step (None for a
-    loop)."""
+    ``<out>/timeline.json`` (with the traced frames by SH degree).  Returns
+    the host ms per step (None for a loop)."""
     import torch
 
+    from gaussiansplatting_tpu_torch.ops import projection
     from gaussiansplatting_tpu_torch.train import trainer
     from gaussiansplatting_tpu_torch.utils import tracing
 
     device = torch.device(device)
     st, camera, gt, cfg = _setup(n, width, height, pair_capacity, device, payload_dtype,
-                                 pack_positions)
+                                 pack_positions, sh_degree)
     if loop:
         cfg = cfg.replace(density=cfg.density.replace(
             densify_from_iter=0, densify_interval=LOOP_EVENTS,
@@ -128,11 +139,13 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     tracing.clear()
+    before = projection.launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         lo = time.time_ns()
         run(st)
         _sync(device)
         hi = time.time_ns()
+    frames = {k: n - before[k] for k, n in projection.launch_counts().items() if n != before[k]}
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     ops = []
@@ -142,8 +155,16 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
             ops.append((e.name(), start, start + int(e.duration_ns())))
     with open(os.path.join(out, TIMELINE), "w") as f:
         json.dump({"window": [lo, hi], "device": ops, "spans": tracing.spans(),
-                   "dropped": tracing.dropped()}, f)
+                   "dropped": tracing.dropped(), "sh_degree_counts": frames}, f)
     return host_ms
+
+
+def sh_degree_counts(out: str) -> dict:
+    """The traced frames by SH degree ({"sh.degree_<d>": frames}) that
+    ``capture`` wrote to ``<out>/timeline.json``; {} where none rendered
+    from a row wider than band 1."""
+    with open(os.path.join(out, TIMELINE)) as f:
+        return json.load(f).get("sh_degree_counts", {})
 
 
 def _group_name(name: str) -> str:
@@ -370,6 +391,8 @@ def main(argv=None) -> int:
                    help="pair-payload precision (bf16: the packed table and blends)")
     p.add_argument("--pack-positions", type=int, choices=(0, 1), default=0,
                    help="with --payload-dtype bf16: tile-relative bf16 positions")
+    p.add_argument("--sh-degree", type=int, choices=(0, 1, 2, 3), default=0,
+                   help="SH degree of the scene and the step")
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--loop", action="store_true",
                    help="trace train_loop for --steps iterations from a fresh state, its "
@@ -387,8 +410,9 @@ def main(argv=None) -> int:
 
         host_ms = capture(args.steps, args.n, args.width, args.height, args.pair_capacity,
                           args.out, _device(args.device), args.payload_dtype,
-                          bool(args.pack_positions), args.loop)
+                          bool(args.pack_positions), args.loop, args.sh_degree)
     device, spans, window, dropped = timeline(args.out)
+    print(f"sh.degree_counts {sh_degree_counts(args.out)}")
     for stage, ms in sorted(stage_ms(device, window, args.steps).items(),
                             key=lambda x: -x[1]):
         print(f"{ms:9.3f} ms/step  stage {stage}")

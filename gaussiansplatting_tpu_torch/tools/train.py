@@ -75,8 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "PROCESS_ID (or WORLD_SIZE and RANK)")
     p.add_argument("--snapshot-dir", default=None,
                    help="write render+gt PNG snapshots every config snapshot_interval iters")
-    p.add_argument("--sh-degree", type=int, default=None, choices=(0, 1),
-                   help="override config SH degree (1 = trainable view-dependent color)")
+    p.add_argument("--sh-degree", type=int, default=None, choices=(0, 1, 2, 3),
+                   help="override config SH degree (1-3 = trainable view-dependent "
+                        "color; 2 and 3 ramp in one degree per 1,000 iterations)")
     p.add_argument("--adaptive-pairs", action="store_true",
                    help="auto-bucket pair capacity to the live workload "
                         "(--pair-capacity becomes the upper bound)")

@@ -353,7 +353,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=600)
     p.add_argument("--fov", type=float, default=60.0)
-    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1))
+    p.add_argument("--sh-degree", type=int, default=0, choices=(0, 1, 2, 3),
+                   help="SH degree to render at (the PLY must hold its bands)")
     p.add_argument("--pair-capacity", type=int, default=1 << 21)
     p.add_argument("--device", default="cuda",
                    help="torch device to render and train on (default cuda; no fallback)")

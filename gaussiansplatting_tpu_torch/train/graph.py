@@ -48,8 +48,9 @@ band matrices), then the capture of one call on that stream, into the
 graph's own memory pool.  A capture that fails raises, naming the op where
 it failed; nothing falls back to eager calls.  The capture records the
 blend and compose kernels' launches without running them: the counters of
-ops.blend and ops.compose (``launch_counts``) are set back after it, and
-every replay adds what the capture recorded (``add_launches``).  The
+ops.blend and ops.compose (``launch_counts``, with ops.projection's frames by
+SH degree) are set back after it, and every replay adds what the capture
+recorded (``add_launches``).  The
 capture mode is ``thread_local``: the viewer captures in an HTTP handler
 thread while other handler threads build their cameras on the card, and in
 torch's default ``global`` mode such a copy fails in the other thread and
@@ -92,7 +93,7 @@ import torch
 
 from gaussiansplatting_tpu_torch.core.gaussians import FIELDS, GaussianParams
 from gaussiansplatting_tpu_torch.density.control import DensityAccum
-from gaussiansplatting_tpu_torch.ops import blend, compose, rasterize
+from gaussiansplatting_tpu_torch.ops import blend, compose, projection, rasterize
 from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE, AdamState
 from gaussiansplatting_tpu_torch.train.state import TrainState
 from gaussiansplatting_tpu_torch.utils import tracing
@@ -117,13 +118,15 @@ _ACCUM = ("grad_accum", "grad_count", "pos_grad_accum")
 counts: collections.Counter = collections.Counter()
 
 
-# the modules whose wrappers count their kernels' launches
-_COUNTERS = (blend, compose)
+# the modules whose wrappers count their kernels' launches, and
+# ops.projection's frames by SH degree (counted alike)
+_COUNTERS = (blend, compose, projection)
 
 
 def launch_counts() -> dict[str, int]:
     """Every counted kernel wrapper's launches, by name: ops.blend's and
-    ops.compose's."""
+    ops.compose's; and ops.projection's frames by SH degree
+    (``sh.degree_<d>``)."""
     return {k: n for mod in _COUNTERS for k, n in mod.launch_counts().items()}
 
 

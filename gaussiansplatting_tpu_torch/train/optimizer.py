@@ -11,7 +11,8 @@ clips.  Per-field semantics:
   * log-scales: result clamped to +/-4 (MAX_SCALE_TRAIN, shaders.metal:55);
   * rotations: renormalized after the step (identity fallback);
   * raw opacity: clamped to +/-8;
-  * SH: clamped to +/-2;
+  * SH: clamped to +/-2; the bands above the DC step at
+    ``OptimConfig.sh_rest_lr`` where it is set;
   * a Gaussian is skipped entirely when its position/opacity/sh gradients are
     NaN/Inf or its position is corrupt (shaders.metal:567-576);
   * dead (padding) Gaussians are frozen so their m/v stay zero.
@@ -144,7 +145,11 @@ def step(
 
     # --- SH
     new_m["sh"], new_v["sh"], d = moments("sh")
-    new_sh = torch.clamp(p["sh"] - lrs.sh * d, -cfg.sh_clamp, cfg.sh_clamp)
+    if cfg.sh_rest_lr is None or cfg.sh_rest_lr == cfg.sh_lr:
+        upd = lrs.sh * d
+    else:
+        upd = torch.cat([lrs.sh * d[:, :1], float(np.float32(cfg.sh_rest_lr)) * d[:, 1:]], dim=1)
+    new_sh = torch.clamp(p["sh"] - upd, -cfg.sh_clamp, cfg.sh_clamp)
     new_p["sh"] = torch.where(mask(new_sh), new_sh, p["sh"])
 
     # freeze moments of inactive Gaussians (keeps padding state exactly zero)

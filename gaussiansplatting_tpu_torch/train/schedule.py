@@ -46,6 +46,20 @@ def rates(cfg: OptimConfig, position) -> LearningRates:
     )
 
 
+SH_DEGREE_INTERVAL = 1000
+
+
+def sh_degree_at(sh_degree: int, iteration: int) -> int:
+    """The SH degree the step at ``iteration`` (completed steps, the Adam
+    timestep before it) renders at, for a configured ``sh_degree``: one
+    degree more every SH_DEGREE_INTERVAL iterations up to it, Kerbl et al.
+    2023's oneupSHdegree (which counts from 1, so it raises the degree one
+    step earlier); degrees 0 and 1 have no ramp, as in the JAX package."""
+    if sh_degree <= 1:
+        return sh_degree
+    return min(sh_degree, int(iteration) // SH_DEGREE_INTERVAL)
+
+
 def step_scalars(cfg: OptimConfig, t0: int, k: int, total_iters: int) -> np.ndarray:
     """[k, 3] float32, one row per step of the k that start at Adam
     timesteps t = t0 .. t0 + k - 1: the position LR at the pre-increment t

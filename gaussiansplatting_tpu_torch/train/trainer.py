@@ -443,7 +443,7 @@ def should_reset_opacity(iteration: int, cfg: Config) -> bool:
 
 
 def _steps_until_event(iteration, cfg, adaptive_pairs, adapt_interval,
-                       ckpt_interval, snap_interval):
+                       ckpt_interval, snap_interval, sh_degree=0):
     """Largest k such that no schedule event fires strictly inside
     (iteration, iteration + k) — an event exactly at the chunk end is fine
     (the loop handles it after the chunk's steps return)."""
@@ -467,6 +467,8 @@ def _steps_until_event(iteration, cfg, adaptive_pairs, adapt_interval,
         gaps.append(next_mult(ckpt_interval))
     if snap_interval:
         gaps.append(next_mult(snap_interval))
+    if schedule.sh_degree_at(sh_degree, iteration) < sh_degree:
+        gaps.append(next_mult(schedule.SH_DEGREE_INTERVAL))
     return min(gaps) if gaps else 1 << 30
 
 
@@ -522,7 +524,10 @@ def train_loop(
     path chunks (batch_views == 1, mesh_devices == 1).  ``adaptive_pairs``
     rebuckets the pair capacity every ``adapt_interval`` iters to the next
     power of two above 1.5x the recent peak (within [min_pair_capacity,
-    cfg.raster.pair_capacity]), doubling on overflow.  ``adaptive_capacity``
+    cfg.raster.pair_capacity]), doubling on overflow.  A configured SH
+    degree of 2 or 3 is ramped in (schedule.sh_degree_at: the steps render
+    at one degree more every 1,000 iterations, each degree its own step
+    graph, and no chunk spans a change).  ``adaptive_capacity``
     grows the Gaussian arrays (``state.grow``) to the next power of two when
     a densify event fills 85% of them, up to ``max_capacity`` (default: the
     density hard cap).
@@ -533,6 +538,9 @@ def train_loop(
     iteration = int(state.opt.t)
 
     max_pair_capacity = cfg.raster.pair_capacity
+    max_sh_degree = cfg.raster.sh_degree
+    cfg = cfg.replace(raster=cfg.raster.replace(
+        sh_degree=schedule.sh_degree_at(max_sh_degree, iteration)))
     if adaptive_pairs:
         cap = min(max_pair_capacity, max(min_pair_capacity, 1))
         cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=cap))
@@ -579,12 +587,19 @@ def train_loop(
             views = [(cameras[v], gt_images[v], cameras[v], gt_images[v]) for v in order]
         idx = 0
         while idx < len(views):
+            degree = schedule.sh_degree_at(max_sh_degree, iteration)
+            if degree != cfg.raster.sh_degree:
+                cfg = cfg.replace(raster=cfg.raster.replace(sh_degree=degree))
+                step_fn = build_step_fn(cfg)
+                if log_fn:
+                    log_fn(f"iter {iteration}: SH degree {degree}")
             k = 1
             if use_scan and idx + scan_steps <= len(views):
                 gap = _steps_until_event(
                     iteration, cfg, adaptive_pairs, adapt_interval,
                     checkpoint_interval if checkpoint_fn else 0,
                     cfg.train.snapshot_interval if snapshot_fn else 0,
+                    max_sh_degree,
                 )
                 if gap >= scan_steps:
                     k = scan_steps

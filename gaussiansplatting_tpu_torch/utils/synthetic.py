@@ -11,6 +11,7 @@ import numpy as np
 
 from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
 from gaussiansplatting_tpu_torch.core.camera import Camera, make_camera
+from gaussiansplatting_tpu_torch.core.transforms import sh_coeffs
 from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
 
 
@@ -22,10 +23,13 @@ def make_scene(
     capacity: int | None = None,
     log_scale_range: tuple = (-4.6, -3.0),
     device=None,
+    sh_degree: int = 0,
 ) -> GaussianParams:
     """Random Gaussians in a box in front of the canonical camera (identity
     pose looking down +z).  The default log-scale range gives ~2-8 covered
-    tiles per Gaussian at the canonical camera."""
+    tiles per Gaussian at the canonical camera.  The SH row holds
+    core/transforms.sh_coeffs(sh_degree) coefficients, the DC drawn and the
+    rest zero (the same draws at every degree)."""
     rng = np.random.default_rng(seed)
     means = np.concatenate(
         [
@@ -38,7 +42,7 @@ def make_scene(
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=1, keepdims=True)
     raw_op = rng.uniform(-1.0, 3.0, (n,)).astype(np.float32)
-    sh = np.zeros((n, 4, 3), np.float32)
+    sh = np.zeros((n, sh_coeffs(sh_degree), 3), np.float32)
     sh[:, 0, :] = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
     return gaussians_mod.from_arrays(
         means, log_scales, quats, raw_op, sh, capacity=capacity, device=device

@@ -25,6 +25,10 @@ Where the marks sit (``STAGES``, in the order a step meets them):
   (``_reduce_to_data``), ``projection_bwd`` (the rest of the backward),
   ``adam`` (step_update: Adam, the density statistics, the metrics, and in a
   graph the state written back);
+- a frame whose SH row is wider than band 1 (degree 2 or 3) at a degree of 1
+  or more: ``sh`` (the SH colour, before ``projection``) and ``sh_bwd`` (its
+  backward, launched when the colour's cotangent is ready: after the rest
+  of ``projection_bwd``); degrees 0 and 1 launch neither;
 - the density events: ``densify``, ``opacity_reset``;
 - ``end``: the last node of every captured body (train/graph.py's
   ``_Capture``).
@@ -66,8 +70,11 @@ from torch._C._profiler import _RecordFunctionFast
 FRAME_STAGES = ("projection", "pairs", "blend", "compose")
 STEP_STAGES = FRAME_STAGES + ("loss", "loss_bwd", "compose_bwd", "blend_bwd", "reduction",
                               "projection_bwd", "adam")
+# a frame of SH degree 2 or 3 (ops/rasterize._plan): its colour before
+# ``projection``, the colour's backward after ``projection_bwd``
+SH_STAGES = ("sh", "sh_bwd")
 EVENT_STAGES = ("densify", "opacity_reset")
-STAGES = STEP_STAGES + EVENT_STAGES + ("end",)
+STAGES = STEP_STAGES + SH_STAGES + EVENT_STAGES + ("end",)
 MARK_PREFIX = "gs_mark_"
 MAX_SPANS = 1 << 17
 

@@ -42,7 +42,11 @@ def _assert_camera_close(jc, tc):
 
 
 def test_config_dicts_equal():
-    assert dataclasses.asdict(tconfig.Config()) == dataclasses.asdict(jconfig.Config())
+    # the port's one field the JAX package lacks: the SH rest bands' learning
+    # rate, None (= sh_lr) by default and left out of the JSON while None
+    port = dataclasses.asdict(tconfig.Config())
+    assert port["optim"].pop("sh_rest_lr") is None
+    assert port == dataclasses.asdict(jconfig.Config())
     text = jconfig.Config().to_json()
     assert tconfig.Config.from_json(text).to_json() == text
 
@@ -139,6 +143,106 @@ def test_cloud_from_params_matches():
     _assert_cloud_equal(tply.cloud_from_params(tp), jply.cloud_from_params(jp))
     _assert_cloud_equal(tply.cloud_from_params(tp, count=7),
                         jply.cloud_from_params(jp, count=7))
+
+
+def _cloud_deg3(seed=65, n=25):
+    """A degree-3 cloud; unit rotations, which the load's normalization
+    leaves as they are."""
+    c = _cloud(seed, n)
+    c.sh = np.random.default_rng(seed).normal(size=(n, 16, 3)).astype(np.float32)
+    c.quats = np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1))
+    return c
+
+
+def test_ply_degree_3_round_trips_bit_for_bit(tmp_path):
+    """A [N, 16, 3] row is written in 3DGS's layout (f_rest_0..44,
+    channel-major: f_rest_{ch * 15 + (c - 1)}) and read back bit for bit;
+    writing what was read gives the same file."""
+    cloud = _cloud_deg3()
+    a, b = str(tmp_path / "a.ply"), str(tmp_path / "b.ply")
+    assert tply.export_gaussian_ply(a, cloud) == 25
+    got = tply.load_gaussian_ply(a)
+    assert got.sh.shape == (25, 16, 3)
+    np.testing.assert_array_equal(got.sh, cloud.sh)
+    np.testing.assert_array_equal(got.means, cloud.means)
+    tply.export_gaussian_ply(b, got)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    _assert_cloud_equal(tply.load_gaussian_ply(b), got)
+    header = open(a, "rb").read().split(b"end_header")[0].decode()
+    rest = [ln.split()[-1] for ln in header.splitlines() if "f_rest_" in ln]
+    assert rest == [f"f_rest_{i}" for i in range(45)]
+    # the layout: coefficient c of channel ch is field ch * 15 + (c - 1)
+    rec = np.frombuffer(open(a, "rb").read().split(b"end_header\n", 1)[1],
+                        dtype=[(n, "<f4") for n in ("x y z nx ny nz f_dc_0 f_dc_1 f_dc_2".split()
+                                                    + rest + ["opacity"]
+                                                    + [f"scale_{i}" for i in range(3)]
+                                                    + [f"rot_{i}" for i in range(4)])])
+    for c in (1, 8, 15):
+        for ch in range(3):
+            np.testing.assert_array_equal(rec[f"f_rest_{ch * 15 + c - 1}"], cloud.sh[:, c, ch])
+
+
+def test_ply_degree_3_file_keeps_every_band(tmp_path):
+    """A 3DGS degree-3 file: the JAX package keeps band 1 of it, the port
+    every band (the first four coefficients the same)."""
+    path = str(tmp_path / "d3.ply")
+    tply.export_gaussian_ply(path, _cloud_deg3())
+    got, want = tply.load_gaussian_ply(path), jply.load_gaussian_ply(path)
+    assert want.sh.shape == (25, 4, 3) and got.sh.shape == (25, 16, 3)
+    np.testing.assert_array_equal(got.sh[:, :4], want.sh)
+    assert np.abs(got.sh[:, 4:]).min() > 0
+
+
+def test_ply_degree_1_loads_as_before(tmp_path):
+    """A file in the reference's interleave (f_rest_0..8) loads as [N, 4, 3],
+    as the JAX package loads it, and a degree-2 row writes 24 fields."""
+    path = str(tmp_path / "d1.ply")
+    tply.export_gaussian_ply(path, _cloud())
+    got = tply.load_gaussian_ply(path)
+    assert got.sh.shape == (30, 4, 3)
+    _assert_cloud_equal(got, jply.load_gaussian_ply(path))
+    c2 = _cloud()
+    c2.sh = np.random.default_rng(3).normal(size=(30, 9, 3)).astype(np.float32)
+    tply.export_gaussian_ply(path, c2)
+    np.testing.assert_array_equal(tply.load_gaussian_ply(path).sh, c2.sh)
+
+
+def test_ply_unknown_rest_count_raises(tmp_path):
+    """A file whose f_rest fields are neither 0, 9, 24 nor 45 raises (it
+    was read as the interleave of its first nine)."""
+    cloud = _cloud_deg3()
+    path = str(tmp_path / "odd.ply")
+    tply.export_gaussian_ply(path, cloud)
+    raw = open(path, "rb").read()
+    head, body = raw.split(b"end_header\n", 1)
+    lines = head.decode().splitlines()
+    lines = [ln for ln in lines if ln not in ("property float f_rest_44",)]
+    rec = np.frombuffer(body, dtype=np.float32).reshape(25, -1)
+    rec = np.delete(rec, 9 + 44, axis=1)
+    with open(path, "wb") as f:
+        f.write(("\n".join(lines) + "\nend_header\n").encode() + rec.tobytes())
+    with pytest.raises(ValueError, match="44 f_rest fields"):
+        tply.load_gaussian_ply(path)
+    c = _cloud()
+    c.sh = np.zeros((30, 5, 3), np.float32)
+    with pytest.raises(ValueError, match="no PLY layout"):
+        tply.export_gaussian_ply(path, c)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_tools_accept_sh_degree_0_to_3(degree):
+    from gaussiansplatting_tpu_torch.tools import evaluate, render, train, view
+
+    deg = ["--sh-degree", str(degree)]
+    assert train.build_parser().parse_args(["--colmap", "c", "--images", "i"] + deg).sh_degree == degree
+    assert render.build_parser().parse_args(["--ply", "x.ply", "--output", "o"]
+                                            + deg).sh_degree == degree
+    assert view.build_parser().parse_args(["--ply", "x.ply"] + deg).sh_degree == degree
+    with pytest.raises(SystemExit, match="PLY not found"):
+        evaluate.main(["--ply", "/nonexistent.ply", "--colmap", "c", "--images", "i"] + deg)
+    with pytest.raises(SystemExit):
+        render.build_parser().parse_args(["--ply", "x.ply", "--output", "o", "--sh-degree", "4"])
 
 
 def test_save_ppm_bytes_match(tmp_path):
