@@ -34,7 +34,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               and with the T-floor pass, against their plain versions in
               float64 (COMPOSE_* below; the backward launched twice for the
               same bits), each timed beside its plain version and a byte
-              bound from the live blocks.
+              bound from the live blocks.  Then slots to runs (phase_runs):
+              the kernel pair of csrc/runs.cu (gs_run_ids) against its plain
+              version bit for bit on the canonical frame's two calls and at
+              the garden cells' slot counts, launched twice for the same
+              bits, timed at the three cells' slot counts beside the plain
+              version and a byte bound; the render and step graphs launch
+              it twice a frame.
   4. render   the render main path: the synthetic scene written to a PLY,
               rendered through tools.render (4 orbit views at 800x608), then
               the canonical view through ops.rasterize.render: no overflow,
@@ -505,7 +511,7 @@ def phase_device():
     return name, smi, clock_mhz
 
 
-KERNELS = ("blend_fwd", "blend_bwd", "compose")
+KERNELS = ("blend_fwd", "blend_bwd", "compose", "runs")
 
 
 def phase_build():
@@ -896,6 +902,108 @@ def phase_compose(params, camera, cfg, gt, smi):
     return res
 
 
+# slots to runs (phase_runs) at the benchmark cells' frames, (Gaussians,
+# pair capacity, chunk slack, tiles): the canonical 100k frame (2^21 pairs,
+# 50 x 38 tiles), garden_c4's render scene (2^23 pairs, slack 0.5) and
+# garden_mip360's (~5.8M Gaussians, 2^26 pairs, 82 x 53 tiles)
+RUNS_CELLS = {"synth100k": (N_GAUSSIANS, PAIR_CAPACITY, 1.0, 1_900),
+              "garden_c4": (1_500_000, 1 << 23, 0.5, 1_900),
+              "garden_mip360": (5_800_000, 1 << 26, 1.0, 4_346)}
+
+
+def _run_layout(seed, runs, live_share, mean, slots):
+    """(starts, live, slots) on DEVICE: ``runs`` runs laid end to end, a
+    ``live_share`` of them with 1 + Poisson(mean - 1) slots, the rest 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    counts = np.where(rng.random(runs) < live_share, 1 + rng.poisson(mean - 1, runs), 0)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    return (torch.from_numpy(starts).to(DEVICE), torch.from_numpy(counts > 0).to(DEVICE),
+            slots)
+
+
+def phase_runs(params, camera, cfg, gt, smi):
+    """Slots to runs (ops/runs.py, csrc/runs.cu's gs_run_ids: a memset, the
+    seed kernel, the max-scan kernel): each benchmark cell's two calls a
+    frame (chunk slots over the Gaussians, aligned blocks over the tiles) at
+    its slot counts, against the plain version (scatter-amax + torch.cummax)
+    bit for bit and launched twice for the same bits; per cell the pair of
+    calls timed (CUDA events, KERNEL_REPS replays of a CUDA graph that
+    holds the two, as the frames run them, and KERNEL_REPS eager pairs,
+    which add the host's launch cost) beside the plain version and the
+    bytes bound (each run's start and flag read once, the
+    seed's memset, the scan's read and the result's write: 5 R + 12 S
+    bytes, at the HBM rate).  Then the render graph and the step graph of
+    the canonical view must each record two run_ids launches a frame.
+    Returns the kernels-line numbers."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.ops import pairs, runs
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train.state import create
+    from gaussiansplatting_tpu_torch.utils import sol
+
+    cells = {}
+    for i, (cell, (n, p_cap, slack, tiles)) in enumerate(RUNS_CELLS.items()):
+        chunk_cap = pairs._chunk_capacity(p_cap, n, slack)
+        blocks = pairs.aligned_capacity(p_cap, tiles, PAIR_BLOCK) // PAIR_BLOCK
+        cells[cell] = [_run_layout(2 * i, n, 0.6, 1.4, chunk_cap),
+                       _run_layout(2 * i + 1, tiles, 0.95, blocks / tiles * 0.5, blocks)]
+    res = {"cells": {}}
+    for cell, pair in cells.items():
+        with torch.no_grad():
+            for starts, live, slots in pair:
+                got = runs.run_ids(starts, live, slots)
+                again = runs.run_ids(starts, live, slots)
+                want = runs.run_ids_plain(starts, live, slots)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"run_ids at {cell}'s {slots} slots: {bad} slots "
+                                         f"differ from the plain version")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"run_ids at {cell}: two launches differ")
+            slots = sum(p[2] for p in pair)
+            n_runs = sum(int(p[0].numel()) for p in pair)
+            bound_ms, _ = sol.bound(5 * n_runs + 12 * slots, 0)
+            # as the frames run it: the two calls replayed from a CUDA graph
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for p in pair:
+                    runs.run_ids(*p)
+            ms = cuda_time_ms(g.replay, reps=KERNEL_REPS)
+            del g
+            eager_ms = cuda_time_ms(lambda: [runs.run_ids(*p) for p in pair], reps=KERNEL_REPS)
+            plain_ms = cuda_time_ms(lambda: [runs.run_ids_plain(*p) for p in pair], reps=3)
+        res["cells"][cell] = {"slots": [p[2] for p in pair], "runs": n_runs, "ms": ms,
+                              "eager_ms": eager_ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_share": bound_ms / ms}
+        log(f"[runs] {cell}: {slots} slots ({' + '.join(str(p[2]) for p in pair)}) over "
+            f"{n_runs} runs: gs_run_ids x2 {ms:.4f} ms in a graph ({eager_ms:.4f} eager), "
+            f"plain (scatter-amax + cummax) {plain_ms:.3f} ms, bytes bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f}% of it), equal bit for bit, launched twice for the "
+            f"same bits (CUDA events, {KERNEL_REPS} replays) on {smi}")
+    # the graphs: two launches a frame, none of the plain version
+    graph.clear()
+    graph.render_frame(params, camera, cfg)
+    trainer.train_step(create(params), camera, gt, Config(raster=cfg), 30_000)
+    torch.cuda.synchronize()
+    per = {"render": graph.live_renders()[-1].launches.get("run_ids", 0),
+           "step": graph.live()[-1].launches.get("run_ids", 0)}
+    graph.clear()
+    if per != {"render": 2, "step": 2}:
+        raise AssertionError(f"run_ids launches a frame in the graphs: {per}, want 2 each")
+    log(f"[runs] the render graph and the step graph each record {per['step']} run_ids "
+        f"launches a frame")
+    big = res["cells"]["garden_mip360"]
+    res.update({k: big[k] for k in ("ms", "plain_ms", "bound_ms")},
+               graph_launches_per_frame=per)
+    return res
+
+
 def _check_finite_state(label, state):
     import numpy as np
 
@@ -1236,11 +1344,11 @@ _warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
 def _reset_launches():
     """Set every kernel entry's launch count to 0 (ops.blend.COUNTED: the
     six of the main paths and the first designs' six, which only the A/Bs
-    of phases 3, 6 and 11 call; ops.compose.COUNTED)."""
-    from gaussiansplatting_tpu_torch.ops import blend, compose
+    of phases 3, 6 and 11 call; ops.compose.COUNTED; ops.runs.COUNTED)."""
+    from gaussiansplatting_tpu_torch.ops import blend, compose, runs
     from gaussiansplatting_tpu_torch.train import graph
 
-    for mod in (blend, compose):
+    for mod in (blend, compose, runs):
         for name in mod.COUNTED:
             getattr(mod, name).launches = 0
     for name in _warm_mark:
@@ -4555,6 +4663,7 @@ def main() -> int:
             f"{bwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
     del args, block_tile
     cmp = phase_compose(params, camera, cfg, gt, smi)
+    rn = phase_runs(params, camera, cfg, gt, smi)
     render_launches, frame_ms, frame_device_ms = phase_render(params, camera, cfg, smi)
     train_launches, step_ms, step_device_ms, per_step, red = phase_train(
         params, camera, gt, smi)
@@ -4646,6 +4755,15 @@ def main() -> int:
                  **{p: v.get(f"compose_{k}", 0) for p, v in paths.items()}},
                 per_step[f"compose_{k}"], cmp[k])
           for k in ("fwd", "bwd")),
+        {"name": "run_ids", "route": "cuda", "source": src + "runs.cu",
+         "replaces": "gaussiansplatting_tpu/ops/pairs.py:82 _run_ids (XLA ops)",
+         "design": "seed_then_max_scan",
+         "launches_by_path": {"render": render_launches.get("run_ids", 0),
+                              "train": train_launches.get("run_ids", 0),
+                              "tfloor": tf_launches.get("run_ids", 0),
+                              "trainloop": tl["launches"].get("run_ids", 0),
+                              **{p: v.get("run_ids", 0) for p, v in paths.items()}},
+         "launches_per_step": per_step.get("run_ids", 0), **rn, "library_ms": None},
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],

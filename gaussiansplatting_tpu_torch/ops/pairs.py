@@ -11,7 +11,8 @@ the JAX package exactly, and so does the table, packed or not.
 Sort: ``lax.sort`` carries payload operands; ``torch.sort`` does not, so the
 int32 tile keys are sorted once (stable) and the payload is gathered by the
 returned permutation.  Public integer outputs are int32; indices are cast to
-int64 only where they index.
+int64 only where they index.  Slots to runs (chunk slot -> Gaussian, aligned
+block -> tile) go through ops/runs.py: a CUDA kernel pair on the card.
 
 Overflow beyond ``pair_capacity`` drops whole Gaussians: in emission order
 (the "index" policy) or the least visible first ("impact").
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussiansplatting_tpu_torch.ops import packing
+from gaussiansplatting_tpu_torch.ops import packing, runs
 from gaussiansplatting_tpu_torch.ops.projection import Projected
 
 # pairs per expansion chunk: the per-Gaussian metadata/render-data gather
@@ -48,18 +49,6 @@ def _chunk_capacity(pair_capacity: int, n: int, slack: float = 1.0) -> int:
 def _cumsum32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive int32 prefix sum (torch promotes integer cumsum to int64)."""
     return torch.cumsum(x, 0).to(_I32)
-
-
-def _run_ids(starts: torch.Tensor, run_live: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """Map each slot to the id of the run covering it (-1 before the first
-    live run), for runs with exclusive-prefix ``starts``: one scatter-amax of
-    run ids at live run starts, then a running max."""
-    ids = torch.arange(starts.shape[0], dtype=torch.int64, device=starts.device)
-    # runs that start past the end go to a dump slot (JAX: mode="drop")
-    dst = torch.where(run_live & (starts < num_slots), starts.long(), num_slots)
-    seed = torch.full((num_slots + 1,), -1, dtype=torch.int64, device=starts.device)
-    seed = seed.scatter_reduce(0, dst, ids, reduce="amax")
-    return torch.cummax(seed[:num_slots], 0).values.to(_I32)
 
 
 def aligned_capacity(pair_capacity: int, num_tiles: int, block: int) -> int:
@@ -137,7 +126,7 @@ def _expand_and_sort1(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
         ctotal = torch.clamp(coffsets[-1] + ccounts[-1], max=chunk_cap)
     else:
         ctotal = torch.zeros((), dtype=_I32, device=dev)
-    cgid = torch.clamp(_run_ids(coffsets, ccounts > 0, chunk_cap), 0, max(n - 1, 0))
+    cgid = torch.clamp(runs.run_ids(coffsets, ccounts > 0, chunk_cap), 0, max(n - 1, 0))
     cvalid = cslots < ctotal
 
     cg = cgid.long()
@@ -192,7 +181,7 @@ def _block_tiles(aligned_starts, aligned_counts, aligned_total, num_tiles: int,
     past aligned_total get num_tiles)."""
     dev = aligned_starts.device
     block_starts = torch.arange(num_blocks, dtype=_I32, device=dev) * block
-    bt = _run_ids(aligned_starts // block, aligned_counts > 0, num_blocks)
+    bt = runs.run_ids(aligned_starts // block, aligned_counts > 0, num_blocks)
     return torch.where(
         block_starts < aligned_total, torch.clamp(bt, 0, num_tiles - 1), num_tiles
     ).to(_I32)

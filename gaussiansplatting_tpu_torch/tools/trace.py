@@ -19,7 +19,9 @@ replays, so the window holds the loop's spans, its captures and its events.
 ``--sh-degree`` 2 or 3 gives the scene an SH row of that degree (the rest
 bands drawn N(0, 0.1^2)), so the stages hold ``sh`` and ``sh_bwd``; the
 traced frames by SH degree (ops/projection.py's counter,
-``sh.degree_counts``) are printed.
+``sh.degree_counts``) are printed, and so are the traced window's kernel
+launches by counted wrapper (train/graph.py's ``launch_counts``: the blends',
+compose's and ``run_ids``, the slots-to-runs pair, two a frame).
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
@@ -99,12 +101,13 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
     then profile ``steps`` more; ``loop``: profile one ``train_loop`` of
     ``steps`` iterations from a fresh state instead (see the module
     docstring), untimed.  Writes ``<out>/trace.json`` and
-    ``<out>/timeline.json`` (with the traced frames by SH degree).  Returns
-    the host ms per step (None for a loop)."""
+    ``<out>/timeline.json`` (with the traced frames by SH degree and the
+    kernel launches by counter).  Returns the host ms per step (None for a
+    loop)."""
     import torch
 
     from gaussiansplatting_tpu_torch.ops import projection
-    from gaussiansplatting_tpu_torch.train import trainer
+    from gaussiansplatting_tpu_torch.train import graph, trainer
     from gaussiansplatting_tpu_torch.utils import tracing
 
     device = torch.device(device)
@@ -140,12 +143,15 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     tracing.clear()
     before = projection.launch_counts()
+    launched = graph.launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         lo = time.time_ns()
         run(st)
         _sync(device)
         hi = time.time_ns()
     frames = {k: n - before[k] for k, n in projection.launch_counts().items() if n != before[k]}
+    launched = {k: n - launched[k] for k, n in graph.launch_counts().items()
+                if n != launched[k] and k not in projection.COUNTED}
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     ops = []
@@ -155,7 +161,8 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
             ops.append((e.name(), start, start + int(e.duration_ns())))
     with open(os.path.join(out, TIMELINE), "w") as f:
         json.dump({"window": [lo, hi], "device": ops, "spans": tracing.spans(),
-                   "dropped": tracing.dropped(), "sh_degree_counts": frames}, f)
+                   "dropped": tracing.dropped(), "sh_degree_counts": frames,
+                   "launch_counts": launched}, f)
     return host_ms
 
 
@@ -165,6 +172,14 @@ def sh_degree_counts(out: str) -> dict:
     from a row wider than band 1."""
     with open(os.path.join(out, TIMELINE)) as f:
         return json.load(f).get("sh_degree_counts", {})
+
+
+def launch_counts(out: str) -> dict:
+    """The traced window's kernel launches by counted wrapper (name ->
+    launches; the CPU's plain versions launch none) that ``capture`` wrote
+    to ``<out>/timeline.json``."""
+    with open(os.path.join(out, TIMELINE)) as f:
+        return json.load(f).get("launch_counts", {})
 
 
 def _group_name(name: str) -> str:
@@ -413,6 +428,7 @@ def main(argv=None) -> int:
                           bool(args.pack_positions), args.loop, args.sh_degree)
     device, spans, window, dropped = timeline(args.out)
     print(f"sh.degree_counts {sh_degree_counts(args.out)}")
+    print(f"launches {launch_counts(args.out)}")
     for stage, ms in sorted(stage_ms(device, window, args.steps).items(),
                             key=lambda x: -x[1]):
         print(f"{ms:9.3f} ms/step  stage {stage}")

@@ -16,7 +16,7 @@ Where the marks sit (``STAGES``, in the order a step meets them):
 
 - the frame (ops/rasterize.render): ``projection`` (projection, colour, the
   [N, 9] table, the depth presort), ``pairs`` (capacity plan, expansion, tile
-  sort, windows, ``_run_ids``' cummax), ``blend`` (#1, #1p, #5 and their
+  sort, windows, ops/runs.py's slots to runs), ``blend`` (#1, #1p, #5 and their
   columns), ``compose``;
 - the step (trainer.step_body, batched_body): the frame's four, ``loss``
   (photometric_loss), ``loss_bwd`` (launched before ``torch.autograd.grad``:

@@ -15,7 +15,9 @@ from gaussiansplatting_tpu.ops import pairs as jpairs
 
 from gaussiansplatting_tpu_torch.ops import pairs as tpairs
 from gaussiansplatting_tpu_torch.ops import projection as tproj
+from gaussiansplatting_tpu_torch.ops import runs as truns
 
+import run_cases
 from torch_parity import (
     cameras, configs, jax_presorted_inputs, jax_windows, scene_params, t2n,
 )
@@ -142,14 +144,14 @@ def test_full_size_scene_pair_count_matches_jax():
     assert not bool(tplan[6]) and not bool(jplan[6])
 
 
-@pytest.mark.parametrize("num_slots", [1, 7, 40])
-def test_run_ids_matches_jax(num_slots):
-    rng = np.random.default_rng(46 + num_slots)
-    counts = rng.integers(0, 4, 12).astype(np.int32)
-    starts = (np.cumsum(counts) - counts).astype(np.int32)
-    live = counts > 0
+@pytest.mark.parametrize("case", list(run_cases.CASES))
+def test_run_ids_matches_jax(case):
+    """ops/runs.run_ids (the plain version on the CPU) against the JAX
+    ``_run_ids``, every integer: -1 before the first live run, the last live
+    id past it, zero-count runs, starts at and past the end, ~10^6 slots."""
+    starts, live, num_slots = run_cases.CASES[case]()
     want = jpairs._run_ids(jnp.asarray(starts), jnp.asarray(live), num_slots)
-    got = tpairs._run_ids(torch.from_numpy(starts), torch.from_numpy(live), num_slots)
+    got = truns.run_ids(torch.from_numpy(starts), torch.from_numpy(live), num_slots)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
