@@ -12,22 +12,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   2. build    compile both windowed-blend CUDA sources (forward, backward)
               from csrc/ with nvcc, one process each, in parallel; print
               ptxas's registers and spills of every instance.
-  3. kernel   the Hopper designs of the forward and backward kernels
-              (gs_blend_fwd_win, gs_blend_bwd_win) against their plain
-              PyTorch versions on the card: small edge-case windows (dead,
-              partial, full and unaligned blocks, B = 16, 64 and 128, row0 0 and
-              3) and the full-size windows of the 100k-Gaussian scene's
-              canonical 800x608 view (the backward given the forward's S_b
-              and the real cotangent of the full-size loss, launched twice
-              for bit-identical output; the forward's S_b equal to the
-              first design's bit for bit).  The A/B: each Hopper kernel and
-              its first design (gs_blend_*_win_v1, one thread per pixel,
-              which nothing else calls) timed in turns (first, Hopper,
-              Hopper, first) with CUDA events, the plain versions timed;
-              the work the inputs need (utils.sol.blend_work: power tests on the
-              (warp, lane) pairs the box cull keeps, kept pairs) and from it
-              each kernel's bound; the share of (warp, lane) pairs that
-              entered the first design's backward shuffle tree.  Then
+  3. kernel   the forward and backward kernels (gs_blend_fwd_win,
+              gs_blend_bwd_win) against their plain PyTorch versions on the
+              card: small edge-case windows (dead, partial, full and
+              unaligned blocks, B = 16, 64 and 128, row0 0 and 3) and the
+              full-size windows of the 100k-Gaussian scene's canonical
+              800x608 view (the backward given the forward's S_b and the
+              real cotangent of the full-size loss, launched twice for
+              bit-identical output).  Each kernel timed twice with CUDA
+              events, the plain versions timed; the work the inputs need
+              (utils.sol.blend_work: power tests on the (warp, lane) pairs
+              the box cull keeps, kept pairs) and from it each kernel's
+              bound; the share of (warp, batch of 4 lanes) pairs that
+              entered the backward's warp exchange.  Then
               compose at full size (phase_compose): the forward and backward
               kernels (gs_compose_fwd, gs_compose_bwd) on the canonical
               view's summaries, tile ids and real loss cotangent, without
@@ -60,16 +57,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               column), the float32 prefix's error beside it, and the float64
               scan's time at this frame's lanes and at 2^22 pairs'.
   6. tfloor   the exact T-floor path (RasterConfig.t_floor_exact=True): the
-              Hopper T-floor kernels (gs_blend_fwd_win_tf, gs_blend_bwd_win_tf)
+              T-floor kernels (gs_blend_fwd_win_tf, gs_blend_bwd_win_tf)
               against their plain versions under the flip rule (FLIP_* below)
               on edge windows and at full size with the real logti and the
               real loss cotangent of each pass (the backward given the
               forward's masked S_b and stop lanes, launched twice,
               bit-identical; the first pass's backward too, given that
-              pass's S_b); the forward's S_b and stop lanes equal to the
-              first design's (gs_blend_*_win_tf_v1) bit for bit, and the A/B
-              of both designs in turns; the work the inputs need and each
-              T-floor kernel's bound; compose's incoming log T
+              pass's S_b); both timed twice; the work the inputs need and
+              each T-floor kernel's bound; compose's incoming log T
               (ops.compose.compose_logti, the forward kernel's logti mode)
               within one float32 ulp of a float64 per-tile prefix at full
               size on the live blocks, no (block, pixel) stopping at another
@@ -151,11 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               (gs_blend_{fwd,bwd}_win_packed, T carried by multiplication)
               against their plain versions on edge windows and the
               canonical view's packed windows with the real loss cotangent
-              (each twice, bit-identical), the first packed design
-              (gs_blend_*_win_packed_v1, which nothing else calls) against
-              them too and with the same gid, S and q_b bits; each timed in
-              turns against its first design and the float32 Hopper kernel
-              (first, carried, float32, float32, carried, first), their
+              (each twice, bit-identical); each timed in turns against the
+              float32 kernel (packed, float32, float32, packed), their
               work, bounds and shares; the bf16 render (`modes_render`)
               and train step (`modes_train`, timed, replayed bit for bit, its device time
               profiled) against the float32 ones at JAX's bars, only the
@@ -233,13 +225,11 @@ kernels once per view outside any replay, and the exact launch checks
 count them (graph.counts["warmup_steps"], ["warmup_renders"]).
 
 Every main path (phases 4-14) runs with the launch counts set to 0 before
-it and read after it: each kernel of the path must have launched, and the
-first design's entries never.
+it and read after it: each kernel of the path must have launched.
 
 Prints one JSON line describing the kernels (per kernel: launches on the
-main paths and per step, max_abs_err against the plain version, ms, ms_v1
-(the first design's time in the same turns; for the packed entries the
-first packed design's, v1_entry, and ms_f32, the float32 Hopper kernel's,
+main paths and per step, max_abs_err against the plain version, ms (for
+the packed entries also ms_f32, the float32 kernel's in the same turns,
 and their pack_pos instances' times and bounds), plain_ms, bound_ms with
 bound_by (the larger of
 this run's bytes over the HBM rate and its instructions over the f32
@@ -645,12 +635,9 @@ def _edge_args(block, row0, cfg):
 
 
 def phase_kernel(params, camera, cfg, smi):
-    """The forward: the Hopper design against the plain version on edge
-    windows and at full size, its S_b against the first design's, the A/B
-    against the first design in turns, and the work its inputs need.
-    Returns the kernels-line numbers."""
-    import torch
-
+    """The forward: the kernel against the plain version on edge windows
+    and at full size, timed twice, and the work its inputs need.  Returns
+    the kernels-line numbers."""
     from gaussiansplatting_tpu_torch.ops import blend
     from gaussiansplatting_tpu_torch.ops.rasterize import blend_windows
     from gaussiansplatting_tpu_torch.utils import sol
@@ -669,18 +656,9 @@ def phase_kernel(params, camera, cfg, smi):
     want = blend.windowed_blend_fwd_plain(*args)
     got = blend.windowed_blend_fwd(*args)
     res = {"max_abs_err": _compare("full size", got, want)}
-    # both designs sum the same rounded log1pf terms in lane order, so S_b
-    # agrees bit for bit, which a culled kept pair would break
-    first = blend.windowed_blend_fwd_v1(*args)
-    _compare("full size, first design", first, want)
-    if not torch.equal(got[0][:, 3], first[0][:, 3]):
-        raise AssertionError("S_b of the Hopper forward differs from the first design's")
-    log("[kernel] full size: S_b of the Hopper design = the first design's, bit for bit")
-    (res["ms_v1"], res["ms"]), turns = _turns(lambda: blend.windowed_blend_fwd_v1(*args),
-                                              lambda: blend.windowed_blend_fwd(*args))
-    log(f"[kernel] A/B in turns (first, Hopper, Hopper, first): "
-        f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
-        f"each) on {smi}")
+    (res["ms"],), turns = _turns(lambda: blend.windowed_blend_fwd(*args))
+    log(f"[kernel] timed twice: {', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, "
+        f"{KERNEL_REPS} launches each) on {smi}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_fwd_plain(*args), reps=3)
     w = sol.blend_work(args)
     p2, block = 256, args[5]
@@ -735,11 +713,11 @@ def _loss_cotangent(out, block_tile, camera, cfg, gt, tile_rows=None):
 
 
 def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
-    """The backward: the Hopper design, given the forward's S_b, against the
-    plain version on edge windows and at full size with the real loss
-    cotangent, launched twice for the same bits; the A/B against the first
-    design in turns; the share of (warp, lane) pairs that entered the first
-    design's shuffle tree.  Returns the kernels-line numbers."""
+    """The backward: the kernel, given the forward's S_b, against the plain
+    version on edge windows and at full size with the real loss cotangent,
+    launched twice for the same bits, timed twice; the share of (warp,
+    batch of 4 lanes) pairs that entered the warp exchange.  Returns the
+    kernels-line numbers."""
     import numpy as np
     import torch
 
@@ -755,8 +733,6 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
             bargs = e[:6] + (g, s_b, e[6])
             want = blend.windowed_blend_bwd_plain(*bargs)
             _compare_bwd(f"edge B={block} row0={row0}", blend.windowed_blend_bwd(*bargs), want)
-            _compare_bwd(f"edge B={block} row0={row0}, first design",
-                         blend.windowed_blend_bwd_v1(*e[:6], g, e[6]), want, quiet=True)
 
     out, _ = blend.windowed_blend_fwd(*args)
     g = _loss_cotangent(out, block_tile, camera, cfg, gt)
@@ -770,13 +746,9 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
     log("[kernel bwd] full size: two launches bit-identical")
     want = blend.windowed_blend_bwd_plain(*bargs)
     res = {"max_abs_err": _compare_bwd("full size (loss cotangent)", got, want)}
-    v1_args = args[:6] + (g, args[6])
-    _compare_bwd("full size, first design", blend.windowed_blend_bwd_v1(*v1_args), want)
-    (res["ms_v1"], res["ms"]), turns = _turns(lambda: blend.windowed_blend_bwd_v1(*v1_args),
-                                              lambda: blend.windowed_blend_bwd(*bargs))
-    log(f"[kernel bwd] A/B in turns (first, Hopper, Hopper, first): "
-        f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} launches "
-        f"each) on {smi}")
+    (res["ms"],), turns = _turns(lambda: blend.windowed_blend_bwd(*bargs))
+    log(f"[kernel bwd] timed twice: {', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, "
+        f"{KERNEL_REPS} launches each) on {smi}")
     res["plain_ms"] = cuda_time_ms(lambda: blend.windowed_blend_bwd_plain(*bargs), reps=3)
     nb, p2, block = args[1].shape[0], 256, args[5]
     # bytes: 40 per lane read, block_valid, block_src and tile of the blocks
@@ -786,18 +758,12 @@ def phase_kernel_bwd(args, block_tile, camera, cfg, gt, w, smi, clock_mhz):
                                  + 20 * w["bwd_pixels"] + 36 * nb * block, sol.BWD_OPS_PER_KEPT)
     res.update(bound)
     log(f"[kernel bwd] backward work ({w['pixels']['bwd']} pixels per thread): {line}")
-    # the first design's shuffle tree: 45 shuffles per (warp, lane) that a
-    # pixel of the warp kept, at one warp shuffle per clock per SM
-    tree_ms = 45 * w["tree_v1"] / (132 * clock_mhz * 1e3)
+    # 54 warp shuffles per exchange, at one warp shuffle per clock per SM
     exch_ms = 54 * w["exchanges"] / (132 * clock_mhz * 1e3)
-    log(f"[kernel bwd] first design: {w['tree_v1']} of {w['lanes_v1']} (warp, lane) pairs "
-        f"({w['tree_v1'] / w['lanes_v1']:.4f}) enter the shuffle tree: "
-        f"{45 * w['tree_v1']} warp shuffles, {tree_ms:.3f} ms at 132 SMs x {clock_mhz} MHz; "
-        f"Hopper design ({w['pixels']['bwd']} pixels per thread): "
-        f"{w['exchanges']} of {w['batches']} (warp, "
-        f"batch of 4 lanes) exchanges ({w['exchanges'] / w['batches']:.4f}), "
-        f"{54 * w['exchanges']} warp shuffles, {exch_ms:.3f} ms")
-    res["tree_share_v1"] = w["tree_v1"] / w["lanes_v1"]
+    log(f"[kernel bwd] {w['pixels']['bwd']} pixels per thread: {w['exchanges']} of "
+        f"{w['batches']} (warp, batch of 4 lanes) exchanges "
+        f"({w['exchanges'] / w['batches']:.4f}), {54 * w['exchanges']} warp shuffles, "
+        f"{exch_ms:.3f} ms at 132 SMs x {clock_mhz} MHz")
     return res
 
 
@@ -1097,7 +1063,6 @@ def phase_train(params, camera, gt, smi):
     step_ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
     counts = _tf_launches()
     launches = (counts["windowed_blend_fwd"], counts["windowed_blend_bwd"])
-    _check_no_v1("the training path", counts)
     losses = torch.stack(losses).cpu().numpy()
     log(f"[train] full size {N_GAUSSIANS} Gaussians {WIDTH}x{HEIGHT}: "
         f"{step_ms:.3f} ms/step warm (CUDA events, {TRAIN_TIMED_STEPS} steps) "
@@ -1125,7 +1090,6 @@ def phase_train(params, camera, gt, smi):
     replay, _ = train_step(state0, camera, gt, cfg, TRAIN_TOTAL_ITERS)
     torch.cuda.synchronize()
     per_step = _tf_launches()
-    _check_no_v1("the training step", per_step)
     a, b = state_mod.state_to_numpy(state1), state_mod.state_to_numpy(replay)
     differ = [k for k in a if not np.array_equal(a[k], b[k])]
     if differ:
@@ -1257,19 +1221,6 @@ def _compare_tf(label, got, want, margin):
     return worst, n_excused
 
 
-def _same_as_first_design(label, got, first):
-    """The Hopper T-floor forward's (out, stop) against the first design's:
-    S_b and the stop lanes bit for bit (both sum the same rounded log1pf
-    terms in lane order and stop on the same test)."""
-    import torch
-
-    if not (torch.equal(got[0][:, 3], first[0][:, 3]) and torch.equal(got[1], first[1])):
-        raise AssertionError(f"{label}: the Hopper T-floor forward's S_b or stop lanes "
-                             f"differ from the first design's")
-    log(f"[tfloor] {label}: S_b and stop lanes of the Hopper design = the first "
-        f"design's, bit for bit")
-
-
 def per_tile_log_t64(s_b, seg):
     """Each block's exclusive prefix of S_b [NB, P2] over its own tile's run
     of blocks (``seg`` [NB], sorted tile ids), tile by tile in float64
@@ -1324,15 +1275,9 @@ MAIN_ENTRIES = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_b
                 "windowed_blend_bwd_tf")
 
 
-def _check_no_v1(label, launches):
-    """A main path must never launch the first design's entries."""
-    v1 = {k: v for k, v in launches.items() if k.endswith("_v1") and v}
-    if v1:
-        raise AssertionError(f"{label} launched the first design: {v1}")
-
-
 def _tf_launches():
-    """Every counted kernel wrapper's launches: the blends' and compose's."""
+    """Every counted kernel wrapper's launches (and the frames by SH
+    degree)."""
     from gaussiansplatting_tpu_torch.train import graph
 
     return graph.launch_counts()
@@ -1342,15 +1287,10 @@ _warm_mark = {"warmup_steps": 0, "warmup_renders": 0}
 
 
 def _reset_launches():
-    """Set every kernel entry's launch count to 0 (ops.blend.COUNTED: the
-    six of the main paths and the first designs' six, which only the A/Bs
-    of phases 3, 6 and 11 call; ops.compose.COUNTED; ops.runs.COUNTED)."""
-    from gaussiansplatting_tpu_torch.ops import blend, compose, runs
+    """Set every launch count of the registry (graph.launch_counts) to 0."""
     from gaussiansplatting_tpu_torch.train import graph
 
-    for mod in (blend, compose, runs):
-        for name in mod.COUNTED:
-            getattr(mod, name).launches = 0
+    graph.add_launches({k: -n for k, n in graph.launch_counts().items()})
     for name in _warm_mark:
         _warm_mark[name] = graph.counts[name]
 
@@ -1441,8 +1381,7 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     log_thr = math.log(cfg_tf.transmittance_floor)
     res = {}
 
-    # (i) kernels #5 and #6 against their plain versions on edge windows,
-    # the Hopper forward's S_b and stop lanes against the first design's
+    # (i) kernels #5 and #6 against their plain versions on edge windows
     for block in (16, 128):
         for row0 in (0, 3):
             table, src, valid, tile = (
@@ -1459,15 +1398,11 @@ def phase_tfloor(params, camera, cfg, gt, smi):
                 got, stop = blend.windowed_blend_fwd_tf(*args, logti, log_thr)
                 want, _, margin = blend.windowed_blend_fwd_tf_plain(
                     *args, logti, log_thr, return_margin=True)
-                _same_as_first_design(label, (got, stop),
-                                      blend.windowed_blend_fwd_tf_v1(*args, logti, log_thr))
             torch.cuda.synchronize()
             _compare_tf(label, got, want, margin)
             bargs = args[:6] + (g, got[:, 3].contiguous(), stop, args[6], logti, log_thr)
             d_want = blend.windowed_blend_bwd_tf_plain(*bargs)
             _compare_tf_bwd(label, blend.windowed_blend_bwd_tf(*bargs), d_want, margin)
-            _compare_tf_bwd(f"{label}, first design", blend.windowed_blend_bwd_tf_v1(
-                *args[:6], g, args[6], logti, log_thr), d_want, margin)
 
     # (ii) at full size: the real logti and the real cotangent of each pass
     args, block_tile, _ = blend_windows(params, camera, cfg_tf)
@@ -1479,15 +1414,9 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     with torch.no_grad():
         want, _, margin = blend.windowed_blend_fwd_tf_plain(*fargs, return_margin=True)
         res["fwd_err"], res["fwd_excused"] = _compare_tf("full size", out_tf, want, margin)
-        first = blend.windowed_blend_fwd_tf_v1(*fargs)
-        _compare_tf("full size, first design", first[0], want, margin)
-        _same_as_first_design("full size", (out_tf, stop), first)
-        (res["fwd_ms_v1"], res["fwd_ms"]), turns = _turns(
-            lambda: blend.windowed_blend_fwd_tf_v1(*fargs),
-            lambda: blend.windowed_blend_fwd_tf(*fargs))
-        log(f"[tfloor] forward A/B in turns (first, Hopper, Hopper, first): "
-            f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} "
-            f"launches each) on {smi}")
+        (res["fwd_ms"],), turns = _turns(lambda: blend.windowed_blend_fwd_tf(*fargs))
+        log(f"[tfloor] forward timed twice: {', '.join(f'{t:.4f}' for t in turns)} ms "
+            f"(CUDA events, {KERNEL_REPS} launches each) on {smi}")
         res["fwd_plain_ms"] = cuda_time_ms(
             lambda: blend.windowed_blend_fwd_tf_plain(*fargs), reps=3)
         bargs = args[:6] + (g2, out_tf[:, 3].contiguous(), stop, args[6], logti, log_thr)
@@ -1500,15 +1429,9 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         d_want = blend.windowed_blend_bwd_tf_plain(*bargs)
         res["bwd_err"], res["bwd_excused"] = _compare_tf_bwd(
             "full size (loss cotangent)", got, d_want, margin)
-        v1_args = args[:6] + (g2, args[6], logti, log_thr)
-        _compare_tf_bwd("full size, first design", blend.windowed_blend_bwd_tf_v1(*v1_args),
-                        d_want, margin)
-        (res["bwd_ms_v1"], res["bwd_ms"]), turns = _turns(
-            lambda: blend.windowed_blend_bwd_tf_v1(*v1_args),
-            lambda: blend.windowed_blend_bwd_tf(*bargs))
-        log(f"[tfloor bwd] A/B in turns (first, Hopper, Hopper, first): "
-            f"{', '.join(f'{t:.4f}' for t in turns)} ms (CUDA events, {KERNEL_REPS} "
-            f"launches each) on {smi}")
+        (res["bwd_ms"],), turns = _turns(lambda: blend.windowed_blend_bwd_tf(*bargs))
+        log(f"[tfloor bwd] timed twice: {', '.join(f'{t:.4f}' for t in turns)} ms "
+            f"(CUDA events, {KERNEL_REPS} launches each) on {smi}")
         res["bwd_plain_ms"] = cuda_time_ms(
             lambda: blend.windowed_blend_bwd_tf_plain(*bargs), reps=3)
         # kernel #4: the first pass's backward, on its own cotangent (S_b only)
@@ -1532,11 +1455,10 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         f"{nb * p2} (block, pixel) entries have a stop lane > 0")
     log(f"[tfloor bwd] backward work ({w['pixels']['bwd']} pixels per thread; power "
         f"tests before each pixel's stop lane): {line}")
-    log(f"[tfloor] full size: fwd_tf Hopper {res['fwd_ms']:.4f} ms, first design "
-        f"{res['fwd_ms_v1']:.4f} ms, plain {res['fwd_plain_ms']:.3f} ms, bound "
-        f"{res['fwd_bound']['bound_ms']:.4f} ms; bwd_tf Hopper {res['bwd_ms']:.4f} ms, "
-        f"first design {res['bwd_ms_v1']:.4f} ms, plain {res['bwd_plain_ms']:.3f} ms, "
-        f"bound {res['bwd_bound']['bound_ms']:.4f} ms (CUDA events) on {smi}")
+    log(f"[tfloor] full size: fwd_tf kernel {res['fwd_ms']:.4f} ms, plain "
+        f"{res['fwd_plain_ms']:.3f} ms, bound {res['fwd_bound']['bound_ms']:.4f} ms; bwd_tf "
+        f"kernel {res['bwd_ms']:.4f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound']['bound_ms']:.4f} ms (CUDA events) on {smi}")
 
     # (iii) compose's incoming log T (the kernel's logti mode) against a
     # float64 per-tile prefix: within one float32 ulp of max(|ref|, 1) on the
@@ -1604,7 +1526,6 @@ def phase_tfloor(params, camera, cfg, gt, smi):
         img_tf, aux = render(params, camera, cfg_tf)
     torch.cuda.synchronize()
     render_launches = _tf_launches()
-    _check_no_v1("the T-floor render", render_launches)
     _check_image("T-floor canonical", img_tf)
     diff = float((img_tf - img).abs().max())
     num_pairs = int(aux.num_pairs)
@@ -1643,7 +1564,6 @@ def phase_tfloor(params, camera, cfg, gt, smi):
     end.record()
     torch.cuda.synchronize()
     train_launches = _tf_launches()
-    _check_no_v1("the T-floor step", train_launches)
     res["step_ms"] = start.elapsed_time(end) / TFLOOR_TIMED_STEPS
     losses = torch.stack(losses).cpu().numpy()
     log(f"[tfloor] full-size T-floor step: {res['step_ms']:.3f} ms/step warm (CUDA "
@@ -1751,7 +1671,6 @@ def phase_render(params, camera, cfg, smi):
     torch.cuda.synchronize()
     counts = _tf_launches()
     launches = counts["windowed_blend_fwd"]
-    _check_no_v1("the render path", counts)
     log(f"[render] main path: 4 orbit views + canonical view, "
         f"{launches} windowed_blend_fwd and {counts['compose_fwd']} compose_fwd kernel launches")
     if launches < 5 or counts["compose_fwd"] != launches:
@@ -2073,7 +1992,6 @@ def phase_trainloop(params, smi):
         f"{[(w, round(x, 4)) for _, x, w in spans if w == 'density']}")
     if res["captures"] != {"captures": 1, "density_captures": 2, "warmup_events": 2}:
         raise AssertionError(f"the CLI's density events recaptured a graph: {res['captures']}")
-    _check_no_v1("the COLMAP trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
     psnr = np.array([x["psnr"] for x in steps])
@@ -2430,7 +2348,6 @@ def phase_garden(smi):
     launches = _tf_launches()
     res["captures"]["train"] = {k: graph.counts[k] - c0[k] for k in counted}
     warm, warm_r = _warmups(), _warm_renders()
-    _check_no_v1("the garden trainer", launches)
     lines = _read_jsonl(metrics_path)
     steps = [x for x in lines if x["event"] == "step"]
     info = [x["msg"] for x in lines if x["event"] == "info"]
@@ -2524,7 +2441,6 @@ def phase_garden(smi):
     model.train(cams[1:1 + FACADE_ITERS], gts[1:1 + FACADE_ITERS], epochs=1)
     torch.cuda.synchronize()
     launches = _tf_launches()
-    _check_no_v1("the facade", launches)
     res["launches"]["facade"] = launches
     log(f"[garden] GaussianModel.from_checkpoint: held-out view 0 at {res['facade_psnr']:.3f} "
         f"dB; save_ply / from_ply max|diff| {ply_err:.2e}; from_colmap_scene {n0} alive of "
@@ -2602,7 +2518,6 @@ def phase_garden(smi):
         srv.shutdown()
         srv.server_close()
         serving.join(timeout=60)
-    _check_no_v1("the viewer's frames", launches)
     pct = {how: [float(np.percentile(v, p)) for p in (50, 90)] for how, v in frame_ms.items()}
     rend = {how: float(np.percentile(v, 50)) for how, v in render_of.items()}
     res["frame_ms_p50"], res["frame_ms_p90"] = pct["graph"]
@@ -2646,7 +2561,6 @@ def phase_garden(smi):
         srv.shutdown()
         srv.server_close()
         serving.join(timeout=60)
-    _check_no_v1("the viewer's /train", launches)
     log(f"[garden] tools.view with the dataset and checkpoint (iteration {t_ck}): "
         f"/train?n={VIEWER_TRAIN} -> {trained} in {train_s:.3f} s (host clock); launches "
         f"{launches}; the frame at the same pose {'changed' if after != before else 'SAME'}")
@@ -2666,7 +2580,6 @@ def phase_garden(smi):
         img = forward(params, camera)
     torch.cuda.synchronize()
     res["launches"]["entry"] = _tf_launches()
-    _check_no_v1("the graft entry", res["launches"]["entry"])
     if res["launches"]["entry"]["windowed_blend_fwd"] != 1:
         raise AssertionError(f"entry launches {res['launches']['entry']}")
     cfg64 = RasterConfig(pair_capacity=1 << 15, pair_block=64)
@@ -2696,8 +2609,8 @@ def _garden_bf16(argv, root, n_eval, f32, smi):
     """Phase 8's tools.train run again in config 4's own payload mode
     (scripts/run_config4.sh:22, --payload-dtype bf16) for the same
     GARDEN_EPOCHS, into its own outputs: every step finite, the packed kernels
-    once per step (and per graph warm-up step and render), no float32 or
-    first-design entry; the rate and the held-out PSNR beside the float32
+    once per step (and per graph warm-up step and render), no float32
+    entry; the rate and the held-out PSNR beside the float32
     run's (``f32``).  Returns (numbers, launches)."""
     import numpy as np
     import torch
@@ -2765,7 +2678,6 @@ def phase_tools(work, smi):
                                    DEVICE)
     rows = trace.aggregate(out, TRACE_STEPS, top=STEP_PROFILE_TOP)
     launches = _tf_launches()
-    _check_no_v1("the measuring tools", launches)
     for name, ms in rows:
         log(f"[tools] tools.trace {ms:9.3f} ms/step  {name[:90]}")
     res["device_ms"] = rows[-1][1]
@@ -3078,7 +2990,6 @@ def phase_parallel(params, camera, cfg, gt, smi):
                 raise AssertionError(f"{n} strips ({mode}) differ from the full render")
     torch.cuda.synchronize()
     paths["strips"] = _tf_launches()
-    _check_no_v1("the strips", paths["strips"])
     if min(paths["strips"][k] for k in MAIN_ENTRIES) < 1:
         raise AssertionError(f"the strips did not launch every kernel: {paths['strips']}")
     log(f"[parallel] strips main path: launches {paths['strips']}")
@@ -3164,7 +3075,6 @@ def phase_parallel(params, camera, cfg, gt, smi):
             f"{PARALLEL_TIMED_STEPS} steps) on {smi}; num_pairs (max over views) "
             f"{int(m.num_pairs)}")
     paths["batched"] = _tf_launches()
-    _check_no_v1("the batched steps", paths["batched"])
     if min(paths["batched"]["windowed_blend_fwd"], paths["batched"]["windowed_blend_bwd"]) < 1:
         raise AssertionError(f"the batched steps launched no kernel: {paths['batched']}")
     small = synthetic.make_scene(64, seed=5, spread=0.6)
@@ -3221,10 +3131,8 @@ def phase_parallel(params, camera, cfg, gt, smi):
         if backend == "nccl":
             res["sharded_graph"] = r0["graph"]
             paths["sharded_graph"] = r0["graph_launches"]
-    _check_no_v1("the sharded steps", paths["sharded"])
     if min(paths["sharded"][k] for k in ("windowed_blend_fwd", "windowed_blend_bwd")) < 1:
         raise AssertionError(f"the sharded steps launched no kernel: {paths['sharded']}")
-    _check_no_v1("the sharded graphs", paths["sharded_graph"])
     if min(paths["sharded_graph"][k] for k in ("windowed_blend_fwd", "windowed_blend_bwd")) < 1:
         raise AssertionError(f"the sharded graphs launched no kernel: {paths['sharded_graph']}")
 
@@ -3337,7 +3245,6 @@ def _packed_launches(label, both):
     """The counts of a bf16 path just run: the packed forward (``both``:
     and backward) launched, the float32 entries not."""
     launches = _tf_launches()
-    _check_no_v1(label, launches)
     names = ("windowed_blend_fwd_packed", "windowed_blend_bwd_packed")[:2 if both else 1]
     if (min(launches[n] for n in names) < 1
             or any(launches[n[:-len("_packed")]] for n in names)):
@@ -3351,9 +3258,8 @@ def phase_modes(params, camera, cfg, gt, smi):
     full size: (i) the packed kernels (plain and pack_pos) against their
     plain versions on edge windows and on the canonical view's packed
     windows with the real loss cotangent (each launched twice,
-    bit-identical), the first packed design (``_packed_v1``) too, with the
-    same gid, S and q_b bits; each timed in turns against its first design
-    and the float32 Hopper kernel, their work, bounds and shares; (ii) the
+    bit-identical); each timed in turns against the float32 kernel, their
+    work, bounds and shares; (ii) the
     bf16 render (`modes_render`) and train step (`modes_train`, timed,
     replayed bit for bit, profiled) against the float32 ones at JAX's bars,
     only the packed kernels launching; a 64x48 bf16 + pack_pos step on the
@@ -3430,26 +3336,11 @@ def phase_modes(params, camera, cfg, gt, smi):
                 raise AssertionError(f"{name}: two packed backward launches differ")
             bwant = blend.windowed_blend_bwd_packed_plain(*bargs)
             be, br = _compare_packed_bwd(f"full size {name} (loss cotangent)", once, bwant)
-            # the first packed design: the same bars, and the same gid, S
-            # and q_b bits (only the carry of T differs)
-            first = blend.windowed_blend_fwd_packed_v1(*args)
-            fe1 = _compare_packed_fwd(f"full size {name}, first packed design", first, want)
-            if not (torch.equal(first[1], got[1]) and torch.equal(first[2], got[2])
-                    and torch.equal(first[0][:, 3], got[0][:, 3])):
-                raise AssertionError(f"{name}: gid, S or q_b differ from the first packed design")
-            be1, br1 = _compare_packed_bwd(f"full size {name}, first packed design",
-                                           blend.windowed_blend_bwd_packed_v1(*bargs), bwant)
-            log(f"[modes] {name}: both packed launches twice bit-identical; gid, S_b and q_b "
-                f"equal to the first packed design's bit for bit; out rows 0-2 max|carried - "
-                f"first| {float((got[0][:, :3] - first[0][:, :3]).abs().max()):.3e}; the first "
-                f"design against plain {fe1:.3e} (forward), {be1:.3e} beyond a bf16 ulp "
-                f"{br1:.2e} (backward)")
-            (fwd_v1_ms, fwd_ms, f32_fwd_ms), t_fwd = _turns(
-                lambda: blend.windowed_blend_fwd_packed_v1(*args),
+            log(f"[modes] {name}: both packed launches twice bit-identical")
+            (fwd_ms, f32_fwd_ms), t_fwd = _turns(
                 lambda: blend.windowed_blend_fwd_packed(*args),
                 lambda: blend.windowed_blend_fwd(*f32_args))
-            (bwd_v1_ms, bwd_ms, f32_bwd_ms), t_bwd = _turns(
-                lambda: blend.windowed_blend_bwd_packed_v1(*bargs),
+            (bwd_ms, f32_bwd_ms), t_bwd = _turns(
                 lambda: blend.windowed_blend_bwd_packed(*bargs),
                 lambda: blend.windowed_blend_bwd(*f32_bargs))
             w = sol.blend_work(args)
@@ -3461,19 +3352,19 @@ def phase_modes(params, camera, cfg, gt, smi):
             bwd_bound, bline = sol.work_bound(
                 w, "bwd", 4 * rows * w["live_bwd"] + 4 * nb + 8 * w["bwd_blocks"]
                 + 20 * w["bwd_pixels"] + 20 * nb * block, sol.BWD_PACKED_OPS_PER_KEPT)
-            log(f"[modes] {name}: {nb} blocks, {int(aux.num_pairs)} pairs; in turns (first "
-                f"packed design, carried, float32, float32, carried, first) forward "
+            log(f"[modes] {name}: {nb} blocks, {int(aux.num_pairs)} pairs; in turns (packed, "
+                f"float32, float32, packed) forward "
                 f"{', '.join(f'{t:.4f}' for t in t_fwd)} ms, backward "
                 f"{', '.join(f'{t:.4f}' for t in t_bwd)} ms (CUDA events, {KERNEL_REPS} "
                 f"launches each) on {smi}")
             log(f"[modes] {name} forward work: {fline}")
             log(f"[modes] {name} backward work: {bline}")
             key = "pack_pos" if "pack_pos" in name else "bf16"
-            res["fwd"][key] = {"max_abs_err": max(fwd_err, fe), "ms": fwd_ms, "ms_v1": fwd_v1_ms,
+            res["fwd"][key] = {"max_abs_err": max(fwd_err, fe), "ms": fwd_ms,
                                "ms_f32": f32_fwd_ms, **fwd_bound,
                                "share": fwd_bound["bound_ms"] / fwd_ms}
             res["bwd"][key] = {"max_abs_err": max(bwd_err, be), "beyond_ulp_rel": max(bwd_rel, br),
-                               "ms": bwd_ms, "ms_v1": bwd_v1_ms, "ms_f32": f32_bwd_ms,
+                               "ms": bwd_ms, "ms_f32": f32_bwd_ms,
                                **bwd_bound, "share": bwd_bound["bound_ms"] / bwd_ms}
             if key == "bf16":
                 res["fwd"][key]["plain_ms"] = cuda_time_ms(
@@ -3481,12 +3372,10 @@ def phase_modes(params, camera, cfg, gt, smi):
                 res["bwd"][key]["plain_ms"] = cuda_time_ms(
                     lambda: blend.windowed_blend_bwd_packed_plain(*bargs), reps=3)
         del f32_args, f32_out, f32_bargs, args, bargs, got, second, want, bwant, once, again
-        del first
     for k in ("fwd", "bwd"):
         r, rp = res[k]["bf16"], res[k]["pack_pos"]
         log(f"[modes] full size packed {k}: {r['ms']:.4f} ms (pack_pos {rp['ms']:.4f}) vs the "
-            f"first packed design {r['ms_v1']:.4f} ms ({rp['ms_v1']:.4f}) and float32 Hopper "
-            f"{r['ms_f32']:.4f} ms in the same turns, plain {r['plain_ms']:.3f} ms, bound "
+            f"float32 kernel {r['ms_f32']:.4f} ms in the same turns, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}): {r['share']:.1%} of it "
             f"({rp['share']:.1%}) on {smi}")
 
@@ -3869,7 +3758,6 @@ def phase_graph(params, smi):
         out = fn()
         torch.cuda.synchronize()
         got = _tf_launches()
-        _check_no_v1("the graph path", got)
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
         check_cache()
@@ -4256,7 +4144,6 @@ def phase_graph_views(params, smi):
         out = fn()
         torch.cuda.synchronize()
         got = _tf_launches()
-        _check_no_v1(f"the {path} path", got)
         for name, n in got.items():
             paths[path][name] = paths[path].get(name, 0) + n
         return out, got, graph.counts["captures"] + graph.counts["render_captures"] - c0
@@ -4654,12 +4541,11 @@ def main() -> int:
         0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)).to(DEVICE)   # bench.py:358-360
     with torch.no_grad():
         fwd, args, block_tile, work = phase_kernel(params, camera, cfg, smi)
-        log(f"[kernel] full size: Hopper kernel {fwd['ms']:.4f} ms, first design "
-            f"{fwd['ms_v1']:.4f} ms, plain {fwd['plain_ms']:.3f} ms, bound "
+        log(f"[kernel] full size: kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.3f} ms, bound "
             f"{fwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
         bwd = phase_kernel_bwd(args, block_tile, camera, cfg, gt, work, smi, clock_mhz)
-        log(f"[kernel bwd] full size: Hopper kernel {bwd['ms']:.4f} ms, first design "
-            f"{bwd['ms_v1']:.4f} ms, plain {bwd['plain_ms']:.3f} ms, bound "
+        log(f"[kernel bwd] full size: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.3f} ms, "
+            f"bound "
             f"{bwd['bound_ms']:.4f} ms (CUDA events) on {smi}")
     del args, block_tile
     cmp = phase_compose(params, camera, cfg, gt, smi)
@@ -4706,7 +4592,7 @@ def main() -> int:
                "trainloop": tl["launches"]["windowed_blend_fwd"],
                **{k: v["windowed_blend_fwd"] for k, v in paths.items()}},
               per_step["windowed_blend_fwd"],
-              {k: fwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
+              {k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "power_tests", "kept_pairs",
                                    "culled_share")}),
         entry("windowed_blend_bwd", "blend_bwd.cu", f"{tpu}671, {tpu}188", "hopper",
@@ -4715,16 +4601,15 @@ def main() -> int:
                "trainloop": tl["launches"]["windowed_blend_bwd"],
                **{k: v["windowed_blend_bwd"] for k, v in paths.items()}},
               per_step["windowed_blend_bwd"],
-              {k: bwd[k] for k in ("max_abs_err", "ms", "ms_v1", "plain_ms", "bound_ms",
-                                   "bound_by", "power_tests", "kept_pairs", "culled_share",
-                                   "tree_share_v1")}),
+              {k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "power_tests", "kept_pairs", "culled_share")}),
         entry("windowed_blend_fwd_tf", "blend_fwd.cu", f"{tpu}249", "hopper",
               {"tfloor": tf_launches["windowed_blend_fwd_tf"],
                "graph": gr["launches"]["windowed_blend_fwd_tf"],
                **{k: v["windowed_blend_fwd_tf"] for k, v in gv["launches"].items()}},
               tf["per_step"]["windowed_blend_fwd_tf"],
               {"max_abs_err": tf["fwd_err"], "excused_flips": tf["fwd_excused"],
-               "ms": tf["fwd_ms"], "ms_v1": tf["fwd_ms_v1"], "plain_ms": tf["fwd_plain_ms"],
+               "ms": tf["fwd_ms"], "plain_ms": tf["fwd_plain_ms"],
                **tf["fwd_bound"]}),
         entry("windowed_blend_bwd_tf", "blend_bwd.cu", f"{tpu}281", "hopper",
               {"tfloor": tf_launches["windowed_blend_bwd_tf"],
@@ -4732,15 +4617,13 @@ def main() -> int:
                **{k: v["windowed_blend_bwd_tf"] for k, v in gv["launches"].items()}},
               tf["per_step"]["windowed_blend_bwd_tf"],
               {"max_abs_err": tf["bwd_err"], "excused_flips": tf["bwd_excused"],
-               "ms": tf["bwd_ms"], "ms_v1": tf["bwd_ms_v1"], "plain_ms": tf["bwd_plain_ms"],
+               "ms": tf["bwd_ms"], "plain_ms": tf["bwd_plain_ms"],
                **tf["bwd_bound"]}),
         *(entry(f"windowed_blend_{k}_packed", f"blend_{k}.cu",
                 f"{tpu}{line} (packed branch)", "hopper",
                 {p: v[f"windowed_blend_{k}_packed"] for p, v in paths.items()},
                 md["per_step"][f"windowed_blend_{k}_packed"],
-                {**md[k]["bf16"], "v1_entry": f"gs_blend_{k}_win_packed_v1",
-                 "ms_pack_pos": md[k]["pack_pos"]["ms"],
-                 "ms_v1_pack_pos": md[k]["pack_pos"]["ms_v1"],
+                {**md[k]["bf16"], "ms_pack_pos": md[k]["pack_pos"]["ms"],
                  "ms_f32_pack_pos": md[k]["pack_pos"]["ms_f32"],
                  "bound_ms_pack_pos": md[k]["pack_pos"]["bound_ms"],
                  "max_abs_err": max(md[k]["bf16"]["max_abs_err"],

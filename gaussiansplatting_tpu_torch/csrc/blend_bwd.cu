@@ -9,9 +9,6 @@
 //                        block_blend_cols_tf), the exact T-floor pass;
 //   gs_blend_bwd_win_packed  _bwd_kernel_win's packed branch (the bf16
 //                        payload mode, with or without pack_positions).
-// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1 are the first design of
-// those two (below), kept for chip_smoke.py's A/B; nothing on the training
-// path calls them.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
@@ -36,18 +33,17 @@
 //
 // What bounds it on the H100: the ~4.3e8 (pixel, lane) power tests of the
 // forward (~11 flops each) and, per kept pair, an exp, a reciprocal and ~35
-// flops (the first design: an exp, a log1p, an exp and a division), plus
-// the cross-pixel sums; instruction issue, not HBM (the table, g, s_b and
+// flops, plus the cross-pixel sums; instruction issue, not HBM (the table, g, s_b and
 // the nine outputs, ~245 MB, 0.07 ms at 3.35 TB/s).  The T-floor pass keeps
 // far fewer pairs for about as many bytes, so HBM bounds it.
 //
-// gs_blend_bwd_win and gs_blend_bwd_win_tf, the Hopper design
-// (blend_bwd_win_hopper): one CUDA block per pair block, kPixels = 2 pixels
-// per thread (a column strip, blend_common.cuh: 128 threads at ts = 16) and
-// the lanes staged as the forward stages them.  It starts each pixel from
-// the forward's own S_b (s_b, row 3 of its out), which is the same rounded
-// sequential log1pf sum the first design's replay pass recomputed, so there
-// is one walk, back to front, and it carries T back by division, T_before
+// gs_blend_bwd_win and gs_blend_bwd_win_tf (blend_bwd_win_hopper): one CUDA
+// block per pair block, kPixels = 2 pixels per thread (a column strip,
+// blend_common.cuh: 128 threads at ts = 16) and the lanes staged as the
+// forward stages them.  It starts each pixel from the forward's own S_b
+// (s_b, row 3 of its out), the rounded sequential log1pf sum that a replay
+// of the forward would recompute, so there is one walk, back to front, and
+// it carries T back by division, T_before
 // = T_after / (1 - alpha), with the IEEE reciprocal that dl / (1 - alpha)
 // needs too: no log1pf and no expf per kept pair (about 1 ulp per kept
 // lane where the log walk loses ulp(|S|)).  Only a pixel with S_b < -60,
@@ -57,8 +53,8 @@
 // the batch's 4 x 9 values with two halving exchanges (each thread keeps
 // half of the lanes and adds its partner's half: 18 + 9 shuffles) and a
 // butterfly over the last 8 threads (27 shuffles), 13.5 shuffles per
-// (warp, lane) against the first design's 45 per (warp of 32 pixels,
-// lane); one thread per lane then holds the warp's sums, and the warps'
+// (warp, lane) against 45 for a shuffle tree per column; one thread per lane
+// then holds the warp's sums, and the warps'
 // partials are summed in warp order from shared memory.  A batch that no
 // pixel of the warp keeps skips the exchange, and a warp skips a lane whose
 // padded ellipse box misses its 16 x 4 pixel rectangle (as the forward
@@ -97,21 +93,7 @@
 // even.  kPixels = 2 as the float32 instance (1 and 4 timed slower here
 // too).  log1pf, the plain version's bits, which the rounding of l needs,
 // is now most of what the kept path costs beyond the float32 instance's; 5
-// output rows in place of 9.  gs_blend_bwd_win_packed_v1 (kExpQ) is the
-// first packed design, T = expf(Q - l) and an IEEE division per kept pair,
-// kept for chip_smoke.py's A/B.
-//
-// gs_blend_bwd_win_v1 and gs_blend_bwd_win_tf_v1, the first design: one
-// thread per pixel, the window's nine columns in shared memory.  Each
-// thread replays its pixel twice: pass 1, front to back, to the pixel's
-// total log-transmittance S (in the T-floor instance, up to its first kept
-// lane where S + logti <= log_thr, the forward's test, so S is the masked
-// total and that lane, kend, ends the survivors); pass 2, back to front,
-// the chain rule above.  The per-lane sums are a shuffle tree in each warp
-// (45 shuffles per lane that any pixel of the warp kept), one partial per
-// (warp, column, lane) in shared memory, then a sum over the warps in warp
-// order; the T-floor instance skips lanes at or past the block's largest
-// kend.
+// output rows in place of 9.
 
 #include <cuda_runtime.h>
 
@@ -120,19 +102,13 @@
 namespace {
 
 constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
-constexpr int kBatch = 4;  // lanes per warp exchange of the Hopper design
-constexpr int kPixels = 2;  // pixels per thread of the Hopper design (both instances)
+constexpr int kBatch = 4;  // lanes per warp exchange
+constexpr int kPixels = 2;  // pixels per thread (both instances)
 // Below this log-transmittance expf(S) loses precision (it reaches the
-// denormals at S < -87), so a pixel of the Hopper design whose S_b lies
-// below it walks back in log space until S rises above it
+// denormals at S < -87), so a pixel whose S_b lies below it walks back in
+// log space until S rises above it
 constexpr float kLogWalk = -60.f;
 using blend::kFullMask;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // fixed tree: lane 0 ends with ((v0 + v16) + (v8 + v24)) + ... every time
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
-  return v;
-}
 
 // Sums v[i][c] (lane i of a batch of four, column c) over the warp's 32
 // threads in a fixed order.  Two halving exchanges: across xor 16 a thread
@@ -182,186 +158,9 @@ __device__ __forceinline__ void finish_lane(const float (&s)[kCols], float ca,
   o[8] = s[8];
 }
 
-template <bool kTFloor>
-__global__ void blend_bwd_win_kernel(
-    const float* __restrict__ table, long long ep,
-    const int* __restrict__ block_src, const int* __restrict__ block_valid,
-    const int* __restrict__ block_tile, const float* __restrict__ g,
-    const float* __restrict__ logti, int nb, int block, int ts, int tiles_x,
-    int row0, float power_floor, float alpha_cap, float alpha_floor,
-    float log_thr, float* __restrict__ dcols) {
-  extern __shared__ float smem[];
-  __shared__ int warp_kend[32];
-  const int b = blockIdx.x;
-  const int p2 = ts * ts;
-  const int nwarps = blockDim.x >> 5;
-  const size_t plane = (size_t)nb * block;  // one output column, [nb, block]
-  float* out_b = dcols + (size_t)b * block;
-  int nv = min(block_valid[b], block);
-  // one thread per pixel (blockDim.x = p2 rounded up to whole warps)
-  const int p = threadIdx.x;
-  const bool pix = p < p2;
-  const float lt = (kTFloor && pix) ? logti[(size_t)b * p2 + p] : 0.f;
-  if (kTFloor && !__syncthreads_or(pix && lt > log_thr)) nv = 0;
-
-  if (nv <= 0) {
-    for (int i = threadIdx.x; i < kCols * block; i += blockDim.x)
-      out_b[(size_t)(i / block) * plane + i % block] = 0.f;
-    return;
-  }
-
-  const float half = 0.5f * (float)ts;
-  const int tile = block_tile[b];
-  const float tcx = (float)(tile % tiles_x) * (float)ts + half;
-  const float tcy = (float)(tile / tiles_x + row0) * (float)ts + half;
-  const long long src = block_src[b];
-
-  float* s_mx = smem;
-  float* s_my = smem + block;
-  float* s_ca = smem + 2 * block;
-  float* s_cb = smem + 3 * block;
-  float* s_cc = smem + 4 * block;
-  float* s_op = smem + 5 * block;
-  float* s_r = smem + 6 * block;
-  float* s_g = smem + 7 * block;
-  float* s_b = smem + 8 * block;
-  float* part = smem + kCols * block;  // [nwarps][kCols][block]
-
-  for (int t = threadIdx.x; t < nv; t += blockDim.x) {
-    const float* col = table + src + t;
-    const float ca = col[3 * ep], cb = col[4 * ep], cc = col[5 * ep];
-    const float mag = __fadd_rn(__fadd_rn(fabsf(ca), fabsf(cb)), fabsf(cc));
-    s_mx[t] = __fsub_rn(col[ep], tcx);
-    s_my[t] = __fsub_rn(col[2 * ep], tcy);
-    s_ca[t] = ca;
-    s_cb[t] = cb;
-    s_cc[t] = cc;
-    s_op[t] = mag >= 1e-4f ? col[6 * ep] : 0.f;
-    s_r[t] = col[7 * ep];
-    s_g[t] = col[8 * ep];
-    s_b[t] = col[9 * ep];
-  }
-  __syncthreads();
-
-  // Threads past the tile's pixels (none when ts*ts is a multiple of 32)
-  // keep nothing but still take part in the warp shuffles.
-  const float px = __fsub_rn((float)(p % ts) + 0.5f, half);
-  const float py = __fsub_rn((float)(p / ts) + 0.5f, half);
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f, gs = 0.f;
-  if (pix) {
-    const float* g_b = g + (size_t)b * 4 * p2;
-    g0 = g_b[p];
-    g1 = g_b[p2 + p];
-    g2 = g_b[2 * p2 + p];
-    gs = g_b[3 * p2 + p];
-  }
-
-  // pass 1: front to back, the pixel's total log-transmittance; with the
-  // T-floor, up to the pixel's first terminated lane kend
-  float S = 0.f;
-  int kend = pix ? nv : 0;
-  for (int k = 0; pix && k < nv; ++k) {
-    const float op = s_op[k];
-    if (op == 0.f) continue;
-    const float dx = __fsub_rn(px, s_mx[k]);
-    const float dy = __fsub_rn(py, s_my[k]);
-    const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
-    if (!(power <= 0.f && power >= power_floor)) continue;
-    const float a_raw = __fmul_rn(op, expf(power));
-    if (!(a_raw >= alpha_floor)) continue;
-    if (kTFloor && !(__fadd_rn(S, lt) > log_thr)) {  // terminated
-      kend = k;
-      break;
-    }
-    S += log1pf(-fminf(a_raw, alpha_cap));
-  }
-
-  const int warp = threadIdx.x >> 5;
-  const int wlane = threadIdx.x & 31;
-  // the block's largest kend, by a fixed warp max then a read of every
-  // warp's (no atomics); without the T-floor it is nv
-  int kmax = nv;
-  if (kTFloor) {
-    const int wmax = __reduce_max_sync(kFullMask, kend);
-    if (wlane == 0) warp_kend[warp] = wmax;
-    __syncthreads();
-    kmax = 0;
-    for (int w = 0; w < nwarps; ++w) kmax = max(kmax, warp_kend[w]);
-  }
-
-  // pass 2: back to front, the chain rule and the per-lane pixel sums
-  float suffix = 0.f;  // sum_{j > k} e_j w_j
-  for (int k = kmax - 1; k >= 0; --k) {
-    float v[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) v[c] = 0.f;
-    const float op = s_op[k];
-    bool kept = false;
-    if (pix && k < kend && op != 0.f) {
-      const float dx = __fsub_rn(px, s_mx[k]);
-      const float dy = __fsub_rn(py, s_my[k]);
-      const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
-      if (power <= 0.f && power >= power_floor) {
-        const float a_raw = __fmul_rn(op, expf(power));
-        if (a_raw >= alpha_floor) {
-          kept = true;
-          const float alpha = fminf(a_raw, alpha_cap);
-          S -= log1pf(-alpha);
-          const float T = expf(S);
-          const float w = alpha * T;
-          const float e = g0 * s_r[k] + g1 * s_g[k] + g2 * s_b[k];
-          const float dl = suffix + gs;
-          const float dpow = (e * T - dl / (1.f - alpha)) * a_raw;
-          const float pdx = dpow * dx;
-          const float pdy = dpow * dy;
-          v[0] = pdx;
-          v[1] = pdy;
-          v[2] = pdx * dx;
-          v[3] = pdx * dy;
-          v[4] = pdy * dy;
-          v[5] = dpow;
-          v[6] = g0 * w;
-          v[7] = g1 * w;
-          v[8] = g2 * w;
-          suffix += e * w;
-        }
-      }
-    }
-    if (__any_sync(kFullMask, kept)) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) v[c] = warp_sum(v[c]);
-    }
-    if (wlane == 0) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) part[(warp * kCols + c) * block + k] = v[c];
-    }
-  }
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < block; k += blockDim.x) {
-    float o[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[c] = 0.f;
-    if (k < kmax) {
-      float s[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        float acc = 0.f;
-        for (int w = 0; w < nwarps; ++w) acc += part[(w * kCols + c) * block + k];
-        s[c] = acc;
-      }
-      finish_lane(s, s_ca[k], s_cb[k], s_cc[k], s_op[k], o);
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) out_b[(size_t)c * plane + k] = o[c];
-  }
-}
-
 // kPack: the table's payload layout (blend_common.cuh); a packed instance
-// takes the packed forward's q_b in s_b and writes 5 packed rows.  kExpQ: a
-// packed instance of the first packed design (T by an expf of Q - l and an
-// IEEE division per kept pair), kept as the yardstick of the carried one.
-template <bool kTFloor, int kPack = 0, bool kExpQ = false>
+// takes the packed forward's q_b in s_b and writes 5 packed rows.
+template <bool kTFloor, int kPack = 0>
 __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -423,7 +222,6 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
   // transmittance behind the current lane, Tn = exp(S_b) at the start
   // (while S < kLogWalk, S walks back instead and Tn is unused); packed, S
   // is Q, from q_b, and Tn is exp(Q) over the lanes up to the current one
-  // (unused by the first packed design)
   float g0[P], g1[P], g2[P], gS[P], S[P], Tn[P], suffix[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -436,7 +234,7 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
       g2[j] = g_b[2 * p2];
       gS[j] = g_b[3 * p2];
       S[j] = s_b[(size_t)b * p2 + p];
-      Tn[j] = ((kPack && kExpQ) || S[j] < kLogWalk) ? 0.f : expf(S[j]);
+      Tn[j] = S[j] < kLogWalk ? 0.f : expf(S[j]);
     }
   }
   __syncthreads();
@@ -474,22 +272,16 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
         if (kPack) {
           const blend::Log1m lm = blend::log1m_bf16(alpha);
           const float dl = suffix[j] + gS[j];
-          float T, dl_1ma;  // T_k = exp(Q_k - l_k), dl / (1 - alpha)
-          if (kExpQ) {
-            T = expf(__fsub_rn(S[j], lm.l));  // Q_k inclusive
+          const float inv = __frcp_rn(1.f - alpha);
+          float T;  // T_k = exp(Q_k - l_k)
+          if (S[j] < kLogWalk) {  // Q_k inclusive, walked back in log space
+            T = expf(__fsub_rn(S[j], lm.l));
             S[j] = __fsub_rn(S[j], lm.lb);
-            dl_1ma = __fdiv_rn(dl, 1.f - alpha);
           } else {
-            const float inv = __frcp_rn(1.f - alpha);
-            if (S[j] < kLogWalk) {  // Q_k inclusive, walked back in log space
-              T = expf(__fsub_rn(S[j], lm.l));
-              S[j] = __fsub_rn(S[j], lm.lb);
-            } else {
-              T = Tn[j] * inv;  // exp(Q_k) / (1 - alpha_k)
-            }
-            Tn[j] = T * blend::exp_small(lm.d);  // exp(Q_{k-1})
-            dl_1ma = dl * inv;
+            T = Tn[j] * inv;  // exp(Q_k) / (1 - alpha_k)
           }
+          Tn[j] = T * blend::exp_small(lm.d);  // exp(Q_{k-1})
+          const float dl_1ma = dl * inv;  // dl / (1 - alpha)
           const float w = alpha * T;
           const float e = g0[j] * q2.x + g1[j] * q2.y + g2[j] * q2.z;
           const float dpow = (e * T - dl_1ma) * a_raw;
@@ -575,39 +367,16 @@ __global__ void __launch_bounds__(512) blend_bwd_win_hopper(
   }
 }
 
-template <bool kTFloor>
-int launch_v1(const float* table, long long ep, const int* block_src,
-              const int* block_valid, const int* block_tile, const float* g,
-              const float* logti, int nb, int block, int ts, int tiles_x,
-              int row0, float power_floor, float alpha_cap, float alpha_floor,
-              float log_thr, float* dcols, void* stream) {
-  const int threads = (ts * ts + 31) / 32 * 32;
-  const size_t smem = (size_t)(1 + threads / 32) * kCols * block * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_win_kernel<kTFloor>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  blend_bwd_win_kernel<kTFloor><<<nb, threads, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, g, logti, nb, block, ts,
-      tiles_x, row0, power_floor, alpha_cap, alpha_floor, log_thr, dcols);
-  return (int)cudaGetLastError();
-}
-
-// tfloor: the T-floor instance; pack: the payload layout (kPack); exp_q: the
-// first packed design (kExpQ)
-int launch_hopper(bool tfloor, int pack, bool exp_q, const float* table, long long ep,
+// tfloor: the T-floor instance; pack: the payload layout (kPack)
+int launch_hopper(bool tfloor, int pack, const float* table, long long ep,
                   const int* block_src, const int* block_valid,
                   const int* block_tile, const float* g, const float* s_b,
                   const int* stop, int nb, int block, int ts, int tiles_x,
                   int row0, float power_floor, float alpha_cap,
                   float alpha_floor, float* dcols, void* stream) {
   const auto kernel = tfloor      ? blend_bwd_win_hopper<true>
-                      : pack == 1 ? (exp_q ? blend_bwd_win_hopper<false, 1, true>
-                                           : blend_bwd_win_hopper<false, 1>)
-                      : pack == 2 ? (exp_q ? blend_bwd_win_hopper<false, 2, true>
-                                           : blend_bwd_win_hopper<false, 2>)
+                      : pack == 1 ? blend_bwd_win_hopper<false, 1>
+                      : pack == 2 ? blend_bwd_win_hopper<false, 2>
                                   : blend_bwd_win_hopper<false>;
   const int threads = (ts * ((ts + kPixels - 1) / kPixels) + 31) / 32 * 32;
   const size_t smem = (size_t)block * sizeof(blend::Lane) +
@@ -639,7 +408,7 @@ extern "C" int gs_blend_bwd_win(const float* table, long long ep,
                                 int tiles_x, int row0, float power_floor,
                                 float alpha_cap, float alpha_floor,
                                 float* dcols, void* stream) {
-  return launch_hopper(false, 0, false, table, ep, block_src, block_valid, block_tile,
+  return launch_hopper(false, 0, table, ep, block_src, block_valid, block_tile,
                        g, s_b, nullptr, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
 }
@@ -656,7 +425,7 @@ extern "C" int gs_blend_bwd_win_tf(const float* table, long long ep,
                                    float power_floor, float alpha_cap,
                                    float alpha_floor, float* dcols,
                                    void* stream) {
-  return launch_hopper(true, 0, false, table, ep, block_src, block_valid, block_tile,
+  return launch_hopper(true, 0, table, ep, block_src, block_valid, block_tile,
                        g, s_b, stop, nb, block, ts, tiles_x, row0, power_floor,
                        alpha_cap, alpha_floor, dcols, stream);
 }
@@ -675,57 +444,7 @@ extern "C" int gs_blend_bwd_win_packed(const float* table, long long ep,
                                        float power_floor, float alpha_cap,
                                        float alpha_floor, float* dcols,
                                        void* stream) {
-  return launch_hopper(false, pack_pos ? 2 : 1, false, table, ep, block_src,
+  return launch_hopper(false, pack_pos ? 2 : 1, table, ep, block_src,
                        block_valid, block_tile, g, q_b, nullptr, nb, block, ts, tiles_x,
                        row0, power_floor, alpha_cap, alpha_floor, dcols, stream);
-}
-
-// The first packed design, with the same arguments as
-// gs_blend_bwd_win_packed: T by an expf of Q - l and dl / (1 - alpha) by an
-// IEEE division per kept pair.
-extern "C" int gs_blend_bwd_win_packed_v1(const float* table, long long ep,
-                                          const int* block_src,
-                                          const int* block_valid,
-                                          const int* block_tile, const float* g,
-                                          const float* q_b, int nb, int block, int ts,
-                                          int tiles_x, int row0, int pack_pos,
-                                          float power_floor, float alpha_cap,
-                                          float alpha_floor, float* dcols,
-                                          void* stream) {
-  return launch_hopper(false, pack_pos ? 2 : 1, true, table, ep, block_src,
-                       block_valid, block_tile, g, q_b, nullptr, nb, block, ts, tiles_x,
-                       row0, power_floor, alpha_cap, alpha_floor, dcols, stream);
-}
-
-// The first design, as gs_blend_bwd_win without s_b: one
-// thread per pixel rounded up to whole warps (ts*ts <= 1024) and
-// (1 + warps) * 9 * block floats of shared memory.
-extern "C" int gs_blend_bwd_win_v1(const float* table, long long ep,
-                                   const int* block_src,
-                                   const int* block_valid,
-                                   const int* block_tile, const float* g,
-                                   int nb, int block, int ts, int tiles_x,
-                                   int row0, float power_floor,
-                                   float alpha_cap, float alpha_floor,
-                                   float* dcols, void* stream) {
-  return launch_v1<false>(table, ep, block_src, block_valid, block_tile, g,
-                          nullptr, nb, block, ts, tiles_x, row0, power_floor,
-                          alpha_cap, alpha_floor, 0.f, dcols, stream);
-}
-
-// The first design of the T-floor pass: as gs_blend_bwd_win_v1 plus logti
-// [nb, ts*ts] f32 and log_thr = log(transmittance_floor), from which it
-// replays each pixel's termination.
-extern "C" int gs_blend_bwd_win_tf_v1(const float* table, long long ep,
-                                      const int* block_src,
-                                      const int* block_valid,
-                                      const int* block_tile, const float* g,
-                                      const float* logti, int nb, int block,
-                                      int ts, int tiles_x, int row0,
-                                      float power_floor, float alpha_cap,
-                                      float alpha_floor, float log_thr,
-                                      float* dcols, void* stream) {
-  return launch_v1<true>(table, ep, block_src, block_valid, block_tile, g,
-                         logti, nb, block, ts, tiles_x, row0, power_floor,
-                         alpha_cap, alpha_floor, log_thr, dcols, stream);
 }

@@ -10,9 +10,6 @@
 //   gs_blend_fwd_win_packed  _fwd_kernel_win's packed branch (cfg_consts[5],
 //                        [6]: the bf16 payload mode, with or without
 //                        pack_positions).
-// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1 are the first design of
-// those two (below), kept for chip_smoke.py's A/B; nothing on the render or
-// training path calls them.
 // Python wrappers and plain PyTorch versions:
 // gaussiansplatting_tpu_torch/ops/blend.py (the contract is documented there).
 //
@@ -32,19 +29,18 @@
 // fewer pairs (pixels stop at the floor) and moves about as many bytes, so
 // HBM bounds it.
 //
-// gs_blend_fwd_win and gs_blend_fwd_win_tf, the Hopper design
-// (blend_fwd_win_hopper): one CUDA block per pair block b and kPixels = 4
+// gs_blend_fwd_win and gs_blend_fwd_win_tf (blend_fwd_win_hopper): one
+// CUDA block per pair block b and kPixels = 4
 // pixels per thread (a column strip, blend_common.cuh), so 64 threads at
 // ts = 16; the T-floor instance takes kPixelsTF = 2 (128 threads, a warp
 // covers 16 x 4 pixels), which timed faster there than 4 or 1: its warps
 // run until their last pixel stops, and most of its blocks do little
 // besides read logti and write zeros.  The live lanes are staged once as 48-byte records (three float4:
 // mean and cull extents, conic and opacity, colour), so a thread reads each
-// lane with three broadcast shared loads and uses it for its 4 pixels, where
-// the first design made nine scalar loads per pixel.  The transmittance is
-// carried by multiplication (w = alpha T; T *= 1 - alpha) instead of an
-// expf(S) per kept pair; S is still the sequential log1pf sum, bit for bit
-// what the first design writes to row 3, which the backward walks back from
+// lane with three broadcast shared loads and uses it for its 4 pixels.  The
+// transmittance is carried by multiplication (w = alpha T; T *= 1 - alpha)
+// instead of an expf(S) per kept pair; S is still the sequential log1pf sum,
+// bit for bit the plain version's row 3, which the backward walks back from
 // and the T-floor pass compares.  A warp skips a lane whose padded ellipse
 // box (blend_common.cuh, cull_extent) misses the warp's 16 x 8 pixel
 // rectangle: a test per warp and lane in place of 4 power evaluations per
@@ -55,8 +51,8 @@
 // where S + logti <= log_thr: the reference's per-pixel loop exit
 // (tiled_shaders.metal:334).  S only decreases, so every later lane would
 // be masked too and stopping is exact; it is also the work the exit saves.
-// The test is the first design's, on the same S bits, so S_b and the set
-// of surviving lanes are the first design's bit for bit.  A thread with 2
+// The test is on the sequential S bits, so S_b and the set of surviving
+// lanes are the same whatever the pixels per thread.  A thread with 2
 // pixels cannot break for one of them: each pixel carries a done flag (set
 // before the loop where logti is already at or below the floor), and the
 // warp leaves the lane loop once every pixel of it is done (__all_sync).
@@ -87,20 +83,7 @@
 // the denormals only where T does (Q < -87).  kPixels = 4 as the float32
 // instance: 1 and 2 timed slower here too.  The log1pf, which the float32
 // instance pays for S as well, is most of what the kept path costs; 7 (6)
-// table rows are read per lane instead of 10.  gs_blend_fwd_win_packed_v1
-// (kExpQ) is the first packed design, T = expf(Q - l) per kept pair, kept
-// for chip_smoke.py's A/B.
-//
-// gs_blend_fwd_win_v1 and gs_blend_fwd_win_tf_v1, the first design: one
-// thread per tile pixel (p = y*ts + x, offset (x + 0.5 - ts/2,
-// y + 0.5 - ts/2) from the tile centre), the window's nine columns in shared
-// memory, every thread walking the lanes front to back carrying its
-// log-transmittance S:
-//   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  a_raw = op exp(power),
-//   kept iff power in [power_floor, 0] and a_raw >= alpha_floor,
-//   alpha = min(a_raw, alpha_cap),  w = alpha exp(S),  C += w rgb,
-//   S += log1p(-alpha);
-// its T-floor instance breaks at the first failing kept lane.
+// table rows are read per lane instead of 10.
 
 #include <cuda_runtime.h>
 
@@ -108,121 +91,14 @@
 
 namespace {
 
-constexpr int kCols = 9;  // mx, my, conic a, b, c, opacity, r, g, b
-constexpr int kPixels = 4;    // pixels per thread of the Hopper design
-constexpr int kPixelsTF = 2;  // ... of its T-floor instance
-
-template <bool kTFloor>
-__global__ void blend_fwd_win_kernel(
-    const float* __restrict__ table, long long ep,
-    const int* __restrict__ block_src, const int* __restrict__ block_valid,
-    const int* __restrict__ block_tile, const float* __restrict__ logti,
-    int block, int ts, int tiles_x, int row0, float power_floor,
-    float alpha_cap, float alpha_floor, float log_thr,
-    float* __restrict__ out, float* __restrict__ gid_out,
-    int* __restrict__ stop_out) {
-  extern __shared__ float cols[];  // [kCols][block]
-  const int b = blockIdx.x;
-  const int p2 = ts * ts;
-  float* out_b = out + (size_t)b * 4 * p2;
-  float* gid_b = kTFloor ? nullptr : gid_out + (size_t)b * block;
-  int* stop_b = kTFloor ? stop_out + (size_t)b * p2 : nullptr;
-  int nv = min(block_valid[b], block);
-  if (kTFloor) {
-    // does any pixel of the tile arrive above the floor?  (each thread
-    // checks its pixels; the block-wide OR is uniform, so the early return
-    // below is taken by all threads or none)
-    bool open = false;
-    for (int p = threadIdx.x; p < p2; p += blockDim.x)
-      open |= logti[(size_t)b * p2 + p] > log_thr;
-    if (!__syncthreads_or(open)) nv = 0;
-  }
-
-  if (nv <= 0) {
-    for (int i = threadIdx.x; i < 4 * p2; i += blockDim.x) out_b[i] = 0.f;
-    if (kTFloor)
-      for (int p = threadIdx.x; p < p2; p += blockDim.x) stop_b[p] = 0;
-    else
-      for (int i = threadIdx.x; i < block; i += blockDim.x) gid_b[i] = -1.f;
-    return;
-  }
-
-  const float half = 0.5f * (float)ts;
-  const int tile = block_tile[b];
-  const float tcx = (float)(tile % tiles_x) * (float)ts + half;
-  const float tcy = (float)(tile / tiles_x + row0) * (float)ts + half;
-  const long long src = block_src[b];
-
-  float* s_mx = cols;
-  float* s_my = cols + block;
-  float* s_ca = cols + 2 * block;
-  float* s_cb = cols + 3 * block;
-  float* s_cc = cols + 4 * block;
-  float* s_op = cols + 5 * block;
-  float* s_r = cols + 6 * block;
-  float* s_g = cols + 7 * block;
-  float* s_b = cols + 8 * block;
-
-  for (int t = threadIdx.x; t < block; t += blockDim.x) {
-    if (t < nv) {
-      const float* col = table + src + t;
-      const float ca = col[3 * ep], cb = col[4 * ep], cc = col[5 * ep];
-      const float mag = __fadd_rn(__fadd_rn(fabsf(ca), fabsf(cb)), fabsf(cc));
-      if (!kTFloor) gid_b[t] = col[0];
-      s_mx[t] = __fsub_rn(col[ep], tcx);
-      s_my[t] = __fsub_rn(col[2 * ep], tcy);
-      s_ca[t] = ca;
-      s_cb[t] = cb;
-      s_cc[t] = cc;
-      s_op[t] = mag >= 1e-4f ? col[6 * ep] : 0.f;
-      s_r[t] = col[7 * ep];
-      s_g[t] = col[8 * ep];
-      s_b[t] = col[9 * ep];
-    } else if (!kTFloor) {
-      gid_b[t] = -1.f;
-    }
-  }
-  __syncthreads();
-
-  for (int p = threadIdx.x; p < p2; p += blockDim.x) {
-    const float px = __fsub_rn((float)(p % ts) + 0.5f, half);
-    const float py = __fsub_rn((float)(p / ts) + 0.5f, half);
-    const float lt = kTFloor ? logti[(size_t)b * p2 + p] : 0.f;
-    float S = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    int stop = 0;
-    for (int k = 0; k < nv; ++k) {
-      const float op = s_op[k];
-      if (op == 0.f) continue;  // a_raw = 0 is below any alpha floor > 0
-      const float dx = __fsub_rn(px, s_mx[k]);
-      const float dy = __fsub_rn(py, s_my[k]);
-      const float power = blend::power_of(dx, dy, s_ca[k], s_cb[k], s_cc[k]);
-      if (!(power <= 0.f && power >= power_floor)) continue;
-      const float a_raw = __fmul_rn(op, expf(power));
-      if (!(a_raw >= alpha_floor)) continue;
-      if (kTFloor && !(__fadd_rn(S, lt) > log_thr)) break;  // terminated
-      const float alpha = fminf(a_raw, alpha_cap);
-      const float w = alpha * expf(S);
-      c0 += w * s_r[k];
-      c1 += w * s_g[k];
-      c2 += w * s_b[k];
-      S += log1pf(-alpha);
-      stop = k + 1;
-    }
-    out_b[p] = c0;
-    out_b[p2 + p] = c1;
-    out_b[2 * p2 + p] = c2;
-    out_b[3 * p2 + p] = S;
-    if (kTFloor) stop_b[p] = stop;
-  }
-}
+constexpr int kPixels = 4;    // pixels per thread
+constexpr int kPixelsTF = 2;  // ... of the T-floor instance
 
 // No __launch_bounds__: with (256) ptxas fits the plain instance in 48
 // registers and spills 12 bytes; without, it takes 56 and spills nothing.
 // kPack: the table's payload layout (blend_common.cuh); packed instances
-// write q_out, the float32 instance none.  kExpQ: a packed instance of the
-// first packed design (T by an expf of Q - l per kept pair), kept as the
-// yardstick of the carried one.
-template <bool kTFloor, int kPack = 0, bool kExpQ = false>
+// write q_out, the float32 instance none.
+template <bool kTFloor, int kPack = 0>
 __global__ void blend_fwd_win_hopper(
     const float* __restrict__ table, long long ep,
     const int* __restrict__ block_src, const int* __restrict__ block_valid,
@@ -247,8 +123,8 @@ __global__ void blend_fwd_win_hopper(
   const float half = 0.5f * (float)ts;
   const blend::Strip<P> st = blend::thread_strip<P>(ts, half);
   // T-floor: each pixel's incoming log T, and done where it arrives at or
-  // below the floor (the first design stops it at its first kept lane,
-  // before anything is added) or lies off the tile
+  // below the floor (its first kept lane would stop it before anything is
+  // added) or lies off the tile
   float lt[P];
   bool done[P];
 #pragma unroll
@@ -323,12 +199,12 @@ __global__ void blend_fwd_win_hopper(
         const blend::Log1m lm = blend::log1m_bf16(alpha);
         Q[j] = __fadd_rn(Q[j], lm.lb);
         // T_k = exp(Q_k - l_k) = exp(Q_{k-1}) exp(-d_k)
-        const float t = kExpQ ? expf(__fsub_rn(Q[j], lm.l)) : T[j] * blend::exp_small(-lm.d);
+        const float t = T[j] * blend::exp_small(-lm.d);
         const float w = alpha * t;
         c0[j] += w * q2.x;
         c1[j] += w * q2.y;
         c2[j] += w * q2.z;
-        if (!kExpQ) T[j] = t * (1.f - alpha);  // exp(Q_k)
+        T[j] = t * (1.f - alpha);  // exp(Q_k)
         S[j] += lm.l;
         continue;
       }
@@ -414,60 +290,5 @@ extern "C" int gs_blend_fwd_win_packed(const float* table, long long ep,
   kernel<<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
       table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
       row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, q_b);
-  return (int)cudaGetLastError();
-}
-
-// The first packed design, with the same arguments as
-// gs_blend_fwd_win_packed: T by an expf of Q - l per kept pair.
-extern "C" int gs_blend_fwd_win_packed_v1(const float* table, long long ep,
-                                          const int* block_src,
-                                          const int* block_valid,
-                                          const int* block_tile, int nb, int block,
-                                          int ts, int tiles_x, int row0, int pack_pos,
-                                          float power_floor, float alpha_cap,
-                                          float alpha_floor, float* out, float* gid,
-                                          float* q_b, void* stream) {
-  const size_t smem = (size_t)block * sizeof(blend::Lane);
-  const auto kernel = pack_pos ? blend_fwd_win_hopper<false, 2, true>
-                               : blend_fwd_win_hopper<false, 1, true>;
-  kernel<<<nb, hopper_threads(ts, kPixels), smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, nullptr, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid, nullptr, q_b);
-  return (int)cudaGetLastError();
-}
-
-// The first design, with the same arguments as gs_blend_fwd_win.  Needs
-// ts*ts <= 1024 threads and 9*block floats of shared memory.
-extern "C" int gs_blend_fwd_win_v1(const float* table, long long ep,
-                                   const int* block_src,
-                                   const int* block_valid,
-                                   const int* block_tile, int nb, int block,
-                                   int ts, int tiles_x, int row0,
-                                   float power_floor, float alpha_cap,
-                                   float alpha_floor, float* out, float* gid,
-                                   void* stream) {
-  const size_t smem = (size_t)kCols * block * sizeof(float);
-  blend_fwd_win_kernel<false><<<nb, ts * ts, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, nullptr, block, ts,
-      tiles_x, row0, power_floor, alpha_cap, alpha_floor, 0.f, out, gid,
-      nullptr);
-  return (int)cudaGetLastError();
-}
-
-// The first design of the T-floor pass, with the same arguments as
-// gs_blend_fwd_win_tf.
-extern "C" int gs_blend_fwd_win_tf_v1(const float* table, long long ep,
-                                      const int* block_src,
-                                      const int* block_valid,
-                                      const int* block_tile,
-                                      const float* logti, int nb, int block,
-                                      int ts, int tiles_x, int row0,
-                                      float power_floor, float alpha_cap,
-                                      float alpha_floor, float log_thr,
-                                      float* out, int* stop, void* stream) {
-  const size_t smem = (size_t)kCols * block * sizeof(float);
-  blend_fwd_win_kernel<true><<<nb, ts * ts, smem, (cudaStream_t)stream>>>(
-      table, ep, block_src, block_valid, block_tile, logti, block, ts, tiles_x,
-      row0, power_floor, alpha_cap, alpha_floor, log_thr, out, nullptr, stop);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` file (which may include the
 ``csrc/*.cuh`` headers) with plain C entry points, compiled by ``nvcc`` for
@@ -6,6 +6,14 @@ Each kernel is one ``csrc/<name>.cu`` file (which may include the
 runs at first use, into ``build/kernels/`` at the repository root, with a
 hash of the source, the headers and the flags in the file name, so an edited
 source rebuilds and an unchanged one is loaded as is.
+
+``launch`` is the one way the port calls a kernel: every C entry takes its
+arguments, then the stream, and returns ``cudaGetLastError()``.  A wrapper
+in ``ops/`` validates its inputs, allocates the outputs with ``torch.empty``
+and calls ``launch`` with the entry's signature and, for a counted launch,
+its own name, under which utils/tracing.py's registry counts it (the wrapper
+registers the name with ``tracing.counted`` when it is imported).  ``entry``
+gives a C function of a library that is not a launch (a workspace size).
 
 Nothing here runs at import time: the CPU-only test machine imports every
 module and has no ``nvcc``.
@@ -21,6 +29,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
+from gaussiansplatting_tpu_torch.utils import tracing
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -29,6 +41,11 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# a C entry's argument types, one letter each: a pointer, a long long, an
+# int, a float
+_CTYPES = {"p": ctypes.c_void_p, "L": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
+_entries: dict[tuple[str, str], tuple] = {}   # (name, symbol) -> (signature, function)
 # compiler output (ptxas register / shared-memory report) of builds run in
 # this process, by kernel name
 build_logs: dict[str, str] = {}
@@ -109,3 +126,38 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, signature: str):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, returning
+    an int, with its argument types set from ``signature`` (one letter per
+    argument: p a pointer, L a long long, i an int, f a float) once per
+    symbol.  Raises if another signature was given for it before."""
+    known = _entries.get((name, symbol))
+    if known is None:
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        fn.restype = ctypes.c_int
+        known = _entries[(name, symbol)] = (signature, fn)
+    if known[0] != signature:
+        raise ValueError(f"{symbol} is bound with signature {known[0]!r}, not {signature!r}")
+    return known[1]
+
+
+def launch(name: str, symbol: str, signature: str, device, *args,
+           count: str | None = None) -> None:
+    """Call the C entry ``symbol`` of ``csrc/<name>.cu`` with ``args`` (by
+    ``signature``, as ``entry`` reads it; a tensor passes its data pointer,
+    None a null pointer) and the current stream of ``device``.  Raises
+    RuntimeError naming the symbol where the entry returns a CUDA error;
+    then counts the launch under ``count`` in utils/tracing.py's registry,
+    where given."""
+    fn = entry(name, symbol, signature + "p")
+    dev = torch.device(device)
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*values, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    if count is not None:
+        tracing.add_launches({count: 1})

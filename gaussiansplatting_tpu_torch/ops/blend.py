@@ -56,23 +56,17 @@ tile_size**2 pixels:
            the bf16 rounding error l - bf16(l) (csrc/blend_common.cuh).
 
 On a CUDA tensor each wrapper launches its kernel (csrc/blend_fwd.cu,
-csrc/blend_bwd.cu); on a CPU tensor it runs the plain version.  Nothing falls
-back from one to the other.  The wrappers are raw kernel entries: gradients
-reach the backward through ops/rasterize._BlendWindows, so the forward
-refuses inputs that require grad.
+csrc/blend_bwd.cu) and counts the launch under its own name in
+utils/tracing.py's registry; on a CPU tensor it runs the plain version.
+Nothing falls back from one to the other.  The wrappers are raw kernel
+entries: gradients reach the backward through ops/rasterize._BlendWindows,
+so the forward refuses inputs that require grad.
 
-Every float32 entry has two kernel designs: the Hopper design
-(``gs_blend_*_win`` and ``gs_blend_*_win_tf``: several pixels per thread,
-staged lane records, a per-warp cull, the backward walking back from s_b
-with a batched warp exchange), which the wrappers launch, and the first
-design (the same names with ``_v1``: one thread per pixel, the backward
-replaying the forward), which only ``windowed_blend_{fwd,bwd}[_tf]_v1``
-launch, for chip_smoke.py's A/B.  The packed entries
-(``gs_blend_*_win_packed``) are instances of the Hopper design that carry
-T by multiplication; ``gs_blend_*_win_packed_v1``, which only
-``windowed_blend_{fwd,bwd}_packed_v1`` launch, are the first packed design
-(an expf of Q - l per kept pair, and in the backward an IEEE division),
-the yardstick of chip_smoke.py's A/B.
+The kernels (``gs_blend_*_win``, ``gs_blend_*_win_tf`` and
+``gs_blend_*_win_packed``) are instances of one design for Hopper: several
+pixels per thread, staged lane records, a per-warp cull, the backward
+walking back from s_b with a batched warp exchange; the packed instances
+carry T by multiplication.
 
 Every launch goes to ``torch.cuda.current_stream``, so a train step or a
 render captured as a CUDA graph (train/graph.py) records it.  The graph's
@@ -83,26 +77,28 @@ capture may make it again.
 
 from __future__ import annotations
 
-import ctypes
-import sys
 from typing import NamedTuple
 
 import torch
 
+from gaussiansplatting_tpu_torch.kernels import build
 from gaussiansplatting_tpu_torch.ops import packing
+from gaussiansplatting_tpu_torch.utils import tracing
 
-_P2_MAX_THREADS = 1024   # the first design: one CUDA thread per tile pixel
+_P2_MAX = 1024           # pixels of a tile (ts <= 32)
 _B_MAX = 1024            # staged window lanes
 _SMEM_MAX = 232_448      # bytes of shared memory a Hopper block can have
-# blend_bwd.cu's static per-warp arrays: kend (first design), warp_stop
-# (the Hopper T-floor instance)
-_V1_BWD_STATIC_SMEM = _TF_BWD_STATIC_SMEM = 128
+_TF_BWD_STATIC_SMEM = 128  # blend_bwd.cu's static warp_stop array (T-floor instance)
 _LANE_BYTES = 48         # blend_common.cuh's staged lane record
-# pixels per thread of the Hopper designs: the forward's kPixels and, for
-# its T-floor instance, kPixelsTF (blend_fwd.cu); the backward's kPixels in
-# both instances (blend_bwd.cu)
+# pixels per thread: the forward's kPixels and, for its T-floor instance,
+# kPixelsTF (blend_fwd.cu); the backward's kPixels in both instances
+# (blend_bwd.cu)
 _FWD_PIXELS = {False: 4, True: 2}
 _BWD_PIXELS = 2
+
+tracing.counted("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
+                "windowed_blend_bwd_tf", "windowed_blend_fwd_packed",
+                "windowed_blend_bwd_packed")
 
 
 def _check_no_grad(*tensors):
@@ -122,32 +118,25 @@ def _device_type(name, table):
 
 def windowed_blend_fwd(table, block_src, block_valid, block_tile, row0, block,
                        cfg_consts):
-    """Forward windowed blend: returns (out [NB, 4, P2], gid [NB, B] f32).
-
-    ``windowed_blend_fwd.launches`` counts CUDA kernel launches."""
+    """Forward windowed blend: returns (out [NB, 4, P2], gid [NB, B] f32)."""
     _check_payload("windowed_blend_fwd", cfg_consts, False)
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd", table) == "cuda":
-        return _launch_fwd_cuda(windowed_blend_fwd, table, block_src,
+        return _launch_fwd_cuda("windowed_blend_fwd", table, block_src,
                                 block_valid, block_tile, row0, block,
                                 cfg_consts)
     return windowed_blend_fwd_plain(table, block_src, block_valid, block_tile,
                                     row0, block, cfg_consts)
 
 
-windowed_blend_fwd.launches = 0
-
-
 def windowed_blend_fwd_tf(table, block_src, block_valid, block_tile, row0,
                           block, cfg_consts, logti, log_thr):
     """Forward windowed blend with the exact T-floor: returns (out [NB, 4,
-    P2] over each pixel's surviving lanes, stop [NB, P2] int32).
-
-    ``windowed_blend_fwd_tf.launches`` counts CUDA kernel launches."""
+    P2] over each pixel's surviving lanes, stop [NB, P2] int32)."""
     _check_payload("windowed_blend_fwd_tf", cfg_consts, False)
     _check_no_grad(table)
     if _device_type("windowed_blend_fwd_tf", table) == "cuda":
-        return _launch_fwd_cuda(windowed_blend_fwd_tf, table, block_src,
+        return _launch_fwd_cuda("windowed_blend_fwd_tf", table, block_src,
                                 block_valid, block_tile, row0, block,
                                 cfg_consts, logti, log_thr)
     return windowed_blend_fwd_tf_plain(table, block_src, block_valid,
@@ -155,26 +144,18 @@ def windowed_blend_fwd_tf(table, block_src, block_valid, block_tile, row0,
                                        logti, log_thr)
 
 
-windowed_blend_fwd_tf.launches = 0
-
-
 def windowed_blend_bwd(table, block_src, block_valid, block_tile, row0, block,
                        g, s_b, cfg_consts):
     """Backward windowed blend: the nine [NB, B] column cotangents (mx, my,
     a, b, c, op, r, g, b) of the forward's ``out`` given its cotangent ``g``
-    [NB, 4, P2] and its S_b ``s_b`` = ``out[:, 3]`` [NB, P2].
-
-    ``windowed_blend_bwd.launches`` counts CUDA kernel launches."""
+    [NB, 4, P2] and its S_b ``s_b`` = ``out[:, 3]`` [NB, P2]."""
     _check_payload("windowed_blend_bwd", cfg_consts, False)
     if _device_type("windowed_blend_bwd", table) == "cuda":
-        return _launch_bwd_cuda(windowed_blend_bwd, table, block_src,
+        return _launch_bwd_cuda("windowed_blend_bwd", table, block_src,
                                 block_valid, block_tile, row0, block, g,
                                 cfg_consts, s_b=s_b)
     return windowed_blend_bwd_plain(table, block_src, block_valid, block_tile,
                                     row0, block, g, s_b, cfg_consts)
-
-
-windowed_blend_bwd.launches = 0
 
 
 def windowed_blend_fwd_packed(table, block_src, block_valid, block_tile, row0,
@@ -182,19 +163,14 @@ def windowed_blend_fwd_packed(table, block_src, block_valid, block_tile, row0,
     """Forward windowed blend of the bf16 payload mode (an 8-row packed
     table; cfg_consts carries the (packed, pack_pos) flags): returns (out
     [NB, 4, P2], gid [NB, B], q_b [NB, P2]), q_b each pixel's bf16-rounded
-    log T total, which the packed backward takes.
-
-    ``windowed_blend_fwd_packed.launches`` counts CUDA kernel launches."""
+    log T total, which the packed backward takes."""
     _check_no_grad(table)
     _check_payload("windowed_blend_fwd_packed", cfg_consts, True)
     if _device_type("windowed_blend_fwd_packed", table) == "cuda":
-        return _launch_fwd_cuda(windowed_blend_fwd_packed, table, block_src,
+        return _launch_fwd_cuda("windowed_blend_fwd_packed", table, block_src,
                                 block_valid, block_tile, row0, block, cfg_consts)
     return windowed_blend_fwd_packed_plain(table, block_src, block_valid, block_tile,
                                            row0, block, cfg_consts)
-
-
-windowed_blend_fwd_packed.launches = 0
 
 
 def windowed_blend_bwd_packed(table, block_src, block_valid, block_tile, row0,
@@ -202,82 +178,14 @@ def windowed_blend_bwd_packed(table, block_src, block_valid, block_tile, row0,
     """Backward windowed blend of the bf16 payload mode: five [NB, B]
     bf16-pair rows (dmx, dmy), (da, db), (dc, dop), (dr, dg), (db, 0) of
     the packed forward's ``out`` given its cotangent ``g`` [NB, 4, P2] and
-    its ``q_b`` [NB, P2].
-
-    ``windowed_blend_bwd_packed.launches`` counts CUDA kernel launches."""
+    its ``q_b`` [NB, P2]."""
     _check_payload("windowed_blend_bwd_packed", cfg_consts, True)
     if _device_type("windowed_blend_bwd_packed", table) == "cuda":
-        return _launch_bwd_cuda(windowed_blend_bwd_packed, table, block_src,
+        return _launch_bwd_cuda("windowed_blend_bwd_packed", table, block_src,
                                 block_valid, block_tile, row0, block, g,
                                 cfg_consts, s_b=q_b)
     return windowed_blend_bwd_packed_plain(table, block_src, block_valid, block_tile,
                                            row0, block, g, q_b, cfg_consts)
-
-
-windowed_blend_bwd_packed.launches = 0
-
-
-def windowed_blend_fwd_packed_v1(table, block_src, block_valid, block_tile, row0,
-                                 block, cfg_consts):
-    """windowed_blend_fwd_packed through the first packed design
-    (``gs_blend_fwd_win_packed_v1``, an expf per kept pair), CUDA tensors
-    only: chip_smoke.py's A/B against the carried design.  ``.launches``
-    counts its launches."""
-    _check_no_grad(table)
-    _check_payload("windowed_blend_fwd_packed_v1", cfg_consts, True)
-    _check_cuda_only("windowed_blend_fwd_packed_v1", table, "windowed_blend_fwd_packed_plain")
-    return _launch_fwd_cuda(windowed_blend_fwd_packed_v1, table, block_src, block_valid,
-                            block_tile, row0, block, cfg_consts, v1=True)
-
-
-windowed_blend_fwd_packed_v1.launches = 0
-
-
-def windowed_blend_bwd_packed_v1(table, block_src, block_valid, block_tile, row0,
-                                 block, g, q_b, cfg_consts):
-    """windowed_blend_bwd_packed through the first packed design
-    (``gs_blend_bwd_win_packed_v1``, an expf and an IEEE division per kept
-    pair), CUDA tensors only: chip_smoke.py's A/B against the carried
-    design.  ``.launches`` counts its launches."""
-    _check_payload("windowed_blend_bwd_packed_v1", cfg_consts, True)
-    _check_cuda_only("windowed_blend_bwd_packed_v1", table, "windowed_blend_bwd_packed_plain")
-    return _launch_bwd_cuda(windowed_blend_bwd_packed_v1, table, block_src, block_valid,
-                            block_tile, row0, block, g, cfg_consts, s_b=q_b, v1=True)
-
-
-windowed_blend_bwd_packed_v1.launches = 0
-
-
-def windowed_blend_fwd_v1(table, block_src, block_valid, block_tile, row0,
-                          block, cfg_consts):
-    """windowed_blend_fwd through the first kernel design
-    (``gs_blend_fwd_win_v1``), CUDA tensors only: chip_smoke.py's A/B
-    against the Hopper design.  ``.launches`` counts its launches."""
-    _check_payload("windowed_blend_fwd_v1", cfg_consts, False)
-    _check_no_grad(table)
-    _check_cuda_only("windowed_blend_fwd_v1", table, "windowed_blend_fwd_plain")
-    return _launch_fwd_cuda(windowed_blend_fwd_v1, table, block_src,
-                            block_valid, block_tile, row0, block, cfg_consts,
-                            v1=True)
-
-
-windowed_blend_fwd_v1.launches = 0
-
-
-def windowed_blend_bwd_v1(table, block_src, block_valid, block_tile, row0,
-                          block, g, cfg_consts):
-    """windowed_blend_bwd through the first kernel design
-    (``gs_blend_bwd_win_v1``, which replays the forward instead of taking
-    s_b), CUDA tensors only: chip_smoke.py's A/B against the Hopper design.
-    ``.launches`` counts its launches."""
-    _check_payload("windowed_blend_bwd_v1", cfg_consts, False)
-    _check_cuda_only("windowed_blend_bwd_v1", table, "windowed_blend_bwd_plain")
-    return _launch_bwd_cuda(windowed_blend_bwd_v1, table, block_src,
-                            block_valid, block_tile, row0, block, g,
-                            cfg_consts, v1=True)
-
-
-windowed_blend_bwd_v1.launches = 0
 
 
 def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
@@ -287,76 +195,15 @@ def windowed_blend_bwd_tf(table, block_src, block_valid, block_tile, row0,
     and the T-floor forward's masked S_b ``s_b`` = ``out[:, 3]`` [NB, P2]
     and ``stop`` [NB, P2] int32, from which the kernel walks each pixel
     back.  ``logti`` and ``log_thr`` are the forward's; only the plain
-    version reads them (it replays the mask from them).
-
-    ``windowed_blend_bwd_tf.launches`` counts CUDA kernel launches."""
+    version reads them (it replays the mask from them)."""
     _check_payload("windowed_blend_bwd_tf", cfg_consts, False)
     if _device_type("windowed_blend_bwd_tf", table) == "cuda":
-        return _launch_bwd_cuda(windowed_blend_bwd_tf, table, block_src,
+        return _launch_bwd_cuda("windowed_blend_bwd_tf", table, block_src,
                                 block_valid, block_tile, row0, block, g,
                                 cfg_consts, s_b=s_b, stop=stop)
     return windowed_blend_bwd_tf_plain(table, block_src, block_valid,
                                        block_tile, row0, block, g, s_b, stop,
                                        cfg_consts, logti, log_thr)
-
-
-windowed_blend_bwd_tf.launches = 0
-
-
-def windowed_blend_fwd_tf_v1(table, block_src, block_valid, block_tile, row0,
-                             block, cfg_consts, logti, log_thr):
-    """windowed_blend_fwd_tf through the first kernel design
-    (``gs_blend_fwd_win_tf_v1``), CUDA tensors only: chip_smoke.py's A/B
-    against the Hopper design.  ``.launches`` counts its launches."""
-    _check_payload("windowed_blend_fwd_tf_v1", cfg_consts, False)
-    _check_no_grad(table)
-    _check_cuda_only("windowed_blend_fwd_tf_v1", table, "windowed_blend_fwd_tf_plain")
-    return _launch_fwd_cuda(windowed_blend_fwd_tf_v1, table, block_src,
-                            block_valid, block_tile, row0, block, cfg_consts,
-                            logti, log_thr, v1=True)
-
-
-windowed_blend_fwd_tf_v1.launches = 0
-
-
-def windowed_blend_bwd_tf_v1(table, block_src, block_valid, block_tile, row0,
-                             block, g, cfg_consts, logti, log_thr):
-    """windowed_blend_bwd_tf through the first kernel design
-    (``gs_blend_bwd_win_tf_v1``, which replays the termination from logti
-    instead of taking s_b and stop), CUDA tensors only: chip_smoke.py's
-    A/B.  ``.launches`` counts its launches."""
-    _check_payload("windowed_blend_bwd_tf_v1", cfg_consts, False)
-    _check_cuda_only("windowed_blend_bwd_tf_v1", table, "windowed_blend_bwd_tf_plain")
-    return _launch_bwd_cuda(windowed_blend_bwd_tf_v1, table, block_src,
-                            block_valid, block_tile, row0, block, g,
-                            cfg_consts, logti=logti, log_thr=log_thr, v1=True)
-
-
-windowed_blend_bwd_tf_v1.launches = 0
-
-
-# the wrappers whose ``.launches`` count their kernel's launches: the six of
-# the main paths and the first designs' six
-COUNTED = ("windowed_blend_fwd", "windowed_blend_fwd_tf", "windowed_blend_bwd",
-           "windowed_blend_bwd_tf", "windowed_blend_fwd_packed",
-           "windowed_blend_bwd_packed", "windowed_blend_fwd_v1", "windowed_blend_bwd_v1",
-           "windowed_blend_fwd_tf_v1", "windowed_blend_bwd_tf_v1",
-           "windowed_blend_fwd_packed_v1", "windowed_blend_bwd_packed_v1")
-
-
-def launch_counts() -> dict[str, int]:
-    """Each counted wrapper's ``.launches``, by name."""
-    mod = sys.modules[__name__]
-    return {name: getattr(mod, name).launches for name in COUNTED}
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (name -> launches) to the wrappers' counts: a CUDA
-    graph's replay runs the launches its capture recorded without running
-    the wrappers (train/graph.py)."""
-    mod = sys.modules[__name__]
-    for name, n in counts.items():
-        getattr(mod, name).launches += n
 
 
 def _check_payload(name, cfg_consts, packed):
@@ -367,11 +214,6 @@ def _check_payload(name, cfg_consts, packed):
             f"{name} takes {'packed' if packed else 'float32'} payload constants, got "
             f"{tuple(cfg_consts)}: the bf16 payload mode runs "
             f"windowed_blend_{{fwd,bwd}}_packed")
-
-
-def _check_cuda_only(name, table, plain):
-    if _device_type(name, table) != "cuda":
-        raise RuntimeError(f"{name} launches a CUDA kernel; the CPU runs {plain}")
 
 
 def _checked_launch_args(table, block_src, block_valid, block_tile, block,
@@ -395,8 +237,8 @@ def _checked_launch_args(table, block_src, block_valid, block_tile, block,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if not 0 < block <= _B_MAX:
         raise ValueError(f"pair_block must be in [1, {_B_MAX}], got {block}")
-    if ts * ts > _P2_MAX_THREADS:
-        raise ValueError(f"tile_size**2 must be <= {_P2_MAX_THREADS}, got {ts * ts}")
+    if ts * ts > _P2_MAX:
+        raise ValueError(f"tile_size**2 must be <= {_P2_MAX}, got {ts * ts}")
     tensors = tuple(x.contiguous() for x in (table, block_src, block_valid, block_tile))
     return tensors, (ts, tiles_x, block), (float(power_floor), float(alpha_cap),
                                            float(alpha_floor))
@@ -411,58 +253,41 @@ def _checked_plane(name, x, nb, p2, dev, dtype=torch.float32):
     return x.contiguous()
 
 
-def launch_geometry(ts, block, backward, v1=False, tfloor=False):
+def launch_geometry(ts, block, backward, tfloor=False):
     """(threads, shared-memory bytes) of one CUDA block of the blend at tile
     size ``ts`` and ``block`` lanes, as csrc/blend_fwd.cu and blend_bwd.cu
-    launch it.  The Hopper design: ts * ceil(ts / P) threads (P = 4 pixels
-    each in the forward, 2 in the backward; 2 in both T-floor instances,
-    ``tfloor``; the packed instances as the float32 ones) rounded up to
-    whole warps, 48 bytes per staged lane and, in
-    the backward, 9 floats per (warp, lane) of partial sums (plus, in the
-    T-floor instance, the static warp_stop array).  The first design
-    (``v1``): one thread per pixel, 9 floats per lane, and in the backward 9
-    per (warp, lane) plus the static kend array.  Raises where the block
-    would need more shared memory than a Hopper block can have (232,448
-    bytes)."""
+    launch it: ts * ceil(ts / P) threads (P = 4 pixels each in the forward,
+    2 in the backward; 2 in both T-floor instances, ``tfloor``; the packed
+    instances as the float32 ones) rounded up to whole warps, 48 bytes per
+    staged lane and, in the backward, 9 floats per (warp, lane) of partial
+    sums (plus, in the T-floor instance, the static warp_stop array).
+    Raises where the block would need more shared memory than a Hopper
+    block can have (232,448 bytes)."""
     ts, block = int(ts), int(block)
-    if v1:
-        threads = -(-ts * ts // 32) * 32
-        smem = (9 * block * 4 if not backward else
-                (1 + threads // 32) * 9 * block * 4 + _V1_BWD_STATIC_SMEM)
-    else:
-        pixels = _BWD_PIXELS if backward else _FWD_PIXELS[bool(tfloor)]
-        threads = -(-ts * -(-ts // pixels) // 32) * 32
-        smem = block * _LANE_BYTES
-        if backward:
-            smem += threads // 32 * 9 * block * 4 + (_TF_BWD_STATIC_SMEM if tfloor else 0)
+    pixels = _BWD_PIXELS if backward else _FWD_PIXELS[bool(tfloor)]
+    threads = -(-ts * -(-ts // pixels) // 32) * 32
+    smem = block * _LANE_BYTES
+    if backward:
+        smem += threads // 32 * 9 * block * 4 + (_TF_BWD_STATIC_SMEM if tfloor else 0)
     if smem > _SMEM_MAX:
         raise ValueError(f"pair_block {block} at tile_size {ts} needs {smem} "
                          f"bytes of shared memory (at most {_SMEM_MAX})")
     return threads, smem
 
 
-def _c_fn(lib, name, pointers_before, ints, floats, pointers_after):
-    """ctypes prototype: pointers, long long EP, pointers, ints, floats,
-    pointers, stream; returns int."""
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = ([vp, ctypes.c_longlong] + [vp] * pointers_before
-                       + [ctypes.c_int] * ints + [ctypes.c_float] * floats
-                       + [vp] * pointers_after + [vp])
-        fn.restype = ctypes.c_int
-    return fn
+def _signature(inputs, ints, floats, outputs) -> str:
+    """build.launch's signature of a blend entry: the table and its row
+    length EP, the window arrays, then ``inputs`` more pointers, the ints,
+    the floats and ``outputs`` pointers."""
+    return "pLppp" + "p" * inputs + "i" * ints + "f" * floats + "p" * outputs
 
 
-def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
-                     block, cfg_consts, logti=None, log_thr=None, v1=False):
+def _launch_fwd_cuda(name, table, block_src, block_valid, block_tile, row0,
+                     block, cfg_consts, logti=None, log_thr=None):
     """gs_blend_fwd_win, which returns (out, gid), or, when ``logti`` is
-    given, gs_blend_fwd_win_tf, which returns (out, stop); with ``v1``
-    their first design; with packed constants gs_blend_fwd_win_packed
-    (``v1``: gs_blend_fwd_win_packed_v1), which returns (out, gid, q_b).
-    ``counter`` is the wrapper whose count a launch adds to."""
-    from gaussiansplatting_tpu_torch.kernels import build
-
+    given, gs_blend_fwd_win_tf, which returns (out, stop); with packed
+    constants gs_blend_fwd_win_packed, which returns (out, gid, q_b).
+    ``name``: the wrapper, under which the launch counts."""
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
         _checked_launch_args(table, block_src, block_valid, block_tile, block,
                              cfg_consts))
@@ -470,58 +295,36 @@ def _launch_fwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     dev = table.device
     tf = logti is not None
     packed, pack_pos = payload_flags(cfg_consts)
-    # the first packed design is an instance of the Hopper design
-    launch_geometry(ts, block, False, v1 and not packed, tf)
+    launch_geometry(ts, block, False, tf)
+    ints = (nb, block, ts, tiles_x, int(row0))
+    inputs = ()
     out = torch.empty((nb, 4, ts * ts), dtype=torch.float32, device=dev)
     if packed:
-        second = torch.empty((nb, block), dtype=torch.float32, device=dev)
-        q_b = torch.empty((nb, ts * ts), dtype=torch.float32, device=dev)
-        if nb == 0:
-            return out, second, q_b
+        outs = (out, torch.empty((nb, block), dtype=torch.float32, device=dev),
+                torch.empty((nb, ts * ts), dtype=torch.float32, device=dev))
+        ints += (int(pack_pos),)
     elif tf:
-        logti = _checked_plane("logti", logti, nb, ts * ts, dev)
-        second = torch.empty((nb, ts * ts), dtype=torch.int32, device=dev)
+        inputs = (_checked_plane("logti", logti, nb, ts * ts, dev),)
+        outs = (out, torch.empty((nb, ts * ts), dtype=torch.int32, device=dev))
+        floats += (float(log_thr),)
     else:
-        second = torch.empty((nb, block), dtype=torch.float32, device=dev)
-    if nb == 0:
-        return out, second
-    lib = build.load_library("blend_fwd")
-    name = ("gs_blend_fwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
-            + ("_v1" if v1 else ""))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
-               block_valid.data_ptr(), block_tile.data_ptr())
-    ints = (nb, block, ts, tiles_x, int(row0))
-    with torch.cuda.device(dev):
-        if packed:
-            err = _c_fn(lib, name, 3, 6, 3, 3)(
-                *windows, *ints, int(pack_pos), *floats, out.data_ptr(), second.data_ptr(),
-                q_b.data_ptr(), stream)
-        elif tf:
-            err = _c_fn(lib, name, 4, 5, 4, 2)(
-                *windows, logti.data_ptr(), *ints, *floats, float(log_thr),
-                out.data_ptr(), second.data_ptr(), stream)
-        else:
-            err = _c_fn(lib, name, 3, 5, 3, 2)(
-                *windows, *ints, *floats, out.data_ptr(), second.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    counter.launches += 1
-    return (out, second, q_b) if packed else (out, second)
+        outs = (out, torch.empty((nb, block), dtype=torch.float32, device=dev))
+    if nb > 0:
+        symbol = "gs_blend_fwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
+        build.launch("blend_fwd", symbol, _signature(len(inputs), len(ints), len(floats),
+                                                     len(outs)), dev,
+                     table, table.shape[1], block_src, block_valid, block_tile, *inputs,
+                     *ints, *floats, *outs, count=name)
+    return outs
 
 
-def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
-                     block, g, cfg_consts, s_b=None, stop=None, logti=None,
-                     log_thr=None, v1=False):
+def _launch_bwd_cuda(name, table, block_src, block_valid, block_tile, row0,
+                     block, g, cfg_consts, s_b, stop=None):
     """gs_blend_bwd_win given the forward's ``s_b``, or gs_blend_bwd_win_tf
-    given the T-floor forward's ``s_b`` and ``stop``; with ``v1`` their
-    first design, gs_blend_bwd_win_v1 (no s_b) or, given ``logti`` and
-    ``log_thr``, gs_blend_bwd_win_tf_v1; with packed constants
-    gs_blend_bwd_win_packed (``v1``: gs_blend_bwd_win_packed_v1), given the
-    packed forward's q_b as ``s_b``, which returns five packed rows.
-    ``counter`` is the wrapper whose count a launch adds to."""
-    from gaussiansplatting_tpu_torch.kernels import build
-
+    given the T-floor forward's ``s_b`` and ``stop``; with packed constants
+    gs_blend_bwd_win_packed, given the packed forward's q_b as ``s_b``,
+    which returns five packed rows.  ``name``: the wrapper, under which the
+    launch counts."""
     (table, block_src, block_valid, block_tile), (ts, tiles_x, block), floats = (
         _checked_launch_args(table, block_src, block_valid, block_tile, block,
                              cfg_consts))
@@ -531,37 +334,22 @@ def _launch_bwd_cuda(counter, table, block_src, block_valid, block_tile, row0,
     if g.dtype != torch.float32 or g.shape != (nb, 4, p2) or g.device != dev:
         raise ValueError(f"g must be [{nb}, 4, {p2}] float32 on {dev}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    tf = stop is not None or logti is not None
+    tf = stop is not None
     packed, pack_pos = payload_flags(cfg_consts)
-    launch_geometry(ts, block, True, v1 and not packed, tf)
-    g = g.contiguous()
-    # the pointers each entry takes after g, its ints and float constants
+    launch_geometry(ts, block, True, tf)
+    # the pointers each entry takes after the window arrays, its ints and floats
+    inputs = (g.contiguous(), _checked_plane("q_b" if packed else "s_b", s_b, nb, p2, dev))
     ints = (nb, block, ts, tiles_x, int(row0))
     if packed:
-        planes = (_checked_plane("q_b", s_b, nb, p2, dev),)
         ints += (int(pack_pos),)
-    elif v1:
-        planes = (_checked_plane("logti", logti, nb, p2, dev),) if tf else ()
-        floats = floats + ((float(log_thr),) if tf else ())
-    else:
-        planes = (_checked_plane("s_b", s_b, nb, p2, dev),)
-        if tf:
-            planes += (_checked_plane("stop", stop, nb, p2, dev, torch.int32),)
+    elif tf:
+        inputs += (_checked_plane("stop", stop, nb, p2, dev, torch.int32),)
     dcols = torch.empty((5 if packed else 9, nb, block), dtype=torch.float32, device=dev)
     if nb > 0:
-        lib = build.load_library("blend_bwd")
-        name = ("gs_blend_bwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
-                + ("_v1" if v1 else ""))
-        windows = (table.data_ptr(), table.shape[1], block_src.data_ptr(),
-                   block_valid.data_ptr(), block_tile.data_ptr(), g.data_ptr())
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = _c_fn(lib, name, 4 + len(planes), len(ints), len(floats), 1)(
-                *windows, *(x.data_ptr() for x in planes), *ints, *floats,
-                dcols.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        counter.launches += 1
+        symbol = "gs_blend_bwd_win" + ("_tf" if tf else "") + ("_packed" if packed else "")
+        build.launch("blend_bwd", symbol, _signature(len(inputs), len(ints), len(floats), 1),
+                     dev, table, table.shape[1], block_src, block_valid, block_tile, *inputs,
+                     *ints, *floats, dcols, count=name)
     return tuple(dcols.unbind(0))
 
 

@@ -27,7 +27,8 @@ NB blocks of P2 = ts**2 pixels over T = tiles_x * tiles_y tiles:
            a float64 suffix, exactly 0 where every later term is.  Without
            out_tf, out's row 3 takes both; with it, out's colour rows are 0.
 
-On a CUDA tensor each wrapper launches a kernel of csrc/compose.cu; on a
+On a CUDA tensor each wrapper launches a kernel of csrc/compose.cu and
+counts the launch under its own name in utils/tracing.py's registry; on a
 CPU tensor it runs the plain version.  Nothing falls back from one to the
 other.  The kernels leave padding blocks' rows of logti and of the
 cotangents unwritten (csrc/compose.cu says why no reader needs them); the
@@ -40,52 +41,40 @@ render captured as a CUDA graph (train/graph.py) records it.
 
 from __future__ import annotations
 
-import ctypes
-import sys
-
 import torch
 
+from gaussiansplatting_tpu_torch.kernels import build
 from gaussiansplatting_tpu_torch.ops import pairs as pairs_mod
+from gaussiansplatting_tpu_torch.utils import tracing
+
+tracing.counted("compose_fwd", "compose_logti", "compose_bwd")
 
 
 def compose_fwd(out, out_tf, seg, consts):
-    """The image [rows, width, 3] f32 (see the module docstring).
-
-    ``compose_fwd.launches`` counts CUDA kernel launches."""
+    """The image [rows, width, 3] f32 (see the module docstring)."""
     nb, p2 = _check(out, out_tf, seg, consts)
     if out.device.type == "cuda":
         img = torch.empty((consts[4], consts[3], 3), dtype=torch.float32, device=out.device)
-        _launch("gs_compose_fwd", compose_fwd, consts, nb,
-                (out, out_tf, seg), (img, None))
+        _launch("gs_compose_fwd", "compose_fwd", consts, nb, (out, out_tf, seg), (img, None))
         return img
     return compose_fwd_plain(out, out_tf, seg, consts)
-
-
-compose_fwd.launches = 0
 
 
 def compose_logti(out, seg, consts):
     """Each block's incoming log T [NB, P2] f32 from ``out``'s S_b: the
     T-floor pass's input.  On the card the forward kernel in its logti
-    mode; padding blocks' rows are left unwritten there.
-
-    ``compose_logti.launches`` counts CUDA kernel launches."""
+    mode; padding blocks' rows are left unwritten there."""
     nb, p2 = _check(out, None, seg, consts)
     if out.device.type == "cuda":
         logti = torch.empty((nb, p2), dtype=torch.float32, device=out.device)
-        _launch("gs_compose_fwd", compose_logti, consts, nb, (out, None, seg), (None, logti))
+        _launch("gs_compose_fwd", "compose_logti", consts, nb, (out, None, seg), (None, logti))
         return logti
     return incoming_log_t(out[:, 3], seg, _num_tiles(consts))
 
 
-compose_logti.launches = 0
-
-
 def compose_bwd(g, out, out_tf, seg, consts):
     """(d_out, d_out_tf) [NB, 4, P2] f32 from the image's cotangent ``g``
-    [rows, width, 3]; d_out_tf is None without ``out_tf``.
-
-    ``compose_bwd.launches`` counts CUDA kernel launches."""
+    [rows, width, 3]; d_out_tf is None without ``out_tf``."""
     nb, p2 = _check(out, out_tf, seg, consts)
     g = g.to(torch.float32).contiguous()
     if g.shape != (consts[4], consts[3], 3) or g.device != out.device:
@@ -94,31 +83,10 @@ def compose_bwd(g, out, out_tf, seg, consts):
     if out.device.type == "cuda":
         d_out = torch.empty((nb, 4, p2), dtype=torch.float32, device=out.device)
         d_tf = None if out_tf is None else torch.empty_like(d_out)
-        _launch("gs_compose_bwd", compose_bwd, consts, nb, (g, out, out_tf, seg),
+        _launch("gs_compose_bwd", "compose_bwd", consts, nb, (g, out, out_tf, seg),
                 (d_out, d_tf))
         return d_out, d_tf
     return compose_bwd_plain(g, out, out_tf, seg, consts)
-
-
-compose_bwd.launches = 0
-
-# the wrappers whose ``.launches`` count their kernel's launches
-COUNTED = ("compose_fwd", "compose_logti", "compose_bwd")
-
-
-def launch_counts() -> dict[str, int]:
-    """Each counted wrapper's ``.launches``, by name."""
-    mod = sys.modules[__name__]
-    return {name: getattr(mod, name).launches for name in COUNTED}
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (name -> launches) to the wrappers' counts: a CUDA
-    graph's replay runs the launches its capture recorded without running
-    the wrappers (train/graph.py)."""
-    mod = sys.modules[__name__]
-    for name, n in counts.items():
-        getattr(mod, name).launches += n
 
 
 def _num_tiles(consts) -> int:
@@ -143,36 +111,14 @@ def _check(out, out_tf, seg, consts):
     return nb, p2
 
 
-_PROTOTYPES = {   # pointers in, ints, the background, pointers out, the stream
-    "gs_compose_fwd": (3, 6, 2),
-    "gs_compose_bwd": (4, 6, 2),
-}
-
-
-def _launch(name, counter, consts, nb, inputs, outputs):
-    """One launch of ``name`` (csrc/compose.cu) on the current stream; None
-    pointers pass as null.  ``counter`` is the wrapper whose count it adds
-    to."""
-    from gaussiansplatting_tpu_torch.kernels import build
-
+def _launch(symbol, name, consts, nb, inputs, outputs):
+    """One launch of ``symbol`` (csrc/compose.cu: the pointers in, six ints,
+    the background, the pointers out) on the current stream, counted under
+    the wrapper ``name``; None pointers pass as null."""
     ts, tiles_x, tiles_y, width, rows, bg = consts
-    lib = build.load_library("compose")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        n_in, n_int, n_out = _PROTOTYPES[name]
-        vp = ctypes.c_void_p
-        fn.argtypes = ([vp] * n_in + [ctypes.c_int] * n_int + [ctypes.c_float]
-                       + [vp] * (n_out + 1))
-        fn.restype = ctypes.c_int
-    dev = inputs[-1].device
-    ptrs = [None if t is None else t.data_ptr() for t in (*inputs, *outputs)]
     ints = (nb, int(ts), int(tiles_x), int(tiles_x) * int(tiles_y), int(width), int(rows))
-    with torch.cuda.device(dev):
-        err = fn(*ptrs[:len(inputs)], *ints, float(bg), *ptrs[len(inputs):],
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    counter.launches += 1
+    build.launch("compose", symbol, "p" * len(inputs) + "iiiiiif" + "p" * len(outputs),
+                 inputs[-1].device, *inputs, *ints, float(bg), *outputs, count=name)
 
 
 # -- plain versions: the CPU path and the kernels' oracle

@@ -15,6 +15,7 @@ from gaussiansplatting_tpu_torch.config import RasterConfig
 from gaussiansplatting_tpu_torch.core import transforms as T
 from gaussiansplatting_tpu_torch.core.camera import Camera
 from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
+from gaussiansplatting_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -39,26 +40,15 @@ def num_tiles(size: int, tile: int) -> int:
 
 
 # frames rendered from an SH row wider than band 1 (a configured degree of
-# 2 or 3), by the degree they rendered at: "sh.degree_<d>".  Counted where
-# the frame is built, so a CUDA graph's capture records it and each replay
-# adds it as it adds the blend kernels' launches (train/graph.py).
-COUNTED = tuple(f"sh.degree_{d}" for d in range(T.MAX_SH_DEGREE + 1))
-_frames = dict.fromkeys(COUNTED, 0)
-
-
-def launch_counts() -> dict[str, int]:
-    """Frames by SH degree (``COUNTED``), the counter ``sh.degree_counts``."""
-    return dict(_frames)
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (name -> frames) to the counts."""
-    for name, n in counts.items():
-        _frames[name] += n
+# 2 or 3), by the degree they rendered at: "sh.degree_<d>" in
+# utils/tracing.py's registry.  Counted where the frame is built, so a CUDA
+# graph's capture records it and each replay adds it as it adds the kernels'
+# launches (train/graph.py).
+tracing.counted(*(f"sh.degree_{d}" for d in range(T.MAX_SH_DEGREE + 1)))
 
 
 def count_sh_frame(degree: int) -> None:
-    _frames[f"sh.degree_{degree}"] += 1
+    tracing.add_launches({f"sh.degree_{degree}": 1})
 
 
 def sh_color(params: GaussianParams, camera: Camera, cfg: RasterConfig) -> torch.Tensor:

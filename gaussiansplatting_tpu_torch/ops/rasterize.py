@@ -132,7 +132,7 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     capacity plan (rasterize.py:287-363) of tile rows [row0, row0 +
     tiles_y) (default: the whole image).  An SH row wider than band 1
     (degree 2 or 3) counts the frame by its degree
-    (projection.COUNTED) and, at a degree of 1 or more, evaluates the
+    (``sh.degree_<d>``, projection.count_sh_frame) and, at a degree of 1 or more, evaluates the
     colour first, between the marks ``sh`` and ``projection``, its
     cotangent marked ``sh_bwd`` (the last of the backward, after
     ``projection_bwd``)."""

@@ -18,8 +18,8 @@ Gaussians (``_expand_and_sort1``) and aligned blocks to tiles
 (``_block_tiles``), so every render, step and T-floor graph runs it.
 
 On a CUDA tensor the wrapper launches csrc/runs.cu (a memset, a seed kernel
-and a device-wide max-scan, in int32); on a CPU tensor it runs the plain
-version, the JAX form: a scatter-amax of run ids at the live runs' starts,
+and a device-wide max-scan, in int32) and counts the call under ``run_ids``
+in utils/tracing.py's registry; on a CPU tensor it runs the plain version, the JAX form: a scatter-amax of run ids at the live runs' starts,
 then a running max.  Nothing falls back from one to the other.  Max over
 integers is exact, so the two agree bit for bit.
 
@@ -30,21 +30,21 @@ captured as a CUDA graph (train/graph.py) records them.
 
 from __future__ import annotations
 
-import ctypes
-import sys
-
 import torch
+
+from gaussiansplatting_tpu_torch.kernels import build
+from gaussiansplatting_tpu_torch.utils import tracing
 
 _I32 = torch.int32
 # slots a launch may take: the kernels index in int32, up to a tile past S
 MAX_SLOTS = 2**31 - 2**14
 
+tracing.counted("run_ids")
+
 
 def run_ids(starts: torch.Tensor, run_live: torch.Tensor, num_slots: int) -> torch.Tensor:
     """Each slot's covering run id [num_slots] int32 (see the module
-    docstring).
-
-    ``run_ids.launches`` counts CUDA launches of the kernel pair."""
+    docstring)."""
     num_slots = int(num_slots)
     if (starts.dim() != 1 or starts.dtype != _I32 or run_live.shape != starts.shape
             or run_live.dtype != torch.bool or run_live.device != starts.device):
@@ -58,49 +58,14 @@ def run_ids(starts: torch.Tensor, run_live: torch.Tensor, num_slots: int) -> tor
     return run_ids_plain(starts, run_live, num_slots)
 
 
-run_ids.launches = 0
-
-# the wrappers whose ``.launches`` count their kernels' launches
-COUNTED = ("run_ids",)
-
-
-def launch_counts() -> dict[str, int]:
-    """Each counted wrapper's ``.launches``, by name."""
-    mod = sys.modules[__name__]
-    return {name: getattr(mod, name).launches for name in COUNTED}
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (name -> launches) to the wrappers' counts: a CUDA
-    graph's replay runs the launches its capture recorded without running
-    the wrappers (train/graph.py)."""
-    mod = sys.modules[__name__]
-    for name, n in counts.items():
-        getattr(mod, name).launches += n
-
-
 def _launch(starts, run_live, num_slots):
     """One call of ``gs_run_ids`` (csrc/runs.cu) on the current stream: the
     result is the first ``num_slots`` ints of a buffer whose tail holds the
     tiles' maxima."""
-    from gaussiansplatting_tpu_torch.kernels import build
-
-    lib = build.load_library("runs")
-    if lib.gs_run_ids.argtypes is None:
-        vp = ctypes.c_void_p
-        lib.gs_run_ids_workspace.argtypes = [ctypes.c_int]
-        lib.gs_run_ids_workspace.restype = ctypes.c_int
-        lib.gs_run_ids.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
-        lib.gs_run_ids.restype = ctypes.c_int
-    dev = starts.device
-    buf = torch.empty(num_slots + lib.gs_run_ids_workspace(num_slots), dtype=_I32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gs_run_ids(starts.data_ptr(), run_live.data_ptr(), starts.shape[0],
-                             num_slots, buf.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gs_run_ids launch failed: CUDA error {err}")
-    run_ids.launches += 1
+    workspace = build.entry("runs", "gs_run_ids_workspace", "i")(num_slots)
+    buf = torch.empty(num_slots + workspace, dtype=_I32, device=starts.device)
+    build.launch("runs", "gs_run_ids", "ppiip", starts.device, starts, run_live,
+                 starts.shape[0], num_slots, buf, count="run_ids")
     return buf[:num_slots]
 
 

@@ -56,12 +56,11 @@ def main(argv=None) -> int:
     from gaussiansplatting_tpu_torch.config import Config, LossConfig, RasterConfig
     from gaussiansplatting_tpu_torch.core import camera as camera_mod
     from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
-    from gaussiansplatting_tpu_torch.ops import blend as blend_mod
     from gaussiansplatting_tpu_torch.tools.render import _device
     from gaussiansplatting_tpu_torch.train import state as state_mod
     from gaussiansplatting_tpu_torch.train.graph import render_frame
     from gaussiansplatting_tpu_torch.train.trainer import train_step
-    from gaussiansplatting_tpu_torch.utils import synthetic
+    from gaussiansplatting_tpu_torch.utils import synthetic, tracing
 
     device = _device(args.device)
     cfg = Config(
@@ -126,8 +125,7 @@ def main(argv=None) -> int:
             vals.append(float(-10.0 * torch.log10(torch.clamp(mse, min=1e-10))))
         return sum(vals) / max(len(vals), 1)
 
-    fwd0 = blend_mod.windowed_blend_fwd.launches
-    bwd0 = blend_mod.windowed_blend_bwd.launches
+    launches0 = tracing.launch_counts()
     psnr0 = mean_psnr(st, cams, gts)
     # warmup step
     st, _ = train_step(st, cams[0], gts[0], cfg, args.iters)
@@ -172,8 +170,10 @@ def main(argv=None) -> int:
                     "overflow_steps": overflow_steps,
                     "device": (torch.cuda.get_device_name(device)
                                if device.type == "cuda" else str(device)),
-                    "blend_fwd_launches": blend_mod.windowed_blend_fwd.launches - fwd0,
-                    "blend_bwd_launches": blend_mod.windowed_blend_bwd.launches - bwd0,
+                    "blend_fwd_launches": (tracing.launch_counts()["windowed_blend_fwd"]
+                                           - launches0["windowed_blend_fwd"]),
+                    "blend_bwd_launches": (tracing.launch_counts()["windowed_blend_bwd"]
+                                           - launches0["windowed_blend_bwd"]),
                 },
             }
         ),

@@ -73,8 +73,8 @@ def main(argv=None) -> int:
     from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
     from gaussiansplatting_tpu_torch.io import images as images_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
-    from gaussiansplatting_tpu_torch.ops import blend as blend_mod
     from gaussiansplatting_tpu_torch.train.graph import render_frame
+    from gaussiansplatting_tpu_torch.utils import tracing
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
     device = _device(args.device)
@@ -146,7 +146,7 @@ def main(argv=None) -> int:
             )
             names.append(f"orbit_{i:03d}")
 
-    launches0 = blend_mod.windowed_blend_fwd.launches
+    launches0 = tracing.launch_counts()["windowed_blend_fwd"]
     t0 = time.time()
     frames = []
     for cam, name in zip(cameras, names):
@@ -177,7 +177,7 @@ def main(argv=None) -> int:
     dt = time.time() - t0
     log.log("done", views=len(cameras), seconds=round(dt, 2),
             views_per_sec=round(len(cameras) / max(dt, 1e-9), 3),
-            blend_kernel_launches=blend_mod.windowed_blend_fwd.launches - launches0)
+            blend_kernel_launches=tracing.launch_counts()["windowed_blend_fwd"] - launches0)
     return 0
 
 

@@ -18,10 +18,11 @@ opacity reset every second one, capacity growth and chunks of LOOP_CHUNK
 replays, so the window holds the loop's spans, its captures and its events.
 ``--sh-degree`` 2 or 3 gives the scene an SH row of that degree (the rest
 bands drawn N(0, 0.1^2)), so the stages hold ``sh`` and ``sh_bwd``; the
-traced frames by SH degree (ops/projection.py's counter,
-``sh.degree_counts``) are printed, and so are the traced window's kernel
-launches by counted wrapper (train/graph.py's ``launch_counts``: the blends',
-compose's and ``run_ids``, the slots-to-runs pair, two a frame).
+traced frames by SH degree (the ``sh.degree_<d>`` counters of
+utils/tracing.py's registry, ``sh.degree_counts``) are printed, and so are
+the traced window's kernel launches by counted wrapper (the registry's other
+counters: the blends', compose's and ``run_ids``, the slots-to-runs pair,
+two a frame).
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
@@ -53,6 +54,7 @@ import time
 # chrome-trace categories of work on the card
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TIMELINE = "timeline.json"
+SH_FRAMES = "sh.degree_"   # the registry's counters of frames by SH degree
 # --loop: a pair read and a densify event every LOOP_EVENTS iterations, an
 # opacity reset every second one, chunks of LOOP_CHUNK replays
 LOOP_EVENTS = 10
@@ -106,8 +108,7 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
     loop)."""
     import torch
 
-    from gaussiansplatting_tpu_torch.ops import projection
-    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import trainer
     from gaussiansplatting_tpu_torch.utils import tracing
 
     device = torch.device(device)
@@ -142,16 +143,15 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     tracing.clear()
-    before = projection.launch_counts()
-    launched = graph.launch_counts()
+    before = tracing.launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         lo = time.time_ns()
         run(st)
         _sync(device)
         hi = time.time_ns()
-    frames = {k: n - before[k] for k, n in projection.launch_counts().items() if n != before[k]}
-    launched = {k: n - launched[k] for k, n in graph.launch_counts().items()
-                if n != launched[k] and k not in projection.COUNTED}
+    counted = {k: n - before[k] for k, n in tracing.launch_counts().items() if n != before[k]}
+    frames = {k: n for k, n in counted.items() if k.startswith(SH_FRAMES)}
+    launched = {k: n for k, n in counted.items() if not k.startswith(SH_FRAMES)}
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     ops = []

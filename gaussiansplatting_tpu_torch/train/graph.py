@@ -47,9 +47,9 @@ libraries, creates cuBLAS's handle for the stream and fills the cached SSIM
 band matrices), then the capture of one call on that stream, into the
 graph's own memory pool.  A capture that fails raises, naming the op where
 it failed; nothing falls back to eager calls.  The capture records the
-blend, compose and slots-to-runs kernels' launches without running them: the
-counters of ops.blend, ops.compose and ops.runs (``launch_counts``, with
-ops.projection's frames by SH degree) are set back after it, and every
+hand-written kernels' launches without running them: the counters of
+utils/tracing.py's registry (``launch_counts``: the kernels' launches by
+wrapper and the frames by SH degree) are set back after it, and every
 replay adds what the capture recorded (``add_launches``).  The capture mode
 is ``thread_local``: the viewer captures in an HTTP handler thread while
 other handler threads build their cameras on the card, and in torch's
@@ -93,7 +93,7 @@ import torch
 
 from gaussiansplatting_tpu_torch.core.gaussians import FIELDS, GaussianParams
 from gaussiansplatting_tpu_torch.density.control import DensityAccum
-from gaussiansplatting_tpu_torch.ops import blend, compose, projection, rasterize, runs
+from gaussiansplatting_tpu_torch.ops import rasterize
 from gaussiansplatting_tpu_torch.train.optimizer import TRAINABLE, AdamState
 from gaussiansplatting_tpu_torch.train.state import TrainState
 from gaussiansplatting_tpu_torch.utils import tracing
@@ -118,22 +118,11 @@ _ACCUM = ("grad_accum", "grad_count", "pos_grad_accum")
 counts: collections.Counter = collections.Counter()
 
 
-# the modules whose wrappers count their kernels' launches, and
-# ops.projection's frames by SH degree (counted alike)
-_COUNTERS = (blend, compose, runs, projection)
-
-
-def launch_counts() -> dict[str, int]:
-    """Every counted kernel wrapper's launches, by name: ops.blend's,
-    ops.compose's and ops.runs'; and ops.projection's frames by SH degree
-    (``sh.degree_<d>``)."""
-    return {k: n for mod in _COUNTERS for k, n in mod.launch_counts().items()}
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    """Add ``counts`` (name -> launches) to the wrappers' counts."""
-    for mod in _COUNTERS:
-        mod.add_launches({k: n for k, n in counts.items() if k in mod.COUNTED})
+# every counted kernel wrapper's launches and the frames by SH degree
+# (``sh.degree_<d>``), by name, and adding to them: utils/tracing.py's
+# registry
+launch_counts = tracing.launch_counts
+add_launches = tracing.add_launches
 
 
 def step_key(state: TrainState, camera, cfg) -> tuple:

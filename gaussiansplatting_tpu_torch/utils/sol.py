@@ -88,9 +88,7 @@ def blend_work(args, logti=None, log_thr=0.0, chunk=128):
     where the pixel keeps a lane (with logti: a surviving one, stop > 0),
     ``bwd_pixels``; ``bwd_blocks`` counts the blocks whose lanes it reads (a
     live lane; with logti, a stop > 0).  Without logti, also the (warp,
-    lane) pairs that enter the first design's backward shuffle tree (a warp
-    = 32 consecutive pixels, lanes below block_valid) and the (warp, batch
-    of 4 lanes) exchanges of the Hopper backward.  Raises if a kept pair
+    batch of 4 lanes) exchanges of the backward.  Raises if a kept pair
     lies in a culled (warp, lane) pair."""
     import torch
     import torch.nn.functional as F
@@ -104,8 +102,8 @@ def blend_work(args, logti=None, log_thr=0.0, chunk=128):
         raise ValueError(f"blend_work counts 16 x 16 tiles, got tile_size {ts}")
     layouts = {d: p2 // blend.launch_geometry(ts, block, d == "bwd", tfloor=logti is not None)[0]
                for d in ("fwd", "bwd")}
-    w = dict.fromkeys(("live_fwd", "live_bwd", "bwd_blocks", "bwd_pixels", "kept", "tree_v1",
-                       "lanes_v1", "exchanges", "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
+    w = dict.fromkeys(("live_fwd", "live_bwd", "bwd_blocks", "bwd_pixels", "kept", "exchanges",
+                       "batches") + tuple(f"{c}_{d}" for c in ("pairs", "culled", "tests")
                                           for d in layouts), 0)
     w["pixels"] = layouts
     for k0 in range(0, nb, chunk):
@@ -154,8 +152,6 @@ def blend_work(args, logti=None, log_thr=0.0, chunk=128):
             testers = (lane < need[name][:, :, None]).reshape(k, warps, -1, b).sum(2)
             w[f"tests_{name}"] += int((tested * testers).sum())
         if logti is None:
-            w["tree_v1"] += int(kept.reshape(k, 8, 32, b).any(2).sum())
-            w["lanes_v1"] += 8 * int(nv.sum())
             warps = p2 // (32 * layouts["bwd"])
             parts = F.pad(kept.reshape(k, warps, -1, b).any(2), (0, -b % 4))
             w["exchanges"] += int(parts.reshape(k, warps, -1, 4).any(3).sum())

@@ -1,4 +1,5 @@
-"""The port's tracing: stage marks on the device and host spans, on one clock.
+"""The port's tracing: stage marks on the device and host spans, on one
+clock, and the launch counts of its hand-written kernels.
 
 **Stage marks.**  ``mark(stage, where)`` launches the empty CUDA kernel
 ``gs_mark_<stage>`` (csrc/marks.cu) on the current stream of ``where``'s
@@ -52,12 +53,24 @@ file: train/graph.py (``graph.render_frame``, ``graph.run_steps`` and
 ``sharded.all_reduce``).  Their readers: the benchmark's per-layer metrics
 (gsbench/portspans.py) and tools/trace.py, which prints the idle time by
 span and by request (``--loop`` traces the training loop's events).
+
+**Launch counts.**  One registry of counters by name: each hand-written
+kernel's launches under its wrapper's name (ops/blend.py's
+``windowed_blend_*``, ops/compose.py's ``compose_fwd``, ``compose_logti``
+and ``compose_bwd``, ops/runs.py's ``run_ids``), to which
+kernels/build.py's ``launch`` adds one a launch, and the frames by SH
+degree (``sh.degree_<d>``, ops/projection.py).  A module registers its
+names at 0 when it is imported (``counted``), so ``launch_counts()`` holds
+every name before any launch; the CPU's plain versions count nothing.  A
+CUDA graph's capture records the launches without running them, so
+train/graph.py sets the counts back after a capture and adds what it
+recorded on every replay (``add_launches``).  The stage marks are not
+counted.
 """
 
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import itertools
 import threading
 import time
@@ -79,19 +92,6 @@ MARK_PREFIX = "gs_mark_"
 MAX_SPANS = 1 << 17
 
 _STAGE_SET = frozenset(STAGES)
-_launchers: dict = {}
-
-
-def _launcher(stage: str):
-    fn = _launchers.get(stage)
-    if fn is None:
-        from gaussiansplatting_tpu_torch.kernels import build
-
-        fn = getattr(build.load_library("marks"), f"{MARK_PREFIX}{stage}_launch")
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launchers[stage] = fn
-    return fn
 
 
 def mark(stage: str, where) -> None:
@@ -102,11 +102,9 @@ def mark(stage: str, where) -> None:
     dev = where.device if isinstance(where, torch.Tensor) else torch.device(where)
     if dev.type != "cuda":
         return
-    fn = _launcher(stage)
-    with torch.cuda.device(dev):
-        err = fn(torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{MARK_PREFIX}{stage} launch failed: CUDA error {err}")
+    from gaussiansplatting_tpu_torch.kernels import build
+
+    build.launch("marks", f"{MARK_PREFIX}{stage}_launch", "", dev)
 
 
 class _MarkGrad(torch.autograd.Function):
@@ -243,3 +241,28 @@ def span(name: str, timed: bool = False):
     if _forced or _profiler._is_profiler_enabled:
         return _Span(name, True)
     return _Span(name, False) if timed else _NULL
+
+
+_launches: dict[str, int] = {}
+
+
+def counted(*names: str) -> None:
+    """Register the counters ``names`` at 0 (a name already registered
+    keeps its count)."""
+    with _lock:
+        for name in names:
+            _launches.setdefault(name, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every registered counter's count, by name."""
+    with _lock:
+        return dict(_launches)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to the registered counters; an
+    unregistered name raises KeyError."""
+    with _lock:
+        for name, n in counts.items():
+            _launches[name] += n

@@ -22,6 +22,7 @@ from gaussiansplatting_tpu.ops import pallas_blend
 
 from gaussiansplatting_tpu_torch.ops import blend as tblend
 from gaussiansplatting_tpu_torch.ops import pairs as tpairs
+from gaussiansplatting_tpu_torch.utils import tracing
 
 from chip_smoke import edge_windows
 from torch_parity import cameras, configs, jax_windows, scene_params, t2n
@@ -216,62 +217,23 @@ def test_blend_windows_backward_hands_the_kernel_the_forward_s_b(monkeypatch):
 def test_bwd_launch_geometry(block, smem):
     """The Hopper backward at ts = 16: 2 pixels per thread, so 128 threads
     (4 warps); 48 bytes per staged lane plus 9 floats per (warp, lane) of
-    partials.  The forward, 4 pixels per thread, stages the lanes alone;
-    the first design keeps one thread per pixel.  The T-floor instances
-    take 2 pixels per thread in both directions, and the backward's keeps
-    a static per-warp stop array."""
+    partials.  The forward, 4 pixels per thread, stages the lanes alone.
+    The T-floor instances take 2 pixels per thread in both directions, and
+    the backward's keeps a static per-warp stop array."""
     assert tblend.launch_geometry(16, block, True) == (128, smem)
     assert tblend.launch_geometry(16, block, False) == (64, block * 48)
     assert tblend.launch_geometry(16, block, True, tfloor=True) == (128, smem + 128)
     assert tblend.launch_geometry(16, block, False, tfloor=True) == (128, block * 48)
-    if block < 1024:
-        assert tblend.launch_geometry(16, block, True, v1=True) == (
-            256, 9 * 9 * block * 4 + 128)
 
 
-@pytest.mark.parametrize("ts,block,v1", [(32, 1024, False), (32, 512, False),
-                                         (16, 1024, True)])
-def test_bwd_launch_geometry_refuses_past_hopper_smem(ts, block, v1):
+@pytest.mark.parametrize("ts,block", [(32, 1024), (32, 512), (32, 768)])
+def test_bwd_launch_geometry_refuses_past_hopper_smem(ts, block):
     """Past the 232,448 bytes a Hopper block can have, the wrapper refuses
     (32 x 32 tiles: 16 warps of 2-pixel strips need 319,488 bytes at
     B = 512)."""
     with pytest.raises(ValueError, match="at most 232448"):
-        tblend.launch_geometry(ts, block, True, v1=v1)
+        tblend.launch_geometry(ts, block, True)
     assert tblend.launch_geometry(32, 256, True) == (512, 256 * 48 + 16 * 9 * 256 * 4)
-
-
-def test_first_design_wrappers_refuse_cpu_tensors():
-    table, src, valid, tile, g = (torch.from_numpy(x) for x in _windows_and_g(74, 16, 0))
-    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_bwd_plain"):
-        tblend.windowed_blend_bwd_v1(table, src, valid, tile, 0, 16, g, CONSTS)
-    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_fwd_plain"):
-        tblend.windowed_blend_fwd_v1(table, src, valid, tile, 0, 16, CONSTS)
-    logti = torch.zeros((src.shape[0], 256))
-    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_fwd_tf_plain"):
-        tblend.windowed_blend_fwd_tf_v1(table, src, valid, tile, 0, 16, CONSTS, logti, -9.2)
-    with pytest.raises(RuntimeError, match="CPU runs windowed_blend_bwd_tf_plain"):
-        tblend.windowed_blend_bwd_tf_v1(table, src, valid, tile, 0, 16, g, CONSTS, logti, -9.2)
-    for f in (tblend.windowed_blend_bwd_v1, tblend.windowed_blend_fwd_v1,
-              tblend.windowed_blend_fwd_tf_v1, tblend.windowed_blend_bwd_tf_v1):
-        assert f.launches == 0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("block", [16, 128])
-def test_bwd_kernel_matches_first_design_cuda(block):
-    """The Hopper backward against the first design on the card, per column
-    within chip_smoke.BWD_REL of the column's largest magnitude."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    from chip_smoke import BWD_REL
-
-    table, src, valid, tile, g = _windows_and_g(90 + block, block, 0)
-    dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile)]
-    g_dev = torch.from_numpy(g).cuda()
-    want = [t2n(c) for c in tblend.windowed_blend_bwd_v1(*dev, 0, block, g_dev, CONSTS)]
-    s_b = _plain_s_b(dev, 0, block)
-    got = [t2n(c) for c in tblend.windowed_blend_bwd(*dev, 0, block, g_dev, s_b, CONSTS)]
-    _assert_columns_close(got, want, rel=BWD_REL)
 
 
 @pytest.mark.cuda
@@ -285,10 +247,10 @@ def test_bwd_kernel_matches_plain_cuda(block):
     from chip_smoke import BWD_REL
 
     table, src, valid, tile, g = _windows_and_g(80 + block, block, 0)
-    before = tblend.windowed_blend_bwd.launches
+    before = tracing.launch_counts()["windowed_blend_bwd"]
     got = _port_bwd(table, src, valid, tile, 0, block, g, device="cuda")
     again = _port_bwd(table, src, valid, tile, 0, block, g, device="cuda")
-    assert tblend.windowed_blend_bwd.launches == before + 2
+    assert tracing.launch_counts()["windowed_blend_bwd"] == before + 2
     dev = [torch.from_numpy(x).cuda() for x in (table, src, valid, tile)]
     want = [t2n(c) for c in tblend.windowed_blend_bwd_plain(
         *dev, 0, block, torch.from_numpy(g).cuda(), _plain_s_b(dev, 0, block), CONSTS)]

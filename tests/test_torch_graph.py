@@ -30,7 +30,6 @@ from gaussiansplatting_tpu.train import trainer as jtrainer
 from gaussiansplatting_tpu_torch.config import Config, OptimConfig
 from gaussiansplatting_tpu_torch.core import camera as tcam
 from gaussiansplatting_tpu_torch.density import control as tdensity
-from gaussiansplatting_tpu_torch.ops import blend as tblend
 from gaussiansplatting_tpu_torch.ops import rasterize as traster
 from gaussiansplatting_tpu_torch.ops.losses import photometric_loss
 from gaussiansplatting_tpu_torch.train import graph as tgraph
@@ -38,6 +37,7 @@ from gaussiansplatting_tpu_torch.train import optimizer as topt
 from gaussiansplatting_tpu_torch.train import schedule as tsched
 from gaussiansplatting_tpu_torch.train import state as tstate
 from gaussiansplatting_tpu_torch.train import trainer as ttrainer
+from gaussiansplatting_tpu_torch.utils import tracing
 
 from test_torch_train import TRAINABLE, _compare_states, _jax_state_arrays
 from test_torch_train_loop import OPTIM, _configs, _setup
@@ -190,15 +190,17 @@ def test_capture_failure_names_the_op():
 
 
 def test_add_launches_round_trips():
-    """The launch counters a replay adds to, by name."""
-    before = tblend.launch_counts()
-    assert set(before) == set(tblend.COUNTED)
-    tblend.add_launches({"windowed_blend_fwd": 3, "windowed_blend_bwd_packed": 2})
-    after = tblend.launch_counts()
+    """The launch counters a replay adds to, by name (utils/tracing.py's
+    registry, which graph.launch_counts reads)."""
+    before = tracing.launch_counts()
+    assert {n for n in before if n.startswith("windowed_blend_")} == {
+        f"windowed_blend_{d}{m}" for d in ("fwd", "bwd") for m in ("", "_tf", "_packed")}
+    tracing.add_launches({"windowed_blend_fwd": 3, "windowed_blend_bwd_packed": 2})
+    after = tracing.launch_counts()
     assert after["windowed_blend_fwd"] == before["windowed_blend_fwd"] + 3
     assert after["windowed_blend_bwd_packed"] == before["windowed_blend_bwd_packed"] + 2
-    tblend.add_launches({k: before[k] - after[k] for k in before})
-    assert tblend.launch_counts() == before
+    tracing.add_launches({k: before[k] - after[k] for k in before})
+    assert tracing.launch_counts() == before
 
 
 def test_train_steps_match_jax_scan():
@@ -269,10 +271,10 @@ def test_graph_replays_equal_eager_steps_cuda():
         pytest.skip("needs an NVIDIA GPU: the step graph is captured on the card")
     st0, cams, gts, cfg = _cuda_case()
     captures = tgraph.counts["captures"]
-    before = tblend.launch_counts()
+    before = tracing.launch_counts()
     got, gm = ttrainer.train_steps(st0, cams, gts, cfg, 100)
     torch.cuda.synchronize()
-    counts = tblend.launch_counts()
+    counts = tracing.launch_counts()
     assert tgraph.counts["captures"] == captures + 1
     warm = tgraph.WARMUP_STEPS
     assert counts["windowed_blend_fwd"] - before["windowed_blend_fwd"] == len(cams) + warm
@@ -437,10 +439,10 @@ def test_batched_replays_equal_eager_steps_cuda(k):
     captures = tgraph.counts["captures"]
     got, want = st0, st0
     for _ in range(2):
-        before = tblend.launch_counts()
+        before = tracing.launch_counts()
         got, gm = ttrainer.train_step_batched(got, cams, gts, cfg, 100)
         torch.cuda.synchronize()
-        after = tblend.launch_counts()
+        after = tracing.launch_counts()
         want, wm = ttrainer.train_step_batched_eager(want, cams, gts, cfg, 100)
         assert all(torch.equal(x, y) for x, y in zip(gm, wm))
     assert tgraph.counts["captures"] == captures + 1

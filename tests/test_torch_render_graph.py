@@ -26,7 +26,6 @@ import jax
 
 from gaussiansplatting_tpu.ops.rasterize import render as jrender
 
-from gaussiansplatting_tpu_torch.ops import blend as tblend
 from gaussiansplatting_tpu_torch.ops import rasterize as traster
 from gaussiansplatting_tpu_torch.train import graph as tgraph
 from gaussiansplatting_tpu_torch.train import state as tstate
@@ -196,7 +195,7 @@ def test_render_replays_equal_eager_renders_cuda(mode):
     graph = tgraph.live_renders()[-1]
     assert tgraph.counts["render_captures"] == captures + 1
     assert {k: after[k] - before[k] for k in graph.launches} == graph.launches
-    blends = {k: n for k, n in graph.launches.items() if k in tblend.COUNTED}
+    blends = {k: n for k, n in graph.launches.items() if k.startswith("windowed_blend_")}
     assert sum(blends.values()) == (2 if mode == "tfloor" else 1)
     assert graph.launches["compose_fwd"] == 1
     tgraph.clear()

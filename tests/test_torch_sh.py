@@ -317,11 +317,11 @@ def test_degrees_0_and_1_keep_their_row_marks_and_counts(degree, monkeypatch):
                                         np.full((30, 3), 0.5), 2.0, sh_degree=degree)
     assert cloud.sh.shape == (30, 4, 3)
     marks = _marks(monkeypatch)
-    before = tproj.launch_counts()
+    before = tracing.launch_counts()
     trast.render(p, synthetic.make_canonical_camera(32, 24),
                  RasterConfig(pair_capacity=1 << 12, pair_block=16, sh_degree=degree))
     assert marks == list(tracing.FRAME_STAGES)
-    assert tproj.launch_counts() == before
+    assert tracing.launch_counts() == before
 
 
 def test_degree_3_marks_and_counts_its_frames(monkeypatch):
@@ -332,11 +332,11 @@ def test_degree_3_marks_and_counts_its_frames(monkeypatch):
     cam = synthetic.make_canonical_camera(32, 24)
     for degree in (0, 1, 3):
         marks = _marks(monkeypatch)
-        before = tproj.launch_counts()
+        before = tracing.launch_counts()
         trast.render(p, cam, RasterConfig(pair_capacity=1 << 12, pair_block=16, sh_degree=degree))
         want = list(tracing.FRAME_STAGES)
         assert marks == (["sh"] + want if degree else want)
-        after = tproj.launch_counts()
+        after = tracing.launch_counts()
         assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
             {f"sh.degree_{degree}": 1}
         monkeypatch.undo()

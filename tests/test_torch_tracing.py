@@ -4,13 +4,16 @@ time.time_ns(), in a bounded buffer that counts its drops), the stage marks
 (nothing on the CPU; csrc/marks.cu defines every stage), the spans of the
 training loop and of the sharded collectives, the operator's reader
 (tools/trace.py) and the benchmark's reader (gsbench/portspans.py and its
-metrics) on hand-made timelines.  The card's test captures a render and a
+metrics) on hand-made timelines, the launch-count registry and
+kernels/build.py's launch seam.  The card's test captures a render and a
 step and sees every mark once per replay, in order.
 
 No JAX here: on the machine with the card this file runs alone,
 ``python -m pytest --noconftest tests/test_torch_tracing.py``.
 """
 
+import contextlib
+import ctypes
 import re
 import sys
 import threading
@@ -147,6 +150,82 @@ def test_marks_do_nothing_on_the_cpu(monkeypatch):
     for stage in tracing.STAGES:
         name = tracing.MARK_PREFIX + stage
         assert "blend_fwd_win" not in name and "blend_bwd_win" not in name
+
+
+MAIN_PATH_KERNELS = {f"windowed_blend_{d}{m}" for d in ("fwd", "bwd")
+                     for m in ("", "_tf", "_packed")} | {
+    "compose_fwd", "compose_logti", "compose_bwd", "run_ids"}
+
+
+def test_the_launch_counts_are_one_registry():
+    """graph.launch_counts() and add_launches() are the registry's: every
+    main-path kernel wrapper's name and the frames by SH degree, registered
+    when the port is imported (before any launch), and nothing else."""
+    assert tgraph.launch_counts is tracing.launch_counts
+    assert tgraph.add_launches is tracing.add_launches
+    assert set(tgraph.launch_counts()) == MAIN_PATH_KERNELS | {
+        f"sh.degree_{d}" for d in range(4)}
+
+
+def test_the_registry_as_captures_and_replays_use_it():
+    """Counts, snapshot difference and add, as train/graph.py's _Capture and
+    StepGraph.run use them: the difference of two snapshots sets a capture's
+    counts back and is what it recorded, and K replays add K times that.
+    Registering a name again keeps its count; an unknown name raises."""
+    before = tracing.launch_counts()
+    for name in ("compose_fwd", "run_ids", "run_ids"):
+        tracing.add_launches({name: 1})
+    after = tracing.launch_counts()
+    tracing.add_launches({k: before[k] - after[k] for k in before})
+    assert tracing.launch_counts() == before
+    recorded = {k: after[k] - before[k] for k in before if after[k] != before[k]}
+    assert recorded == {"compose_fwd": 1, "run_ids": 2}
+    tracing.add_launches({k: 3 * n for k, n in recorded.items()})
+    tracing.counted("run_ids")
+    now = tracing.launch_counts()
+    assert {k: now[k] - before[k] for k in before if now[k] != before[k]} == {
+        "compose_fwd": 3, "run_ids": 6}
+    with pytest.raises(KeyError):
+        tracing.add_launches({"windowed_blend_fwd_v1": 1})
+    tracing.add_launches({k: before[k] - now[k] for k in before})
+    assert tracing.launch_counts() == before
+
+
+def test_the_launch_seam_binds_calls_checks_and_counts(monkeypatch):
+    """kernels/build.py's launch on a C function of the C library (abs,
+    which returns its int argument's magnitude: 0 is success, anything else
+    a CUDA error), the card's context and stream stubbed: the prototype set
+    once per symbol (another signature refused), the stream passed last, a
+    nonzero return raised with the symbol and counted nowhere, a success
+    counted under the wrapper's name only when one is given."""
+    from gaussiansplatting_tpu_torch.kernels import build
+
+    libc = ctypes.CDLL(None)
+    streams = []
+
+    class Stream:
+        @property
+        def cuda_stream(self):
+            streams.append(1)
+            return 0
+
+    monkeypatch.setattr(build, "load_library", lambda name: libc)
+    monkeypatch.setattr(build, "_entries", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    before = tracing.launch_counts()
+    build.launch("libc", "abs", "i", "cuda", 0, count="run_ids")
+    build.launch("libc", "abs", "i", "cuda", 0)
+    assert libc.abs.argtypes == [ctypes.c_int, ctypes.c_void_p]
+    assert libc.abs.restype is ctypes.c_int and len(streams) == 2
+    with pytest.raises(RuntimeError, match="abs launch failed: CUDA error 3"):
+        build.launch("libc", "abs", "i", "cuda", -3, count="run_ids")
+    with pytest.raises(ValueError, match="signature"):
+        build.launch("libc", "abs", "f", "cuda", 0.0)
+    assert build.entry("libc", "abs", "ip") is libc.abs
+    after = tracing.launch_counts()
+    assert {k: after[k] - before[k] for k in before if after[k] != before[k]} == {"run_ids": 1}
+    tracing.add_launches({"run_ids": -1})
 
 
 def test_the_training_loop_records_its_spans():
