@@ -9,9 +9,10 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device   require CUDA; print the card's name and power limit; pin fp32
               matmuls (no TF32), as the JAX package pins full precision.
-  2. build    compile both windowed-blend CUDA sources (forward, backward)
-              from csrc/ with nvcc, one process each, in parallel; print
-              ptxas's registers and spills of every instance.
+  2. build    compile the CUDA sources of csrc/ (the blends, compose, slots
+              to runs, projection) with nvcc, one process each, in
+              parallel; print ptxas's registers and spills of every
+              instance.
   3. kernel   the forward and backward kernels (gs_blend_fwd_win,
               gs_blend_bwd_win) against their plain PyTorch versions on the
               card: small edge-case windows (dead, partial, full and
@@ -37,7 +38,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               the garden cells' slot counts, launched twice for the same
               bits, timed at the three cells' slot counts beside the plain
               version and a byte bound; the render and step graphs launch
-              it twice a frame.
+              it twice a frame.  Then projection (phase_projection): the
+              kernel pair of csrc/projection.cu (gs_project_fwd,
+              gs_project_bwd) at the garden cells' row counts (1.5M and
+              5.8M Gaussians) on scenes that reach every clamp and cull,
+              against the plain form in float32 and float64 (tests/
+              test_torch_project_kernels.py's checks), launched twice for
+              the same bits, timed beside the plain version and a byte
+              bound; the render graph records one project_fwd a frame, the
+              step graph one of each a step.
   4. render   the render main path: the synthetic scene written to a PLY,
               rendered through tools.render (4 orbit views at 800x608), then
               the canonical view through ops.rasterize.render: no overflow,
@@ -501,7 +510,7 @@ def phase_device():
     return name, smi, clock_mhz
 
 
-KERNELS = ("blend_fwd", "blend_bwd", "compose", "runs")
+KERNELS = ("blend_fwd", "blend_bwd", "compose", "runs", "projection")
 
 
 def phase_build():
@@ -970,6 +979,123 @@ def phase_runs(params, camera, cfg, gt, smi):
     return res
 
 
+# projection's bytes a row: the fields read (means, log-scales, quaternion,
+# raw opacity, alive, colour), the forward's [N, 15] row and depth key
+# written, the backward's row cotangent read and gradients written
+PROJ_FIELD_BYTES = 4 * (3 + 3 + 4 + 1 + 3) + 1
+PROJ_FWD_BYTES = PROJ_FIELD_BYTES + 4 * (15 + 1)
+PROJ_BWD_BYTES = 4 * 15 + PROJ_FIELD_BYTES + 4 * (3 + 3 + 4 + 1 + 3)
+
+
+def _project_checks():
+    """tests/test_torch_project_kernels.py (no JAX, no conftest): the scenes
+    and the checks that hold the kernels to the plain form."""
+    spec = importlib.util.spec_from_file_location(
+        "project_checks", os.path.join(REPO, "tests", "test_torch_project_kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_projection(params, camera, cfg, gt, smi):
+    """Projection (ops/projection.py, csrc/projection.cu's gs_project_fwd
+    and gs_project_bwd) at the cells' row counts (1.5M Gaussians at 800x608
+    as garden_c4.render, 5.8M at 1297x840 as garden_mip360.refine), on
+    scenes that reach every clamp and cull: the forward's float columns no
+    farther from the plain form in float64 than twice the plain float32
+    form's distance, its integer columns and cull as float64's but on rows
+    within rounding (counted), the backward within a relative norm of 1e-5
+    of float64 per field, 0 on culled rows (the checks of tests/
+    test_torch_project_kernels.py); each launched twice for the same bits;
+    each timed (CUDA events, KERNEL_REPS launches) beside the plain
+    version and the bytes bound (PROJ_*_BYTES a row at the HBM rate), and
+    the rest of the stage (the stable argsort of the depths, the row
+    gather) timed beside them.  Then the render graph records one
+    project_fwd a frame and the step graph one of each a step.  Returns the
+    kernels-line numbers."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.config import Config
+    from gaussiansplatting_tpu_torch.ops import projection as proj
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train.state import create
+    from gaussiansplatting_tpu_torch.utils import sol
+
+    chk = _project_checks()
+    res = {"fwd": {"cells": {}}, "bwd": {"cells": {}}}
+    for cell, (n, width, height) in chk.CELLS.items():
+        cam = chk.camera(width, height, DEVICE)
+        fields, color, vs_dummy = chk.scene(n, 11, cam, DEVICE, vs=True)
+        rows, depth = proj.project_fwd(fields, color, vs_dummy, cam, cfg)
+        again = proj.project_fwd(fields, color, vs_dummy, cam, cfg)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows, again[0]) and torch.equal(depth, again[1])):
+            raise AssertionError(f"project_fwd at {cell}: two launches differ")
+        fwd = chk.check_fwd(rows, depth, fields, color, vs_dummy, cam, cfg)
+        g = torch.randn(rows.shape, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(5))
+        grads = proj.project_bwd(g, fields, color, cam, cfg)
+        if not all(torch.equal(a, b) for a, b in zip(grads, proj.project_bwd(g, fields, color,
+                                                                             cam, cfg))):
+            raise AssertionError(f"project_bwd at {cell}: two launches differ")
+        rel = chk.check_bwd(grads, g, fields, color, cam, cfg, fwd["live"], fwd["same"])
+        with torch.no_grad():
+            ms_f = cuda_time_ms(lambda: proj.project_fwd(fields, color, vs_dummy, cam, cfg),
+                                reps=KERNEL_REPS)
+            ms_b = cuda_time_ms(lambda: proj.project_bwd(g, fields, color, cam, cfg),
+                                reps=KERNEL_REPS)
+            plain_f = cuda_time_ms(lambda: proj.rows_plain(fields, cam, cfg, color, vs_dummy),
+                                   reps=3)
+        plain_b = cuda_time_ms(lambda: proj.project_bwd_plain(g, fields, color, cam, cfg), reps=3)
+        # the rest of the projection stage: the presort's stable argsort and row gather
+        order = torch.argsort(depth, stable=True)
+        sort_ms = cuda_time_ms(lambda: torch.argsort(depth, stable=True), reps=KERNEL_REPS)
+        gather_ms = cuda_time_ms(lambda: rows[order], reps=KERNEL_REPS)
+        for k, ms, plain_ms, per_row in (("fwd", ms_f, plain_f, PROJ_FWD_BYTES + 8),
+                                         ("bwd", ms_b, plain_b, PROJ_BWD_BYTES)):
+            bound_ms, bound_by = sol.bound(per_row * n, 0)
+            res[k]["cells"][cell] = {"rows": n, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                     "bound_share": bound_ms / ms}
+        res["fwd"]["cells"][cell].update(flips=fwd["flips"], flips_plain32=fwd["flips_plain32"],
+                                         dist_ratio=fwd["ratio"], argsort_ms=sort_ms,
+                                         gather_ms=gather_ms)
+        res["bwd"]["cells"][cell]["rel_norm"] = rel
+        log(f"[projection] {cell}: {n} rows ({fwd['valid']} live) at {width}x{height}: "
+            f"gs_project_fwd {ms_f:.4f} ms (plain {plain_f:.3f}, bytes bound "
+            f"{res['fwd']['cells'][cell]['bound_ms']:.4f}), gs_project_bwd {ms_b:.4f} ms "
+            f"(plain {plain_b:.3f}, bound {res['bwd']['cells'][cell]['bound_ms']:.4f}) (CUDA "
+            f"events, {KERNEL_REPS} launches) on {smi}; {fwd['flips']} rows decide apart from "
+            f"float64, each within rounding (plain float32: {fwd['flips_plain32']}); distance "
+            f"to float64 over plain float32's "
+            f"{ {k: round(v, 3) for k, v in fwd['ratio'].items()} }; gradients' relative norms "
+            f"{ {k: float(f'{v:.2e}') for k, v in rel.items() if k != 'clamp_binds'} } (on "
+            f"the rows where the Jacobian clamp binds "
+            f"{ {k: float(f'{v:.2e}') for k, v in rel['clamp_binds'].items()} }); each "
+            f"launched twice for the same bits; the presort's stable argsort {sort_ms:.4f} ms "
+            f"and row gather "
+            f"{gather_ms:.4f} ms")
+        del rows, depth, again, g, grads, fields, color, vs_dummy, order
+        torch.cuda.empty_cache()
+    # the graphs: one project_fwd a frame, one of each a step
+    graph.clear()
+    graph.render_frame(params, camera, cfg)
+    trainer.train_step(create(params), camera, gt, Config(raster=cfg), 30_000)
+    torch.cuda.synchronize()
+    render, step = graph.live_renders()[-1].launches, graph.live()[-1].launches
+    per = {"render": (render.get("project_fwd", 0), render.get("project_bwd", 0)),
+           "step": (step.get("project_fwd", 0), step.get("project_bwd", 0))}
+    graph.clear()
+    if per != {"render": (1, 0), "step": (1, 1)}:
+        raise AssertionError(f"project_fwd, project_bwd launches in the graphs: {per}")
+    log("[projection] the render graph records one project_fwd a frame, the step graph one "
+        "project_fwd and one project_bwd a step")
+    for k in ("fwd", "bwd"):
+        big = res[k]["cells"]["garden_mip360"]
+        res[k].update({f: big[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                      graph_launches=per)
+    return res
+
+
 def _check_finite_state(label, state):
     import numpy as np
 
@@ -1081,7 +1207,8 @@ def phase_train(params, camera, gt, smi):
     log(f"[train] main path: {launches[0]} windowed_blend_fwd, {launches[1]} "
         f"windowed_blend_bwd, {counts['compose_fwd']} compose_fwd and "
         f"{counts['compose_bwd']} compose_bwd kernel launches")
-    if min(launches) <= 0 or min(counts["compose_fwd"], counts["compose_bwd"]) <= 0:
+    if min(launches) <= 0 or min(counts["compose_fwd"], counts["compose_bwd"],
+                                 counts["project_fwd"], counts["project_bwd"]) <= 0:
         raise AssertionError("the training path did not launch every kernel")
 
     # (iii) one step replayed from the same state gives the same bits; its
@@ -1673,9 +1800,9 @@ def phase_render(params, camera, cfg, smi):
     launches = counts["windowed_blend_fwd"]
     log(f"[render] main path: 4 orbit views + canonical view, "
         f"{launches} windowed_blend_fwd and {counts['compose_fwd']} compose_fwd kernel launches")
-    if launches < 5 or counts["compose_fwd"] != launches:
-        raise AssertionError(f"expected >= 5 kernel launches, one compose_fwd with each "
-                             f"blend, got {counts}")
+    if launches < 5 or counts["compose_fwd"] != launches or counts["project_fwd"] != launches:
+        raise AssertionError(f"expected >= 5 kernel launches, one compose_fwd and one "
+                             f"project_fwd with each blend, got {counts}")
 
     for i in range(4):
         _check_image(f"orbit_{i:03d}", _read_ppm(os.path.join(out_dir, f"orbit_{i:03d}.ppm")))
@@ -4550,6 +4677,7 @@ def main() -> int:
     del args, block_tile
     cmp = phase_compose(params, camera, cfg, gt, smi)
     rn = phase_runs(params, camera, cfg, gt, smi)
+    pj = phase_projection(params, camera, cfg, gt, smi)
     render_launches, frame_ms, frame_device_ms = phase_render(params, camera, cfg, smi)
     train_launches, step_ms, step_device_ms, per_step, red = phase_train(
         params, camera, gt, smi)
@@ -4647,6 +4775,16 @@ def main() -> int:
                               "trainloop": tl["launches"].get("run_ids", 0),
                               **{p: v.get("run_ids", 0) for p, v in paths.items()}},
          "launches_per_step": per_step.get("run_ids", 0), **rn, "library_ms": None},
+        *({"name": f"project_{k}", "route": "cuda", "source": src + "projection.cu",
+           "replaces": "gaussiansplatting_tpu/ops/projection.py project (XLA ops)",
+           "design": "thread_per_gaussian",
+           "launches_by_path": {"render": render_launches.get(f"project_{k}", 0),
+                                "train": train_launches.get(f"project_{k}", 0),
+                                "tfloor": tf_launches.get(f"project_{k}", 0),
+                                "trainloop": tl["launches"].get(f"project_{k}", 0),
+                                **{p: v.get(f"project_{k}", 0) for p, v in paths.items()}},
+           "launches_per_step": per_step.get(f"project_{k}", 0), **pj[k], "library_ms": None}
+          for k in ("fwd", "bwd")),
     ], "render_ms_per_frame": frame_ms, "render_device_ms_per_frame": frame_device_ms,
         "train_step_ms": step_ms, "train_step_device_ms": step_device_ms,
         "tfloor_render_ms_per_frame": tf["frame_ms"],

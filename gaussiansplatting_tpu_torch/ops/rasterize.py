@@ -9,17 +9,18 @@ of B pairs of one 16x16 tile blends independently (ops/blend.py) into a
 summary (C_b, S_b = sum log(1 - alpha)), and the blocks of a tile compose
 with an exclusive prefix over their S_b (ops/compose.py).
 
-Gradients: autograd runs through projection as it is; the depth presort is
-a ``_PermuteRows`` whose backward gathers by the inverse permutation; pair
-expansion, tile sort and windows run once per frame, outside autograd;
-each blend pass over the windows is an autograd Function (``_BlendWindows``,
-``_BlendWindowsTF``) whose backward is the blend backward followed by the
+Gradients: projection is one autograd Function (ops/projection._Project:
+the presort's [N, 15] rows from the parameter fields, and back); the depth
+presort is a ``_PermuteRows`` whose backward gathers by the inverse
+permutation; pair expansion, tile sort and windows run once per frame,
+outside autograd; each blend pass over the windows is an autograd Function
+(``_BlendWindows``, ``_BlendWindowsTF``) whose backward is the blend backward followed by the
 reduction to per-Gaussian sums that ``RasterConfig.grad_reduce`` picks
 (ops.pairs.reduce_aligned_cotangents: the sort-prefix form, which
 "autodiff" also takes, or the scatter); compose is one more (``_Compose``),
 whose backward writes each blend pass's cotangent.  No step of the backward
-uses float atomics.  The blends and compose run as CUDA kernels on a CUDA
-device and as their plain PyTorch versions on the CPU;
+uses float atomics.  Projection, the blends and compose run as CUDA
+kernels on a CUDA device and as their plain PyTorch versions on the CPU;
 ``RasterConfig.blend_impl`` picks nothing here.
 
 Nothing here reads a device value back to the host, so a train step can be
@@ -46,8 +47,9 @@ replaces:
                     windowed_blend_bwd_tf _bwd_kernel_tf (:281)
                     windowed_blend_bwd    _bwd_kernel (:188), through the
                                           first pass's S_b (t_in)
-and compose (compose_fwd, compose_bwd; compose_logti before the T-floor
-pass) replaces XLA's ops, no Pallas kernel.
+and projection (project_fwd, project_bwd) and compose (compose_fwd,
+compose_bwd; compose_logti before the T-floor pass) replace XLA's ops, no
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -89,15 +91,6 @@ def _tile_rows(camera: Camera, cfg: RasterConfig, tile_rows) -> tuple[int, int]:
     return row0, n_rows
 
 
-def _color_with_dead_zone(raw_color: torch.Tensor) -> torch.Tensor:
-    """clamp(raw, 0, 1) whose gradient is zeroed outside (0.01, 0.99) — the
-    reference zeroes dL/dColor at those margins to stop pushing saturated
-    colours further (tiled_shaders.metal:505-507)."""
-    c = torch.clamp(raw_color, 0.0, 1.0)
-    live = (c > 0.01) & (c < 0.99)
-    return torch.where(live, c, c.detach())
-
-
 class _PermuteRows(torch.autograd.Function):
     """x[order] for a permutation ``order``; the cotangent is a gather by the
     inverse permutation (no scatter-add)."""
@@ -128,9 +121,9 @@ class _Plan(NamedTuple):
 def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
           vs_dummy: torch.Tensor | None = None, row0: int = 0,
           tiles_y: int | None = None) -> _Plan:
-    """Projection, the dead-zone colour, the stable depth presort and the
-    capacity plan (rasterize.py:287-363) of tile rows [row0, row0 +
-    tiles_y) (default: the whole image).  An SH row wider than band 1
+    """Projection (the presort's rows, ops/projection.project_rows), the
+    stable depth presort and the capacity plan (rasterize.py:287-363) of
+    tile rows [row0, row0 + tiles_y) (default: the whole image).  An SH row wider than band 1
     (degree 2 or 3) counts the frame by its degree
     (``sh.degree_<d>``, projection.count_sh_frame) and, at a degree of 1 or more, evaluates the
     colour first, between the marks ``sh`` and ``projection``, its
@@ -148,31 +141,22 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     if tiles_y is None:
         tiles_y = proj_mod.num_tiles(camera.height, ts)
 
-    proj = proj_mod.project(params, camera, cfg, color)
-    screen_pos = proj.screen_pos
-    if vs_dummy is not None:
-        screen_pos = screen_pos + vs_dummy
-    color = _color_with_dead_zone(proj.color)
-    data = torch.cat(
-        [screen_pos, proj.conic, proj.opacity[:, None], color], dim=-1
-    )  # [N, 9]
+    if color is None:
+        color = proj_mod.default_color(params, camera, cfg)
+    # the presort's rows [N, 15] (projection, the dead-zone colour, vs_dummy;
+    # integer fields exact in f32) and their depth key
+    rows, depth = proj_mod.project_rows(params, camera, cfg, color, vs_dummy)
 
     # depth presort: expansion emits pairs in Gaussian order and the tile
     # sort is stable, so every tile's run comes out depth-sorted.  Culled
-    # Gaussians all have depth 0, so the sort must be stable too.  One fused
-    # row tensor rides the permutation (integer fields are exact in f32).
-    n = proj.depth.shape[0]
-    order = torch.argsort(proj.depth, stable=True)
+    # Gaussians all have depth 0, so the sort must be stable too.  The rows
+    # ride the permutation as one tensor.
+    n = depth.shape[0]
+    order = torch.argsort(depth, stable=True)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(n, dtype=order.dtype, device=order.device)
-    f32 = torch.float32
-    cols = _PermuteRows.apply(
-        torch.cat([proj.depth[:, None], proj.tile_min.to(f32),
-                   proj.tile_max.to(f32), proj.n_tiles.to(f32)[:, None], data],
-                  dim=-1),
-        order, inv_order,
-    )
-    data = cols[:, 6:]
+    cols = _PermuteRows.apply(rows, order, inv_order)
+    data = cols[:, proj_mod.DATA_COL:]
     i32 = torch.int32
     n_tiles = cols[:, 5].to(i32)
     proj_p = proj_mod.Projected(

@@ -15,8 +15,9 @@ cotangent is ready.
 
 Where the marks sit (``STAGES``, in the order a step meets them):
 
-- the frame (ops/rasterize.render): ``projection`` (projection, colour, the
-  [N, 9] table, the depth presort), ``pairs`` (capacity plan, expansion, tile
+- the frame (ops/rasterize.render): ``projection`` (the colour, the
+  presort's rows of ops/projection.project_rows, the depth presort),
+  ``pairs`` (capacity plan, expansion, tile
   sort, windows, ops/runs.py's slots to runs), ``blend`` (#1, #1p, #5 and their
   columns), ``compose``;
 - the step (trainer.step_body, batched_body): the frame's four, ``loss``
@@ -57,7 +58,8 @@ span and by request (``--loop`` traces the training loop's events).
 **Launch counts.**  One registry of counters by name: each hand-written
 kernel's launches under its wrapper's name (ops/blend.py's
 ``windowed_blend_*``, ops/compose.py's ``compose_fwd``, ``compose_logti``
-and ``compose_bwd``, ops/runs.py's ``run_ids``), to which
+and ``compose_bwd``, ops/runs.py's ``run_ids``, ops/projection.py's
+``project_fwd`` and ``project_bwd``), to which
 kernels/build.py's ``launch`` adds one a launch, and the frames by SH
 degree (``sh.degree_<d>``, ops/projection.py).  A module registers its
 names at 0 when it is imported (``counted``), so ``launch_counts()`` holds

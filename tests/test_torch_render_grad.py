@@ -2,7 +2,9 @@
 against jax.grad of the JAX windowed render (blend_impl="pallas", interpret
 mode on the CPU), against directional finite differences, and one check for
 each of the three pieces that make the forward differentiable like the JAX
-one: the colour dead zone, the vs_dummy input and the permutation VJP."""
+one: the colour dead zone, the vs_dummy input and the permutation VJP; and
+the projection's autograd Function (ops/projection._Project) against
+autograd through its plain form."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ import jax.numpy as jnp
 from gaussiansplatting_tpu.ops.rasterize import render as jrender
 
 from gaussiansplatting_tpu_torch.core import gaussians as TG
+from gaussiansplatting_tpu_torch.core import transforms as TT
+from gaussiansplatting_tpu_torch.ops import projection as tproj
 from gaussiansplatting_tpu_torch.ops import rasterize as trast
 from gaussiansplatting_tpu_torch.ops.rasterize import render
 
@@ -183,3 +187,54 @@ def test_permute_rows_backward_gathers_by_inverse():
     w = torch.randn((n, 15), generator=gen)
     (g,) = torch.autograd.grad((y * w).sum(), x)
     assert torch.equal(g, w[inv])
+
+
+@pytest.mark.parametrize("vs", [False, True])
+def test_project_function_cpu_matches_plain(vs):
+    """The projection's autograd Function (ops.projection.project_rows) on
+    CPU tensors: rows_plain's values, a depth key outside autograd, and
+    autograd's gradients through rows_plain's data columns, bit for bit,
+    the cotangent of the first six columns ignored; vs_dummy's gradient is
+    the screen columns' cotangent as it is."""
+    _, tp = scene_params(24, n=48, spread=2.0)
+    _, tc = cameras()
+    _, tcfg = configs()
+    color = TT.sh_dc_to_rgb(tp.sh[:, 0].detach()).requires_grad_(True)
+    vs_dummy = (torch.from_numpy(np.random.default_rng(24).uniform(-1, 1, (48, 2))
+                                 .astype(np.float32)).requires_grad_(True) if vs else None)
+    leaves = [tp.means, tp.log_scales, tp.quats, tp.raw_opacities, color] + (
+        [vs_dummy] if vs else [])
+    rows, depth = tproj.project_rows(tp, tc, tcfg, color, vs_dummy)
+    want, want_depth, valid = tproj.rows_plain(tp, tc, tcfg, color, vs_dummy)
+    assert type(rows.grad_fn).__name__ == "_ProjectBackward"
+    assert torch.equal(rows, want) and torch.equal(depth, want_depth)
+    assert not depth.requires_grad and 10 < int(valid.sum()) < 48
+    g = torch.randn(rows.shape, generator=torch.Generator().manual_seed(24))
+    got = torch.autograd.grad(rows, leaves, g)
+    plain = torch.autograd.grad(want[:, tproj.DATA_COL:], leaves, g[:, tproj.DATA_COL:])
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    if vs:
+        assert torch.equal(got[-1], g[:, 6:8])
+
+
+def test_render_grads_through_the_projection_function_equal_plain_autograd(monkeypatch):
+    """The render's gradients (all five groups and vs_dummy) with projection
+    as the autograd Function equal, bit for bit, those of autograd through
+    the plain rows, as the render ran before the kernels."""
+    _, tp = scene_params(25, n=48)
+    _, tc = cameras()
+    _, tcfg = configs()
+    w = _weights(25)
+    vs = np.random.default_rng(25).uniform(-0.5, 0.5, (48, 2)).astype(np.float32)
+    got = _port_grads(tp, tc, tcfg, w, vs)
+
+    def plain_rows(params, camera, cfg, color, vs_dummy=None):
+        rows, depth, _ = tproj.rows_plain(params, camera, cfg, color, vs_dummy)
+        return rows, depth.detach()
+
+    monkeypatch.setattr(tproj, "project_rows", plain_rows)
+    want = _port_grads(tp, tc, tcfg, w, vs)
+    for k in FIELDS + ("vs",):
+        assert np.abs(want[k]).max() > 0, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

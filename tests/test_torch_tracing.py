@@ -154,7 +154,7 @@ def test_marks_do_nothing_on_the_cpu(monkeypatch):
 
 MAIN_PATH_KERNELS = {f"windowed_blend_{d}{m}" for d in ("fwd", "bwd")
                      for m in ("", "_tf", "_packed")} | {
-    "compose_fwd", "compose_logti", "compose_bwd", "run_ids"}
+    "compose_fwd", "compose_logti", "compose_bwd", "run_ids", "project_fwd", "project_bwd"}
 
 
 def test_the_launch_counts_are_one_registry():
