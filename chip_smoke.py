@@ -2,9 +2,9 @@
 """On-GPU smoke test of the PyTorch port's render and training paths, its
 user tools and its measuring tools (one NVIDIA card).
 
-Run from the repository root with no arguments:
+Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sass-parent DIR]
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device   require CUDA; print the card's name and power limit; pin fp32
@@ -226,6 +226,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
               and pool bytes.  Phases 7 and 8 run their density events and
               the dataset through these graphs (their warm-up calls launch
               no blend kernel, so the exact launch checks add none).
+ 15. surfel   2D Gaussian surfels (phase_surfel): the kernel pairs of
+              csrc/surfel_projection.cu, surfel_blend.cu and
+              surfel_compose.cu against their plain forms
+              (tests/test_torch_surfel.py's scenes) at 3k surfels at
+              160x120 and 200k at 800x608, and at the benchmark cell
+              garden_2dgs.refine_surfel's frame (its 5.8M surfels at
+              1297x840, pairs 2^26, the view of the most pairs; the blend's
+              plain form over one in 8 of its live blocks), each launched
+              twice for the same bits and timed; on that cell's state one
+              launch of each a captured step and one forward of each a
+              captured frame; with --sass-parent DIR (a
+              checkout of the parent commit) the SASS of the 3D Gaussian's
+              blend, projection and compose libraries equal to the parent's,
+              function by function (cuobjdump -sass).
+
+    python3 chip_smoke.py --only surfel [--sass-parent DIR]
+
+runs phases 1, 2 and 15 alone.
 
 Phases 4-14 train through train/trainer.train_step, train_steps and
 train_step_batched and render through train/graph.render_frame, which on
@@ -250,6 +268,7 @@ windowed blend)) and the paths' times and counts, then as its last line
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -4651,8 +4670,355 @@ def phase_last_dispatches(params, smi, sharded_graph):
     return res
 
 
+
+# phase 15: 2D Gaussian surfels (RasterConfig.primitive "surfel").  The
+# kernels against their plain forms at tests/test_torch_surfel.py's bars on
+# scenes of SURFEL_CASES (surfels, width, height) and on the benchmark cell
+# SURFEL_CELL's frame; the SASS of the 3D Gaussian's blend, projection and
+# compose entries against a parent checkout's (``--sass-parent DIR``),
+# function by function
+SURFEL_CASES = ((3_000, 160, 120), (200_000, 800, 608))
+SURFEL_KERNELS = ("surfel_projection", "surfel_blend", "surfel_compose")
+SASS_KERNELS = ("blend_fwd", "blend_bwd", "compose", "projection")
+# the cell's frame: gsbench's garden_2dgs state (5.8M surfels on the
+# generated garden, 161 training views at 1297x840, pairs 2^26) from this
+# seed, at the training view of the most pairs; the blend's plain form runs
+# over one in SURFEL_CELL_SAMPLE of that frame's live blocks (drawn from
+# the seed), the kernels over all of them
+SURFEL_CELL = "garden_2dgs.refine_surfel"
+SURFEL_CELL_SEED = 3100000022
+SURFEL_CELL_SAMPLE = 8
+
+
+def _sass(lib):
+    """{function: its SASS, addresses and encodings dropped} of a shared
+    library, by ``cuobjdump -sass``.  The anonymous namespace's unique id
+    (``_GLOBAL__N__<hash>_``, from the source's path) is dropped from every
+    name, so one file built from two directories compares alike."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(
+        __import__("gaussiansplatting_tpu_torch.kernels.build", fromlist=["x"]).find_nvcc()),
+        "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        if name is not None and "/*" in line:
+            code = re.sub(r"/\*[0-9a-fx]+\*/", "", line.split(";")[0]).strip()
+            if code:
+                out[name].append(code)
+    return out
+
+
+def _sass_against(parent):
+    """Build ``parent``'s csrc/{SASS_KERNELS}.cu with build.NVCC_FLAGS and
+    compare each function's SASS with this tree's; returns {kernel:
+    functions compared}, raising where any differs."""
+    import tempfile
+
+    from gaussiansplatting_tpu_torch.kernels import build
+
+    src = os.path.join(parent, "gaussiansplatting_tpu_torch", "csrc")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SASS_KERNELS:
+            theirs = os.path.join(tmp, f"{name}.so")
+            subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", theirs,
+                            os.path.join(src, f"{name}.cu")], check=True, capture_output=True)
+            mine, old = _sass(build.build(name)), _sass(theirs)
+            if set(mine) != set(old):
+                raise AssertionError(f"SASS of {name}: functions {sorted(set(mine) ^ set(old))} "
+                                     f"differ from the parent's")
+            for fn in mine:
+                if mine[fn] != old[fn]:
+                    raise AssertionError(f"SASS of {name}: {fn} differs from the parent's")
+            res[name] = len(mine)
+    return res
+
+
+@functools.lru_cache(maxsize=None)
+def _surfel_checks():
+    """tests/test_torch_surfel.py (no JAX, no conftest): its scenes and
+    bars."""
+    spec = importlib.util.spec_from_file_location(
+        "surfel_checks", os.path.join(REPO, "tests", "test_torch_surfel.py"))
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _surfel_kernels(p, cam, rc, label, smi, sample=1):
+    """The six surfel kernels against their plain forms on one frame of
+    ``p``: the projection pair on every row (integer columns alike but on
+    boundary rows, float columns within 1e-6, gradients within 1e-5 of
+    float64 on the rows whose cull and facing decide alike in float64, the
+    others counted and as few as the boundary rows may be), the blend pair over the frame's own windows (sums within 1e-5
+    of the plain form's scale, each column within a relative norm of 1e-5
+    of autograd's through the plain forward; with ``sample`` > 1 the plain
+    forms take one in ``sample`` of the live blocks, drawn from a fixed
+    seed, and the kernels' blocks there are compared) and compose on every
+    block (maps within 1e-6, the cotangent within a relative norm of 1e-6
+    on the live blocks); each kernel launched twice for the same bits and
+    timed (CUDA events) beside its plain form.  Returns the case's
+    numbers."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.ops import rasterize as trast
+    from gaussiansplatting_tpu_torch.ops import surfel_blend as sblend
+    from gaussiansplatting_tpu_torch.ops import surfel_compose as scompose
+    from gaussiansplatting_tpu_torch.ops import surfel_projection as sproj
+
+    rel = _surfel_checks()._rel
+    n = p.means.shape[0]
+    case = {"surfels": n, "width": cam.width, "height": cam.height}
+    fields = sproj.Fields(p.means.detach(), p.log_scales.detach(), p.quats.detach(),
+                          p.raw_opacities.detach(), p.alive)
+    color = torch.rand((n, 3), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(1))
+    with torch.no_grad():
+        rows, _ = sproj.project_fwd(fields, color, None, cam, rc)
+        if not torch.equal(rows, sproj.project_fwd(fields, color, None, cam, rc)[0]):
+            raise AssertionError("surfel_project_fwd: two launches differ")
+        plain, _, _ = sproj.rows_plain(fields, cam, rc, color)
+    same = (rows[:, 1:6] == plain[:, 1:6]).all(-1)
+    flips = int((~same).sum())
+    if flips > max(3, n // 500) or rel(rows[same, 6:], plain[same, 6:]) >= 1e-6:
+        raise AssertionError(f"surfel_project_fwd at {label}: {flips} rows decide apart, float "
+                             f"columns {rel(rows[same, 6:], plain[same, 6:]):.2e}")
+    g = torch.randn(rows.shape, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(2))
+    grads = sproj.project_bwd(g, fields, color, cam, rc)
+    if not all(torch.equal(a, b) for a, b in zip(grads, sproj.project_bwd(g, fields, color,
+                                                                          cam, rc))):
+        raise AssertionError("surfel_project_bwd: two launches differ")
+    f64 = sproj.Fields(*(x.double() for x in fields[:4]), fields.alive)
+    want = sproj.project_bwd_plain(g.double(), f64, color.double(), cam, rc)
+    # rows whose cull or turn to the camera decides apart in float32 and
+    # float64 (a disc at a cull's boundary, or seen edge-on) have a gradient
+    # in one and none, or the normal's opposite, in the other: counted, and
+    # left out of the norms
+    with torch.no_grad():
+        rows64, _, ok64 = sproj.rows_plain(f64, cam, rc, color.double())
+        nk, n64 = rows[:, -3:].double(), rows64[:, -3:]
+        apart = ((nk.abs().sum(-1) > 0) != ok64) | ((nk * n64).sum(-1) < 0)
+    n_apart = int(apart.sum())
+    prel = max(rel(a[~apart], b[~apart]) for a, b in zip(grads, want))
+    if n_apart > max(3, n // 500) or prel >= 1e-5:
+        raise AssertionError(f"surfel_project_bwd at {label}: {n_apart} rows decide apart, "
+                             f"{prel:.2e} from float64 on the others")
+    with torch.no_grad():
+        case["project_fwd_ms"] = cuda_time_ms(
+            lambda: sproj.project_fwd(fields, color, None, cam, rc), reps=KERNEL_REPS)
+        case["project_bwd_ms"] = cuda_time_ms(
+            lambda: sproj.project_bwd(g, fields, color, cam, rc), reps=KERNEL_REPS)
+        case["project_plain_ms"] = cuda_time_ms(
+            lambda: sproj.rows_plain(fields, cam, rc, color), reps=3)
+    case.update(project_flips=flips, project_bwd_apart=n_apart, project_bwd_rel=prel)
+    del rows, plain, grads, want, f64, g, rows64, ok64, nk, n64, apart
+    with torch.no_grad():
+        plan = trast._plan_surfel(p, cam, rc)
+        win = trast._windows(plan.data, plan.ints, plan.pcfg, 0)
+        args = (win.table, win.block_src, win.block_valid, win.tile, 0, rc.pair_block,
+                plan.bconsts)
+        out, gid = sblend.surfel_blend_fwd(*args)
+        if not torch.equal(out, sblend.surfel_blend_fwd(*args)[0]):
+            raise AssertionError("surfel_blend_fwd: two launches differ")
+        if sample > 1:
+            busy = torch.nonzero(win.block_valid > 0).squeeze(1)
+            pick = torch.randperm(busy.numel(), device=DEVICE,
+                                  generator=torch.Generator(DEVICE).manual_seed(4))
+            at = torch.sort(busy[pick[:max(1, busy.numel() // sample)]]).values
+        else:
+            at = torch.arange(win.block_src.numel(), device=DEVICE)
+        sub = (win.table, win.block_src[at], win.block_valid[at], win.tile[at], 0,
+               rc.pair_block, plan.bconsts)
+        pout, pgid = sblend.surfel_blend_fwd_plain(*sub)
+        ferr = float((out[at] - pout).abs().max()) / max(float(pout.abs().max()), 1.0)
+        if not torch.equal(gid[at], pgid) or ferr >= 1e-5:
+            raise AssertionError(f"surfel_blend_fwd at {label}: {ferr:.2e}")
+        gb = torch.randn(out.shape, device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(3))
+        s_b = out[:, 3].contiguous()
+        d = sblend.surfel_blend_bwd(*args[:6], gb, s_b, plan.bconsts)
+        if not torch.equal(d, sblend.surfel_blend_bwd(*args[:6], gb, s_b, plan.bconsts)):
+            raise AssertionError("surfel_blend_bwd: two launches differ")
+    dp = sblend.surfel_blend_bwd_plain(*sub[:6], gb[at], plan.bconsts)
+    brel = max(rel(d[c][at], dp[c]) for c in range(sblend.COLS))
+    if brel >= 1e-5:
+        raise AssertionError(f"surfel_blend_bwd at {label}: {brel:.2e}")
+    del pout, pgid, dp
+    consts = trast.compose_consts(cam, rc)
+    with torch.no_grad():
+        img, aux = scompose.surfel_compose_fwd(out, win.block_tile, consts)
+        pimg, paux = scompose.surfel_compose_fwd_plain(out, win.block_tile, consts)
+        cerr = max(float((img - pimg).abs().max()), float((aux - paux).abs().max()))
+        gi, ga = torch.randn_like(img), torch.randn_like(aux)
+        dk = scompose.surfel_compose_bwd(gi, ga, out, win.block_tile, consts)
+        dpl = scompose.surfel_compose_bwd_plain(gi, ga, out, win.block_tile, consts)
+        live = win.block_valid > 0
+        crel = rel(dk[live], dpl[live])
+        if cerr >= 1e-6 or crel >= 1e-6:
+            raise AssertionError(f"surfel compose at {label}: {cerr:.2e}, {crel:.2e}")
+        case["blend_fwd_ms"] = cuda_time_ms(lambda: sblend.surfel_blend_fwd(*args),
+                                            reps=KERNEL_REPS)
+        case["blend_bwd_ms"] = cuda_time_ms(
+            lambda: sblend.surfel_blend_bwd(*args[:6], gb, s_b, plan.bconsts),
+            reps=KERNEL_REPS)
+        case["blend_plain_ms"] = cuda_time_ms(lambda: sblend.surfel_blend_fwd_plain(*sub),
+                                              reps=1)
+        case["compose_fwd_ms"] = cuda_time_ms(
+            lambda: scompose.surfel_compose_fwd(out, win.block_tile, consts), reps=KERNEL_REPS)
+        case["compose_bwd_ms"] = cuda_time_ms(
+            lambda: scompose.surfel_compose_bwd(gi, ga, out, win.block_tile, consts),
+            reps=KERNEL_REPS)
+    case.update(pairs=int(plan.aux.num_pairs), live_blocks=int(live.sum()),
+                plain_blocks=int(at.numel()), blend_fwd_err=ferr, blend_bwd_rel=brel,
+                compose_err=cerr, compose_bwd_rel=crel)
+    log(f"[surfel] {label}: {n} surfels at {cam.width}x{cam.height}, {case['pairs']} pairs, "
+        f"{case['live_blocks']} live blocks: project fwd {case['project_fwd_ms']:.4f} ms, bwd "
+        f"{case['project_bwd_ms']:.4f} (plain {case['project_plain_ms']:.3f}; {flips} rows "
+        f"decide apart, gradients {prel:.1e} from float64 on all but {n_apart} rows whose "
+        f"cull or facing decides apart there); blend fwd "
+        f"{case['blend_fwd_ms']:.3f} ms, bwd {case['blend_bwd_ms']:.3f} (plain fwd "
+        f"{case['blend_plain_ms']:.1f} over the {case['plain_blocks']} blocks it checks; "
+        f"{ferr:.1e}, columns {brel:.1e}); compose fwd {case['compose_fwd_ms']:.4f} ms, bwd "
+        f"{case['compose_bwd_ms']:.4f} ({cerr:.1e}, {crel:.1e}); each launched twice for the "
+        f"same bits (CUDA events, {KERNEL_REPS} launches) on {smi}")
+    return case
+
+
+def _surfel_cell(smi):
+    """SURFEL_CELL's frame on the card: the cell's state, views and Config
+    (gsbench/drivers/train_surfels.py's set-up, from SURFEL_CELL_SEED); the
+    pairs of every training view within the capacity; _surfel_kernels at
+    the view of the most pairs; then the main path on that state, after
+    graph.clear(): a captured step of two steps there records one launch of
+    each of the six kernels and one surfel frame a step, and (after another
+    graph.clear()) the render graph one forward of each."""
+    from pathlib import Path
+
+    import torch
+
+    from gaussiansplatting_tpu_torch.ops import rasterize as trast
+    from gaussiansplatting_tpu_torch.train import graph, trainer
+    from gaussiansplatting_tpu_torch.train import state as tstate
+    from gsbench import harness
+    from gsbench.drivers import port
+
+    bench = harness.manifest(Path(REPO))
+    spec = harness.cell_spec(bench, SURFEL_CELL)
+    cfg = harness.load_json("configs", spec["config"])
+    traffic = harness.load_json("traffic", spec["traffic"])
+    drv = harness.driver_class(traffic)(cfg, traffic, SURFEL_CELL_SEED, DEVICE)
+    drv._dataset()
+    pcfg = port.config(cfg["config"])
+    rc = pcfg.raster
+    p = port.params(drv.arrays)
+    cams = [port.camera(pose, DEVICE) for pose in drv.poses]
+    with torch.no_grad():
+        pairs = [int(trast._plan_surfel(p, c, rc).aux.num_pairs) for c in cams]
+    v = max(range(len(pairs)), key=pairs.__getitem__)
+    if pairs[v] > rc.pair_capacity:
+        raise AssertionError(f"{SURFEL_CELL}: view {v} emits {pairs[v]} pairs, over the "
+                             f"capacity {rc.pair_capacity}")
+    case = _surfel_kernels(p, cams[v], rc, f"{SURFEL_CELL} view {v}", smi, SURFEL_CELL_SAMPLE)
+    case.update(view=v, views=len(pairs), pairs_max=pairs[v],
+                pairs_mean=sum(pairs) / len(pairs), pair_capacity=rc.pair_capacity)
+    torch.cuda.empty_cache()
+    graph.clear()
+    trainer.train_steps(tstate.create(p), [cams[v]] * 2, [drv.gts[v]] * 2, pcfg,
+                        int(cfg["total_iters"]))
+    torch.cuda.synchronize()
+    step = graph.live()[-1].launches
+    case["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the step graph's pool and the render graph's do not fit the card
+    # together at this frame
+    graph.clear()
+    torch.cuda.empty_cache()
+    graph.render_frame(p, cams[v], rc)
+    torch.cuda.synchronize()
+    frame = graph.live_renders()[-1].launches
+    graph.clear()
+    return case, step, frame
+
+
+def phase_surfel(smi, sass_parent=None):
+    """2D Gaussian surfels: build csrc/surfel_{projection,blend,compose}.cu
+    (ptxas's registers and spills); _surfel_kernels at each of SURFEL_CASES
+    (tests/test_torch_surfel.py's scenes) and at SURFEL_CELL's frame; the
+    main path on that cell's state (_surfel_cell): one launch of each of
+    the six kernels and one surfel frame a captured step, one forward of
+    each a captured frame.  With ``sass_parent`` (a checkout of the parent
+    commit) the 3D Gaussian's blend, projection and compose libraries' SASS
+    equals the parent's, function by function.  Returns the kernels-line
+    numbers."""
+    import torch
+
+    from gaussiansplatting_tpu_torch.kernels import build
+
+    build.build_all(SURFEL_KERNELS)
+    for name in SURFEL_KERNELS:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[surfel] build {name}: {line.strip()}")
+    chk = _surfel_checks()
+    res = {"cases": []}
+    for n, w, h in SURFEL_CASES:
+        p, _ = chk.scene(n=n, seed=21, device=DEVICE)
+        pose = dict(chk.POSE, width=w, height=h, cx=w / 2, cy=h / 2, fx=1.2 * w, fy=1.2 * w)
+        rc = chk.RasterConfig(primitive="surfel", pair_capacity=1 << 23, pair_block=PAIR_BLOCK)
+        res["cases"].append(_surfel_kernels(p, chk._camera(pose, DEVICE), rc, f"{n} surfels",
+                                            smi))
+        del p
+        torch.cuda.empty_cache()
+    cell, step, frame = _surfel_cell(smi)
+    res["cases"].append(cell)
+    names = ["surfel_project_fwd", "surfel_project_bwd", "surfel_blend_fwd", "surfel_blend_bwd",
+             "surfel_compose_fwd", "surfel_compose_bwd", "primitive.surfel"]
+    res["step_launches"] = {k: step.get(k, 0) for k in names}
+    res["frame_launches"] = {k: frame.get(k, 0) for k in names}
+    if (set(res["step_launches"].values()) != {1}
+            or [res["frame_launches"][k] for k in names] != [1, 0, 1, 0, 1, 0, 1]):
+        raise AssertionError(f"surfel launches: step {res['step_launches']}, frame "
+                             f"{res['frame_launches']}")
+    log(f"[surfel] {SURFEL_CELL} (view {cell['view']} of {cell['views']}: "
+        f"{cell['pairs_max']} pairs, mean {cell['pairs_mean']:.0f} a view, capacity "
+        f"{cell['pair_capacity']}; peak {cell['peak_bytes'] / 1e9:.2f} GB): the step graph "
+        f"records one launch of each surfel kernel and one surfel frame a step, the render "
+        f"graph one forward of each: {res['step_launches']}")
+    if sass_parent:
+        res["sass_same"] = _sass_against(sass_parent)
+        log(f"[surfel] the 3D Gaussian's kernels' SASS equals the parent's "
+            f"({sass_parent}): functions compared {res['sass_same']}")
+    else:
+        log("[surfel] SASS not compared (no --sass-parent)")
+    return res
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's on-GPU smoke test (module docstring)")
+    ap.add_argument("--only", choices=("surfel",), default=None,
+                    help="run the device, build and this phase alone")
+    ap.add_argument("--sass-parent", default=None,
+                    help="a checkout of the parent commit: the surfel phase compares the 3D "
+                         "Gaussian kernels' SASS with its")
+    cli = ap.parse_args()
     name, smi, clock_mhz = phase_device()
+    if cli.only == "surfel":
+        phase_build()
+        sf = phase_surfel(smi, cli.sass_parent)
+        log(json.dumps({"surfel": sf}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                "count": __import__("torch").cuda.device_count()}}))
+        return 0
 
     import numpy as np
     import torch
@@ -4699,6 +5065,7 @@ def main() -> int:
         f"take {1 - gd['frame_render_ms_p50'] / gd['frame_ms_p50']:.3f} of the graph frame's "
         f"p50 on {smi}")
     tools = phase_tools(work, smi)
+    sf = phase_surfel(smi, cli.sass_parent)
     paths = dict(gd["launches"], tools=tools["launches"], graph=gr["launches"],
                  **gv["launches"], **md["launches"])
 
@@ -4868,7 +5235,7 @@ def main() -> int:
         "graph_capture_modes": gv["capture_modes"],
         "garden_scan_chunks": gd["chunks"],
         "last_dispatches": last, "trainloop_graph_captures": tl["captures"],
-        "garden_graph_captures": gd["captures"]}))
+        "garden_graph_captures": gd["captures"], "surfel": sf}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -98,6 +98,13 @@ class RasterConfig(_Replaceable):
     # scale.  Undersizing only trips the chunk-cap overflow path (whole-
     # Gaussian drop + adaptive growth) — never memory unsafety.
     chunk_slack: float = 1.0
+    # The primitive the frame renders: "gaussian", the 3D Gaussian of Kerbl
+    # et al. 2023 (the JAX package's only one); "surfel", the 2D Gaussian
+    # disc of Huang et al. 2024 (arXiv:2403.17888) with two log-scales a
+    # row, rendered by ray-splat intersection (ops/surfel_*.py), on the
+    # float32 windowed path only.  Port-only: left out of to_json at its
+    # default.
+    primitive: str = "gaussian"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +166,13 @@ class LossConfig(_Replaceable):
     # pure L1 (tiled_shaders.metal:417-423).  We differentiate the full combined
     # loss by default; set False for strict reference-gradient parity.
     dssim_in_grad: bool = True
+    # 2D Gaussian Splatting's regularizers (Huang et al. 2024, eq. 15),
+    # read with RasterConfig.primitive "surfel" only: the weight of the mean
+    # depth distortion (alpha; 100 for unbounded scenes) and of the mean
+    # normal consistency (beta; 0.05).  Port-only: left out of to_json at
+    # their defaults.
+    lambda_dist: float = 0.0
+    lambda_normal: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,8 +212,9 @@ class Config:
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
-        if d["optim"]["sh_rest_lr"] is None:
-            del d["optim"]["sh_rest_lr"]
+        for (group, name), default in PORT_ONLY.items():
+            if d[group][name] == default:
+                del d[group][name]
         return json.dumps(d, indent=2)
 
     @staticmethod
@@ -217,5 +232,11 @@ class Config:
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
 
+
+# The fields the JAX package's Config lacks, by (group, name), at their
+# defaults: to_json leaves each out while it holds its default, so the JSON
+# of a Config the JAX package could hold is the JAX package's.
+PORT_ONLY = {("optim", "sh_rest_lr"): None, ("raster", "primitive"): "gaussian",
+             ("loss", "lambda_dist"): 0.0, ("loss", "lambda_normal"): 0.0}
 
 DEFAULT_CONFIG = Config()

@@ -9,6 +9,10 @@ SH layout: [capacity, K, 3] = (coefficient, channel), coeff 0 the DC term,
 K = max(4, (degree + 1)^2) (core/transforms.sh_coeffs): [C, 4, 3] for
 degrees 0 and 1, [C, 16, 3] for degree 3; ``from_arrays`` also takes the
 reference's flat [N, 12] channel-major layout.
+
+Scales: [C, 3] log-scales for the 3D Gaussian, [C, 2] (s_u, s_v) for the
+2D Gaussian surfel (RasterConfig.primitive "surfel"); ``primitive_of``
+reads which from the row.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ FIELDS = ("means", "log_scales", "quats", "raw_opacities", "sh", "alive")
 
 
 class GaussianParams(nn.Module):
-    """means [C, 3], log_scales [C, 3], quats [C, 4] (w, x, y, z, not
+    """means [C, 3], log_scales [C, 3] ([C, 2] for surfels), quats [C, 4] (w, x, y, z, not
     necessarily normalized), raw_opacities [C] (pre-sigmoid), sh [C, K, 3]
     (K = 4 for SH degrees 0-1, 9 for 2, 16 for 3) and the bool buffer alive
     [C]."""
@@ -44,12 +48,24 @@ class GaussianParams(nn.Module):
         return self.alive.sum()
 
 
-def zeros(capacity: int, device=None, sh_coeffs: int = 4) -> GaussianParams:
+def primitive_of(params) -> str:
+    """"surfel" for a row of two log-scales, "gaussian" for three."""
+    return "surfel" if params.log_scales.shape[-1] == 2 else "gaussian"
+
+
+def scale_dims(primitive: str) -> int:
+    """Log-scales a row of ``primitive`` holds: 3, or 2 for a surfel."""
+    if primitive not in ("gaussian", "surfel"):
+        raise ValueError(f"primitive must be 'gaussian' or 'surfel', got {primitive!r}")
+    return 2 if primitive == "surfel" else 3
+
+
+def zeros(capacity: int, device=None, sh_coeffs: int = 4, scales: int = 3) -> GaussianParams:
     quats = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
     quats[:, 0] = 1.0
     return GaussianParams(
         means=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
-        log_scales=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
+        log_scales=torch.zeros((capacity, scales), dtype=torch.float32, device=device),
         quats=quats,
         raw_opacities=torch.zeros((capacity,), dtype=torch.float32, device=device),
         sh=torch.zeros((capacity, sh_coeffs, 3), dtype=torch.float32, device=device),
@@ -80,7 +96,11 @@ def from_arrays(
         sh = sh.reshape(n, 3, 4).transpose(0, 2, 1)  # [N,3ch,4coef] -> [N,4,3]
     if sh.ndim != 3 or sh.shape[1:] not in ((4, 3), (9, 3), (16, 3)):
         raise ValueError(f"sh must be [N, 4|9|16, 3] or [N, 12], got {sh.shape}")
-    out = zeros(cap, device=device, sh_coeffs=sh.shape[1])
+    scales = np.asarray(log_scales).shape[1]
+    if scales not in (2, 3):
+        raise ValueError(f"log_scales must be [N, 3] or [N, 2] (surfels), got "
+                         f"{np.asarray(log_scales).shape}")
+    out = zeros(cap, device=device, sh_coeffs=sh.shape[1], scales=scales)
     with torch.no_grad():
         for name, arr in (
             ("means", means), ("log_scales", log_scales), ("quats", quats),

@@ -47,6 +47,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_walk.cuh"
+
 namespace {
 
 // blocks whose loads a thread has in flight: 8, and 4 in the backward's
@@ -54,34 +56,6 @@ namespace {
 // from __launch_bounds__(1024), for tiles of up to 32 x 32)
 constexpr int kAhead = 8;
 constexpr int kAheadTwo = 4;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// The first position of seg[0..nb) (non-decreasing) whose value is >= key,
-// by one whole warp: 32 probes a round.
-__device__ int warp_lower_bound(const int* __restrict__ seg, int nb, int key) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = nb;  // seg[< lo] < key <= seg[>= hi]
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int pos = lo + lane * step;
-    // the probes below key are a prefix of the lanes
-    const int k = __popc(__ballot_sync(kFullMask, pos < hi && seg[pos] < key));
-    const int next_hi = lo + k * step;  // probe k: at or above key, where it exists
-    if (k > 0) lo += (k - 1) * step + 1;
-    if (next_hi < hi) hi = next_hi;
-  }
-  return lo + __popc(__ballot_sync(kFullMask, lo + lane < hi && seg[lo + lane] < key));
-}
-
-// The tile's run of blocks [range[0], range[1]), found by warps 0 and 1.
-__device__ void tile_range(const int* __restrict__ seg, int nb, int* range) {
-  const int warp = threadIdx.x >> 5;
-  if (warp < 2) {
-    const int r = warp_lower_bound(seg, nb, (int)blockIdx.x + warp);
-    if ((threadIdx.x & 31) == 0) range[warp] = r;
-  }
-  __syncthreads();
-}
 
 // kLogti: write each block's incoming log T (logti [NB, P2]) and no image.
 // kTwo: the T-floor composition, t_in from out's S_b, C_b and S from out2.
@@ -235,12 +209,6 @@ __global__ void __launch_bounds__(1024) compose_bwd_kernel(
       suffix += (double)term;
     }
   }
-}
-
-int threads_for(int ts) {
-  // whole warps, and at least the two that search
-  const int t = (ts * ts + 31) / 32 * 32;
-  return t < 64 ? 64 : t;
 }
 
 }  // namespace

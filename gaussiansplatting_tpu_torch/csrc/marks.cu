@@ -38,6 +38,8 @@ GS_MARK(projection_bwd)
 GS_MARK(adam)
 GS_MARK(sh)
 GS_MARK(sh_bwd)
+GS_MARK(regularizer)
+GS_MARK(regularizer_bwd)
 GS_MARK(densify)
 GS_MARK(opacity_reset)
 GS_MARK(end)

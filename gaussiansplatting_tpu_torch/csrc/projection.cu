@@ -51,14 +51,12 @@
 
 #include <cuda_runtime.h>
 
+#include "projection_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kRow = 15;          // floats in a presort row
-constexpr float kMaxCoord = 1e6f; // |mean| beyond it culls (ops/projection.py)
-constexpr float kQuatEps = 1e-3f; // core/transforms.normalize_quat
 constexpr float kDiscFloor = 0.1f;
-constexpr float kDeadLo = 0.01f, kDeadHi = 0.99f;  // the colour's dead zone
 
 // RasterConfig's constants and the image's tile grid, by value.
 struct Consts {
@@ -77,20 +75,6 @@ struct In {
   float m[3], ls[3], q[4], r;
   bool alive;
 };
-
-// torch.clamp(x, lo, hi): min(max(x, lo), hi), NaN kept.
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
-
-// torch.isfinite: neither infinite nor NaN
-__device__ __forceinline__ bool finitef(float x) { return fabsf(x) <= 3.402823466e+38f; }
-
-// torch's floor division of int32
-__device__ __forceinline__ int floordiv(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 // Everything the forward computes of a row, kept for the backward.
 struct Geo {

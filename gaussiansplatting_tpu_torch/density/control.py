@@ -218,6 +218,11 @@ def apply(
 
     # ---- split children geometry (density_control.mm:422-480) ----
     scale_lin = torch.exp(torch.clamp(p["log_scales"], -cfg.max_scale_log, cfg.max_scale_log))
+    if scale_lin.shape[1] == 2:
+        # a surfel splits in its own plane: the draw's third axis has a
+        # zero std (2D Gaussian Splatting's densify_and_split)
+        r = r * r.new_tensor([1.0, 1.0, 0.0])
+        scale_lin = torch.nn.functional.pad(scale_lin, (0, 1))
     r_norm = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
     r = torch.where(r_norm > 1e-3, r / torch.clamp(r_norm, min=1e-3), r)
     R = quat_to_rotmat(normalize_quat(p["quats"]))

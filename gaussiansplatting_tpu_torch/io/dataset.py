@@ -14,6 +14,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 from gaussiansplatting_tpu_torch.config import Config
+from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
 from gaussiansplatting_tpu_torch.core.gaussians import GaussianParams
 
 
@@ -90,6 +91,7 @@ def load_colmap_scene(
     cloud = init_mod.gaussians_from_points(
         data.points, data.point_colors, extent, cfg.init, knn_mode=knn_mode,
         sh_degree=cfg.raster.sh_degree,
+        scale_axes=gaussians_mod.scale_dims(cfg.raster.primitive),
     )
     n = cloud.means.shape[0]
     cap = capacity or min(

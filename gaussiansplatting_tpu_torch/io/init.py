@@ -6,7 +6,8 @@ distances (point clouds >10k: a 1000-point sample, its median assigned to
 all, main.mm:87-123), clamped to [1e-4, 0.1] * scene extent, identity
 quaternions, raw opacity 0 (sigmoid = 0.5), SH DC = (rgb - 0.5)/SH_C0, the
 higher bands zero in a row of core/transforms.sh_coeffs(sh_degree)
-coefficients.
+coefficients.  Surfels (``scale_axes=2``) take the same scale on their two
+axes.
 
 The kNN is scipy's KD-tree (``cKDTree``), the JAX package's fallback path;
 the optional native kNN of ``native/`` is not carried.  ``knn_mode='exact'``
@@ -58,6 +59,7 @@ def gaussians_from_points(
     cfg: InitConfig = InitConfig(),
     knn_mode: str = "reference",
     sh_degree: int = 0,
+    scale_axes: int = 3,
 ) -> GaussianCloud:
     n = points.shape[0]
     scales = initial_scales(points, cfg, knn_mode)
@@ -66,7 +68,7 @@ def gaussians_from_points(
         cfg.min_scale_factor * scene_extent,
         cfg.max_scale_factor * scene_extent,
     )
-    log_scales = np.repeat(np.log(scales)[:, None], 3, axis=1).astype(np.float32)
+    log_scales = np.repeat(np.log(scales)[:, None], scale_axes, axis=1).astype(np.float32)
 
     quats = np.zeros((n, 4), np.float32)
     quats[:, 0] = 1.0

@@ -42,7 +42,7 @@ class GaussianCloud:
     """Host-side Gaussian soup in the reference's parameterization."""
 
     means: np.ndarray          # [N, 3]
-    log_scales: np.ndarray     # [N, 3]
+    log_scales: np.ndarray     # [N, 3] ([N, 2] for surfels)
     quats: np.ndarray          # [N, 4] (w, x, y, z), normalized
     raw_opacities: np.ndarray  # [N]
     sh: np.ndarray             # [N, K, 3] (coefficient, channel), [:,0]=DC; K = 4, 9, 16
@@ -90,7 +90,10 @@ def load_gaussian_ply(path: str, max_log_scale: float = 8.0) -> GaussianCloud:
         return np.asarray(raw[name], np.float32)
 
     names = {n for n, _ in props}
-    required = {"x", "y", "z", "scale_0", "scale_1", "scale_2",
+    # a file without scale_2 holds surfels (2D Gaussian Splatting's
+    # scale_0, scale_1): [N, 2] log-scales
+    axes = 3 if "scale_2" in {n for n, _ in props} else 2
+    required = {"x", "y", "z", *(f"scale_{i}" for i in range(axes)),
                 "rot_0", "rot_1", "rot_2", "rot_3", "opacity",
                 "f_dc_0", "f_dc_1", "f_dc_2"}
     missing = required - names
@@ -98,7 +101,7 @@ def load_gaussian_ply(path: str, max_log_scale: float = 8.0) -> GaussianCloud:
         raise ValueError(f"PLY missing fields: {sorted(missing)}")
 
     means = np.stack([col("x"), col("y"), col("z")], axis=1)
-    scales = np.stack([col("scale_0"), col("scale_1"), col("scale_2")], axis=1)
+    scales = np.stack([col(f"scale_{i}") for i in range(axes)], axis=1)
     quats = np.stack([col(f"rot_{i}") for i in range(4)], axis=1)
     opac = col("opacity")
     rest = len([n for n in names if n.startswith("f_rest_")])
@@ -155,7 +158,9 @@ def _rest_fields(rest: int):
 def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
     """Write the reference's exact schema (an SH row of 4 coefficients) or
     3DGS's (9 or 16: f_rest channel-major); returns the number of Gaussians
-    written (invalid positions skipped, ply_exporter.hpp:29-36)."""
+    written (invalid positions skipped, ply_exporter.hpp:29-36).  Surfels
+    (two log-scales a row) write scale_0 and scale_1 alone, as 2D Gaussian
+    Splatting's files hold them."""
     means = np.asarray(cloud.means, np.float32)
     ok = (
         np.all(np.isfinite(means), axis=1)
@@ -166,12 +171,13 @@ def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
     if k not in (4, 9, 16):
         raise ValueError(f"an SH row of {k} coefficients has no PLY layout (4, 9 or 16)")
     rest = 9 if k == 4 else 3 * (k - 1)
+    axes = np.asarray(cloud.log_scales).shape[1]
 
     fields = (
         ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
         + [f"f_rest_{i}" for i in range(rest)]
-        + ["opacity", "scale_0", "scale_1", "scale_2",
-           "rot_0", "rot_1", "rot_2", "rot_3"]
+        + ["opacity"] + [f"scale_{i}" for i in range(axes)]
+        + ["rot_0", "rot_1", "rot_2", "rot_3"]
     )
     rec = np.zeros((n,), dtype=np.dtype([(f, "<f4") for f in fields]))
     sel = lambda a: np.asarray(a, np.float32)[ok]  # noqa: E731
@@ -184,7 +190,8 @@ def export_gaussian_ply(path: str, cloud: GaussianCloud) -> int:
         rec[f"f_rest_{i}"] = sh[:, c, ch]
     rec["opacity"] = sel(cloud.raw_opacities)
     s = sel(cloud.log_scales)
-    rec["scale_0"], rec["scale_1"], rec["scale_2"] = s[:, 0], s[:, 1], s[:, 2]
+    for i in range(axes):
+        rec[f"scale_{i}"] = s[:, i]
     q = sel(cloud.quats)
     for i in range(4):
         rec[f"rot_{i}"] = q[:, i]

@@ -186,19 +186,22 @@ def _tile_sums(x, seg, num_tiles):
 
 
 def _image(tile_img, consts):
-    """[T, 3, P2] per-tile pixels -> the image [rows, width, 3]."""
+    """[T, K, P2] per-tile pixels of K channels -> the image [rows, width,
+    K]."""
     ts, tiles_x, tiles_y, width, rows, _ = consts
-    img = tile_img.reshape(tiles_y, tiles_x, 3, ts, ts).permute(0, 3, 1, 4, 2)
-    return img.reshape(tiles_y * ts, tiles_x * ts, 3)[:rows, :width]
+    k = tile_img.shape[1]
+    img = tile_img.reshape(tiles_y, tiles_x, k, ts, ts).permute(0, 3, 1, 4, 2)
+    return img.reshape(tiles_y * ts, tiles_x * ts, k)[:rows, :width]
 
 
 def _tiles(g, consts):
-    """The inverse of _image: [rows, width, 3] -> [T, 3, P2], zero on the
+    """The inverse of _image: [rows, width, K] -> [T, K, P2], zero on the
     pixels the image crops."""
     ts, tiles_x, tiles_y, width, rows, _ = consts
+    k = g.shape[-1]
     full = torch.nn.functional.pad(g, (0, 0, 0, tiles_x * ts - width, 0, tiles_y * ts - rows))
-    full = full.reshape(tiles_y, ts, tiles_x, ts, 3).permute(0, 2, 4, 1, 3)
-    return full.reshape(tiles_x * tiles_y, 3, ts * ts)
+    full = full.reshape(tiles_y, ts, tiles_x, ts, k).permute(0, 2, 4, 1, 3)
+    return full.reshape(tiles_x * tiles_y, k, ts * ts)
 
 
 def compose_fwd_plain(out, out_tf, seg, consts):

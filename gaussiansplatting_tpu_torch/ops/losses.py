@@ -58,3 +58,49 @@ def photometric_loss(rendered: torch.Tensor, gt: torch.Tensor,
 def psnr(rendered: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     mse = ((rendered - gt) ** 2).mean()
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+# -- 2D Gaussian Splatting's regularizers (Huang et al. 2024, eqs. 13-15)
+
+
+def depth_to_normal(depth: torch.Tensor, camera) -> torch.Tensor:
+    """The normal map [H, W, 3] of a depth map [H, W] in camera space: each
+    pixel centre back-projected at its depth, P = z ((x - cx) / fx, (y -
+    cy) / fy, 1), the normal normalize((P_below - P_above) x (P_right -
+    P_left)) on interior pixels (facing the camera), 0 on the border, as
+    2DGS's depth_to_normal takes it."""
+    h, w = depth.shape
+    cx = (camera.proj[0, 2] + 1.0) * (0.5 * w)
+    cy = (camera.proj[1, 2] + 1.0) * (0.5 * h)
+    xs = (torch.arange(w, dtype=depth.dtype, device=depth.device) + 0.5 - cx) / camera.fx
+    ys = (torch.arange(h, dtype=depth.dtype, device=depth.device) + 0.5 - cy) / camera.fy
+    pts = torch.stack([xs[None, :] * depth, ys[:, None] * depth, depth], dim=-1)
+    d_row = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    d_col = pts[1:-1, 2:] - pts[1:-1, :-2]
+    n = torch.nn.functional.normalize(torch.linalg.cross(d_row, d_col, dim=-1), dim=-1)
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+class Regularizers(NamedTuple):
+    grad_sum: torch.Tensor      # lambda_dist sum(dist) + lambda_normal sum(normal error)
+    weighted_mean: torch.Tensor  # the same over the pixels' mean (logged)
+    dist_mean: torch.Tensor
+    normal_mean: torch.Tensor
+
+
+def surfel_regularizers(frame, camera, cfg: LossConfig) -> Regularizers:
+    """The depth distortion and the normal consistency of a surfel frame
+    (ops/rasterize.SurfelFrame): the distortion map as it comes (eq. 13,
+    squared form), and the normal error 1 - n . N per pixel, n the
+    rendered sum w n, N depth_to_normal of the expected depth times alpha
+    with no gradient through alpha (2DGS's depth_ratio 0; eq. 14 as its
+    public training script takes it).  Summed over the pixels for the
+    gradient, as photometric_loss sums the L1 and D-SSIM maps, so the
+    weights keep their ratio to the photometric terms."""
+    surf = depth_to_normal(frame.depth, camera) * frame.alpha.detach()[..., None]
+    err = 1.0 - (frame.normal * surf).sum(-1)
+    dist_mean, normal_mean = frame.dist.mean(), err.mean()
+    return Regularizers(
+        grad_sum=cfg.lambda_dist * frame.dist.sum() + cfg.lambda_normal * err.sum(),
+        weighted_mean=cfg.lambda_dist * dist_mean + cfg.lambda_normal * normal_mean,
+        dist_mean=dist_mean, normal_mean=normal_mean)

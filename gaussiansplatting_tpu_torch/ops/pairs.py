@@ -209,14 +209,14 @@ def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     [block_src[b], block_src[b] + block) with its first block_valid[b]
     lanes live.
 
-    ``data`` is the depth-presorted [N, D] f32 render data (D <= 15; D = 9
-    when packed); ``cfg`` = (n, pair_capacity, tiles_x, tiles_y, block,
+    ``data`` is the depth-presorted [N, D] f32 render data (D = 9, or 16 for
+    surfels; 9 when packed); ``cfg`` = (n, pair_capacity, tiles_x, tiles_y, block,
     chunk_cap), optionally followed by (packed, pack_pos, tile_size), the
     JAX pcfg's packing flags (pcfg[8:11]).
 
     Returns (table [R, EP] f32, block_src, block_valid, block_tile [NB]
     int32, aligned_total 0-dim int32).  Table rows are [gid, data0..D-1,
-    zeros...], R = 16; packed, R = 8 and the rows are gid, sx, sy, (ca,
+    zeros...], R = max(16, D + 1); packed, R = 8 and the rows are gid, sx, sy, (ca,
     cb), (cc, op), (r, g), (b, 0), with pack_pos gid, (mx, my), (ca, cb),
     (cc, op), (r, g), (b, 0) (bf16 pairs, ops/packing.py).  EP pads e_cap +
     2*block up to a multiple of 512 as the JAX table does, so the tables
@@ -241,7 +241,8 @@ def pair_windows_fwd(data, row0, counts, ccounts, coffsets, ty_lo, tmin_x,
     )
 
     ep = -(-(e_cap + 2 * block) // 512) * 512
-    rows = PACKED_TABLE_ROWS if packed else TABLE_ROWS
+    # a surfel's 16 data columns (ops/surfel_projection.py) take 17 rows
+    rows = PACKED_TABLE_ROWS if packed else max(TABLE_ROWS, 1 + d)
     table = torch.zeros((rows, ep), dtype=torch.float32, device=dev)
     table[0, :e_cap] = sorted_gid.to(torch.float32)   # exact: gid < 2^24
     table[1:1 + d, :e_cap] = sorted_data.T
@@ -298,7 +299,7 @@ def nonzero_prefix(x: torch.Tensor) -> torch.Tensor:
 def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
                               counts: torch.Tensor, n: int,
                               grad_reduce: str = "sortprefix",
-                              packed_out: int = 0) -> torch.Tensor:
+                              packed_out: int = 0, row_chunk: int = 0) -> torch.Tensor:
     """Per-Gaussian sums of aligned-order cotangents d_rows [D, a_cap]
     (the deterministic replacement for the reference's per-field atomics,
     tiled_shaders.metal:698-736), the JAX ``reduce_aligned_cotangents``.
@@ -325,12 +326,20 @@ def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
 
     "scatter": each run summed on its own in float32, lane by lane in
     aligned order (torch.segment_reduce), which is the sum JAX's
-    duplicate-index scatter-add takes (pairs.py:547-552)."""
+    duplicate-index scatter-add takes (pairs.py:547-552).
+
+    ``row_chunk`` > 0 (unpacked rows only) takes the sort-prefix form over
+    that many rows at a time, sharing the one sort: the same sums, with the
+    float64 prefix's working memory cut to the chunk's (the surfel's
+    sixteen rows)."""
     if grad_reduce not in ("sortprefix", "autodiff", "scatter"):
         raise ValueError(f"grad_reduce must be 'sortprefix', 'autodiff' or 'scatter', "
                          f"got {grad_reduce!r}")
     key = torch.where(gid_aligned >= 0, gid_aligned, n)
     _, perm = torch.sort(key, stable=True)
+    if row_chunk and grad_reduce != "scatter" and not packed_out:
+        return torch.cat([_sortprefix_sums(d_rows[r:r + row_chunk, perm], counts)
+                          for r in range(0, d_rows.shape[0], row_chunk)], dim=1)
     rows = d_rows[:, perm]
     if packed_out:
         rows = torch.stack(packing.unpack_cols(list(rows), packed_out))
@@ -346,6 +355,12 @@ def reduce_aligned_cotangents(d_rows: torch.Tensor, gid_aligned: torch.Tensor,
         sums = torch.segment_reduce(rows.T.contiguous(), "sum",
                                     lengths=torch.cat([counts, fill]), axis=0, unsafe=True)
         return sums[:n].contiguous()
+    return _sortprefix_sums(rows, counts)
+
+
+def _sortprefix_sums(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """reduce_aligned_cotangents' sort-prefix form on rows [D, a_cap]
+    already sorted by Gaussian id: [N, D] in rows' dtype."""
     csum = _prefix_sum(torch.nn.functional.pad(rows, (1, 0)).to(torch.float64))
     nz = nonzero_prefix((rows != 0).any(0, keepdim=True))   # [1, a_cap + 1]
     ends = torch.cumsum(counts, 0)                      # [N] int64 run ends

@@ -33,6 +33,13 @@ The frame launches the stage marks ``projection``, ``pairs``, ``blend`` and
 its stages on the device trace.  A frame of SH degree 2 or 3 adds ``sh``
 before ``projection`` and ``sh_bwd`` after ``projection_bwd``.
 
+With ``RasterConfig.primitive`` "surfel" (2D Gaussian Splatting's discs,
+two log-scales a row) ``render`` is ``render_surfel``'s image: the surfel
+projection (ops/surfel_projection.py), the same presort, pairs and windows,
+the surfel blend (ops/surfel_blend.py) and its compose
+(ops/surfel_compose.py), whose maps (``SurfelFrame``) the train step's
+regularizers read; the float32 windowed path only.
+
 Which Pallas kernel (gaussiansplatting_tpu/ops/pallas_blend.py) each launch
 replaces:
   default path      windowed_blend_fwd    _fwd_kernel_win (:601)
@@ -66,7 +73,13 @@ from gaussiansplatting_tpu_torch.ops import blend as blend_mod
 from gaussiansplatting_tpu_torch.ops import compose as compose_mod
 from gaussiansplatting_tpu_torch.ops import pairs as pairs_mod
 from gaussiansplatting_tpu_torch.ops import projection as proj_mod
+from gaussiansplatting_tpu_torch.ops import surfel_blend, surfel_compose
+from gaussiansplatting_tpu_torch.ops import surfel_projection as sproj
 from gaussiansplatting_tpu_torch.utils import tracing
+
+# frames rendered of 2D Gaussian surfels (render_surfel), in utils/
+# tracing.py's registry as the SH frames are counted
+tracing.counted("primitive.surfel")
 
 
 class RenderAux(NamedTuple):
@@ -118,44 +131,54 @@ class _Plan(NamedTuple):
     aux: RenderAux
 
 
-def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
-          vs_dummy: torch.Tensor | None = None, row0: int = 0,
-          tiles_y: int | None = None) -> _Plan:
-    """Projection (the presort's rows, ops/projection.project_rows), the
-    stable depth presort and the capacity plan (rasterize.py:287-363) of
-    tile rows [row0, row0 + tiles_y) (default: the whole image).  An SH row wider than band 1
-    (degree 2 or 3) counts the frame by its degree
-    (``sh.degree_<d>``, projection.count_sh_frame) and, at a degree of 1 or more, evaluates the
-    colour first, between the marks ``sh`` and ``projection``, its
-    cotangent marked ``sh_bwd`` (the last of the backward, after
-    ``projection_bwd``)."""
-    color = None
+def _frame_colour(params: GaussianParams, camera: Camera, cfg: RasterConfig) -> torch.Tensor:
+    """The frame's colour [N, 3], then the ``projection`` mark.  An SH row
+    wider than band 1 (degree 2 or 3) counts the frame by its degree
+    (``sh.degree_<d>``, projection.count_sh_frame) and, at a degree of 1 or
+    more, evaluates the colour between the marks ``sh`` and
+    ``projection``, its cotangent marked ``sh_bwd`` (the last of the
+    backward, after ``projection_bwd``); otherwise the colour is evaluated
+    after the mark (projection.default_color)."""
     if params.sh.shape[1] > 4:
         proj_mod.count_sh_frame(cfg.sh_degree)
         if cfg.sh_degree >= 1:
             tracing.mark("sh", params.means)
             color = tracing.mark_grad("sh_bwd", proj_mod.sh_color(params, camera, cfg))
+            tracing.mark("projection", params.means)
+            return color
     tracing.mark("projection", params.means)
+    return proj_mod.default_color(params, camera, cfg)
+
+
+def _presort(rows: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """The presort's rows permuted by the stable argsort of their depth key.
+    Expansion emits pairs in presorted order and the tile sort is stable,
+    so every tile's run comes out depth-sorted; culled rows all have depth
+    0, so the sort must be stable too.  The rows ride the permutation as
+    one tensor (_PermuteRows: its cotangent a gather)."""
+    n = depth.shape[0]
+    order = torch.argsort(depth, stable=True)
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(n, dtype=order.dtype, device=order.device)
+    return _PermuteRows.apply(rows, order, inv_order)
+
+
+def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+          vs_dummy: torch.Tensor | None = None, row0: int = 0,
+          tiles_y: int | None = None) -> _Plan:
+    """Projection (the presort's rows, ops/projection.project_rows), the
+    stable depth presort and the capacity plan (rasterize.py:287-363) of
+    tile rows [row0, row0 + tiles_y) (default: the whole image); the colour
+    and its marks by _frame_colour."""
+    color = _frame_colour(params, camera, cfg)
     ts = cfg.tile_size
     tiles_x = proj_mod.num_tiles(camera.width, ts)
     if tiles_y is None:
         tiles_y = proj_mod.num_tiles(camera.height, ts)
 
-    if color is None:
-        color = proj_mod.default_color(params, camera, cfg)
     # the presort's rows [N, 15] (projection, the dead-zone colour, vs_dummy;
     # integer fields exact in f32) and their depth key
-    rows, depth = proj_mod.project_rows(params, camera, cfg, color, vs_dummy)
-
-    # depth presort: expansion emits pairs in Gaussian order and the tile
-    # sort is stable, so every tile's run comes out depth-sorted.  Culled
-    # Gaussians all have depth 0, so the sort must be stable too.  The rows
-    # ride the permutation as one tensor.
-    n = depth.shape[0]
-    order = torch.argsort(depth, stable=True)
-    inv_order = torch.empty_like(order)
-    inv_order[order] = torch.arange(n, dtype=order.dtype, device=order.device)
-    cols = _PermuteRows.apply(rows, order, inv_order)
+    cols = _presort(*proj_mod.project_rows(params, camera, cfg, color, vs_dummy))
     data = cols[:, proj_mod.DATA_COL:]
     i32 = torch.int32
     n_tiles = cols[:, 5].to(i32)
@@ -172,23 +195,33 @@ def _plan(params: GaussianParams, camera: Camera, cfg: RasterConfig,
         valid=n_tiles > 0,
     )
 
+    # the bf16 payload mode packs the windowed branch only, as JAX does
+    # (rasterize.py:304, 364-376)
+    packed = cfg.payload_dtype == "bf16" and not cfg.t_floor_exact
+    pack_pos = packed and cfg.pack_positions
+    bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x,
+               int(packed), int(pack_pos))
+    return _pair_plan(data, proj_p, cfg, tiles_x, tiles_y, row0, bconsts, packed, pack_pos)
+
+
+def _pair_plan(data, proj_p, cfg: RasterConfig, tiles_x: int, tiles_y: int, row0: int,
+               bconsts: tuple, packed: bool = False, pack_pos: bool = False) -> _Plan:
+    """The ``pairs`` mark and the capacity plan (rasterize.py:287-363) of
+    the presorted rows' ``proj_p`` over tile rows [row0, row0 + tiles_y):
+    the _Plan of ``data`` with the blend's ``bconsts``; both primitives'
+    plans end here."""
+    n = data.shape[0]
     tracing.mark("pairs", data)
     (counts, ccounts, coffsets, ty_lo, span_x, total,
      overflow) = pairs_mod.capacity_plan(
         proj_p, tiles_x, tiles_y, cfg.pair_capacity, row0, cfg.overflow_drop,
         cfg.chunk_slack,
     )
-    # the bf16 payload mode packs the windowed branch only, as JAX does
-    # (rasterize.py:304, 364-376)
-    packed = cfg.payload_dtype == "bf16" and not cfg.t_floor_exact
-    pack_pos = packed and cfg.pack_positions
     pcfg = (
         n, cfg.pair_capacity, tiles_x, tiles_y, cfg.pair_block,
         pairs_mod._chunk_capacity(cfg.pair_capacity, n, cfg.chunk_slack),
-        packed, pack_pos, ts,
+        packed, pack_pos, cfg.tile_size,
     )
-    bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x,
-               int(packed), int(pack_pos))
     ints = (counts, ccounts, coffsets, ty_lo, proj_p.tile_min[:, 0], span_x)
     return _Plan(data, ints, pcfg, bconsts,
                  RenderAux(num_pairs=total, overflow=overflow))
@@ -306,7 +339,8 @@ class _BlendWindowsTF(torch.autograd.Function):
 def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
            vs_dummy: torch.Tensor | None = None, tile_rows: tuple | None = None):
     """Render one view.  Returns (image [H, W, 3] float32, RenderAux) on the
-    device of ``params``; differentiable in the parameters.
+    device of ``params``; differentiable in the parameters.  With
+    ``cfg.primitive`` "surfel" the frame is render_surfel's image.
 
     vs_dummy: optional [N, 2] zeros added to the projected screen positions;
     its gradient is the per-Gaussian view-space positional gradient the
@@ -324,6 +358,12 @@ def render(params: GaussianParams, camera: Camera, cfg: RasterConfig,
     first pass's S_b into each block's incoming log T, and the second pass
     zeroes every pair behind a pixel's T-floor.  The image takes C_b and
     S_b from the second pass and the blocks' incoming T from the first."""
+    if cfg.primitive != "gaussian":
+        if tile_rows is not None:
+            raise ValueError("render: a surfel frame has no strips (tile_rows): the "
+                             "tile-sharded step renders 3D Gaussians only")
+        frame = render_surfel(params, camera, cfg, vs_dummy)
+        return frame.image, frame.aux
     _check_payload(cfg)
     row0, n_rows = _tile_rows(camera, cfg, tile_rows)
     plan = _plan(params, camera, cfg, vs_dummy, row0, n_rows)
@@ -433,3 +473,143 @@ def compose(out: torch.Tensor, block_tile: torch.Tensor, camera: Camera,
         raise ValueError("compose: t_floor_exact needs blend_tfloor")
     out_tf = blend_tfloor(compose_mod.compose_logti(out.detach(), block_tile, consts))
     return _Compose.apply(out, out_tf, block_tile, consts)
+
+
+# -- 2D Gaussian surfels (Huang et al. 2024): ops/surfel_projection.py,
+#    ops/surfel_blend.py, ops/surfel_compose.py
+
+
+class SurfelFrame(NamedTuple):
+    """A surfel frame's maps [H, W, ...]: the image, alpha A = sum w, the
+    expected depth sum w z / A (0 where A = 0), the camera-space normal
+    sum w n, and the depth distortion A M2 - M1^2 (eq. 13, squared form)."""
+    image: torch.Tensor      # [H, W, 3]
+    alpha: torch.Tensor      # [H, W]
+    depth: torch.Tensor      # [H, W]
+    normal: torch.Tensor     # [H, W, 3]
+    dist: torch.Tensor       # [H, W]
+    aux: RenderAux
+
+
+def check_surfel(params: GaussianParams, cfg: RasterConfig) -> None:
+    """Raise unless ``cfg`` and ``params`` describe a surfel frame the port
+    renders: two log-scales a row, the float32 windowed path (no bf16
+    payload, no t_floor_exact)."""
+    if cfg.primitive != "surfel":
+        raise ValueError(f"primitive must be 'gaussian' or 'surfel', got {cfg.primitive!r}")
+    if params.log_scales.shape[-1] != 2:
+        raise ValueError(f"a surfel row holds two log-scales, got "
+                         f"{tuple(params.log_scales.shape)}")
+    if cfg.payload_dtype != "f32":
+        raise ValueError("primitive 'surfel' renders the float32 payload only "
+                         "(payload_dtype 'f32'), not the bf16 packed one")
+    if cfg.t_floor_exact:
+        raise ValueError("primitive 'surfel' has no exact T-floor pass (t_floor_exact)")
+
+
+def _plan_surfel(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+                 vs_dummy: torch.Tensor | None = None) -> _Plan:
+    """_plan for surfels: the colour (_frame_colour), the presort's [N, 22]
+    rows (ops/surfel_projection.project_rows), the stable depth presort and
+    the capacity plan of the whole image; the plan's data is the rows'
+    sixteen render columns."""
+    color = _frame_colour(params, camera, cfg)
+    ts = cfg.tile_size
+    tiles_x = proj_mod.num_tiles(camera.width, ts)
+    tiles_y = proj_mod.num_tiles(camera.height, ts)
+    cols = _presort(*sproj.project_rows(params, camera, cfg, color, vs_dummy))
+    data = cols[:, sproj.DATA_COL:]
+    i32 = torch.int32
+    n_tiles = cols[:, 5].to(i32)
+    zeros = torch.zeros_like(cols[:, 0])
+    proj_p = proj_mod.Projected(
+        screen_pos=data[:, :2], conic=data[:, :3], depth=cols[:, 0], opacity=data[:, 9],
+        color=data[:, 10:13], radius=zeros, tile_min=cols[:, 1:3].to(i32),
+        tile_max=cols[:, 3:5].to(i32), n_tiles=n_tiles, valid=n_tiles > 0)
+    bconsts = (ts, cfg.power_floor, cfg.alpha_cap, cfg.alpha_floor, tiles_x)
+    return _pair_plan(data, proj_p, cfg, tiles_x, tiles_y, 0, bconsts)
+
+
+# rows of the surfel blend's cotangents the float64 reduction takes at once
+SURFEL_REDUCE_ROWS = 8
+
+
+class _BlendSurfels(torch.autograd.Function):
+    """The surfel blend over the frame's windows as one differentiable unit
+    (ops/surfel_blend.py): forward (out [NB, 10, P2], gid [NB, B]); the
+    backward runs the blend backward from out's S_b, then reduces its
+    sixteen column cotangents to per-surfel sums by ``grad_reduce`` (the
+    sort-prefix form eight rows at a time)."""
+
+    @staticmethod
+    def forward(ctx, data, win, counts, pcfg, bconsts, grad_reduce):
+        out, gid = surfel_blend.surfel_blend_fwd(win.table, win.block_src, win.block_valid,
+                                                 win.tile, win.row0, pcfg[4], bconsts)
+        ctx.win, ctx.pcfg, ctx.bconsts, ctx.grad_reduce = win, pcfg, bconsts, grad_reduce
+        ctx.save_for_backward(gid, counts, out[:, 3].contiguous())
+        ctx.mark_non_differentiable(gid)
+        return out, gid
+
+    @staticmethod
+    def backward(ctx, d_out, _d_gid):
+        tracing.mark("blend_bwd", d_out)
+        gid, counts, s_b = ctx.saved_tensors
+        win, (n, block) = ctx.win, (ctx.pcfg[0], ctx.pcfg[4])
+        dcols = surfel_blend.surfel_blend_bwd(win.table, win.block_src, win.block_valid,
+                                              win.tile, win.row0, block, d_out.contiguous(),
+                                              s_b, ctx.bconsts)
+        tracing.mark("reduction", gid)
+        d_data = pairs_mod.reduce_aligned_cotangents(
+            dcols.reshape(dcols.shape[0], -1), gid.reshape(-1).to(torch.int32), counts, n,
+            ctx.grad_reduce, row_chunk=SURFEL_REDUCE_ROWS)
+        tracing.mark("projection_bwd", d_data)
+        return (d_data,) + (None,) * 5
+
+
+class _ComposeSurfels(torch.autograd.Function):
+    """The surfel maps from the blend's sums, differentiable in ``out``
+    (ops/surfel_compose.py): (image [H, W, 3], aux [H, W, 7])."""
+
+    @staticmethod
+    def forward(ctx, out, seg, consts):
+        ctx.consts = consts
+        ctx.save_for_backward(out, seg)
+        return surfel_compose.surfel_compose_fwd(out, seg, consts)
+
+    @staticmethod
+    def backward(ctx, g_img, g_aux):
+        out, seg = ctx.saved_tensors
+        if g_img is None:
+            g_img = torch.zeros((ctx.consts[4], ctx.consts[3], 3), device=out.device)
+        if g_aux is None:
+            g_aux = torch.zeros((ctx.consts[4], ctx.consts[3], surfel_compose.AUX),
+                                device=out.device)
+        return surfel_compose.surfel_compose_bwd(g_img, g_aux, out, seg, ctx.consts), None, None
+
+
+def render_surfel(params: GaussianParams, camera: Camera, cfg: RasterConfig,
+                  vs_dummy: torch.Tensor | None = None) -> SurfelFrame:
+    """Render one view of 2D Gaussian surfels (``cfg.primitive`` "surfel",
+    two log-scales a row): projection, the presort, pairs and windows as
+    the 3D Gaussian's, the surfel blend and its compose.  Returns the
+    SurfelFrame of the whole image, differentiable in the parameters (and
+    vs_dummy, as render takes it).  The marks are the 3D Gaussian frame's:
+    ``projection``, ``pairs``, ``blend``, ``compose`` and, backward,
+    ``compose_bwd``, ``blend_bwd``, ``reduction``, ``projection_bwd``; a
+    frame counts once under ``primitive.surfel``."""
+    check_surfel(params, cfg)
+    tracing.add_launches({"primitive.surfel": 1})
+    plan = _plan_surfel(params, camera, cfg, vs_dummy)
+    win = _windows(plan.data.detach(), plan.ints, plan.pcfg, 0)
+    counts = plan.ints[0]
+    tracing.mark("blend", counts)
+    out, _ = _BlendSurfels.apply(plan.data, win, counts, plan.pcfg, plan.bconsts,
+                                 cfg.grad_reduce)
+    tracing.mark("compose", out)
+    img, aux = _ComposeSurfels.apply(out, win.block_tile, compose_consts(camera, cfg))
+    img = tracing.mark_grad("compose_bwd", img)
+    trans = aux[..., 6]
+    alpha = 1.0 - trans
+    depth = torch.where(alpha > 0.0, aux[..., 0] / torch.where(alpha > 0.0, alpha, 1.0), 0.0)
+    dist = alpha * aux[..., 5] - aux[..., 4] * aux[..., 4]
+    return SurfelFrame(img, alpha, depth, aux[..., 1:4], dist, plan.aux)

@@ -209,6 +209,7 @@ def make_sharded_train_step(mesh: Mesh, cfg: Config, total_iters: int,
     gradient all-reduce into that many slices (chunked_all_reduce).  A
     replay of step_body's graph where ``replays``, step_body op by op
     elsewhere; functional, as trainer.train_step."""
+    trainer.only_gaussians(cfg, "the tile-sharded step and render")
 
     def step(state, camera, gt_image):
         _check_member(mesh)
@@ -230,6 +231,7 @@ def make_sharded_train_step_batched(mesh: Mesh, cfg: Config, total_iters: int,
     (state, StepMetrics) (sharded.py:169-283): batched_body, dispatched as
     make_sharded_train_step dispatches step_body (one replay of K
     views)."""
+    trainer.only_gaussians(cfg, "the tile-sharded step and render")
 
     def step(state, cameras, gt_images):
         _check_member(mesh)
@@ -252,6 +254,7 @@ def make_sharded_render(mesh: Mesh, cfg: Config):
     """Inference-only sharded render (params, camera) -> ShardedRender
     (sharded.py:286-316): render_body, a replay of its graph where
     ``replays``, op by op elsewhere."""
+    trainer.only_gaussians(cfg, "the tile-sharded step and render")
 
     def run(params, camera) -> ShardedRender:
         _check_member(mesh)

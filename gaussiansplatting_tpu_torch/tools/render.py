@@ -1,4 +1,5 @@
-"""Offline renderer CLI on PyTorch: renders a 3DGS PLY from an orbit path
+"""Offline renderer CLI on PyTorch: renders a 3DGS PLY (or a 2D Gaussian
+Splatting PLY of surfels, two scales a row) from an orbit path
 around the scene or from the training cameras of a COLMAP reconstruction,
 writing PNG/PPM.  Counterpart of gaussiansplatting_tpu/tools/render.py, with
 the same flags plus ``--device``.
@@ -78,17 +79,19 @@ def main(argv=None) -> int:
     from gaussiansplatting_tpu_torch.utils.metrics import MetricsLogger
 
     device = _device(args.device)
-    cfg = Config(
-        raster=RasterConfig(
-            pair_capacity=args.pair_capacity, sh_degree=args.sh_degree
-        )
-    )
     log = MetricsLogger()
 
     cloud = ply_mod.load_gaussian_ply(args.ply)
     params = gaussians_mod.from_arrays(
         cloud.means, cloud.log_scales, cloud.quats, cloud.raw_opacities, cloud.sh,
         device=device,
+    )
+    # a PLY of two scales a row holds surfels (2D Gaussian Splatting's)
+    cfg = Config(
+        raster=RasterConfig(
+            pair_capacity=args.pair_capacity, sh_degree=args.sh_degree,
+            primitive=gaussians_mod.primitive_of(params),
+        )
     )
     log.log("load", n_gaussians=cloud.means.shape[0], ply=args.ply,
             device=str(device))

@@ -22,12 +22,19 @@ traced frames by SH degree (the ``sh.degree_<d>`` counters of
 utils/tracing.py's registry, ``sh.degree_counts``) are printed, and so are
 the traced window's kernel launches by counted wrapper (the registry's other
 counters: the blends', compose's and ``run_ids``, the slots-to-runs pair,
-two a frame).
+two a frame).  ``--primitive surfel`` traces 2D Gaussian Splatting's
+surfels (the scene's first two log-scales, lambda_dist 100, lambda_normal
+0.05): the stages hold ``regularizer`` and ``regularizer_bwd``, and the
+surfel frames (``primitive.surfel``) are printed beside the frames by SH
+degree, the surfel kernels' launches (``surfel_project_{fwd,bwd}``,
+``surfel_blend_{fwd,bwd}``, ``surfel_compose_{fwd,bwd}``) among the
+launches.
 
   python -m gaussiansplatting_tpu_torch.tools.trace [--steps 5] [--n 100000]
       [--width 800 --height 608] [--pair-capacity 2097152] [--top 25]
       [--payload-dtype f32|bf16] [--pack-positions 0|1] [--sh-degree 0-3]
-      [--loop] [--out build/trace] [--parse-only] [--device cuda]
+      [--primitive gaussian|surfel] [--loop] [--out build/trace] [--parse-only]
+      [--device cuda]
 
 The chrome trace goes to ``<out>/trace.json`` (the port's host spans in it
 as profiler ranges), the device operations and the port's spans on
@@ -55,6 +62,7 @@ import time
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TIMELINE = "timeline.json"
 SH_FRAMES = "sh.degree_"   # the registry's counters of frames by SH degree
+PRIMITIVE_FRAMES = "primitive."   # ... and of surfel frames
 # --loop: a pair read and a densify event every LOOP_EVENTS iterations, an
 # opacity reset every second one, chunks of LOOP_CHUNK replays
 LOOP_EVENTS = 10
@@ -62,24 +70,31 @@ LOOP_CHUNK = 5
 
 
 def _setup(n, width, height, pair_capacity, device, payload_dtype="f32",
-           pack_positions=False, sh_degree=0):
+           pack_positions=False, sh_degree=0, primitive="gaussian"):
     """The JAX tool's workload: the synthetic scene (seed 0), its canonical
     camera, random ground truth, L1-only loss gradient, B = 128, the
     payload mode given; at ``sh_degree`` 2 or 3 the SH row of that degree,
-    its rest bands drawn N(0, 0.1^2)."""
+    its rest bands drawn N(0, 0.1^2); surfels (``primitive`` "surfel")
+    take the scene's first two log-scales and 2DGS's weights."""
     import numpy as np
     import torch
 
     from gaussiansplatting_tpu_torch.config import Config, LossConfig, RasterConfig
+    from gaussiansplatting_tpu_torch.core.gaussians import FIELDS, GaussianParams
     from gaussiansplatting_tpu_torch.train import state as train_state
     from gaussiansplatting_tpu_torch.utils import synthetic
 
     cfg = Config(raster=RasterConfig(pair_capacity=pair_capacity, pair_block=128,
                                      payload_dtype=payload_dtype,
                                      pack_positions=bool(pack_positions),
-                                     sh_degree=sh_degree),
+                                     sh_degree=sh_degree, primitive=primitive),
                  loss=LossConfig(dssim_in_grad=False))
     params = synthetic.make_scene(n=n, seed=0, device=device, sh_degree=sh_degree)
+    if primitive == "surfel":
+        cfg = cfg.replace(loss=cfg.loss.replace(lambda_dist=100.0, lambda_normal=0.05))
+        params = GaussianParams(*(getattr(params, f).detach() for f in FIELDS[:1]),
+                                params.log_scales.detach()[:, :2].contiguous(),
+                                *(getattr(params, f).detach() for f in FIELDS[2:]))
     if sh_degree >= 2:
         with torch.no_grad():
             g = torch.Generator().manual_seed(0)
@@ -98,7 +113,8 @@ def _sync(device):
 
 
 def capture(steps, n, width, height, pair_capacity, out, device="cuda",
-            payload_dtype="f32", pack_positions=False, loop=False, sh_degree=0):
+            payload_dtype="f32", pack_positions=False, loop=False, sh_degree=0,
+            primitive="gaussian"):
     """Warm one step, time ``steps`` synchronized steps on the host clock,
     then profile ``steps`` more; ``loop``: profile one ``train_loop`` of
     ``steps`` iterations from a fresh state instead (see the module
@@ -113,7 +129,7 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
 
     device = torch.device(device)
     st, camera, gt, cfg = _setup(n, width, height, pair_capacity, device, payload_dtype,
-                                 pack_positions, sh_degree)
+                                 pack_positions, sh_degree, primitive)
     if loop:
         cfg = cfg.replace(density=cfg.density.replace(
             densify_from_iter=0, densify_interval=LOOP_EVENTS,
@@ -151,7 +167,9 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
         hi = time.time_ns()
     counted = {k: n - before[k] for k, n in tracing.launch_counts().items() if n != before[k]}
     frames = {k: n for k, n in counted.items() if k.startswith(SH_FRAMES)}
-    launched = {k: n for k, n in counted.items() if not k.startswith(SH_FRAMES)}
+    prims = {k: n for k, n in counted.items() if k.startswith(PRIMITIVE_FRAMES)}
+    launched = {k: n for k, n in counted.items()
+                if not k.startswith((SH_FRAMES, PRIMITIVE_FRAMES))}
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     ops = []
@@ -162,7 +180,7 @@ def capture(steps, n, width, height, pair_capacity, out, device="cuda",
     with open(os.path.join(out, TIMELINE), "w") as f:
         json.dump({"window": [lo, hi], "device": ops, "spans": tracing.spans(),
                    "dropped": tracing.dropped(), "sh_degree_counts": frames,
-                   "launch_counts": launched}, f)
+                   "primitive_counts": prims, "launch_counts": launched}, f)
     return host_ms
 
 
@@ -172,6 +190,13 @@ def sh_degree_counts(out: str) -> dict:
     from a row wider than band 1."""
     with open(os.path.join(out, TIMELINE)) as f:
         return json.load(f).get("sh_degree_counts", {})
+
+
+def primitive_counts(out: str) -> dict:
+    """The traced surfel frames ({"primitive.surfel": frames}) that
+    ``capture`` wrote to ``<out>/timeline.json``; {} for 3D Gaussians."""
+    with open(os.path.join(out, TIMELINE)) as f:
+        return json.load(f).get("primitive_counts", {})
 
 
 def launch_counts(out: str) -> dict:
@@ -408,6 +433,8 @@ def main(argv=None) -> int:
                    help="with --payload-dtype bf16: tile-relative bf16 positions")
     p.add_argument("--sh-degree", type=int, choices=(0, 1, 2, 3), default=0,
                    help="SH degree of the scene and the step")
+    p.add_argument("--primitive", choices=("gaussian", "surfel"), default="gaussian",
+                   help="3D Gaussians, or 2D Gaussian Splatting's surfels")
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--loop", action="store_true",
                    help="trace train_loop for --steps iterations from a fresh state, its "
@@ -425,9 +452,11 @@ def main(argv=None) -> int:
 
         host_ms = capture(args.steps, args.n, args.width, args.height, args.pair_capacity,
                           args.out, _device(args.device), args.payload_dtype,
-                          bool(args.pack_positions), args.loop, args.sh_degree)
+                          bool(args.pack_positions), args.loop, args.sh_degree,
+                          args.primitive)
     device, spans, window, dropped = timeline(args.out)
     print(f"sh.degree_counts {sh_degree_counts(args.out)}")
+    print(f"primitive_counts {primitive_counts(args.out)}")
     print(f"launches {launch_counts(args.out)}")
     for stage, ms in sorted(stage_ms(device, window, args.steps).items(),
                             key=lambda x: -x[1]):

@@ -78,6 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sh-degree", type=int, default=None, choices=(0, 1, 2, 3),
                    help="override config SH degree (1-3 = trainable view-dependent "
                         "color; 2 and 3 ramp in one degree per 1,000 iterations)")
+    p.add_argument("--primitive", choices=("gaussian", "surfel"), default=None,
+                   help="the primitive: 3D Gaussians (default) or 2D Gaussian Splatting's "
+                        "surfels (float32 windowed path; no --batch-views, --devices or "
+                        "bf16 payload)")
+    p.add_argument("--lambda-dist", type=float, default=None,
+                   help="surfels: the depth distortion's weight (2DGS: 100 for unbounded "
+                        "scenes, 1000 for bounded), on from iteration 3,000")
+    p.add_argument("--lambda-normal", type=float, default=None,
+                   help="surfels: the normal consistency's weight (2DGS: 0.05), on from "
+                        "iteration 7,000")
     p.add_argument("--adaptive-pairs", action="store_true",
                    help="auto-bucket pair capacity to the live workload "
                         "(--pair-capacity becomes the upper bound)")
@@ -123,7 +133,19 @@ def apply_raster_overrides(raster, args, default_pair_capacity=None):
         raster = raster.replace(pack_positions=bool(args.pack_positions))
     if args.chunk_slack is not None:
         raster = raster.replace(chunk_slack=args.chunk_slack)
+    if args.primitive is not None:
+        raster = raster.replace(primitive=args.primitive)
     return raster
+
+
+def apply_loss_overrides(loss, args):
+    """The regularizer weights' flags over the config's, as
+    apply_raster_overrides takes the raster's."""
+    if args.lambda_dist is not None:
+        loss = loss.replace(lambda_dist=args.lambda_dist)
+    if args.lambda_normal is not None:
+        loss = loss.replace(lambda_normal=args.lambda_normal)
+    return loss
 
 
 def load_scene(args, cfg, device):
@@ -216,7 +238,7 @@ def _train(args, topo) -> int:
     cfg = cfg.replace(raster=apply_raster_overrides(
         cfg.raster, args,
         default_pair_capacity=None if args.config else 1 << 21,
-    ))
+    ), loss=apply_loss_overrides(cfg.loss, args))
 
     log = MetricsLogger(path=args.metrics if primary else None, echo=primary)
     log.log("start", colmap=args.colmap, devices=args.devices, **topo)
@@ -257,7 +279,8 @@ def _train(args, topo) -> int:
         if saved_cfg is not None:
             # CLI overrides win over the checkpoint's saved config; omitted
             # flags keep the checkpoint's values
-            cfg = saved_cfg.replace(raster=apply_raster_overrides(saved_cfg.raster, args))
+            cfg = saved_cfg.replace(raster=apply_raster_overrides(saved_cfg.raster, args),
+                                    loss=apply_loss_overrides(saved_cfg.loss, args))
         log.log("resume", path=latest, iteration=int(state.opt.t))
     else:
         state = state_mod.create(params, seed=cfg.train.seed)

@@ -288,14 +288,16 @@ def build_state(ply, width, height, fov, sh_degree, pair_capacity, device="cuda"
     from gaussiansplatting_tpu_torch.core import gaussians as gaussians_mod
     from gaussiansplatting_tpu_torch.io import ply as ply_mod
 
-    cfg = Config(raster=RasterConfig(
-        pair_capacity=pair_capacity, sh_degree=sh_degree
-    ))
     cloud = ply_mod.load_gaussian_ply(ply)
     params = gaussians_mod.from_arrays(
         cloud.means, cloud.log_scales, cloud.quats, cloud.raw_opacities,
         cloud.sh, device=device,
     )
+    # a PLY of two scales a row holds surfels
+    cfg = Config(raster=RasterConfig(
+        pair_capacity=pair_capacity, sh_degree=sh_degree,
+        primitive=gaussians_mod.primitive_of(params),
+    ))
     return ViewerState(params, cfg, width, height, fov, *_framing(cloud.means))
 
 

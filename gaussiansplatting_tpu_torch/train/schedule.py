@@ -73,3 +73,19 @@ def step_scalars(cfg: OptimConfig, t0: int, k: int, total_iters: int) -> np.ndar
                                        total_iters),
                   _bc(cfg.beta1, t + 1), _bc(cfg.beta2, t + 1))
     return out
+
+
+# 2D Gaussian Splatting's regularizer schedule (its training script): the
+# depth distortion from iteration 3,000 on, the normal consistency from
+# 7,000
+DIST_FROM, NORMAL_FROM = 3000, 7000
+
+
+def regularizers_at(loss_cfg, iteration: int):
+    """The LossConfig the step at ``iteration`` (completed steps) trains
+    with: 2DGS's ``lambda_dist if iteration > 3000`` and ``lambda_normal if
+    iteration > 7000`` of its 1-based count, i.e. from iteration 3,000 and
+    7,000 of this one on; zero before."""
+    return loss_cfg.replace(
+        lambda_dist=loss_cfg.lambda_dist if iteration >= DIST_FROM else 0.0,
+        lambda_normal=loss_cfg.lambda_normal if iteration >= NORMAL_FROM else 0.0)

@@ -39,8 +39,8 @@ from gaussiansplatting_tpu_torch.config import Config
 from gaussiansplatting_tpu_torch.core import transforms as T
 from gaussiansplatting_tpu_torch.core.camera import Camera
 from gaussiansplatting_tpu_torch.density import control as density
-from gaussiansplatting_tpu_torch.ops.losses import photometric_loss, psnr
-from gaussiansplatting_tpu_torch.ops.rasterize import render
+from gaussiansplatting_tpu_torch.ops.losses import photometric_loss, psnr, surfel_regularizers
+from gaussiansplatting_tpu_torch.ops.rasterize import render, render_surfel
 from gaussiansplatting_tpu_torch.train import graph, optimizer, schedule
 from gaussiansplatting_tpu_torch.train import state as state_mod
 from gaussiansplatting_tpu_torch.train.state import TrainState
@@ -84,13 +84,44 @@ def step_body(state: TrainState, camera: Camera, gt_image: torch.Tensor, cfg: Co
     vs_zero = torch.zeros((params.capacity, 2), dtype=torch.float32,
                           device=params.means.device, requires_grad=True)
     with torch.enable_grad():
-        img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
-        tracing.mark("loss", img)
-        rep = photometric_loss(img, gt_image, cfg.loss)
-        tracing.mark("loss_bwd", img)
+        if cfg.raster.primitive == "surfel":
+            img, aux, rep = _surfel_loss(params, camera, gt_image, cfg, vs_zero)
+        else:
+            img, aux = render(params, camera, cfg.raster, vs_dummy=vs_zero)
+            tracing.mark("loss", img)
+            rep = photometric_loss(img, gt_image, cfg.loss)
+            tracing.mark("loss_bwd", img)
         *grads, vs_grad = torch.autograd.grad(rep.grad_loss, trainable + [vs_zero])
     return step_update(state, dict(zip(optimizer.TRAINABLE, grads)), vs_grad, rep, img,
                        gt_image, aux.num_pairs, aux.overflow, cfg, scalars)
+
+
+def only_gaussians(cfg: Config, what: str) -> None:
+    """Raise for a surfel Config (RasterConfig.primitive "surfel") on a path
+    that renders 3D Gaussians only: ``what`` names it."""
+    if cfg.raster.primitive != "gaussian":
+        raise ValueError(f"{what} renders primitive 'gaussian' only, not "
+                         f"{cfg.raster.primitive!r}: the surfel path covers the float32 "
+                         f"windowed step and render")
+
+
+def _surfel_loss(params, camera: Camera, gt_image: torch.Tensor, cfg: Config, vs_zero):
+    """The surfel step's frame and loss (RasterConfig.primitive "surfel"):
+    (image, RenderAux, LossReport) with the photometric loss plus 2DGS's
+    regularizers in grad_loss and combined_mean
+    (ops/losses.surfel_regularizers).  Marks ``loss``, then ``regularizer``;
+    backward ``regularizer_bwd`` (launched here, before the gradient: the
+    regularizers' nodes, made last, run first) and ``loss_bwd`` once the
+    photometric loss's cotangent is taken up, after them."""
+    frame = render_surfel(params, camera, cfg.raster, vs_dummy=vs_zero)
+    tracing.mark("loss", frame.image)
+    rep = photometric_loss(frame.image, gt_image, cfg.loss)
+    photo = tracing.mark_grad("loss_bwd", rep.grad_loss)
+    tracing.mark("regularizer", frame.image)
+    reg = surfel_regularizers(frame, camera, cfg.loss)
+    tracing.mark("regularizer_bwd", frame.image)
+    return frame.image, frame.aux, rep._replace(
+        grad_loss=photo + reg.grad_sum, combined_mean=rep.combined_mean + reg.weighted_mean)
 
 
 def train_step_eager(state: TrainState, camera: Camera, gt_image: torch.Tensor,
@@ -201,6 +232,7 @@ def batched_view_grads(params, cameras, gt_images, cfg: Config, render_view=None
         def render_view(p, cam, vs):
             return render(p, cam, cfg.raster, vs_dummy=vs)
 
+    only_gaussians(cfg, "the batched step (batch_views > 1)")
     k = len(cameras)
     trainable = [getattr(params, f) for f in optimizer.TRAINABLE]
     dev = params.means.device
@@ -469,6 +501,9 @@ def _steps_until_event(iteration, cfg, adaptive_pairs, adapt_interval,
         gaps.append(next_mult(snap_interval))
     if schedule.sh_degree_at(sh_degree, iteration) < sh_degree:
         gaps.append(next_mult(schedule.SH_DEGREE_INTERVAL))
+    if cfg.raster.primitive == "surfel":
+        gaps += [j - iteration for j in (schedule.DIST_FROM, schedule.NORMAL_FROM)
+                 if j > iteration]
     return min(gaps) if gaps else 1 << 30
 
 
@@ -527,7 +562,10 @@ def train_loop(
     cfg.raster.pair_capacity]), doubling on overflow.  A configured SH
     degree of 2 or 3 is ramped in (schedule.sh_degree_at: the steps render
     at one degree more every 1,000 iterations, each degree its own step
-    graph, and no chunk spans a change).  ``adaptive_capacity``
+    graph, and no chunk spans a change).  Surfels (RasterConfig.primitive
+    "surfel") switch their regularizers on as 2DGS does
+    (schedule.regularizers_at: the distortion from iteration 3,000, the
+    normal term from 7,000; each its own step graph, no chunk across).  ``adaptive_capacity``
     grows the Gaussian arrays (``state.grow``) to the next power of two when
     a densify event fills 85% of them, up to ``max_capacity`` (default: the
     density hard cap).
@@ -539,8 +577,14 @@ def train_loop(
 
     max_pair_capacity = cfg.raster.pair_capacity
     max_sh_degree = cfg.raster.sh_degree
+    full_loss = cfg.loss
+    surfels = cfg.raster.primitive == "surfel"
+
+    def loss_at(it):
+        return schedule.regularizers_at(full_loss, it) if surfels else full_loss
+
     cfg = cfg.replace(raster=cfg.raster.replace(
-        sh_degree=schedule.sh_degree_at(max_sh_degree, iteration)))
+        sh_degree=schedule.sh_degree_at(max_sh_degree, iteration)), loss=loss_at(iteration))
     if adaptive_pairs:
         cap = min(max_pair_capacity, max(min_pair_capacity, 1))
         cfg = cfg.replace(raster=cfg.raster.replace(pair_capacity=cap))
@@ -593,6 +637,12 @@ def train_loop(
                 step_fn = build_step_fn(cfg)
                 if log_fn:
                     log_fn(f"iter {iteration}: SH degree {degree}")
+            if loss_at(iteration) != cfg.loss:
+                cfg = cfg.replace(loss=loss_at(iteration))
+                step_fn = build_step_fn(cfg)
+                if log_fn:
+                    log_fn(f"iter {iteration}: lambda_dist {cfg.loss.lambda_dist}, "
+                           f"lambda_normal {cfg.loss.lambda_normal}")
             k = 1
             if use_scan and idx + scan_steps <= len(views):
                 gap = _steps_until_event(

@@ -31,6 +31,11 @@ Where the marks sit (``STAGES``, in the order a step meets them):
   or more: ``sh`` (the SH colour, before ``projection``) and ``sh_bwd`` (its
   backward, launched when the colour's cotangent is ready: after the rest
   of ``projection_bwd``); degrees 0 and 1 launch neither;
+- a surfel step (RasterConfig.primitive "surfel"): ``regularizer`` (after
+  ``loss``: the depth normal, the normal consistency and the distortion
+  of ops/losses.surfel_regularizers) and ``regularizer_bwd`` (their
+  backward, launched when the regularizers' sum gets its cotangent, after
+  ``loss_bwd``);
 - the density events: ``densify``, ``opacity_reset``;
 - ``end``: the last node of every captured body (train/graph.py's
   ``_Capture``).
@@ -59,9 +64,12 @@ span and by request (``--loop`` traces the training loop's events).
 kernel's launches under its wrapper's name (ops/blend.py's
 ``windowed_blend_*``, ops/compose.py's ``compose_fwd``, ``compose_logti``
 and ``compose_bwd``, ops/runs.py's ``run_ids``, ops/projection.py's
-``project_fwd`` and ``project_bwd``), to which
-kernels/build.py's ``launch`` adds one a launch, and the frames by SH
-degree (``sh.degree_<d>``, ops/projection.py).  A module registers its
+``project_fwd`` and ``project_bwd``, ops/surfel_projection.py's
+``surfel_project_{fwd,bwd}``, ops/surfel_blend.py's ``surfel_blend_{fwd,bwd}``,
+ops/surfel_compose.py's ``surfel_compose_{fwd,bwd}``), to which
+kernels/build.py's ``launch`` adds one a launch, the frames by SH
+degree (``sh.degree_<d>``, ops/projection.py) and the surfel frames
+(``primitive.surfel``, ops/rasterize.render_surfel).  A module registers its
 names at 0 when it is imported (``counted``), so ``launch_counts()`` holds
 every name before any launch; the CPU's plain versions count nothing.  A
 CUDA graph's capture records the launches without running them, so
@@ -88,8 +96,12 @@ STEP_STAGES = FRAME_STAGES + ("loss", "loss_bwd", "compose_bwd", "blend_bwd", "r
 # a frame of SH degree 2 or 3 (ops/rasterize._plan): its colour before
 # ``projection``, the colour's backward after ``projection_bwd``
 SH_STAGES = ("sh", "sh_bwd")
+# a surfel step (trainer.step_body, RasterConfig.primitive "surfel"): 2DGS's
+# regularizers after ``loss`` (the depth normal, the normal consistency and
+# the distortion), their backward after ``loss_bwd``
+SURFEL_STAGES = ("regularizer", "regularizer_bwd")
 EVENT_STAGES = ("densify", "opacity_reset")
-STAGES = STEP_STAGES + SH_STAGES + EVENT_STAGES + ("end",)
+STAGES = STEP_STAGES + SH_STAGES + SURFEL_STAGES + EVENT_STAGES + ("end",)
 MARK_PREFIX = "gs_mark_"
 MAX_SPANS = 1 << 17
 

@@ -42,10 +42,14 @@ def _assert_camera_close(jc, tc):
 
 
 def test_config_dicts_equal():
-    # the port's one field the JAX package lacks: the SH rest bands' learning
-    # rate, None (= sh_lr) by default and left out of the JSON while None
+    # the port's fields the JAX package lacks, each popped at its default and
+    # left out of the JSON while it holds it: the SH rest bands' learning
+    # rate (None = sh_lr), the primitive and 2DGS's two regularizer weights
     port = dataclasses.asdict(tconfig.Config())
     assert port["optim"].pop("sh_rest_lr") is None
+    assert port["raster"].pop("primitive") == "gaussian"
+    assert port["loss"].pop("lambda_dist") == 0.0
+    assert port["loss"].pop("lambda_normal") == 0.0
     assert port == dataclasses.asdict(jconfig.Config())
     text = jconfig.Config().to_json()
     assert tconfig.Config.from_json(text).to_json() == text

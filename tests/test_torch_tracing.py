@@ -154,17 +154,19 @@ def test_marks_do_nothing_on_the_cpu(monkeypatch):
 
 MAIN_PATH_KERNELS = {f"windowed_blend_{d}{m}" for d in ("fwd", "bwd")
                      for m in ("", "_tf", "_packed")} | {
-    "compose_fwd", "compose_logti", "compose_bwd", "run_ids", "project_fwd", "project_bwd"}
+    "compose_fwd", "compose_logti", "compose_bwd", "run_ids", "project_fwd", "project_bwd"} | {
+    f"surfel_{k}_{d}" for k in ("project", "blend", "compose") for d in ("fwd", "bwd")}
 
 
 def test_the_launch_counts_are_one_registry():
     """graph.launch_counts() and add_launches() are the registry's: every
-    main-path kernel wrapper's name and the frames by SH degree, registered
-    when the port is imported (before any launch), and nothing else."""
+    main-path kernel wrapper's name (the surfel kernels' among them), the
+    frames by SH degree and the surfel frames, registered when the port is
+    imported (before any launch), and nothing else."""
     assert tgraph.launch_counts is tracing.launch_counts
     assert tgraph.add_launches is tracing.add_launches
     assert set(tgraph.launch_counts()) == MAIN_PATH_KERNELS | {
-        f"sh.degree_{d}" for d in range(4)}
+        f"sh.degree_{d}" for d in range(4)} | {"primitive.surfel"}
 
 
 def test_the_registry_as_captures_and_replays_use_it():
